@@ -1,0 +1,343 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port's main path on one NVIDIA GPU and check it.
+
+    python3 chip_smoke.py
+
+Needs a CUDA device and ``nvcc``; exits non-zero without them, and when any
+phase fails.  Phases:
+
+1. Build the CUDA kernels from ``cylinder_pose_estimation_tpu_torch/csrc``
+   (first use; the library lands in the package's ``_build/``).
+2. Main path: ``estimate_poses_batch`` on the bench scene family's six golden
+   scenes plus the bridged gap scene (480x640), with every kernel launch
+   counter reset just before and read just after; each scene is held against
+   ``tests/fixtures/golden_scenes.json`` (ids identical, xy within 0.05 px,
+   fit params within 0.05, reprojection within 0.01 px).
+3. Kernels: each CUDA kernel against its plain PyTorch version on the same
+   device, on the intermediates of a B=16 run (production shapes) and on
+   seeded random masks; every output must be ``torch.equal``.  Median times
+   of both, with CUDA events after warm-up.
+4. End to end: ms/frame of B=16 frames and the detect-only split.
+
+The second-to-last line is the kernel report as JSON, the last line
+``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import itertools
+import json
+import math
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+GOLDEN = os.path.join(HERE, "tests", "fixtures", "golden_scenes.json")
+KERNELS = ("preprocess_binarize", "connected_components", "bridge_morphology")
+
+
+def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Median device milliseconds of fn() by CUDA events, after warm-up."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def golden_check(res, want: dict, s: int) -> dict:
+    """The golden-fixture contract for frame s of a StereoPoseResult."""
+    import numpy as np
+
+    out = {"max_dxy": 0.0}
+    for view, det in (("view1", res.detect1), ("view2", res.detect2)):
+        xy = det.grid.xy[s].cpu().numpy().astype(np.float64)
+        idx = det.grid.idx[s].cpu().numpy()
+        valid = det.grid.valid[s].cpu().numpy()
+        if not np.all(np.isfinite(xy)):
+            raise AssertionError(f"{view}: non-finite grid coordinates")
+        got = {(int(idx[i, 0]), int(idx[i, 1])): xy[i] for i in range(len(valid)) if valid[i]}
+        want_map = {tuple(r["id"]): (r["x"], r["y"]) for r in want[view]}
+        if set(got) != set(want_map):
+            raise AssertionError(
+                f"{view} id set differs: +{set(got) - set(want_map)} -{set(want_map) - set(got)}"
+            )
+        for k, (x, y) in want_map.items():
+            d = max(abs(got[k][0] - x), abs(got[k][1] - y))
+            out["max_dxy"] = max(out["max_dxy"], d)
+            if d >= 0.05:
+                raise AssertionError(f"{view} point {k}: {got[k]} vs golden ({x}, {y})")
+        out[f"n_{view}"] = len(got)
+    params = res.fit.params[s].cpu().numpy()
+    if not np.all(np.isfinite(params)):
+        raise AssertionError("non-finite fit params")
+    dp = float(np.max(np.abs(params - np.asarray(want["fit_params"]))))
+    if dp >= 0.05:
+        raise AssertionError(f"fit params {params} vs golden {want['fit_params']}")
+    dr = abs(float(res.fit.mean_reproj_error[s]) - want["mean_reproj_px"])
+    if dr >= 0.01:
+        raise AssertionError(f"reprojection {float(res.fit.mean_reproj_error[s])} vs {want['mean_reproj_px']}")
+    out["max_dparams"] = dp
+    out["d_reproj"] = dr
+    out["bridged_components"] = int(res.detect1.bridged_components[s]) + int(
+        res.detect2.bridged_components[s]
+    )
+    return out
+
+
+class Capture:
+    """Record the arguments of every kernel-wrapper call the detector makes
+    (the wrappers are looked up on the module at call time)."""
+
+    def __init__(self, frontend):
+        self.frontend = frontend
+        self.calls = {k: [] for k in KERNELS}
+        self.saved = {}
+
+    def __enter__(self):
+        for name in KERNELS:
+            orig = getattr(self.frontend, name)
+            self.saved[name] = orig
+
+            def wrapped(*args, _orig=orig, _name=name, **kwargs):
+                self.calls[_name].append((args, dict(kwargs)))
+                return _orig(*args, **kwargs)
+
+            setattr(self.frontend, name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for name, orig in self.saved.items():
+            setattr(self.frontend, name, orig)
+
+
+def line_masks(n, h, w, angles, seed, device):
+    """(n, h, w) masks of broken 2-px lines at the given angles (radians)."""
+    import torch
+
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    yy = torch.arange(h, dtype=torch.float32)[:, None]
+    xx = torch.arange(w, dtype=torch.float32)[None, :]
+    out = torch.zeros((n, h, w), dtype=torch.bool)
+    for i in range(n):
+        a = float(angles[i % len(angles)])
+        ca, sa = math.cos(a), math.sin(a)
+        for off in range(-w, w, 23):
+            d = (xx - w / 2) * sa - (yy - h / 2) * ca - off
+            along = (xx - w / 2) * ca + (yy - h / 2) * sa
+            gap = (torch.rand(1, generator=g).item() * 200) - 100
+            out[i] |= (d.abs() < 1.0) & ((along - gap).abs() > 4)
+    ring = torch.zeros((h, w), dtype=torch.bool)
+    ring[24:h - 24, 24:w - 24] = True
+    return (out & ring).to(device)
+
+
+def kernel_phase(frontend, calls, device, seed: int = 0) -> dict:
+    """Every kernel vs its plain version on the captured production
+    intermediates plus seeded random inputs; returns per-kernel reports."""
+    import torch
+
+    from cylinder_pose_estimation_tpu_torch.config import CylinderDetectConfig
+    from cylinder_pose_estimation_tpu_torch.models.detector import _smooth
+
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    report = {}
+
+    def compare(name, kernel_fn, plain_fn, label, timed):
+        out_k = kernel_fn()
+        out_p = plain_fn()
+        torch.cuda.synchronize()
+        outs_k = out_k if isinstance(out_k, tuple) else (out_k,)
+        outs_p = out_p if isinstance(out_p, tuple) else (out_p,)
+        err = 0.0
+        for a, b in zip(outs_k, outs_p):
+            if a.shape != b.shape or a.dtype != b.dtype:
+                raise AssertionError(f"{name} [{label}]: {a.shape}/{a.dtype} vs {b.shape}/{b.dtype}")
+            diff = (a.to(torch.float64) - b.to(torch.float64)).abs()
+            err = max(err, float(diff.max()) if diff.numel() else 0.0)
+            if not torch.equal(a, b):
+                n_bad = int((a != b).sum())
+                raise AssertionError(f"{name} [{label}]: kernel != plain on {n_bad} elements")
+        rep = report.setdefault(name, {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "sites": []})
+        rep["max_abs_err"] = max(rep["max_abs_err"], err)
+        line = f"kernel {name} [{label}] equal"
+        if timed:
+            ms_k = cuda_ms(kernel_fn)
+            ms_p = cuda_ms(plain_fn, reps=5, warmup=1)
+            rep["ms"] += ms_k
+            rep["plain_ms"] += ms_p
+            rep["sites"].append((label, ms_k, ms_p))
+            line += f"; kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms"
+        print(line, flush=True)
+
+    # 2.1 preprocess: the B=16 run's smoothed views + smoothed noise images.
+    for i, (args, kw) in enumerate(calls["preprocess_binarize"]):
+        x = args[0]
+        compare("preprocess_binarize", lambda: frontend.preprocess_binarize(x, **kw),
+                lambda: frontend.preprocess_binarize_plain(x, **kw),
+                f"captured {tuple(x.shape)}", timed=(i == 0))
+        noise = torch.rand(x.shape, generator=g).mul(255.0).to(device)
+        xs = _smooth(noise, CylinderDetectConfig())
+        compare("preprocess_binarize", lambda: frontend.preprocess_binarize(xs, **kw),
+                lambda: frontend.preprocess_binarize_plain(xs, **kw),
+                f"random {tuple(xs.shape)}", timed=False)
+
+    # 2.2 connected components: the three call sites + random masks.
+    for args, kw in calls["connected_components"]:
+        m = args[0]
+        init = kw.get("init_labels")
+        label = (f"captured {tuple(m.shape)} {kw['rounds']}x{kw['pools_per_round']} "
+                 f"{'warm' if init is not None else 'cold'}")
+        compare("connected_components",
+                lambda: frontend.connected_components(m, kw["rounds"], kw["pools_per_round"], init),
+                lambda: frontend.connected_components_plain(m, kw["rounds"], kw["pools_per_round"], init),
+                label, timed=True)
+        rnd = (torch.rand(m.shape, generator=g) < 0.45).to(torch.float32).to(device)
+        rinit = None
+        if init is not None:
+            rinit = torch.randint(0, 2 * m.shape[1] * m.shape[2], m.shape, generator=g,
+                                  dtype=torch.int32).to(device)
+        compare("connected_components",
+                lambda: frontend.connected_components(rnd, kw["rounds"], kw["pools_per_round"], rinit),
+                lambda: frontend.connected_components_plain(rnd, kw["rounds"], kw["pools_per_round"], rinit),
+                f"random {tuple(m.shape)}", timed=False)
+
+    # 2.3 bridge: the captured call + line masks at non-axis angles with
+    # kernel lengths from 0 past the cap.
+    for args, kw in calls["bridge_morphology"]:
+        masks, exps, angles, klen = args
+        compare("bridge_morphology",
+                lambda: frontend.bridge_morphology(masks, exps, angles, klen, **kw),
+                lambda: frontend.bridge_morphology_plain(masks, exps, angles, klen, **kw),
+                f"captured {tuple(masks.shape)}", timed=True)
+        n, h, w = masks.shape
+        ang_list = [0.0, math.pi / 2, 0.35, 1.2, -0.6, 2.5]
+        lm = line_masks(n, h, w, ang_list, seed + 1, device).to(torch.float32)
+        ex = (torch.rand(lm.shape, generator=g) < 0.7).to(torch.float32).to(device)
+        ang = torch.tensor([ang_list[i % len(ang_list)] for i in range(n)], dtype=torch.float32,
+                           device=device)
+        kl = torch.linspace(0.0, 260.0, n, device=device)
+        compare("bridge_morphology",
+                lambda: frontend.bridge_morphology(lm, ex, ang, kl, **kw),
+                lambda: frontend.bridge_morphology_plain(lm, ex, ang, kl, **kw),
+                f"line masks {tuple(lm.shape)}", timed=False)
+    return report
+
+
+def main() -> int:
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this check runs only on a GPU", file=sys.stderr)
+        return 2
+    sys.path.insert(0, HERE)
+    from cylinder_pose_estimation_tpu_torch.config import CylinderDetectConfig, FitConfig
+    from cylinder_pose_estimation_tpu_torch.models.pipeline import estimate_poses_batch
+    from cylinder_pose_estimation_tpu_torch.ops import frontend, kernels
+    from cylinder_pose_estimation_tpu_torch.types import stereo_from_numpy
+    from cylinder_pose_estimation_tpu_torch.utils.synthetic import apply_gap, example_pair
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    device = torch.device("cuda:0")
+    print(f"torch {torch.__version__} cuda {torch.version.cuda}; device {torch.cuda.get_device_name(0)}",
+          flush=True)
+
+    t0 = time.perf_counter()
+    kernels.build()
+    print(f"build: kernels built and loaded in {time.perf_counter() - t0:.1f} s "
+          f"({kernels.BUILD_DIR})", flush=True)
+
+    height, width, batch = 480, 640, 16
+    stereo_np, (i1, i2) = example_pair(height, width, n_frames=batch)
+    stereo = stereo_from_numpy(*stereo_np, device=device)
+    cfg = CylinderDetectConfig(height=height, width=width, use_pallas=True)
+    fit_cfg = FitConfig()
+    with open(GOLDEN) as f:
+        golden = json.load(f)["scenes"]
+
+    # --- main path: the golden scenes, counters reset just before ---------
+    names = list(range(6)) + ["gap0_pallas"]
+    a = np.concatenate([i1[:6], apply_gap(i1[0])[None]])
+    b = np.concatenate([i2[:6], apply_gap(i2[0])[None]])
+    a = torch.as_tensor(a, device=device)
+    b = torch.as_tensor(b, device=device)
+    torch.cuda.synchronize()
+    frontend.reset_launch_counts()
+    res = estimate_poses_batch(a, b, stereo, cfg, fit_cfg)
+    torch.cuda.synchronize()
+    launches = frontend.launch_counts()
+    print(f"main path launches: {launches}", flush=True)
+    for k in KERNELS:
+        if launches[k] < 1:
+            raise AssertionError(f"the main path never launched {k}")
+    for s, name in enumerate(names):
+        want = next(g for g in golden if g["scene"] == name)
+        chk = golden_check(res, want, s)
+        if name == "gap0_pallas" and chk["bridged_components"] != want["bridged_components"]:
+            raise AssertionError(f"gap scene bridged {chk['bridged_components']} vs {want['bridged_components']}")
+        print(f"scene {name}: points {chk['n_view1']}/{chk['n_view2']}, max|dxy| {chk['max_dxy']:.6f} px, "
+              f"max|dparams| {chk['max_dparams']:.6f}, |dreproj| {chk['d_reproj']:.6f} px, "
+              f"bridged_components {chk['bridged_components']}", flush=True)
+
+    # --- kernels vs plain on the B=16 intermediates -----------------------
+    d1 = torch.as_tensor(i1, device=device)
+    d2 = torch.as_tensor(i2, device=device)
+    with Capture(frontend) as cap:
+        estimate_poses_batch(d1, d2, stereo, cfg, fit_cfg)
+    with torch.inference_mode():
+        report = kernel_phase(frontend, cap.calls, device)
+
+    # --- end to end timing at B=16 ----------------------------------------
+    # Every call perturbs the frames anew, as bench.py does.
+    rep = itertools.count(1)
+
+    def e2e():
+        eps = 1e-4 * next(rep)
+        return estimate_poses_batch(d1 + eps, d2 + eps, stereo, cfg, fit_cfg).fit.params
+
+    def detect():
+        eps = 1e-4 * next(rep)
+        return estimate_poses_batch(d1 + eps, d2 + eps, stereo, cfg, fit_cfg, probe="detect").grid.xy
+
+    ms_e2e = cuda_ms(e2e, reps=10, warmup=2)
+    ms_det = cuda_ms(detect, reps=10, warmup=2)
+    print(f"e2e B={batch} {height}x{width}: {ms_e2e / batch:.4f} ms/frame "
+          f"(detect {ms_det / batch:.4f} ms/frame, fit {(ms_e2e - ms_det) / batch:.4f} ms/frame); "
+          f"{smi}", flush=True)
+
+    rows = []
+    for k in KERNELS:
+        r = report[k]
+        for label, ms_k, ms_p in r["sites"]:
+            print(f"timing {k} [{label}]: kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms", flush=True)
+        rows.append({
+            "name": k, "route": "cuda", "source": frontend.SOURCES[k],
+            "replaces": frontend.REPLACES[k], "launches": launches[k],
+            "max_abs_err": r["max_abs_err"], "ms": round(r["ms"], 4), "plain_ms": round(r["plain_ms"], 4),
+        })
+    print(smi)
+    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,182 @@
+"""Configuration of the PyTorch port: the detection and fit dataclasses.
+
+Field names and defaults equal those of ``cylinder_pose_estimation_tpu.config``
+(the JAX package), so one configuration describes the same problem in both
+packages; ``from_reference`` copies a JAX config object field by field.
+
+The port runs the default cylinder detection path only.  ``validate`` rejects
+every branch it does not carry, naming the ROADMAP item that would port it.
+``use_pallas`` and ``pallas_interpret`` are accepted and ignored: the device
+of the input picks the kernel (a CUDA tensor launches the hand-written CUDA
+kernel, a CPU tensor runs its plain PyTorch version).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class DetectConfig:
+    """Grid-detection front-end configuration (see the JAX package's
+    ``config.DetectConfig`` for the provenance of every field)."""
+
+    height: int = 480
+    width: int = 640
+    max_points: int = 512
+    max_rows: int = 24
+    max_cols: int = 24
+    cc_iters: int = 16
+    label_downsample: int = 2
+
+    blur_ksize: int = 5
+    ridge_sigma: float = 3.0
+    sauvola_window: int = 15
+    sauvola_k: float = 0.5
+    sauvola_r: float = 128.0
+
+    line_kernel_len: int = 20
+
+    center_patch_half: int = 5
+    joint_peak_iters: int = 5
+
+    sat_blur_ksize: int = 19
+    sat_threshold: float = 240.0
+
+    bridge_repeats: int = 1
+    endpoint_probe_len: int = 9
+    bridge_skip_long: bool = True
+    bridge_long_frac: float = 0.8
+    bridge_endpoint_stats: bool = False
+    bridge_stats_k: int = 32
+    lowres_cc_rounds: int = 2
+    bridge_stats_quarter: bool = True
+    pallas_cc_pools: int = 2
+    roi_blob_k: int = 32
+
+    poly_degree: int = 2
+    domain_margin: float = 50.0
+    newton_iters: int = 12
+    intersection_tol: float = 1e-3
+
+    subpixel_refine: bool = False
+    subpixel_samples: int = 64
+    subpixel_window: int = 7
+
+    index_blur_ksize: int = 7
+    patch_half_min: int = 3
+
+    min_ok_points: int = 20
+    max_stable_tilt: float = 0.35
+    min_mask_retention: float = 0.6
+
+    merge_short_cols: bool = False
+    merge_margin: float = 10.0
+
+    image_dtype: str = "float32"
+
+    use_pallas: bool = False
+    pallas_cc_rounds: int = 3
+    pallas_cc_rounds_prebridge: int = 2
+    cc_warm_start: bool = True
+    pallas_cc_rounds_warm: int = 2
+    pallas_interpret: bool = False
+    bridge_half_res: bool = True
+    bright_at_points: bool = True
+    pallas_cc_cross_cap: int = 0
+    smooth_mxu: bool = True
+    stage_probe: str = ""
+
+    @property
+    def mode(self) -> str:
+        raise NotImplementedError
+
+    @property
+    def image_shape(self) -> Tuple[int, int]:
+        return (self.height, self.width)
+
+
+@dataclasses.dataclass(frozen=True)
+class CylinderDetectConfig(DetectConfig):
+    """Cylinder-surface grid detection (the only mode the port runs)."""
+
+    poly_degree: int = 2
+    bridge_kernel_base: int = 91
+    bridge_min_len: float = 5.0
+    bridge_max_len: float = 200.0
+    drop_first_row: bool = True
+    drop_last_col: bool = True
+    drop_negative_cols: bool = True
+    id_row_major: bool = False
+
+    @property
+    def mode(self) -> str:
+        return "cylinder"
+
+
+@dataclasses.dataclass(frozen=True)
+class FitConfig:
+    """Stereo correspondence + cylinder fitting."""
+
+    cyl_radius: float = 45.0
+    patch_size: int = 3
+    error_threshold: float = 0.3
+    grid_extent: int = 24
+    knn_k: int = 20
+    lm_iters: int = 20
+    lm_lambda0: float = 1e-3
+    dtype: str = "float32"
+
+
+def from_reference(obj):
+    """Port config equal to a JAX package config object, copied field by
+    field by attribute name.  A JAX ``CylinderDetectConfig`` becomes this
+    module's ``CylinderDetectConfig``, a ``FitConfig`` a ``FitConfig``; any
+    other detect config (the plane mode) is refused by ``validate``."""
+    name = type(obj).__name__
+    target = {
+        "CylinderDetectConfig": CylinderDetectConfig,
+        "FitConfig": FitConfig,
+    }.get(name)
+    if target is None:
+        raise NotImplementedError(
+            f"{name} is not ported: only the cylinder detection path runs "
+            "here (plane mode is ROADMAP 1.9)"
+        )
+    kwargs = {f.name: getattr(obj, f.name) for f in dataclasses.fields(target)}
+    return target(**kwargs)
+
+
+# Each unported branch: (predicate on the config, ROADMAP item, description).
+_UNPORTED = (
+    (lambda c: c.bridge_endpoint_stats, "2.4",
+     "bridge_endpoint_stats=True needs the component_payload_minmax kernel"),
+    (lambda c: c.pallas_cc_cross_cap > 0, "1.17",
+     "pallas_cc_cross_cap > 0 (a TPU-only scan cap, not carried)"),
+    (lambda c: not c.smooth_mxu, "1.17",
+     "smooth_mxu=False (the in-kernel smoothing, not carried)"),
+    (lambda c: not c.bright_at_points, "1.17",
+     "bright_at_points=False (full-image brightness, not carried)"),
+    (lambda c: c.subpixel_refine, "1.14",
+     "subpixel_refine=True (models/refine.py)"),
+    (lambda c: c.merge_short_cols, "1.9",
+     "merge_short_cols=True (the plane path's short-column merge)"),
+    (lambda c: c.stage_probe != "", "1.17",
+     "stage_probe (use the port's stage functions instead)"),
+    (lambda c: c.label_downsample != 2, "1.13",
+     "label_downsample != 2 (only the half-res labeling is ported)"),
+    (lambda c: not c.bridge_half_res, "1.13",
+     "bridge_half_res=False (only the half-res bridge is ported)"),
+)
+
+
+def validate(cfg: DetectConfig) -> None:
+    """Raise NotImplementedError for every config branch the port lacks."""
+    if cfg.mode != "cylinder":
+        raise NotImplementedError(
+            f"mode {cfg.mode!r} is not ported (ROADMAP 1.9: plane mode)"
+        )
+    for pred, item, what in _UNPORTED:
+        if pred(cfg):
+            raise NotImplementedError(f"{what}: not ported (ROADMAP {item})")

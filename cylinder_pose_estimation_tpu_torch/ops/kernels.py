@@ -1,0 +1,119 @@
+"""Build and bind the CUDA kernels in ``csrc/``.
+
+The ``.cu`` sources have a plain C interface (one entry function per kernel,
+returning a ``cudaError_t``).  At first use ``nvcc`` compiles them, for
+``sm_90a`` with ``--fmad=false`` (the kernels must reproduce the reference's
+float association exactly, with no multiply-add contraction), into one
+shared library under ``cylinder_pose_estimation_tpu_torch/_build/``, named by
+a digest of the sources and flags; ``ctypes`` loads it.  A C interface keeps
+PyTorch's headers out of the compile, which is what keeps the build at
+seconds: the wrappers in ``ops/frontend.py`` do the device, dtype, shape and
+contiguity checks, pass pointers and the current CUDA stream, and raise on a
+non-zero return.  Nothing here is imported or built until a kernel runs.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Optional, Sequence
+
+import torch
+
+PKG = Path(__file__).resolve().parent.parent
+CSRC = PKG / "csrc"
+BUILD_DIR = PKG / "_build"
+NVCC_FLAGS = [
+    "-gencode=arch=compute_90a,code=sm_90a",
+    "-O3",
+    "--fmad=false",
+    "-std=c++17",
+    "-Xptxas",
+    "-v",
+    "-shared",
+    "-Xcompiler",
+    "-fPIC",
+]
+# Opt-in dynamic shared memory a block may use on Hopper (232,448 bytes).
+MAX_DYNAMIC_SMEM = 232448
+# C entry points: (tensor pointers, ints, floats), then the CUDA stream.
+SIGNATURES = {
+    "cpe_preprocess_binarize": (12, 9, 3),
+    "cpe_connected_components": (4, 5, 0),
+    "cpe_bridge_morphology": (5, 5, 0),
+}
+
+_LIB: Optional[ctypes.CDLL] = None
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    cands = [os.path.join(CUDA_HOME, "bin", "nvcc")] if CUDA_HOME else []
+    cands.append(shutil.which("nvcc"))
+    for cand in cands:
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found (set CUDA_HOME): the CUDA kernels cannot be built")
+
+
+def build() -> ctypes.CDLL:
+    """Compile (once per source digest) and load the kernel library."""
+    global _LIB
+    if _LIB is not None:
+        return _LIB
+    sources = sorted(CSRC.glob("*.cu"))
+    digest = hashlib.sha256()
+    for p in sorted(CSRC.iterdir()):
+        digest.update(p.name.encode())
+        digest.update(p.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    so = BUILD_DIR / f"libcpe_kernels_{digest.hexdigest()[:16]}.so"
+    if not so.exists():
+        tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        (BUILD_DIR / "build.log").write_text(
+            " ".join(cmd) + "\n" + proc.stdout + proc.stderr
+        )
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+        os.replace(tmp, so)
+    lib = ctypes.CDLL(str(so))
+    for name, (n_ptr, n_int, n_float) in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = (
+            [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_float] * n_float
+            + [ctypes.c_void_p]
+        )
+    lib.cpe_error_string.restype = ctypes.c_char_p
+    lib.cpe_error_string.argtypes = [ctypes.c_int]
+    _LIB = lib
+    return lib
+
+
+def launch(
+    name: str,
+    tensors: Sequence[Optional[torch.Tensor]],
+    ints: Sequence[int],
+    floats: Sequence[float],
+) -> None:
+    """Call C entry ``name``(tensor pointers..., ints..., floats..., stream)
+    on the current stream of the first tensor's device; raise on error."""
+    if SIGNATURES[name] != (len(tensors), len(ints), len(floats)):
+        raise TypeError(f"{name} takes {SIGNATURES[name]} (pointers, ints, floats)")
+    lib = build()
+    dev = next(t for t in tensors if t is not None).device
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    args = [t.data_ptr() if t is not None else None for t in tensors]
+    args += [int(i) for i in ints] + [float(f) for f in floats] + [stream]
+    with torch.cuda.device(dev):
+        rc = getattr(lib, name)(*args)
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA error {rc}: {lib.cpe_error_string(rc).decode()}")

@@ -1,0 +1,172 @@
+"""Component bookkeeping on min-linear-index label images (the part of the JAX
+package's ops/labeling.py that the cylinder detection path calls).
+
+The JAX code enumerates roots and reduces per-component sums with one-hot
+matrix products, the TPU's fast form.  Here the same quantities come from
+cumsum ranks, lookup tables and ``scatter_add``: integer results are exact,
+and the coordinate moment sums accumulate in float64 (exact for integer
+coordinates, then rounded once to float32), so they are deterministic where
+float32 atomics would not be.  All functions take a leading batch axis.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+
+class ComponentStats(NamedTuple):
+    root: torch.Tensor      # (..., K) int32 root label (sentinel if empty)
+    count: torch.Tensor     # (..., K) int32
+    centroid: torch.Tensor  # (..., K, 2) float (x, y)
+    valid: torch.Tensor     # (..., K)
+    mxx: torch.Tensor
+    mxy: torch.Tensor
+    myy: torch.Tensor
+
+
+def peak_key_shift(h: int, w: int, window: int) -> int:
+    """Bit shift packing a (box-count, linear-index) key into int32."""
+    shift = max(19, (h * w - 1).bit_length())
+    if shift + (window * window).bit_length() > 31:
+        raise ValueError(
+            f"joint-peak key overflow: {h}x{w} image with window {window} "
+            f"needs {shift + (window * window).bit_length()} bits > 31"
+        )
+    return shift
+
+
+def prefix_rank(mask: torch.Tensor) -> torch.Tensor:
+    """rank[i] = (# True in mask[..., :i+1]) - 1 along the last axis."""
+    return (torch.cumsum(mask.to(torch.int32), dim=-1) - 1).to(torch.int32)
+
+
+def _first_k(mask: torch.Tensor, values: torch.Tensor, k: int, sentinel: int):
+    """Values at the first k True positions of ``mask`` (..., n) in scan
+    order -> (..., k) int64, ``sentinel`` in empty slots."""
+    rank = prefix_rank(mask).to(torch.int64)
+    slot = torch.where(mask & (rank < k), rank, k)
+    vals = torch.where(mask, values.to(torch.int64), sentinel)
+    out = torch.full(mask.shape[:-1] + (k + 1,), sentinel, dtype=torch.int64,
+                     device=mask.device)
+    out = out.scatter_reduce(-1, slot, vals, reduce="amin", include_self=True)
+    return out[..., :k]
+
+
+def compact_true_indices(mask: torch.Tensor, k: int):
+    """First-k indices of True entries of (..., n) -> (idx (..., k) int32
+    with n in empty slots, valid (..., k))."""
+    n = mask.shape[-1]
+    pos = torch.arange(n, device=mask.device).expand(mask.shape)
+    idx = _first_k(mask, pos, k, n)
+    return idx.to(torch.int32), idx < n
+
+
+def _slot_image(flat: torch.Tensor, root_k: torch.Tensor, vhw: int) -> torch.Tensor:
+    """Per pixel, the slot in ``root_k`` whose value equals the pixel's label
+    (K where none): a (vhw+1)-entry lookup table per batch element."""
+    k = root_k.shape[-1]
+    table = torch.full(flat.shape[:-1] + (vhw + 1,), k, dtype=torch.int64,
+                       device=flat.device)
+    slots = torch.arange(k, device=flat.device).expand(root_k.shape)
+    table = table.scatter_reduce(-1, torch.clamp(root_k, max=vhw), slots,
+                                 reduce="amin", include_self=True)
+    table[..., vhw] = k
+    return table.gather(-1, torch.clamp(flat.to(torch.int64), 0, vhw))
+
+
+def component_stats_first_k(
+    labels: torch.Tensor,
+    k: int,
+    min_area: int = 1,
+    value_shape: tuple | None = None,
+) -> ComponentStats:
+    """Stats of the first K components in scan order of (..., h, w) labels.
+
+    ``value_shape`` (vh, vw): labels are a min-pooled view whose VALUES are
+    linear indices of the (vh, vw) grid; the root test maps each value to
+    the pooled block holding its root pixel."""
+    h, w = labels.shape[-2:]
+    hw = h * w
+    lead = labels.shape[:-2]
+    flat = labels.reshape(lead + (hw,)).to(torch.int64)
+    lin = torch.arange(hw, device=labels.device)
+    if value_shape is None or tuple(value_shape) == (h, w):
+        is_root = (flat == lin) & (flat < hw)
+        vhw = hw
+    else:
+        vh, vw = value_shape
+        py, px = vh // h, vw // w
+        vy, vx = flat // vw, flat % vw
+        is_root = (flat < vh * vw) & (vy // py == lin // w) & (vx // px == lin % w)
+        vhw = vh * vw
+    root_k = _first_k(is_root, flat, k, vhw)
+    slot = _slot_image(flat, root_k, vhw)
+
+    xs = (lin % w).to(torch.float64)
+    ys = (lin // w).to(torch.float64)
+    payload = torch.stack([torch.ones_like(xs), xs, ys, xs * xs, xs * ys, ys * ys], -1)
+    sums = torch.zeros(lead + (k + 1, 6), dtype=torch.float64, device=labels.device)
+    sums = sums.scatter_add(
+        -2, slot[..., None].expand(lead + (hw, 6)), payload.expand(lead + (hw, 6))
+    )[..., :k, :].to(torch.float32)
+
+    cnt = sums[..., 0]
+    valid = cnt >= min_area
+    c = torch.clamp(cnt, min=1.0)
+    cx = sums[..., 1] / c
+    cy = sums[..., 2] / c
+    mxx = sums[..., 3] / c - cx * cx
+    mxy = sums[..., 4] / c - cx * cy
+    myy = sums[..., 5] / c - cy * cy
+    return ComponentStats(
+        root=torch.where(valid, root_k, vhw).to(torch.int32),
+        count=cnt.to(torch.int32),
+        centroid=torch.stack([cx, cy], -1),
+        valid=valid,
+        mxx=mxx,
+        mxy=mxy,
+        myy=myy,
+    )
+
+
+def largest_component_mask(labels: torch.Tensor, k: int = 128) -> torch.Tensor:
+    """Mask of the largest of the first k components (scan order) of
+    (..., h, w) labels; all False when there is none."""
+    h, w = labels.shape[-2:]
+    hw = h * w
+    lead = labels.shape[:-2]
+    flat = labels.reshape(lead + (hw,)).to(torch.int64)
+    lin = torch.arange(hw, device=labels.device)
+    is_root = (flat == lin) & (flat < hw)
+    root_k = _first_k(is_root, flat, k, hw)
+    slot = _slot_image(flat, root_k, hw)
+    cnt = torch.zeros(lead + (k + 1,), dtype=torch.int64, device=labels.device)
+    cnt = cnt.scatter_add(-1, slot, torch.ones_like(slot))[..., :k]
+    li = torch.argmax(cnt, dim=-1, keepdim=True)
+    root = root_k.gather(-1, li)[..., None]  # (..., 1, 1)
+    return (labels.to(torch.int64) == root) & (root < hw)
+
+
+def component_orientation(stats: ComponentStats) -> torch.Tensor:
+    return 0.5 * torch.atan2(2.0 * stats.mxy, stats.mxx - stats.myy)
+
+
+def fill_orthoconvex(mask: torch.Tensor, rounds: int = 2) -> torch.Tensor:
+    """Row/column convex fill of (..., H, W) masks, iterated."""
+
+    def fill_axis(m, axis):
+        n = m.shape[axis]
+        shape = [1] * m.dim()
+        shape[axis] = n
+        idx = torch.arange(n, device=m.device).reshape(shape)
+        lo = torch.amin(torch.where(m, idx, n + 1), dim=axis, keepdim=True)
+        hi = torch.amax(torch.where(m, idx, -1), dim=axis, keepdim=True)
+        return (idx >= lo) & (idx <= hi)
+
+    out = mask
+    for _ in range(rounds):
+        out = fill_axis(out, -1)
+        out = fill_axis(out, -2)
+    return out

@@ -1,0 +1,225 @@
+"""Synthetic stereo laser-grid scenes, in numpy (the part of the JAX package's
+utils/synthetic.py, plus the bench scene family of ``__graft_entry__``, that
+the port needs to run without JAX).
+
+``example_pair`` draws its noise from ``np.random.default_rng(seed)`` in the
+same order as ``__graft_entry__._example_pair``, and renders in float32 as the
+JAX code does; the scenes agree with the JAX ones up to one grey level on a
+few pixels (float32 ``exp``/``sin`` may round differently across libraries
+before the uint8 truncation).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Tuple
+
+import numpy as np
+
+F32 = np.float32
+
+# Dropout band of the bridged golden scene (tests/make_golden.py): y0, y1,
+# x0, x1 -- crosses one horizontal and one vertical laser line of scene 0.
+GAP = (232, 250, 290, 320)
+
+
+class Stereo(NamedTuple):
+    """Stereo rig as numpy arrays (feed to ``types.stereo_from_numpy``)."""
+
+    cam1_k: np.ndarray
+    cam1_radial: np.ndarray
+    cam1_tangential: np.ndarray
+    cam2_k: np.ndarray
+    cam2_radial: np.ndarray
+    cam2_tangential: np.ndarray
+    t_c2_c1: np.ndarray
+
+
+def _rotvec_to_matrix(rv: np.ndarray) -> np.ndarray:
+    t2 = F32(np.sum(rv * rv))
+    t = np.sqrt(t2)
+    if t < 1e-4:
+        a, b = F32(1.0) - t2 / F32(6.0), F32(0.5) - t2 / F32(24.0)
+    else:
+        a, b = np.sin(t) / t, (F32(1.0) - np.cos(t)) / t2
+    kx, ky, kz = rv
+    khat = np.array([[0.0, -kz, ky], [kz, 0.0, -kx], [-ky, kx, 0.0]], F32)
+    return (np.eye(3, dtype=F32) + a * khat + b * (khat @ khat)).astype(F32)
+
+
+def default_stereo(f: float = 900.0, cx: float = 320.0, cy: float = 240.0,
+                   baseline: float = 120.0) -> Stereo:
+    """A forward-looking rig with a pure-x baseline and a 2 degree toe-in."""
+    k = np.array([[f, 0.0, cx], [0.0, f, cy], [0.0, 0.0, 1.0]], F32)
+    t = np.eye(4, dtype=F32)
+    t[:3, :3] = _rotvec_to_matrix(np.array([0.0, np.deg2rad(2.0), 0.0], F32))
+    t[:3, 3] = np.array([-baseline, 0.0, 8.0], F32)
+    z3, z2 = np.zeros(3, F32), np.zeros(2, F32)
+    return Stereo(k, z3, z2, k.copy(), z3.copy(), z2.copy(), t)
+
+
+def _cyl_frame(params: np.ndarray) -> np.ndarray:
+    y = params[3:6] / (np.linalg.norm(params[3:6]) + F32(1e-12))
+    z = np.cross(np.array([1.0, 0.0, 0.0], F32), y)
+    z = z / (np.linalg.norm(z) + F32(1e-12))
+    x = np.cross(y, z)
+    x = x / (np.linalg.norm(x) + F32(1e-12))
+    return np.stack([x, y, z], axis=-1).astype(F32)
+
+
+class CylinderScene(NamedTuple):
+    xy1: np.ndarray         # (R*C, 2) view-1 projections, row-major (row, col)
+    xy2: np.ndarray
+    idx: np.ndarray         # (R*C, 2) int32 (col, row) grid indices
+    pts3: np.ndarray        # (R*C, 3)
+    cyl_params: np.ndarray  # (6,)
+
+
+def cylinder_grid_points(
+    stereo: Stereo,
+    origin=(0.0, -60.0, 650.0),
+    direction=(0.05, 1.0, 0.02),
+    radius: float = 45.0,
+    n_rows: int = 9,
+    n_cols: int = 9,
+    row_spacing: float = 14.0,
+    theta_span: float = 1.5,
+    center_rc: Tuple[int, int] | None = None,
+) -> CylinderScene:
+    """Noise-free laser grid on a cylinder (rows = constant height, cols =
+    constant angle), projected into both views."""
+    origin = np.asarray(origin, F32)
+    direction = np.asarray(direction, F32)
+    direction = direction / np.linalg.norm(direction)
+    params = np.concatenate([origin, direction]).astype(F32)
+    frame = _cyl_frame(params)
+    x_ax, y_ax, z_ax = frame[:, 0], frame[:, 1], frame[:, 2]
+    phi = np.arctan2(-x_ax[2], -z_ax[2])
+    if center_rc is None:
+        center_rc = (n_rows // 2, n_cols // 2)
+    hs = (np.arange(n_rows, dtype=F32) - F32(center_rc[0])) * F32(row_spacing)
+    thetas = phi + (np.arange(n_cols, dtype=F32) / F32(max(n_cols - 1, 1)) - F32(0.5)) * F32(theta_span)
+    h_grid, t_grid = np.meshgrid(hs, thetas, indexing="ij")
+    surf = (
+        origin
+        + h_grid[..., None] * y_ax
+        + F32(radius) * (np.cos(t_grid)[..., None] * z_ax + np.sin(t_grid)[..., None] * x_ax)
+    ).astype(F32)
+    pts3 = surf.reshape(-1, 3)
+
+    def view(cam_t, k):
+        p = pts3 @ cam_t[:3, :3].T + cam_t[:3, 3]
+        hh = p @ k.T
+        return (hh[:, :2] / (hh[:, 2:3] + F32(1e-12))).astype(F32)
+
+    xy1 = view(np.eye(4, dtype=F32), stereo.cam1_k)
+    xy2 = view(stereo.t_c2_c1, stereo.cam2_k)
+    g1 = xy1.reshape(n_rows, n_cols, 2)
+    col_sign = 1 if np.mean(g1[:, -1, 0] - g1[:, 0, 0]) >= 0 else -1
+    row_sign = 1 if np.mean(g1[-1, :, 1] - g1[0, :, 1]) >= 0 else -1
+    ridx = (np.arange(n_rows) - center_rc[0]) * row_sign
+    cidx = (np.arange(n_cols) - center_rc[1]) * col_sign
+    r_grid, c_grid = np.meshgrid(ridx, cidx, indexing="ij")
+    idx = np.stack([c_grid, r_grid], -1).reshape(-1, 2).astype(np.int32)
+    return CylinderScene(xy1, xy2, idx, pts3, params)
+
+
+def render_grid_image(
+    xy: np.ndarray,
+    n_rows: int,
+    n_cols: int,
+    height: int,
+    width: int,
+    line_sigma: float = 1.6,
+    line_gain: float = 170.0,
+    center_flat: int | None = None,
+    center_gain: float = 70.0,
+    background: float = 18.0,
+) -> np.ndarray:
+    """(H, W) uint8 laser image: Gaussian tubes along the grid polylines and
+    a brighter centre blob (``render_grid_image`` of the JAX package).
+
+    Each segment's response is evaluated in a window 32 px around it: beyond
+    that exp(-d^2 / 2 sigma^2) is 0 in float32, so the max over segments is
+    the same as over the whole image."""
+    pts = np.asarray(xy, F32)[: n_rows * n_cols].reshape(n_rows, n_cols, 2)
+    a_r = pts[:, :-1].reshape(-1, 2)
+    b_r = pts[:, 1:].reshape(-1, 2)
+    a_c = pts[:-1].transpose(1, 0, 2).reshape(-1, 2)
+    b_c = pts[1:].transpose(1, 0, 2).reshape(-1, 2)
+    segs_a = np.concatenate([a_r, a_c])
+    segs_b = np.concatenate([b_r, b_c])
+    resp = np.zeros((height, width), F32)
+    # Python-float constants fold in double before the float32 cast, as in
+    # the JAX code.
+    two_s2 = F32(2.0 * line_sigma ** 2)
+    pad = 32
+    for a, b in zip(segs_a, segs_b):
+        x0 = max(int(np.floor(min(a[0], b[0]))) - pad, 0)
+        x1 = min(int(np.ceil(max(a[0], b[0]))) + pad, width)
+        y0 = max(int(np.floor(min(a[1], b[1]))) - pad, 0)
+        y1 = min(int(np.ceil(max(a[1], b[1]))) + pad, height)
+        if x0 >= x1 or y0 >= y1:
+            continue
+        yy = np.arange(y0, y1, dtype=F32)[:, None]
+        xx = np.arange(x0, x1, dtype=F32)[None, :]
+        ab = b - a
+        ab2 = max(F32(np.sum(ab * ab)), F32(1e-6))
+        px = xx - a[0]
+        py = yy - a[1]
+        t = np.clip((px * ab[0] + py * ab[1]) / ab2, F32(0.0), F32(1.0))
+        dx = px - t * ab[0]
+        dy = py - t * ab[1]
+        d2 = dx * dx + dy * dy
+        win = resp[y0:y1, x0:x1]
+        np.maximum(win, np.exp(-d2 / two_s2), out=win)
+    img = F32(background) + F32(line_gain) * resp
+    if center_flat is None:
+        center_flat = (n_rows // 2) * n_cols + (n_cols // 2)
+    c = np.asarray(xy, F32)[center_flat]
+    yy = np.arange(height, dtype=F32)[:, None]
+    xx = np.arange(width, dtype=F32)[None, :]
+    d2c = (xx - c[0]) ** 2 + (yy - c[1]) ** 2
+    img = img + F32(center_gain) * np.exp(-d2c / F32(2.0 * (2.5 * line_sigma) ** 2))
+    return np.clip(img, 0.0, 255.0).astype(np.uint8)
+
+
+def example_pair(height: int = 480, width: int = 640, n_frames: int | None = None,
+                 seed: int = 0, pans=None):
+    """The bench scene family: (stereo, (img1, img2)) with float32 images of
+    shape (n_frames, H, W) (or one (H, W) pair when n_frames is None).
+    Frame i puts the cylinder at pan ``pans[i]`` (default i)."""
+    rng = np.random.default_rng(seed)
+    stereo = default_stereo(cx=width / 2.0, cy=height / 2.0)
+
+    def one(pan):
+        scene = cylinder_grid_points(
+            stereo, origin=(10.0 * pan, -40.0, 560.0), radius=70.0,
+            row_spacing=18.0, theta_span=2.0,
+        )
+        imgs = []
+        for xy in (scene.xy1, scene.xy2):
+            img = render_grid_image(xy, 9, 9, height, width).astype(F32)
+            img = np.clip(img + rng.normal(0, 2.0, (height, width)).astype(F32), 0, 255)
+            imgs.append(img)
+        return imgs[0], imgs[1]
+
+    if n_frames is None:
+        return stereo, one(0.0)
+    if pans is None:
+        pans = [float(i) for i in range(n_frames)]
+    pairs = [one(float(pans[i])) for i in range(n_frames)]
+    return stereo, (np.stack([p[0] for p in pairs]), np.stack([p[1] for p in pairs]))
+
+
+def apply_gap(img: np.ndarray) -> np.ndarray:
+    """Attenuate the ``GAP`` band with smooth edges (tests/make_golden.py)."""
+    y0, y1, x0, x1 = GAP
+    yy = np.arange(img.shape[0], dtype=np.float32)[:, None]
+    xx = np.arange(img.shape[1], dtype=np.float32)[None, :]
+
+    def edge(v, lo, hi):
+        return 1.0 / (1.0 + np.exp(-(v - lo) / 1.5)) * 1.0 / (1.0 + np.exp((v - hi) / 1.5))
+
+    with np.errstate(over="ignore"):
+        atten = 1.0 - 0.97 * edge(yy, y0, y1) * edge(xx, x0, x1)
+    return np.clip(np.asarray(img, np.float32) * atten, 0, 255)

@@ -1,0 +1,92 @@
+"""PyTorch port: configs and converters equal the JAX package's.
+
+The port mirrors the JAX dataclasses field for field, copies a JAX config
+with ``from_reference``, and refuses every branch it does not carry with an
+error that names the ROADMAP item.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from cylinder_pose_estimation_tpu import config as jcfg
+from cylinder_pose_estimation_tpu.utils.synthetic import default_stereo
+from cylinder_pose_estimation_tpu_torch import config as tcfg
+from cylinder_pose_estimation_tpu_torch.types import stereo_from_numpy
+
+# One intra-op thread per test worker: the suite runs several workers on
+# the same cores, and oversubscribed torch thread pools spin.
+torch.set_num_threads(1)
+
+
+def _fields(cls):
+    return {f.name: f.default for f in dataclasses.fields(cls)}
+
+
+@pytest.mark.parametrize(
+    "name", ["DetectConfig", "CylinderDetectConfig", "FitConfig"]
+)
+def test_fields_and_defaults_equal_reference(name):
+    assert _fields(getattr(tcfg, name)) == _fields(getattr(jcfg, name))
+
+
+def test_mode_and_image_shape():
+    cfg = tcfg.CylinderDetectConfig(height=240, width=320)
+    assert cfg.mode == "cylinder"
+    assert cfg.image_shape == (240, 320)
+
+
+@pytest.mark.parametrize(
+    "ref",
+    [
+        jcfg.CylinderDetectConfig(height=240, width=320, use_pallas=True, min_ok_points=7),
+        jcfg.FitConfig(lm_iters=11, cyl_radius=70.0),
+    ],
+)
+def test_from_reference_copies_every_field(ref):
+    port = tcfg.from_reference(ref)
+    assert type(port).__name__ == type(ref).__name__
+    assert dataclasses.asdict(port) == dataclasses.asdict(ref)
+
+
+def test_from_reference_refuses_plane_mode():
+    with pytest.raises(NotImplementedError, match="ROADMAP 1.9"):
+        tcfg.from_reference(jcfg.PlaneDetectConfig())
+
+
+@pytest.mark.parametrize(
+    "override, item",
+    [
+        ({"bridge_endpoint_stats": True}, "2.4"),
+        ({"pallas_cc_cross_cap": 16}, "1.17"),
+        ({"smooth_mxu": False}, "1.17"),
+        ({"bright_at_points": False}, "1.17"),
+        ({"subpixel_refine": True}, "1.14"),
+        ({"merge_short_cols": True}, "1.9"),
+        ({"stage_probe": "bridge_state"}, "1.17"),
+        ({"label_downsample": 1}, "1.13"),
+        ({"bridge_half_res": False}, "1.13"),
+    ],
+)
+def test_unported_branches_raise(override, item):
+    cfg = tcfg.CylinderDetectConfig(**override)
+    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+        tcfg.validate(cfg)
+
+
+def test_default_config_validates():
+    tcfg.validate(tcfg.CylinderDetectConfig(use_pallas=True, pallas_interpret=True))
+
+
+def test_stereo_from_numpy_round_trips():
+    st = default_stereo(cx=320.0, cy=240.0)
+    leaves = [st.cam1.k, st.cam1.radial, st.cam1.tangential,
+              st.cam2.k, st.cam2.radial, st.cam2.tangential, st.t_c2_c1]
+    port = stereo_from_numpy(*(np.asarray(x) for x in leaves), device="cpu")
+    got = [port.cam1.k, port.cam1.radial, port.cam1.tangential,
+           port.cam2.k, port.cam2.radial, port.cam2.tangential, port.t_c2_c1]
+    for a, b in zip(leaves, got):
+        assert b.dtype == torch.float32 and b.device.type == "cpu"
+        np.testing.assert_array_equal(np.asarray(a), b.numpy())
