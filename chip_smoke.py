@@ -13,11 +13,25 @@ phase fails.  Phases:
    counter reset just before and read just after; each scene is held against
    ``tests/fixtures/golden_scenes.json`` (ids identical, xy within 0.05 px,
    fit params within 0.05, reprojection within 0.01 px).
-3. Kernels: each CUDA kernel against its plain PyTorch version on the same
-   device, on the intermediates of a B=16 run (production shapes) and on
-   seeded random masks; every output must be ``torch.equal``.  Median times
+3. Endpoint path: the same seven scenes with
+   ``CylinderDetectConfig(bridge_endpoint_stats=True)``, counters reset just
+   before and read just after (the payload min/max kernel replaces the
+   pre-bridge CC: ``connected_components`` runs twice), held to
+   ``tests/fixtures/torch_endpoint_scenes.json`` by the same contract.
+4. Plane path: ``detect_grid`` with ``PlaneDetectConfig(roi_threshold=30)``
+   on the eight views that ``tests/fixtures/torch_plane_scenes.json``
+   specifies, rendered here, counters reset just before and read just after;
+   ids identical, xy within 0.05 px, ``ok`` and ``stable`` equal.
+5. Numerics: each path's bridge on the card and on the CPU from the same
+   carved masks; the angle difference and the differing bridged pixels are
+   printed (the fixtures above are the gate).
+6. Kernels: each CUDA kernel against its plain PyTorch version on the same
+   device, on the intermediates of B=16 runs (production shapes) and on
+   seeded random inputs; every output must be ``torch.equal``.  Median times
    of both, with CUDA events after warm-up.
-4. End to end: ms/frame of B=16 frames and the detect-only split.
+7. End to end: ms/frame of B=16 frames and the detect-only split, for the
+   main and the endpoint path; their bridge and grid stage ms; plane detect
+   ms/view.
 
 The second-to-last line is the kernel report as JSON, the last line
 ``{"ok": true, "device": {...}}``.
@@ -36,7 +50,17 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(HERE, "tests", "fixtures", "golden_scenes.json")
-KERNELS = ("preprocess_binarize", "connected_components", "bridge_morphology")
+ENDPOINT = os.path.join(HERE, "tests", "fixtures", "torch_endpoint_scenes.json")
+PLANE = os.path.join(HERE, "tests", "fixtures", "torch_plane_scenes.json")
+KERNELS = ("preprocess_binarize", "connected_components", "bridge_morphology",
+           "component_payload_minmax")
+# Kernels each path must launch (counts per batch call where exact).
+PATH_KERNELS = {
+    "main": {"preprocess_binarize": None, "connected_components": None, "bridge_morphology": None},
+    "endpoint": {"preprocess_binarize": None, "connected_components": 2, "bridge_morphology": None,
+                 "component_payload_minmax": None},
+    "plane": {"preprocess_binarize": None, "connected_components": None, "bridge_morphology": None},
+}
 
 
 def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -58,33 +82,50 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def golden_check(res, want: dict, s: int) -> dict:
-    """The golden-fixture contract for frame s of a StereoPoseResult."""
+def points_check(grid, i: int, records: list, label: str):
+    """View i of a GridPoints against fixture point records: ids identical,
+    xy within 0.05 px.  Returns (number of points, max |dxy|)."""
+    import numpy as np
+
+    xy = grid.xy[i].cpu().numpy().astype(np.float64)
+    idx = grid.idx[i].cpu().numpy()
+    valid = grid.valid[i].cpu().numpy()
+    if not np.all(np.isfinite(xy)):
+        raise AssertionError(f"{label}: non-finite grid coordinates")
+    got = {(int(idx[k, 0]), int(idx[k, 1])): xy[k] for k in range(len(valid)) if valid[k]}
+    want = {tuple(r["id"]): (r["x"], r["y"]) for r in records}
+    if set(got) != set(want):
+        raise AssertionError(f"{label} id set differs: +{set(got) - set(want)} -{set(want) - set(got)}")
+    max_d = 0.0
+    for k, (x, y) in want.items():
+        d = max(abs(got[k][0] - x), abs(got[k][1] - y))
+        max_d = max(max_d, d)
+        if d >= 0.05:
+            raise AssertionError(f"{label} point {k}: {got[k]} vs fixture ({x}, {y})")
+    return len(got), max_d
+
+
+def golden_check(res, want: dict, s: int, gauge: bool = False) -> dict:
+    """The golden-fixture contract for frame s of a StereoPoseResult.
+
+    ``gauge``: compare the axis direction rescaled to the fixture's norm.
+    The fit's objective does not see |direction|, so after 20 float32 LM
+    steps its norm is noise-driven (ROADMAP section 3, fit gauge); the raw
+    difference is reported beside it."""
     import numpy as np
 
     out = {"max_dxy": 0.0}
     for view, det in (("view1", res.detect1), ("view2", res.detect2)):
-        xy = det.grid.xy[s].cpu().numpy().astype(np.float64)
-        idx = det.grid.idx[s].cpu().numpy()
-        valid = det.grid.valid[s].cpu().numpy()
-        if not np.all(np.isfinite(xy)):
-            raise AssertionError(f"{view}: non-finite grid coordinates")
-        got = {(int(idx[i, 0]), int(idx[i, 1])): xy[i] for i in range(len(valid)) if valid[i]}
-        want_map = {tuple(r["id"]): (r["x"], r["y"]) for r in want[view]}
-        if set(got) != set(want_map):
-            raise AssertionError(
-                f"{view} id set differs: +{set(got) - set(want_map)} -{set(want_map) - set(got)}"
-            )
-        for k, (x, y) in want_map.items():
-            d = max(abs(got[k][0] - x), abs(got[k][1] - y))
-            out["max_dxy"] = max(out["max_dxy"], d)
-            if d >= 0.05:
-                raise AssertionError(f"{view} point {k}: {got[k]} vs golden ({x}, {y})")
-        out[f"n_{view}"] = len(got)
-    params = res.fit.params[s].cpu().numpy()
+        out[f"n_{view}"], d = points_check(det.grid, s, want[view], view)
+        out["max_dxy"] = max(out["max_dxy"], d)
+    params = res.fit.params[s].cpu().numpy().astype(np.float64)
     if not np.all(np.isfinite(params)):
         raise AssertionError("non-finite fit params")
-    dp = float(np.max(np.abs(params - np.asarray(want["fit_params"]))))
+    ref = np.asarray(want["fit_params"])
+    out["max_dparams_raw"] = float(np.max(np.abs(params - ref)))
+    if gauge:
+        params[3:] *= np.linalg.norm(ref[3:]) / np.linalg.norm(params[3:])
+    dp = float(np.max(np.abs(params - ref)))
     if dp >= 0.05:
         raise AssertionError(f"fit params {params} vs golden {want['fit_params']}")
     dr = abs(float(res.fit.mean_reproj_error[s]) - want["mean_reproj_px"])
@@ -96,6 +137,84 @@ def golden_check(res, want: dict, s: int) -> dict:
         res.detect2.bridged_components[s]
     )
     return out
+
+
+def plane_check(det, views) -> dict:
+    """The plane fixture's contract for a (V,) DetectResult: points as
+    ``points_check``, ``ok`` and ``stable`` equal."""
+    out = {"max_dxy": 0.0, "points": []}
+    for i, want in enumerate(views):
+        n, d = points_check(det.grid, i, want["points"], f"plane view {i}")
+        out["max_dxy"] = max(out["max_dxy"], d)
+        for flag in ("ok", "stable"):
+            if bool(getattr(det, flag)[i]) != want[flag]:
+                raise AssertionError(f"plane view {i}: {flag} {bool(getattr(det, flag)[i])} vs {want[flag]}")
+        out["points"].append(n)
+    return out
+
+
+def run_path(name, frontend, fn):
+    """Drive one path with every launch counter reset just before and read
+    just after; fail if it skipped a kernel it must launch."""
+    import torch
+
+    torch.cuda.synchronize()
+    frontend.reset_launch_counts()
+    res = fn()
+    torch.cuda.synchronize()
+    launches = frontend.launch_counts()
+    print(f"{name} path launches: {launches}", flush=True)
+    for k, want in PATH_KERNELS[name].items():
+        if launches[k] < 1:
+            raise AssertionError(f"the {name} path never launched {k}")
+        if want is not None and launches[k] != want:
+            raise AssertionError(f"the {name} path launched {k} {launches[k]} times, not {want}")
+    return res, launches
+
+
+def bridge_flips(views, cfg) -> tuple:
+    """Card vs CPU through ``bridge_stage`` on the same carved masks (the
+    card's): the median angles come from float32 atan2/sin/cos, whose last
+    bit may differ between the two devices and move a bridge offset.
+    Returns (max |d angle| in rad, differing bridged pixels)."""
+    import torch
+
+    from cylinder_pose_estimation_tpu_torch.models import detector as det
+
+    with torch.inference_mode():
+        roi = det.roi_stage(det.front_stage(det._to_gray(views), cfg), cfg)
+        card = det.bridge_stage(roi.mh, roi.mv, roi.circle_radius0, cfg)
+        host = det.bridge_stage(roi.mh.cpu(), roi.mv.cpu(), roi.circle_radius0.cpu(), cfg)
+    d_ang = float((card.angles.cpu() - host.angles).abs().max())
+    flips = int((card.h_exp.cpu() != host.h_exp).sum() + (card.v_exp.cpu() != host.v_exp).sum())
+    return d_ang, flips
+
+
+def stage_split(views, cfgs) -> None:
+    """Bridge and grid stage ms of each config on the same front and ROI
+    stages (the configs differ only after them)."""
+    import torch
+
+    from cylinder_pose_estimation_tpu_torch.models import detector as det
+
+    with torch.inference_mode():
+        front = det.front_stage(det._to_gray(views), cfgs[0][1])
+        roi = det.roi_stage(front, cfgs[0][1])
+        for label, cfg in cfgs:
+            def bridge():
+                return det.bridge_stage(roi.mh, roi.mv, roi.circle_radius0, cfg)
+
+            br = bridge()
+            st = det.GridState(
+                cents=front.cents, inside=roi.inside, bbox=roi.bbox, h_exp=br.h_exp,
+                v_exp=br.v_exp, circle_radius0=roi.circle_radius0, bright_blur=front.bright_blur,
+                warm_labels=br.warm_labels, bridge_angles=br.angles, n_pre=br.n_pre,
+                binary=front.binary, mh=roi.mh, mv=roi.mv, carve_domain=roi.carve_domain,
+            )
+            ms_b = cuda_ms(bridge, reps=10, warmup=2)
+            ms_g = cuda_ms(lambda: det.grid_stage(st, cfg), reps=10, warmup=2)
+            print(f"{label} stages at V={views.shape[0]}: bridge {ms_b:.4f} ms, grid {ms_g:.4f} ms",
+                  flush=True)
 
 
 class Capture:
@@ -215,6 +334,25 @@ def kernel_phase(frontend, calls, device, seed: int = 0) -> dict:
                 lambda: frontend.connected_components_plain(rnd, kw["rounds"], kw["pools_per_round"], rinit),
                 f"random {tuple(m.shape)}", timed=False)
 
+    # 2.4 payload min/max: the endpoint path's call + random masks with
+    # random payloads (a permutation of [0, H*W) per image).
+    for args, kw in calls["component_payload_minmax"]:
+        m, pay = args
+        rounds, pools = kw["rounds"], kw["pools_per_round"]
+        compare("component_payload_minmax",
+                lambda: frontend.component_payload_minmax(m, pay, rounds, pools),
+                lambda: frontend.component_payload_minmax_plain(m, pay, rounds, pools),
+                f"captured {tuple(m.shape)} {rounds}x{pools}", timed=True)
+        n, h, w = m.shape
+        rnd = (torch.rand(m.shape, generator=g) < 0.45).to(torch.float32).to(device)
+        rpay = torch.stack([torch.randperm(h * w, generator=g) for _ in range(n)])
+        rpay = rpay.reshape(n, h, w).to(torch.int32).to(device)
+        for r, p in ((rounds, pools), (1, 2), (3, 1)):
+            compare("component_payload_minmax",
+                    lambda: frontend.component_payload_minmax(rnd, rpay, r, p),
+                    lambda: frontend.component_payload_minmax_plain(rnd, rpay, r, p),
+                    f"random {tuple(m.shape)} {r}x{p}", timed=False)
+
     # 2.3 bridge: the captured call + line masks at non-axis angles with
     # kernel lengths from 0 past the cap.
     for args, kw in calls["bridge_morphology"]:
@@ -245,11 +383,20 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this check runs only on a GPU", file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
-    from cylinder_pose_estimation_tpu_torch.config import CylinderDetectConfig, FitConfig
+    from cylinder_pose_estimation_tpu_torch.config import (
+        CylinderDetectConfig,
+        FitConfig,
+        PlaneDetectConfig,
+    )
+    from cylinder_pose_estimation_tpu_torch.models.detector import detect_grid
     from cylinder_pose_estimation_tpu_torch.models.pipeline import estimate_poses_batch
     from cylinder_pose_estimation_tpu_torch.ops import frontend, kernels
     from cylinder_pose_estimation_tpu_torch.types import stereo_from_numpy
-    from cylinder_pose_estimation_tpu_torch.utils.synthetic import apply_gap, example_pair
+    from cylinder_pose_estimation_tpu_torch.utils.synthetic import (
+        apply_gap,
+        example_pair,
+        plane_view,
+    )
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -268,9 +415,16 @@ def main() -> int:
     stereo_np, (i1, i2) = example_pair(height, width, n_frames=batch)
     stereo = stereo_from_numpy(*stereo_np, device=device)
     cfg = CylinderDetectConfig(height=height, width=width, use_pallas=True)
+    cfg_ep = CylinderDetectConfig(height=height, width=width, use_pallas=True,
+                                  bridge_endpoint_stats=True)
+    cfg_plane = PlaneDetectConfig(height=height, width=width, use_pallas=True, roi_threshold=30.0)
     fit_cfg = FitConfig()
     with open(GOLDEN) as f:
         golden = json.load(f)["scenes"]
+    with open(ENDPOINT) as f:
+        endpoint_fix = json.load(f)["scenes"]
+    with open(PLANE) as f:
+        plane_views = json.load(f)["views"]
 
     # --- main path: the golden scenes, counters reset just before ---------
     names = list(range(6)) + ["gap0_pallas"]
@@ -278,15 +432,8 @@ def main() -> int:
     b = np.concatenate([i2[:6], apply_gap(i2[0])[None]])
     a = torch.as_tensor(a, device=device)
     b = torch.as_tensor(b, device=device)
-    torch.cuda.synchronize()
-    frontend.reset_launch_counts()
-    res = estimate_poses_batch(a, b, stereo, cfg, fit_cfg)
-    torch.cuda.synchronize()
-    launches = frontend.launch_counts()
-    print(f"main path launches: {launches}", flush=True)
-    for k in KERNELS:
-        if launches[k] < 1:
-            raise AssertionError(f"the main path never launched {k}")
+    res, main_launches = run_path("main", frontend,
+                                  lambda: estimate_poses_batch(a, b, stereo, cfg, fit_cfg))
     for s, name in enumerate(names):
         want = next(g for g in golden if g["scene"] == name)
         chk = golden_check(res, want, s)
@@ -296,11 +443,43 @@ def main() -> int:
               f"max|dparams| {chk['max_dparams']:.6f}, |dreproj| {chk['d_reproj']:.6f} px, "
               f"bridged_components {chk['bridged_components']}", flush=True)
 
+    # --- endpoint path: the same scenes, counters reset just before -------
+    res, ep_launches = run_path("endpoint", frontend,
+                                lambda: estimate_poses_batch(a, b, stereo, cfg_ep, fit_cfg))
+    for s, name in enumerate(names):
+        want = next(g for g in endpoint_fix if g["scene"] == name)
+        chk = golden_check(res, want, s, gauge=True)
+        if chk["bridged_components"] != want["bridged_components"]:
+            raise AssertionError(f"endpoint scene {name} bridged {chk['bridged_components']} "
+                                 f"vs {want['bridged_components']}")
+        print(f"endpoint scene {name}: points {chk['n_view1']}/{chk['n_view2']}, "
+              f"max|dxy| {chk['max_dxy']:.6f} px, max|dparams| {chk['max_dparams']:.6f} "
+              f"(direction at the fixture's norm; raw {chk['max_dparams_raw']:.6f}), "
+              f"|dreproj| {chk['d_reproj']:.6f} px, bridged_components {chk['bridged_components']}",
+              flush=True)
+
+    # --- plane path: the fixture's views, counters reset just before ------
+    pviews = torch.as_tensor(np.stack([plane_view(height, width, **v["spec"]) for v in plane_views]),
+                             device=device)
+    det, plane_launches = run_path("plane", frontend, lambda: detect_grid(pviews, cfg_plane))
+    chk = plane_check(det, plane_views)
+    print(f"plane views: points {chk['points']}, max|dxy| {chk['max_dxy']:.6f} px", flush=True)
+
+    # --- numerics: the bridge on the card vs on the CPU --------------------
+    for label, views, c in (("main", torch.cat([a, b]), cfg), ("endpoint", torch.cat([a, b]), cfg_ep),
+                            ("plane", pviews, cfg_plane)):
+        d_ang, flips = bridge_flips(views, c)
+        print(f"{label} bridge, card vs CPU on the same carved masks ({views.shape[0]} views): "
+              f"max |d angle| {d_ang:.3e} rad, {flips} differing bridged pixels", flush=True)
+
     # --- kernels vs plain on the B=16 intermediates -----------------------
     d1 = torch.as_tensor(i1, device=device)
     d2 = torch.as_tensor(i2, device=device)
     with Capture(frontend) as cap:
         estimate_poses_batch(d1, d2, stereo, cfg, fit_cfg)
+    with Capture(frontend) as cap_ep:
+        estimate_poses_batch(d1, d2, stereo, cfg_ep, fit_cfg)
+    cap.calls["component_payload_minmax"] = cap_ep.calls["component_payload_minmax"]
     with torch.inference_mode():
         report = kernel_phase(frontend, cap.calls, device)
 
@@ -316,12 +495,33 @@ def main() -> int:
         eps = 1e-4 * next(rep)
         return estimate_poses_batch(d1 + eps, d2 + eps, stereo, cfg, fit_cfg, probe="detect").grid.xy
 
-    ms_e2e = cuda_ms(e2e, reps=10, warmup=2)
-    ms_det = cuda_ms(detect, reps=10, warmup=2)
-    print(f"e2e B={batch} {height}x{width}: {ms_e2e / batch:.4f} ms/frame "
-          f"(detect {ms_det / batch:.4f} ms/frame, fit {(ms_e2e - ms_det) / batch:.4f} ms/frame); "
-          f"{smi}", flush=True)
+    def e2e_ep():
+        eps = 1e-4 * next(rep)
+        return estimate_poses_batch(d1 + eps, d2 + eps, stereo, cfg_ep, fit_cfg).fit.params
 
+    def detect_ep():
+        eps = 1e-4 * next(rep)
+        return estimate_poses_batch(d1 + eps, d2 + eps, stereo, cfg_ep, fit_cfg, probe="detect").grid.xy
+
+    def detect_plane():
+        eps = 1e-4 * next(rep)
+        return detect_grid(pviews + eps, cfg_plane).grid.xy
+
+    for label, fn_e2e, fn_det in (("e2e", e2e, detect), ("endpoint e2e", e2e_ep, detect_ep)):
+        ms_e2e = cuda_ms(fn_e2e, reps=10, warmup=2)
+        ms_det = cuda_ms(fn_det, reps=10, warmup=2)
+        print(f"{label} B={batch} {height}x{width}: {ms_e2e / batch:.4f} ms/frame "
+              f"(detect {ms_det / batch:.4f} ms/frame, fit {(ms_e2e - ms_det) / batch:.4f} ms/frame); "
+              f"{smi}", flush=True)
+    stage_split(torch.cat([d1, d2]), (("main", cfg), ("endpoint", cfg_ep)))
+    n_views = pviews.shape[0]
+    ms_plane = cuda_ms(detect_plane, reps=10, warmup=2)
+    print(f"plane detect V={n_views} {height}x{width}: {ms_plane / n_views:.4f} ms/view; {smi}",
+          flush=True)
+
+    # Launches per kernel: summed over the three path runs (each counted
+    # from zero), with the split by path beside it.
+    by_path = {"main": main_launches, "endpoint": ep_launches, "plane": plane_launches}
     rows = []
     for k in KERNELS:
         r = report[k]
@@ -329,7 +529,8 @@ def main() -> int:
             print(f"timing {k} [{label}]: kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms", flush=True)
         rows.append({
             "name": k, "route": "cuda", "source": frontend.SOURCES[k],
-            "replaces": frontend.REPLACES[k], "launches": launches[k],
+            "replaces": frontend.REPLACES[k], "launches": sum(c[k] for c in by_path.values()),
+            "launches_by_path": {p: c[k] for p, c in by_path.items()},
             "max_abs_err": r["max_abs_err"], "ms": round(r["ms"], 4), "plain_ms": round(r["plain_ms"], 4),
         })
     print(smi)

@@ -4,8 +4,10 @@ Field names and defaults equal those of ``cylinder_pose_estimation_tpu.config``
 (the JAX package), so one configuration describes the same problem in both
 packages; ``from_reference`` copies a JAX config object field by field.
 
-The port runs the default cylinder detection path only.  ``validate`` rejects
-every branch it does not carry, naming the ROADMAP item that would port it.
+The port runs the cylinder and plane detection paths of the JAX package's
+Pallas branch, with or without ``bridge_endpoint_stats``.  ``validate``
+rejects every branch it does not carry, naming the ROADMAP item that would
+port it.
 ``use_pallas`` and ``pallas_interpret`` are accepted and ignored: the device
 of the input picks the kernel (a CUDA tensor launches the hand-written CUDA
 kernel, a CPU tensor runs its plain PyTorch version).
@@ -99,7 +101,7 @@ class DetectConfig:
 
 @dataclasses.dataclass(frozen=True)
 class CylinderDetectConfig(DetectConfig):
-    """Cylinder-surface grid detection (the only mode the port runs)."""
+    """Cylinder-surface grid detection."""
 
     poly_degree: int = 2
     bridge_kernel_base: int = 91
@@ -113,6 +115,30 @@ class CylinderDetectConfig(DetectConfig):
     @property
     def mode(self) -> str:
         return "cylinder"
+
+
+@dataclasses.dataclass(frozen=True)
+class PlaneDetectConfig(DetectConfig):
+    """Planar calibration-target grid detection: threshold-hull ROI, fixed
+    bridge kernel, degree-1 fits, (row, col) ids, short-column merge."""
+
+    poly_degree: int = 1
+    roi_threshold: float = 127.0
+    roi_expand: int = 5
+    roi_blob_k: int = 128
+    bridge_kernel_base: int = 201
+    bridge_min_len: float = 8.0
+    bridge_max_len: float = 700.0
+    drop_first_row: bool = False
+    drop_last_col: bool = False
+    drop_negative_cols: bool = False
+    id_row_major: bool = True
+    bridge_skip_long: bool = False
+    merge_short_cols: bool = True
+
+    @property
+    def mode(self) -> str:
+        return "plane"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -131,27 +157,23 @@ class FitConfig:
 
 def from_reference(obj):
     """Port config equal to a JAX package config object, copied field by
-    field by attribute name.  A JAX ``CylinderDetectConfig`` becomes this
-    module's ``CylinderDetectConfig``, a ``FitConfig`` a ``FitConfig``; any
-    other detect config (the plane mode) is refused by ``validate``."""
+    field by attribute name: a JAX ``CylinderDetectConfig``,
+    ``PlaneDetectConfig`` or ``FitConfig`` becomes the class of the same name
+    here."""
     name = type(obj).__name__
     target = {
         "CylinderDetectConfig": CylinderDetectConfig,
+        "PlaneDetectConfig": PlaneDetectConfig,
         "FitConfig": FitConfig,
     }.get(name)
     if target is None:
-        raise NotImplementedError(
-            f"{name} is not ported: only the cylinder detection path runs "
-            "here (plane mode is ROADMAP 1.9)"
-        )
+        raise NotImplementedError(f"{name} has no counterpart in the port")
     kwargs = {f.name: getattr(obj, f.name) for f in dataclasses.fields(target)}
     return target(**kwargs)
 
 
 # Each unported branch: (predicate on the config, ROADMAP item, description).
 _UNPORTED = (
-    (lambda c: c.bridge_endpoint_stats, "2.4",
-     "bridge_endpoint_stats=True needs the component_payload_minmax kernel"),
     (lambda c: c.pallas_cc_cross_cap > 0, "1.17",
      "pallas_cc_cross_cap > 0 (a TPU-only scan cap, not carried)"),
     (lambda c: not c.smooth_mxu, "1.17",
@@ -160,8 +182,6 @@ _UNPORTED = (
      "bright_at_points=False (full-image brightness, not carried)"),
     (lambda c: c.subpixel_refine, "1.14",
      "subpixel_refine=True (models/refine.py)"),
-    (lambda c: c.merge_short_cols, "1.9",
-     "merge_short_cols=True (the plane path's short-column merge)"),
     (lambda c: c.stage_probe != "", "1.17",
      "stage_probe (use the port's stage functions instead)"),
     (lambda c: c.label_downsample != 2, "1.13",
@@ -173,10 +193,6 @@ _UNPORTED = (
 
 def validate(cfg: DetectConfig) -> None:
     """Raise NotImplementedError for every config branch the port lacks."""
-    if cfg.mode != "cylinder":
-        raise NotImplementedError(
-            f"mode {cfg.mode!r} is not ported (ROADMAP 1.9: plane mode)"
-        )
     for pred, item, what in _UNPORTED:
         if pred(cfg):
             raise NotImplementedError(f"{what}: not ported (ROADMAP {item})")

@@ -1,21 +1,26 @@
-"""Laser-grid detection, cylinder mode: images in, indexed grid points out.
+"""Laser-grid detection, cylinder and plane modes: images in, indexed grid
+points out.
 
 Port of the JAX package's models/detector.py, ``detect_grid`` with
 ``use_pallas=True`` (its default TPU path), over a leading batch of views.
 Where the JAX code ``vmap``s one image, every function here takes (V, ...)
 tensors; the (h, v) line-mask pair of each view rides as a second axis and is
-flattened into (2V, ...) batches for the kernels.  The three kernels
+flattened into (2V, ...) batches for the kernels.  The kernels
 (``ops/frontend``) run once per stage for the whole batch.
 
 The stages, in order (each a function the tests can drive on its own):
   ``front_stage``    smoothing (banded matmuls) -> preprocess kernel ->
                      statistic images -> joint centroids
-  ``roi_stage``      quarter-res ROI / saturation CC -> ROI mask, bbox,
+  ``roi_stage``      quarter-res ROI / saturation CC -> ROI mask (cylinder:
+                     line-density blob; plane: threshold hull), bbox,
                      centre seed -> saturation carve
-  ``bridge_stage``   half-res pre-bridge CC -> angles / expandability ->
-                     bridge kernel
-  ``grid_stage``     warm final CC -> assign -> polyfit -> prune -> Newton
-                     intersections -> relabel -> index -> DetectResult
+  ``bridge_stage``   half-res pre-bridge CC (or, under
+                     ``bridge_endpoint_stats``, the payload min/max kernel)
+                     -> angles / expandability -> bridge kernel
+  ``grid_stage``     final CC (warm, or cold after the endpoint bridge) ->
+                     assign -> polyfit -> short-column merge (plane) ->
+                     prune -> Newton intersections -> relabel -> index ->
+                     DetectResult
 Fixed shapes and masks throughout, no host synchronisation.
 """
 
@@ -253,6 +258,19 @@ def _roi_cylinder_from_labels(merged, labels, h: int, w: int, k: int) -> torch.T
     return up[..., :h, :w]
 
 
+def _roi_plane_from_labels(th: torch.Tensor, labels: torch.Tensor, cfg: DetectConfig) -> torch.Tensor:
+    """Threshold hull ROI: the largest quarter-res component of the threshold
+    mask, upsampled and ANDed with it, orthoconvex-filled at full resolution,
+    then dilated by ``roi_expand``."""
+    h, w = th.shape[-2:]
+    largest4 = labeling.largest_component_mask(labels, k=cfg.roi_blob_k)
+    h4, w4 = -(-h // 4), -(-w // 4)
+    largest4 = largest4[..., _SHIFT4:_SHIFT4 + h4, _SHIFT4:_SHIFT4 + w4]
+    up = largest4.repeat_interleave(4, dim=-2).repeat_interleave(4, dim=-1)
+    hull = labeling.fill_orthoconvex(up[..., :h, :w] & th)
+    return morphology.dilate_rect(hull, 2 * cfg.roi_expand + 1, 2 * cfg.roi_expand + 1)
+
+
 def _bbox_of(mask: torch.Tensor) -> torch.Tensor:
     """(V, 4) int32 (x, y, w, h) bounding boxes of (V, H, W) masks."""
     h, w = mask.shape[-2:]
@@ -341,15 +359,26 @@ class Roi(NamedTuple):
 
 def roi_stage(front: Front, cfg: DetectConfig) -> Roi:
     """Stages 3-5: quarter-res ROI + saturation labeling (one CC launch),
-    ROI mask and bbox, centre seed, saturation carve."""
+    ROI mask and bbox, centre seed, saturation carve.  The ROI seed is the
+    9x9-dilated line mask in cylinder mode and the grey threshold
+    ``roi_threshold`` in plane mode."""
     h, w = front.gray.shape[-2:]
-    pooled = _pool4_pad(torch.stack([front.sat_mask, front.h_mask | front.v_mask], 1))
+    plane = cfg.mode == "plane"
+    if plane:
+        roi_th = front.gray > cfg.roi_threshold
+        pooled = _pool4_pad(torch.stack([front.sat_mask, roi_th], 1))
+        roi_seed4 = pooled[:, 1]
+    else:
+        pooled = _pool4_pad(torch.stack([front.sat_mask, front.h_mask | front.v_mask], 1))
+        roi_seed4 = morphology.dilate_rect(pooled[:, 1], 9, 9)
     sat_small = pooled[:, 0]
-    roi_seed4 = morphology.dilate_rect(pooled[:, 1], 9, 9)
     ring = _ring_mask(*sat_small.shape[-2:], sat_small.device)
     labels = _cc_pairs(torch.stack([roi_seed4 & ring, sat_small & ring], 1),
                        rounds=cfg.lowres_cc_rounds, pools=4)
-    roi = _roi_cylinder_from_labels(roi_seed4, labels[:, 0], h, w, k=cfg.roi_blob_k)
+    if plane:
+        roi = _roi_plane_from_labels(roi_th, labels[:, 0], cfg)
+    else:
+        roi = _roi_cylinder_from_labels(roi_seed4, labels[:, 0], h, w, k=cfg.roi_blob_k)
     bbox = _bbox_of(roi)
     center, _, inside = _center_seed(front.cents, front.cvalid, front.gray, bbox, cfg)
     mh, mv, r0i, domain = _saturation_carve(front.h_mask, front.v_mask, roi, sat_small, labels[:, 1])
@@ -424,6 +453,68 @@ def _bridge_angle_exp_pair(outs: torch.Tensor, labels: torch.Tensor, cfg: Detect
     return angle, table.gather(-1, flat).reshape(v, n, hgt, wdt)
 
 
+# In-band line fragments tracked for the median angle of the endpoint-stats
+# bridge (the JAX package's compaction capacity).
+_MEDIAN_CAP = 64
+
+
+def _scan_payloads(h: int, w: int, device) -> torch.Tensor:
+    """(2, h, w) int32 scan orders: column-major (x*h + y) for the h mask,
+    row-major (y*w + x) for the v mask, so each fragment's payload extremes
+    are its end pixels along the line."""
+    ys = torch.arange(h, dtype=torch.int32, device=device)[:, None]
+    xs = torch.arange(w, dtype=torch.int32, device=device)[None, :]
+    return torch.stack([xs * h + ys, ys * w + xs])
+
+
+def _bridge_angle_exp_endpoint_pair(outs: torch.Tensor, pmin: torch.Tensor, pmax: torch.Tensor,
+                                    cfg: DetectConfig, scale: int):
+    """``_bridge_angle_exp_pair`` from each component's end pixels: the
+    payload min/max of (V, 2, h, w) masks (payloads of ``_scan_payloads``)
+    give the chord, its length ``scale * |p1 - p0|`` and its angle.  The
+    median runs over the first ``_MEDIAN_CAP`` in-band roots (pixels holding
+    their component's payload minimum) in raster order.  Returns the (V, 2)
+    median angles and the per-pixel expandability."""
+    v, n, hgt, wdt = outs.shape
+    hw = hgt * wdt
+    dev = outs.device
+    base = _axis_bases(dev)
+    in_mask = pmin < hw
+    multi = in_mask & (pmax > pmin)
+
+    def decode(p):
+        # h mask (channel 0): p = x*h + y; v mask (channel 1): p = y*w + x.
+        x = torch.stack([torch.div(p[:, 0], hgt, rounding_mode="floor"), p[:, 1] % wdt], 1)
+        y = torch.stack([p[:, 0] % hgt, torch.div(p[:, 1], wdt, rounding_mode="floor")], 1)
+        return x.to(torch.float32), y.to(torch.float32)
+
+    x0, y0 = decode(pmin)
+    x1, y1 = decode(pmax)
+    dx = x1 - x0
+    dy = y1 - y0
+    ext = float(scale) * torch.sqrt(dx * dx + dy * dy)
+    ang = torch.atan2(dy, dx) - base[None, :, None, None]
+    ang = torch.atan2(torch.sin(ang), torch.cos(ang))
+    ang = torch.where(ang > _HALF_PI, ang - math.pi, ang)
+    ang = torch.where(ang <= -_HALF_PI, ang + math.pi, ang)
+
+    is_root = in_mask & (pmin == _scan_payloads(hgt, wdt, dev))
+    band = multi & (ext >= cfg.bridge_min_len) & (ext <= cfg.bridge_max_len)
+    ridx, rvalid = labeling.compact_true_indices((is_root & band).reshape(v, n, hw), _MEDIAN_CAP)
+    picked = ang.reshape(v, n, hw).gather(-1, torch.clamp(ridx, 0, hw - 1).to(torch.int64))
+    s = torch.sort(torch.where(rvalid, picked, float("inf")), dim=-1).values
+    m = torch.sum(rvalid, dim=-1, keepdim=True)
+    k1 = torch.clamp(torch.div(m + 1, 2, rounding_mode="floor") - 1, min=0)
+    k2 = torch.div(m, 2, rounding_mode="floor")
+    med = 0.5 * (s.gather(-1, k1) + s.gather(-1, k2))
+    angle = torch.where(m > 0, med, 0.0)[..., 0] + base
+    if not cfg.bridge_skip_long:
+        return angle, outs
+    sized = multi & (ext >= cfg.bridge_min_len)
+    max_ext = torch.amax(torch.where(sized, ext, 0.0).reshape(v, n, hw), dim=-1)
+    return angle, sized & (ext <= cfg.bridge_long_frac * max_ext[..., None, None])
+
+
 class Bridge(NamedTuple):
     h_exp: torch.Tensor
     v_exp: torch.Tensor
@@ -436,8 +527,9 @@ class Bridge(NamedTuple):
 def bridge_stage(mh: torch.Tensor, mv: torch.Tensor, circle_radius0: torch.Tensor,
                  cfg: DetectConfig) -> Bridge:
     """Stage 6a: the half-res bridge of the carved h/v line masks; returns
-    masks on the half-res padded canvas, the pre-bridge labels (warm start),
-    the (V, 2) median angles and the pre-bridge component count."""
+    masks on the half-res padded canvas, the pre-bridge labels (warm start;
+    None under ``bridge_endpoint_stats``, whose payload kernel gives no
+    labels), the (V, 2) median angles and the pre-bridge component count."""
     v = mh.shape[0]
     dev = mh.device
     ds = cfg.label_downsample
@@ -452,12 +544,28 @@ def bridge_stage(mh: torch.Tensor, mv: torch.Tensor, circle_radius0: torch.Tenso
     angles = _axis_bases(dev).expand(v, 2)
     _, _, hs, ws = masks.shape
     for rep in range(cfg.bridge_repeats):
-        labels = _cc_pairs(masks, rounds=rounds, pools=cfg.pallas_cc_pools)
-        warm = labels
-        if rep == 0:
-            n_pre = _n_components(masks, labels)
-            pre_converged = _labels_converged(masks, labels)
-        angles, exps = _bridge_angle_exp_pair(masks, labels, cfg, scale=ds)
+        if cfg.bridge_endpoint_stats:
+            pay = _scan_payloads(hs, ws, dev).expand(v, 2, hs, ws)
+            # The JAX package calls this kernel with its default 4 pools per
+            # round, not cfg.pallas_cc_pools.
+            pmin, pmax = frontend.component_payload_minmax(
+                masks.reshape(2 * v, hs, ws).to(torch.float32),
+                pay.reshape(2 * v, hs, ws), rounds=rounds, pools_per_round=4,
+            )
+            pmin = pmin.reshape(v, 2, hs, ws)
+            pmax = pmax.reshape(v, 2, hs, ws)
+            if rep == 0:
+                # One pixel per component holds its scan-order payload minimum.
+                root = masks & (pay == pmin)
+                n_pre = torch.sum(root.reshape(v, -1), dim=-1).to(torch.int32)
+            angles, exps = _bridge_angle_exp_endpoint_pair(masks, pmin, pmax, cfg, scale=ds)
+        else:
+            labels = _cc_pairs(masks, rounds=rounds, pools=cfg.pallas_cc_pools)
+            warm = labels
+            if rep == 0:
+                n_pre = _n_components(masks, labels)
+                pre_converged = _labels_converged(masks, labels)
+            angles, exps = _bridge_angle_exp_pair(masks, labels, cfg, scale=ds)
         bridged = frontend.bridge_morphology(
             masks.reshape(2 * v, hs, ws).to(torch.float32),
             exps.reshape(2 * v, hs, ws).to(torch.float32),
@@ -524,7 +632,24 @@ def _label_min(vals, slot_of, ok, capacity: int) -> torch.Tensor:
     return torch.amin(torch.where(onehot, vals[:, None, :], float("inf")), dim=-1)
 
 
+def _fit_polys(xs, ys, wgt, cfg: DetectConfig):
+    """Masked polynomial fits of (V, L, P) samples -> (coeffs, domain, valid,
+    count) per label."""
+    coeffs = masked_polyfit(xs, ys, wgt, cfg.poly_degree)
+    domain = poly_domain(xs, wgt, cfg.domain_margin)
+    count = torch.sum(wgt, dim=-1)
+    return coeffs, domain, count >= cfg.poly_degree + 1, count
+
+
+def _fit_column_polys(cents, col_of, col_ok, cfg: DetectConfig):
+    """Per-label column fits x = g(y)."""
+    wgt = _label_onehot(col_of, col_ok, cfg.max_cols).to(cents.dtype)
+    return _fit_polys(cents[:, None, :, 1].expand_as(wgt), cents[:, None, :, 0].expand_as(wgt),
+                      wgt, cfg)
+
+
 def _fit_label_polys_pair(cents, row_of, row_ok, col_of, col_ok, cfg: DetectConfig):
+    """Row fits y = f(x) and column fits x = g(y) in one batched solve."""
     r, c = cfg.max_rows, cfg.max_cols
     x, y = cents[..., 0], cents[..., 1]
     w_r = _label_onehot(row_of, row_ok, r).to(x.dtype)
@@ -532,14 +657,52 @@ def _fit_label_polys_pair(cents, row_of, row_ok, col_of, col_ok, cfg: DetectConf
     wgt = torch.cat([w_r, w_c], dim=1)
     xs = torch.cat([x[:, None, :].expand_as(w_r), y[:, None, :].expand_as(w_c)], dim=1)
     ys = torch.cat([y[:, None, :].expand_as(w_r), x[:, None, :].expand_as(w_c)], dim=1)
-    coeffs = masked_polyfit(xs, ys, wgt, cfg.poly_degree)
-    domain = poly_domain(xs, wgt, cfg.domain_margin)
-    count = torch.sum(wgt, dim=-1)
-    valid = count >= cfg.poly_degree + 1
+    coeffs, domain, valid, count = _fit_polys(xs, ys, wgt, cfg)
     return (
         (coeffs[:, :r], domain[:, :r], valid[:, :r], count[:, :r]),
         (coeffs[:, r:], domain[:, r:], valid[:, r:], count[:, r:]),
     )
+
+
+def _label_mean(vals, slot_of, ok, capacity: int) -> torch.Tensor:
+    """Per-label masked mean of a per-centroid value -> (V, capacity)."""
+    onehot = _label_onehot(slot_of, ok, capacity)
+    cnt = torch.clamp(torch.sum(onehot, dim=-1), min=1)
+    return torch.sum(torch.where(onehot, vals[:, None, :], 0.0), dim=-1) / cnt
+
+
+def _merge_short_column_leaders(span: torch.Tensor, mean_x: torch.Tensor,
+                                valid: torch.Tensor) -> torch.Tensor:
+    """Group leaders of the plane path's short-column merge, (V, C) -> (V, C)
+    slot indices (identity for normal, unmerged and invalid slots).
+
+    A column whose span is at most 0.9x the longest is short.  Walking the
+    slots in mean-x order, runs of consecutive short columns merge while the
+    group's summed span stays within the longest; a normal column closes the
+    group.  The JAX package's ``lax.scan`` over the sorted slots is a loop
+    over the C slots here, vectorised over views."""
+    threshold = torch.amax(torch.where(valid, span, 0.0), dim=-1)
+    abnormal = valid & (span <= 0.9 * threshold[:, None])
+    order = torch.argsort(torch.where(valid, mean_x, float("inf")), dim=-1, stable=True)
+    cum = torch.zeros_like(threshold)
+    leader = torch.zeros_like(order[:, 0])
+    has_group = torch.zeros_like(valid[:, 0])
+    emits = []
+    for i in range(order.shape[-1]):
+        slot = order[:, i:i + 1]
+        s = span.gather(1, slot)[:, 0]
+        v = valid.gather(1, slot)[:, 0]
+        ab = abnormal.gather(1, slot)[:, 0]
+        slot = slot[:, 0]
+        fits = has_group & (cum + s <= threshold)
+        new_leader = torch.where(fits, leader, slot)
+        new_cum = torch.where(fits, cum + s, s)
+        emits.append(torch.where(v & ab, new_leader, slot))
+        # Invalid slots pass through without touching the open group.
+        cum = torch.where(v, torch.where(ab, new_cum, 0.0), cum)
+        leader = torch.where(v, torch.where(ab, new_leader, leader), leader)
+        has_group = torch.where(v, ab, has_group)
+    return torch.zeros_like(order).scatter(1, order, torch.stack(emits, 1))
 
 
 def _rank_by(key: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
@@ -614,6 +777,19 @@ def grid_stage(st: GridState, cfg: DetectConfig):
 
     r, c = cfg.max_rows, cfg.max_cols
     dev = st.cents.device
+    if cfg.merge_short_cols:
+        # Fragments of one physical column that failed to bridge: merge runs
+        # of short columns and refit the columns.
+        span = torch.where(
+            col_valid,
+            (col_dom[..., 1] - col_dom[..., 0]) - 2.0 * cfg.domain_margin + 2.0 * cfg.merge_margin,
+            0.0,
+        )
+        mean_x = _label_mean(st.cents[..., 0], col_of, col_ok, c)
+        leader = _merge_short_column_leaders(span, mean_x, col_valid)
+        col_of = leader.gather(1, col_of.to(torch.int64))
+        col_coeffs, col_dom, col_valid, col_count = _fit_column_polys(
+            st.cents, col_of, col_ok, cfg)
     if cfg.drop_first_row:
         row_min_y = _label_min(st.cents[..., 1], row_of, row_ok, r)
         first = torch.argmin(torch.where(row_count >= 1, row_min_y, float("inf")), dim=-1)
@@ -651,8 +827,12 @@ def grid_stage(st: GridState, cfg: DetectConfig):
     row_rank = _rank_by(mean_y, any_row)
     col_rank = _rank_by(mean_x, any_col)
 
-    half_b = torch.clamp(torch.floor(st.circle_radius0 / 5.0), min=float(cfg.patch_half_min))
-    half_b = torch.where(half_b > 10.0, half_b + 5.0, half_b)[:, None]
+    # Brightness patch half-size from the saturation radius.
+    if cfg.mode == "plane":
+        half_b = torch.clamp(torch.floor(st.circle_radius0 / 4.5), min=1.0)[:, None]
+    else:
+        half_b = torch.clamp(torch.floor(st.circle_radius0 / 5.0), min=float(cfg.patch_half_min))
+        half_b = torch.where(half_b > 10.0, half_b + 5.0, half_b)[:, None]
     h, w = st.bright_blur.shape[-2:]
     xf = xi.reshape(v, -1)
     yf = yi.reshape(v, -1)

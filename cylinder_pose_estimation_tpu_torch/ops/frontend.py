@@ -1,9 +1,11 @@
-"""The three front-end kernels of the detection path, each with its plain
+"""The four front-end kernels of the detection path, each with its plain
 PyTorch version (port of the JAX package's ops/pallas/frontend.py).
 
-* ``preprocess_binarize``  replaces ``preprocess_binarize`` / ``_preprocess_kernel``
-* ``connected_components`` replaces ``connected_components`` / ``_cc_kernel``
-* ``bridge_morphology``    replaces ``bridge_morphology`` / ``_bridge_kernel``
+* ``preprocess_binarize``      replaces ``preprocess_binarize`` / ``_preprocess_kernel``
+* ``connected_components``     replaces ``connected_components`` / ``_cc_kernel``
+* ``bridge_morphology``        replaces ``bridge_morphology`` / ``_bridge_kernel``
+* ``component_payload_minmax`` replaces ``component_payload_minmax`` /
+  ``_cc_payload_minmax_kernel`` (the ``bridge_endpoint_stats`` bridge only)
 
 Each wrapper takes (N, H, W) batches.  A CPU tensor runs the plain version
 (``*_plain``), which mirrors the Pallas algorithm step for step with
@@ -28,6 +30,7 @@ _LAUNCHES: Dict[str, int] = {
     "preprocess_binarize": 0,
     "connected_components": 0,
     "bridge_morphology": 0,
+    "component_payload_minmax": 0,
 }
 
 
@@ -238,6 +241,10 @@ def _seg_min_scan_roll(lab, maskf, dim, n):
     return out
 
 
+# The 8 neighbour offsets of the CC pools, in the Pallas kernels' order.
+_NEIGHBOURS = ((0, 1), (0, -1), (1, 0), (-1, 0), (1, 1), (1, -1), (-1, 1), (-1, -1))
+
+
 def _ring(h: int, w: int, device) -> torch.Tensor:
     rows = torch.arange(h, device=device)[:, None]
     cols = torch.arange(w, device=device)[None, :]
@@ -266,7 +273,7 @@ def connected_components_plain(
 
     def pool(lab):
         out = lab
-        for dy, dx in ((0, 1), (0, -1), (1, 0), (-1, 0), (1, 1), (1, -1), (-1, 1), (-1, -1)):
+        for dy, dx in _NEIGHBOURS:
             out = torch.minimum(out, _roll(_roll(lab, dy, 1), dx, 2))
         return torch.where(m, out, big)
 
@@ -306,6 +313,98 @@ def connected_components(
     )
     _LAUNCHES["connected_components"] += 1
     return out
+
+
+# --------------------------------------------------------------------------
+# 2.4 per-component payload min and max on the CC round schedule
+# --------------------------------------------------------------------------
+
+
+def _seg_max_scan_roll(v0, maskf, dim, n):
+    """``_seg_min_scan_roll``'s max mirror: every in-mask pixel gets the
+    maximum of its contiguous in-mask run (out-of-mask sources hold -1)."""
+    out = v0
+    for direction in (1, -1):
+        v = v0
+        clear = maskf
+        d = 1
+        while d < n:
+            vs = _roll(v, direction * d, dim)
+            cs = _roll(clear, direction * d, dim)
+            v = torch.where(clear > 0.5, torch.maximum(v, vs), v)
+            clear = clear * cs
+            d *= 2
+        out = torch.maximum(out, v)
+    return out
+
+
+def component_payload_minmax_plain(
+    mask: torch.Tensor,
+    payload: torch.Tensor,
+    rounds: int = 10,
+    pools_per_round: int = 4,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the payload min/max kernel on (N, H, W) masks and
+    int32 payloads -> (pmin, pmax) int32: each in-mask pixel's minimum and
+    maximum payload over its 8-connected component after exactly ``rounds``
+    rounds (unconverged when the rounds run out); background (H*W, -1).
+    Pools update both channels from the previous state (Jacobi), then run
+    scans along rows and then columns, as ``connected_components_plain``."""
+    _, h, w = mask.shape
+    maskf = mask.to(torch.float32) * _ring(h, w, mask.device)
+    m = maskf > 0.5
+    big = h * w
+    pay = payload.to(torch.int32)
+    lo = torch.where(m, pay, big).to(torch.int32)
+    hi = torch.where(m, pay, -1).to(torch.int32)
+
+    def pool(lo, hi):
+        mn, mx = lo, hi
+        for dy, dx in _NEIGHBOURS:
+            mn = torch.minimum(mn, _roll(_roll(lo, dy, 1), dx, 2))
+            mx = torch.maximum(mx, _roll(_roll(hi, dy, 1), dx, 2))
+        return torch.where(m, mn, big), torch.where(m, mx, -1)
+
+    for _ in range(rounds):
+        for _ in range(pools_per_round):
+            lo, hi = pool(lo, hi)
+        lo = torch.where(m, _seg_min_scan_roll(lo, maskf, 2, w), big)
+        lo = torch.where(m, _seg_min_scan_roll(lo, maskf, 1, h), big)
+        hi = torch.where(m, _seg_max_scan_roll(hi, maskf, 2, w), -1)
+        hi = torch.where(m, _seg_max_scan_roll(hi, maskf, 1, h), -1)
+    return lo.to(torch.int32), hi.to(torch.int32)
+
+
+def component_payload_minmax(
+    mask: torch.Tensor,
+    payload: torch.Tensor,
+    rounds: int = 10,
+    pools_per_round: int = 4,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-component payload min and max of (N, H, W) masks on the Pallas
+    kernel's exact round schedule (see ``component_payload_minmax_plain``).
+    The payload has the mask's shape; values must lie in [0, H*W)."""
+    if not _route(mask):
+        return component_payload_minmax_plain(mask, payload, rounds, pools_per_round)
+    mask = mask.to(torch.float32).contiguous()
+    payload = payload.to(torch.int32).contiguous()
+    _check("mask", mask, torch.float32, 3)
+    _check("payload", payload, torch.int32, 3)
+    if payload.shape != mask.shape:
+        raise ValueError("payload must have the mask's shape")
+    n, h, w = mask.shape
+    pmin = torch.empty(mask.shape, dtype=torch.int32, device=mask.device)
+    pmax = torch.empty_like(pmin)
+    tmin = torch.empty_like(pmin)
+    tmax = torch.empty_like(pmin)
+    kernels.launch(
+        "cpe_component_payload_minmax",
+        [mask, payload, pmin, pmax, tmin, tmax],
+        [n, h, w, rounds, pools_per_round],
+        [],
+    )
+    _LAUNCHES["component_payload_minmax"] += 1
+    return pmin, pmax
 
 
 # --------------------------------------------------------------------------
@@ -464,16 +563,19 @@ REPLACES = {
     "preprocess_binarize": "cylinder_pose_estimation_tpu/ops/pallas/frontend.py:286",
     "connected_components": "cylinder_pose_estimation_tpu/ops/pallas/frontend.py:761",
     "bridge_morphology": "cylinder_pose_estimation_tpu/ops/pallas/frontend.py:475",
+    "component_payload_minmax": "cylinder_pose_estimation_tpu/ops/pallas/frontend.py:711",
 }
 SOURCES = {
     "preprocess_binarize": "cylinder_pose_estimation_tpu_torch/csrc/preprocess.cu",
     "connected_components": "cylinder_pose_estimation_tpu_torch/csrc/connected_components.cu",
     "bridge_morphology": "cylinder_pose_estimation_tpu_torch/csrc/bridge.cu",
+    "component_payload_minmax": "cylinder_pose_estimation_tpu_torch/csrc/payload_minmax.cu",
 }
 
 __all__ = [
     "preprocess_binarize", "preprocess_binarize_plain",
     "connected_components", "connected_components_plain",
     "bridge_morphology", "bridge_morphology_plain", "bridge_schedule",
+    "component_payload_minmax", "component_payload_minmax_plain",
     "launch_counts", "reset_launch_counts", "REPLACES", "SOURCES",
 ]

@@ -45,6 +45,7 @@ SIGNATURES = {
     "cpe_preprocess_binarize": (12, 9, 3),
     "cpe_connected_components": (4, 5, 0),
     "cpe_bridge_morphology": (5, 5, 0),
+    "cpe_component_payload_minmax": (6, 5, 0),
 }
 
 _LIB: Optional[ctypes.CDLL] = None

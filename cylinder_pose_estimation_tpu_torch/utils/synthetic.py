@@ -1,6 +1,7 @@
 """Synthetic stereo laser-grid scenes, in numpy (the part of the JAX package's
 utils/synthetic.py, plus the bench scene family of ``__graft_entry__``, that
-the port needs to run without JAX).
+the port needs to run without JAX): cylinder and plane grids, and the laser
+image renderer.
 
 ``example_pair`` draws its noise from ``np.random.default_rng(seed)`` in the
 same order as ``__graft_entry__._example_pair``, and renders in float32 as the
@@ -123,6 +124,84 @@ def cylinder_grid_points(
     return CylinderScene(xy1, xy2, idx, pts3, params)
 
 
+class PlaneScene(NamedTuple):
+    xy1: np.ndarray     # (R*C, 2) view-1 projections, row-major (row, col)
+    xy2: np.ndarray
+    idx: np.ndarray     # (R*C, 2) int32 (row, col) grid indices
+    pts3: np.ndarray    # (R*C, 3)
+    plane: np.ndarray   # (4,) [n, d] with n . x + d = 0
+
+
+def plane_grid_points(
+    stereo: Stereo,
+    origin=(0.0, 0.0, 700.0),
+    normal=(0.05, -0.08, -1.0),
+    n_rows: int = 9,
+    n_cols: int = 11,
+    spacing: float = 18.0,
+) -> PlaneScene:
+    """Noise-free regular grid on a tilted plane, projected into both views
+    (``plane_grid_points`` of the JAX package without its noise option)."""
+    origin = np.asarray(origin, F32)
+    normal = np.asarray(normal, F32)
+    normal = normal / np.linalg.norm(normal)
+    # In-plane frame: u = normal x x_hat is ~vertical (rows), v ~horizontal.
+    u = np.cross(normal, np.array([1.0, 0.0, 0.0], F32))
+    u = u / np.linalg.norm(u)
+    v = np.cross(normal, u)
+    r0, c0 = n_rows // 2, n_cols // 2
+    rr = (np.arange(n_rows, dtype=F32) - F32(r0)) * F32(spacing)
+    cc = (np.arange(n_cols, dtype=F32) - F32(c0)) * F32(spacing)
+    rg, cg = np.meshgrid(rr, cc, indexing="ij")
+    pts3 = (origin + rg[..., None] * u + cg[..., None] * v).reshape(-1, 3).astype(F32)
+
+    def view(cam_t, k):
+        p = pts3 @ cam_t[:3, :3].T + cam_t[:3, 3]
+        hh = p @ k.T
+        return (hh[:, :2] / (hh[:, 2:3] + F32(1e-12))).astype(F32)
+
+    xy1 = view(np.eye(4, dtype=F32), stereo.cam1_k)
+    xy2 = view(stereo.t_c2_c1, stereo.cam2_k)
+    g1 = xy1.reshape(n_rows, n_cols, 2)
+    col_sign = 1 if np.mean(g1[:, -1, 0] - g1[:, 0, 0]) >= 0 else -1
+    row_sign = 1 if np.mean(g1[-1, :, 1] - g1[0, :, 1]) >= 0 else -1
+    ridx = (np.arange(n_rows) - r0) * row_sign
+    cidx = (np.arange(n_cols) - c0) * col_sign
+    r_grid, c_grid = np.meshgrid(ridx, cidx, indexing="ij")
+    idx = np.stack([r_grid, c_grid], -1).reshape(-1, 2).astype(np.int32)
+    plane = np.concatenate([normal, [-np.dot(normal, origin)]]).astype(F32)
+    return PlaneScene(xy1, xy2, idx, pts3, plane)
+
+
+def plane_view(
+    height: int,
+    width: int,
+    origin,
+    normal,
+    n_rows: int,
+    n_cols: int,
+    spacing: float,
+    seed: int,
+    saturate_center: bool = False,
+    gap_col: int | None = None,
+) -> np.ndarray:
+    """One rendered (H, W) float32 view of a plane grid seen by
+    ``default_stereo``'s camera 1, with N(0, 2) grey-level noise from
+    ``seed``.  ``gap_col`` damps a 12 px band of that column between grid
+    rows 1 and 2 to 5%, fragmenting it."""
+    stereo = default_stereo(cx=width / 2.0, cy=height / 2.0)
+    sc = plane_grid_points(stereo, origin, normal, n_rows, n_cols, spacing)
+    img = render_grid_image(sc.xy1, n_rows, n_cols, height, width,
+                            saturate_center=saturate_center).astype(F32)
+    img = img + np.random.default_rng(seed).normal(0, 2.0, (height, width)).astype(F32)
+    if gap_col is not None:
+        xa, ya = sc.xy1[n_cols + gap_col]
+        _, yb = sc.xy1[2 * n_cols + gap_col]
+        yc, xc = int(0.5 * (ya + yb)), int(xa)
+        img[yc - 6:yc + 6, xc - 4:xc + 5] *= F32(0.05)
+    return np.clip(img, 0, 255).astype(F32)
+
+
 def render_grid_image(
     xy: np.ndarray,
     n_rows: int,
@@ -134,9 +213,11 @@ def render_grid_image(
     center_flat: int | None = None,
     center_gain: float = 70.0,
     background: float = 18.0,
+    saturate_center: bool = False,
 ) -> np.ndarray:
     """(H, W) uint8 laser image: Gaussian tubes along the grid polylines and
-    a brighter centre blob (``render_grid_image`` of the JAX package).
+    a brighter centre blob (``render_grid_image`` of the JAX package);
+    ``saturate_center`` adds a saturated disk of radius 8 sigma there.
 
     Each segment's response is evaluated in a window 32 px around it: beyond
     that exp(-d^2 / 2 sigma^2) is 0 in float32, so the max over segments is
@@ -180,6 +261,8 @@ def render_grid_image(
     xx = np.arange(width, dtype=F32)[None, :]
     d2c = (xx - c[0]) ** 2 + (yy - c[1]) ** 2
     img = img + F32(center_gain) * np.exp(-d2c / F32(2.0 * (2.5 * line_sigma) ** 2))
+    if saturate_center:
+        img = np.where(d2c < F32((8.0 * line_sigma) ** 2), F32(255.0), img)
     return np.clip(img, 0.0, 255.0).astype(np.uint8)
 
 

@@ -1,8 +1,9 @@
 """PyTorch port: configs and converters equal the JAX package's.
 
-The port mirrors the JAX dataclasses field for field, copies a JAX config
-with ``from_reference``, and refuses every branch it does not carry with an
-error that names the ROADMAP item.
+The port mirrors the JAX dataclasses field for field (cylinder and plane
+detection, fit), copies a JAX config with ``from_reference``, accepts the
+branches it carries and refuses every branch it does not carry with an error
+that names the ROADMAP item.
 """
 
 import dataclasses
@@ -26,7 +27,7 @@ def _fields(cls):
 
 
 @pytest.mark.parametrize(
-    "name", ["DetectConfig", "CylinderDetectConfig", "FitConfig"]
+    "name", ["DetectConfig", "CylinderDetectConfig", "PlaneDetectConfig", "FitConfig"]
 )
 def test_fields_and_defaults_equal_reference(name):
     assert _fields(getattr(tcfg, name)) == _fields(getattr(jcfg, name))
@@ -36,12 +37,14 @@ def test_mode_and_image_shape():
     cfg = tcfg.CylinderDetectConfig(height=240, width=320)
     assert cfg.mode == "cylinder"
     assert cfg.image_shape == (240, 320)
+    assert tcfg.PlaneDetectConfig().mode == "plane"
 
 
 @pytest.mark.parametrize(
     "ref",
     [
         jcfg.CylinderDetectConfig(height=240, width=320, use_pallas=True, min_ok_points=7),
+        jcfg.PlaneDetectConfig(height=240, width=320, roi_threshold=30.0, merge_margin=7.0),
         jcfg.FitConfig(lm_iters=11, cyl_radius=70.0),
     ],
 )
@@ -52,19 +55,38 @@ def test_from_reference_copies_every_field(ref):
 
 
 def test_from_reference_refuses_plane_mode():
-    with pytest.raises(NotImplementedError, match="ROADMAP 1.9"):
-        tcfg.from_reference(jcfg.PlaneDetectConfig())
+    """Plane mode is ported: ``from_reference`` copies every field of the
+    JAX ``PlaneDetectConfig`` (defaults included) and keeps its mode."""
+    port = tcfg.from_reference(jcfg.PlaneDetectConfig())
+    assert isinstance(port, tcfg.PlaneDetectConfig) and port.mode == "plane"
+    assert dataclasses.asdict(port) == dataclasses.asdict(jcfg.PlaneDetectConfig())
+
+
+@pytest.mark.parametrize(
+    "cfg",
+    [
+        tcfg.CylinderDetectConfig(use_pallas=True, bridge_endpoint_stats=True),
+        tcfg.PlaneDetectConfig(use_pallas=True, roi_threshold=30.0),
+        tcfg.PlaneDetectConfig(bridge_endpoint_stats=True),
+        tcfg.CylinderDetectConfig(merge_short_cols=True),
+    ],
+    ids=["endpoint_stats", "plane", "plane_endpoint_stats", "cylinder_merge_short_cols"],
+)
+def test_validate_accepts_ported_branches(cfg):
+    tcfg.validate(cfg)
 
 
 @pytest.mark.parametrize(
     "override, item",
     [
-        ({"bridge_endpoint_stats": True}, "2.4"),
+        # The ported endpoint bridge and column merge do not hide the
+        # refusal of an unported branch set beside them.
+        ({"bridge_endpoint_stats": True, "bridge_half_res": False}, "1.13"),
         ({"pallas_cc_cross_cap": 16}, "1.17"),
         ({"smooth_mxu": False}, "1.17"),
         ({"bright_at_points": False}, "1.17"),
         ({"subpixel_refine": True}, "1.14"),
-        ({"merge_short_cols": True}, "1.9"),
+        ({"merge_short_cols": True, "subpixel_refine": True}, "1.14"),
         ({"stage_probe": "bridge_state"}, "1.17"),
         ({"label_downsample": 1}, "1.13"),
         ({"bridge_half_res": False}, "1.13"),
@@ -74,6 +96,20 @@ def test_unported_branches_raise(override, item):
     cfg = tcfg.CylinderDetectConfig(**override)
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         tcfg.validate(cfg)
+
+
+@pytest.mark.parametrize(
+    "override, item",
+    [({"subpixel_refine": True}, "1.14"), ({"label_downsample": 1}, "1.13")],
+)
+def test_unported_branches_raise_in_plane_mode(override, item):
+    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+        tcfg.validate(tcfg.PlaneDetectConfig(**override))
+
+
+def test_from_reference_refuses_unknown_configs():
+    with pytest.raises(NotImplementedError, match="no counterpart"):
+        tcfg.from_reference(jcfg.DetectConfig())
 
 
 def test_default_config_validates():

@@ -85,6 +85,20 @@ def test_bridge_kernel_equals_plain(dev, kernel_len):
            tf.bridge_morphology_plain(m, ex, ang, kl, 5, 125))
 
 
+@pytest.mark.parametrize("rounds, pools", [(2, 4), (1, 2), (3, 1)])
+@pytest.mark.parametrize("shape", [(4, 128, 256), (4, 240, 384)])
+def test_payload_minmax_kernel_equals_plain(dev, rounds, pools, shape):
+    n, h, w = shape
+    g = torch.Generator().manual_seed(rounds * 10 + pools + h)
+    m = (torch.rand(shape, generator=g) < 0.45).to(torch.float32).to(dev)
+    pay = torch.stack([torch.randperm(h * w, generator=g) for _ in range(n)])
+    pay = pay.reshape(shape).to(torch.int32).to(dev)
+    before = tf.launch_counts()["component_payload_minmax"]
+    _equal(tf.component_payload_minmax(m, pay, rounds, pools),
+           tf.component_payload_minmax_plain(m, pay, rounds, pools))
+    assert tf.launch_counts()["component_payload_minmax"] == before + 1
+
+
 def test_wrappers_check_inputs(dev):
     x = torch.zeros((2, 64, 128), device=dev)
     with pytest.raises(ValueError):
@@ -96,6 +110,8 @@ def test_wrappers_check_inputs(dev):
     big = torch.zeros((1, 480, 640), device=dev)
     with pytest.raises(ValueError):
         tf.bridge_morphology(big, big, torch.zeros(1, device=dev), torch.tensor(10.0), 5, 125)
+    with pytest.raises(ValueError):
+        tf.component_payload_minmax(x, torch.zeros((2, 64, 64), dtype=torch.int32, device=dev), 2, 4)
 
 
 def test_pipeline_on_card_matches_cpu(dev):
@@ -113,3 +129,27 @@ def test_pipeline_on_card_matches_cpu(dev):
         np.testing.assert_array_equal(a.grid.valid.numpy(), b.grid.valid.cpu().numpy())
         np.testing.assert_array_equal(a.grid.idx.numpy(), b.grid.idx.cpu().numpy())
         np.testing.assert_allclose(a.grid.xy.numpy(), b.grid.xy.cpu().numpy(), atol=1e-3)
+
+
+@pytest.mark.parametrize("mode", ["endpoint", "plane"])
+def test_detect_on_card_matches_cpu(dev, mode):
+    """The endpoint-stats and plane detectors on the card give the CPU's
+    grids (kernels vs plain versions through the whole detector)."""
+    from cylinder_pose_estimation_tpu_torch.config import CylinderDetectConfig, PlaneDetectConfig
+    from cylinder_pose_estimation_tpu_torch.models.detector import detect_grid
+    from cylinder_pose_estimation_tpu_torch.utils.synthetic import example_pair, plane_view
+
+    if mode == "endpoint":
+        _, (imgs, _) = example_pair(480, 640, n_frames=2)
+        cfg = CylinderDetectConfig(use_pallas=True, bridge_endpoint_stats=True)
+    else:
+        imgs = np.stack([plane_view(480, 640, (0.0, 0.0, 700.0), (0.05, -0.08, -1.0), 9, 11, 30.0, 1),
+                         plane_view(480, 640, (5.0, 0.0, 700.0), (0.05, -0.08, -1.0), 9, 9, 30.0, 2,
+                                    gap_col=2)])
+        cfg = PlaneDetectConfig(use_pallas=True, roi_threshold=30.0)
+    cpu = detect_grid(torch.as_tensor(imgs), cfg)
+    gpu = detect_grid(torch.as_tensor(imgs, device=dev), cfg)
+    np.testing.assert_array_equal(cpu.grid.valid.numpy(), gpu.grid.valid.cpu().numpy())
+    np.testing.assert_array_equal(cpu.grid.idx.numpy(), gpu.grid.idx.cpu().numpy())
+    np.testing.assert_allclose(cpu.grid.xy.numpy(), gpu.grid.xy.cpu().numpy(), atol=1e-3)
+    assert cpu.bridged_components.tolist() == gpu.bridged_components.cpu().tolist()

@@ -2,7 +2,9 @@
 
 The GPU machine has no JAX, so neither the port nor ``chip_smoke.py`` may
 import it.  A subprocess blocks ``import jax``, renders a 2-frame scene with
-the port's own scene source and runs ``estimate_poses_batch`` on the CPU.
+the port's own scene source and runs ``estimate_poses_batch`` on the CPU,
+then the endpoint-stats detector on it, plane-mode ``detect_grid`` on a
+rendered plane view and ``fit_plane``.
 """
 
 import ast
@@ -23,10 +25,13 @@ sys.path.insert(0, sys.argv[1])
 import numpy as np
 import torch
 torch.set_num_threads(1)  # one thread: test workers share the cores
-from cylinder_pose_estimation_tpu_torch.config import CylinderDetectConfig, FitConfig
+from cylinder_pose_estimation_tpu_torch.config import (
+    CylinderDetectConfig, FitConfig, PlaneDetectConfig)
+from cylinder_pose_estimation_tpu_torch.geometry.plane import fit_plane
+from cylinder_pose_estimation_tpu_torch.models.detector import detect_grid
 from cylinder_pose_estimation_tpu_torch.models.pipeline import estimate_poses_batch
 from cylinder_pose_estimation_tpu_torch.types import stereo_from_numpy
-from cylinder_pose_estimation_tpu_torch.utils.synthetic import example_pair
+from cylinder_pose_estimation_tpu_torch.utils.synthetic import example_pair, plane_view
 
 stereo_np, (i1, i2) = example_pair(480, 640, n_frames=2)
 stereo = stereo_from_numpy(*stereo_np)
@@ -36,6 +41,13 @@ assert res.fit.params.shape == (2, 6)
 assert bool(torch.isfinite(res.fit.params).all())
 assert bool(res.detect1.ok.all()) and bool(res.detect2.ok.all())
 assert int(res.detect1.grid.valid.sum()) == 80
+ep = detect_grid(torch.as_tensor(i1), CylinderDetectConfig(use_pallas=True, bridge_endpoint_stats=True))
+assert bool(ep.ok.all())
+pv = plane_view(480, 640, (0.0, 0.0, 700.0), (0.05, -0.08, -1.0), 9, 11, 30.0, 10)
+pl = detect_grid(torch.as_tensor(pv)[None], PlaneDetectConfig(use_pallas=True, roi_threshold=30.0))
+assert int(pl.grid.valid.sum()) == 99
+pts = torch.randn(1, 20, 3) * torch.tensor([50.0, 50.0, 0.0])
+assert abs(float(fit_plane(pts, torch.ones(1, 20, dtype=torch.bool))[0, 2])) > 0.999
 assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules if sys.modules[m] is not None)
 print("NOJAX_OK", float(res.fit.mean_reproj_error.max()))
 """
