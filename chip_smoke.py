@@ -32,6 +32,33 @@ phase fails.  Phases:
 7. End to end: ms/frame of B=16 frames and the detect-only split, for the
    main and the endpoint path; their bridge and grid stage ms; plane detect
    ms/view.
+8. Registration: ``fit_cylinders_with_angles`` on the points of
+   ``tests/fixtures/torch_registration.json`` (100 frames, one poisoned
+   frame masked) against the JAX result recorded there; then the experiment
+   path, ``full_experiment`` on 100 frames of ``registration_sequence``
+   (480x640), counters reset just before and read just after, whose
+   registration is recomputed on the CPU from the card's own points and
+   must agree.  Both comparisons: predicted cylinder axes within 0.05 deg
+   and 0.1 mm perpendicular offset, fval and the minimum JtJ eigenvalue
+   within rel 1e-2, ``well_posed`` equal (the sequence's default swing is
+   well posed).  Prints
+   the healthy-frame count, fval0/fval, the minimum eigenvalue and the
+   errors against the ground-truth T_Cam_AGV, and the ms of detect+fit and
+   of the registration.
+9. Preprocessing path: ``full_experiment(preprocess=True)`` on 16 distorted
+   frames, counters reset just before and read just after;
+   ``preprocess_stereo_batch`` on the card against the CPU port (max |d| <=
+   1e-2 grey levels, pixels over 1e-3 counted), and detection of 2 of the
+   preprocessed frames card vs CPU (ids identical, xy within 0.05 px);
+   preprocessing ms/frame.
+10. Stream path: ``estimate_poses_stream(chunk=64, compact=True,
+   overlap=True)`` over 2,000 uint8 frames (16 scenes tiled with brightness
+   offsets), counters reset just before and read just after; every chunk's
+   summary must equal ``_summarize_batch(estimate_poses_batch(...))`` of
+   the same 64 frames on the card, the padded tail included.  Prints
+   frames/s, the ok count, the median reprojection and the peak device
+   memory; then frames/s of the same stream with ``overlap=False``, whose
+   output must equal the overlapped one.
 
 The second-to-last line is the kernel report as JSON, the last line
 ``{"ok": true, "device": {...}}``.
@@ -52,6 +79,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(HERE, "tests", "fixtures", "golden_scenes.json")
 ENDPOINT = os.path.join(HERE, "tests", "fixtures", "torch_endpoint_scenes.json")
 PLANE = os.path.join(HERE, "tests", "fixtures", "torch_plane_scenes.json")
+REGISTRATION = os.path.join(HERE, "tests", "fixtures", "torch_registration.json")
 KERNELS = ("preprocess_binarize", "connected_components", "bridge_morphology",
            "component_payload_minmax")
 # Kernels each path must launch (counts per batch call where exact).
@@ -61,6 +89,12 @@ PATH_KERNELS = {
                  "component_payload_minmax": None},
     "plane": {"preprocess_binarize": None, "connected_components": None, "bridge_morphology": None},
 }
+for _path in ("experiment", "preprocess", "stream"):
+    PATH_KERNELS[_path] = dict(PATH_KERNELS["main"])
+# Sizes of the experiment, preprocessing and stream paths.
+EXPERIMENT_FRAMES = 100
+PREPROCESS_BATCH = 16
+STREAM_FRAMES, STREAM_CHUNK, STREAM_POOL = 2000, 64, 16
 
 
 def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -375,6 +409,257 @@ def kernel_phase(frontend, calls, device, seed: int = 0) -> dict:
     return report
 
 
+def load_registration_fixture(device):
+    """The registration fixture's inputs as tensors on ``device``:
+    (fixture dict, pts3s (F, C, 3), valid (F, C), angles (F, 2),
+    frame_valid (F,))."""
+    import numpy as np
+    import torch
+
+    with open(REGISTRATION) as f:
+        fx = json.load(f)
+    n, cap = len(fx["n_valid"]), fx["capacity"]
+    pts = np.zeros((n, cap, 3), np.float32)
+    valid = np.zeros((n, cap), bool)
+    for i, (k, flat) in enumerate(zip(fx["n_valid"], fx["pts"])):
+        pts[i, :k] = np.asarray(flat, np.float32).reshape(k, 3)
+        valid[i, :k] = True
+    angles = np.asarray(fx["angles"], np.float32)
+    frame_valid = np.asarray(fx["frame_valid"], bool)
+    return fx, *(torch.as_tensor(x, device=device) for x in (pts, valid, angles, frame_valid))
+
+
+def registration_check(got, want: dict, angles, label: str) -> dict:
+    """A RegistrationResult against a reference (a dict of floats and the
+    4x4 t_cam_agv): predicted axes within 0.05 deg and 0.1 mm perpendicular
+    offset, fval (atol 1e-6) and jtj_min_eig within rel 1e-2, well_posed
+    equal."""
+    import numpy as np
+
+    from cylinder_pose_estimation_tpu_torch.geometry.registration import axis_errors
+
+    t = got.t_cam_agv.detach().cpu().numpy()
+    if not np.all(np.isfinite(t)):
+        raise AssertionError(f"{label}: non-finite T_Cam_AGV")
+    ang, perp = axis_errors(want["t_cam_agv"], t, angles)
+    out = {"axis_deg": float(ang.max()), "perp_mm": float(perp.max())}
+    for name in ("fval0", "fval", "jtj_min_eig"):
+        out[name] = float(getattr(got, name))
+        out[f"{name}_rel"] = abs(out[name] - want[name]) / max(abs(want[name]), 1e-12)
+    out["well_posed"] = bool(got.well_posed)
+    if out["axis_deg"] >= 0.05 or out["perp_mm"] >= 0.1:
+        raise AssertionError(f"{label}: axes {out['axis_deg']} deg, perpendicular {out['perp_mm']} mm")
+    if abs(out["fval"] - want["fval"]) > 1e-6 + 1e-2 * abs(want["fval"]):
+        raise AssertionError(f"{label}: fval {out['fval']} vs {want['fval']}")
+    if out["jtj_min_eig_rel"] > 1e-2:
+        raise AssertionError(f"{label}: jtj_min_eig {out['jtj_min_eig']} vs {want['jtj_min_eig']}")
+    if out["well_posed"] != want["well_posed"]:
+        raise AssertionError(f"{label}: well_posed {out['well_posed']} vs {want['well_posed']}")
+    return out
+
+
+def reg_dict(res) -> dict:
+    return {"t_cam_agv": res.t_cam_agv.detach().cpu().numpy(), "fval0": float(res.fval0),
+            "fval": float(res.fval), "jtj_min_eig": float(res.jtj_min_eig),
+            "well_posed": bool(res.well_posed)}
+
+
+def sync_sites(fn) -> dict:
+    """Run fn() once under ``torch.cuda.set_sync_debug_mode("warn")`` and
+    count the host synchronisations by the source line that caused them."""
+    import warnings
+
+    import torch
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    sites = {}
+    for w in caught:
+        if "synchroniz" in str(w.message):
+            key = f"{os.path.relpath(w.filename, HERE)}:{w.lineno}"
+            sites[key] = sites.get(key, 0) + 1
+    return sites
+
+
+def registration_phase(device, stereo_fn, cfg, fit_cfg, frontend, smi) -> dict:
+    """Phase 8: the registration fixture on the card, then the experiment
+    path with its CPU recomputation."""
+    import numpy as np
+    import torch
+
+    from cylinder_pose_estimation_tpu_torch.geometry.registration import (
+        axis_errors,
+        fit_cylinders_with_angles,
+    )
+    from cylinder_pose_estimation_tpu_torch.models import pipeline
+    from cylinder_pose_estimation_tpu_torch.utils.synthetic import registration_sequence
+
+    fx, pts, valid, angles, frame_valid = load_registration_fixture(device)
+    res = fit_cylinders_with_angles(pts, valid, angles, frame_valid=frame_valid)
+    sites = sync_sites(lambda: fit_cylinders_with_angles(pts, valid, angles, frame_valid=frame_valid))
+    print(f"registration host syncs per call: {sum(sites.values())} at {sites}", flush=True)
+    chk = registration_check(res, fx["result"], fx["angles"], "registration fixture")
+    ms_fix = cuda_ms(lambda: fit_cylinders_with_angles(pts, valid, angles, frame_valid=frame_valid),
+                     reps=3, warmup=1)
+    print(f"registration fixture ({pts.shape[0]} frames x {pts.shape[1]}), card vs JAX: axes "
+          f"{chk['axis_deg']:.3e} deg, perp {chk['perp_mm']:.3e} mm, fval {chk['fval']:.6g} "
+          f"(rel {chk['fval_rel']:.2e}), fval0 rel {chk['fval0_rel']:.2e}, min_eig "
+          f"{chk['jtj_min_eig']:.6g} (rel {chk['jtj_min_eig_rel']:.2e}), well_posed "
+          f"{chk['well_posed']}; {ms_fix:.2f} ms", flush=True)
+
+    n_frames = EXPERIMENT_FRAMES
+    st_np, ang_np, (i1, i2), t_gt = registration_sequence(n_frames, 480, 640)
+    stereo = stereo_fn(st_np)
+    a = torch.as_tensor(i1, device=device)
+    b = torch.as_tensor(i2, device=device)
+    ang = torch.as_tensor(ang_np, device=device)
+    (batch, reg), launches = run_path(
+        "experiment", frontend, lambda: pipeline.full_experiment(a, b, ang, stereo, cfg, fit_cfg))
+    if not all(bool(torch.isfinite(x).all()) for x in (reg.t_cam_agv, reg.fval, reg.fval0)):
+        raise AssertionError("experiment: non-finite registration")
+    healthy = int(pipeline.frame_health(batch).sum())
+    gt_ang, gt_perp = axis_errors(t_gt, reg.t_cam_agv.cpu().numpy(), ang_np)
+    print(f"experiment F={n_frames} 480x640: healthy {healthy}/{n_frames}, ok "
+          f"{int((batch.detect1.ok & batch.detect2.ok).sum())}, points3 {tuple(batch.fit.points3.shape)}, "
+          f"fval0 {float(reg.fval0):.6g}, fval {float(reg.fval):.6g}, min_eig "
+          f"{float(reg.jtj_min_eig):.6g}, well_posed {bool(reg.well_posed)}; vs ground truth: axes "
+          f"{gt_ang.max():.4f} deg, perp {gt_perp.max():.4f} mm", flush=True)
+    t0 = time.perf_counter()
+    host = pipeline.register_sequence(pipeline._tree_map(lambda x: x.cpu(), batch), ang.cpu())
+    t_cpu = time.perf_counter() - t0
+    card = reg_dict(reg)
+    print(f"experiment registration recomputed on the CPU ({t_cpu:.1f} s): fval {float(host.fval):.6g}, "
+          f"min_eig {float(host.jtj_min_eig):.6g}, well_posed {bool(host.well_posed)} (card: "
+          f"{card['jtj_min_eig']:.6g}, {card['well_posed']})", flush=True)
+    chk = registration_check(host, card, ang_np, "experiment registration, CPU vs card")
+    print(f"experiment registration, CPU vs card: axes {chk['axis_deg']:.3e} deg, perp "
+          f"{chk['perp_mm']:.3e} mm, fval rel {chk['fval_rel']:.2e}, min_eig rel "
+          f"{chk['jtj_min_eig_rel']:.2e}", flush=True)
+
+    # Timing: detect+fit and the registration, CUDA events.
+    rep = itertools.count(1)
+
+    def detect_fit():
+        eps = 1e-4 * next(rep)
+        return pipeline.estimate_poses_batch(a + eps, b + eps, stereo, cfg, fit_cfg)
+
+    ms_df = cuda_ms(detect_fit, reps=3, warmup=1)
+    ms_reg = cuda_ms(lambda: pipeline.register_sequence(batch, ang), reps=3, warmup=1)
+    print(f"experiment F={n_frames}: detect+fit {ms_df:.2f} ms, registration {ms_reg:.2f} ms, "
+          f"total {ms_df + ms_reg:.2f} ms; {smi}", flush=True)
+    return launches
+
+
+def preprocess_phase(device, stereo_fn, cfg, fit_cfg, frontend, smi) -> dict:
+    """Phase 9: the preprocessing path at B=16 and its card-vs-CPU checks."""
+    import torch
+
+    from cylinder_pose_estimation_tpu_torch.models import pipeline
+    from cylinder_pose_estimation_tpu_torch.utils.synthetic import (
+        distorted_example_pair,
+        registration_angles,
+    )
+
+    n = PREPROCESS_BATCH
+    st_np, (i1, i2) = distorted_example_pair(480, 640, n_frames=n)
+    stereo = stereo_fn(st_np)
+    a = torch.as_tensor(i1, device=device)
+    b = torch.as_tensor(i2, device=device)
+    ang = torch.as_tensor(registration_angles(n), device=device)
+    (batch, reg), launches = run_path(
+        "preprocess", frontend,
+        lambda: pipeline.full_experiment(a, b, ang, stereo, cfg, fit_cfg, preprocess=True))
+    if not bool(torch.isfinite(reg.t_cam_agv).all()):
+        raise AssertionError("preprocess path: non-finite registration")
+    ok = int((batch.detect1.ok & batch.detect2.ok).sum())
+    host_stereo = pipeline._stereo_to(stereo, torch.device("cpu"))
+    card = pipeline.preprocess_stereo_batch(a, b, stereo)
+    host = pipeline.preprocess_stereo_batch(a.cpu(), b.cpu(), host_stereo)
+    d_max, n_over = 0.0, 0
+    for c, h in zip(card, host):
+        d = (c.cpu() - h).abs()
+        d_max = max(d_max, float(d.max()))
+        n_over += int((d > 1e-3).sum())
+    print(f"preprocess B={n} 480x640, card vs CPU: max |d| {d_max:.3e} grey levels, {n_over} pixels "
+          f"over 1e-3; ok frames {ok}/{n}", flush=True)
+    if d_max > 1e-2:
+        raise AssertionError(f"preprocess card vs CPU: {d_max} grey levels")
+    det_card = pipeline.estimate_poses_batch(card[0][:2], card[1][:2], stereo, cfg, fit_cfg)
+    det_host = pipeline.estimate_poses_batch(host[0][:2], host[1][:2], host_stereo, cfg, fit_cfg)
+    max_d = 0.0
+    for dc, dh in ((det_card.detect1, det_host.detect1), (det_card.detect2, det_host.detect2)):
+        for i in range(2):
+            recs = [{"id": [int(dh.grid.idx[i, k, 0]), int(dh.grid.idx[i, k, 1])],
+                     "x": float(dh.grid.xy[i, k, 0]), "y": float(dh.grid.xy[i, k, 1])}
+                    for k in range(dh.grid.valid.shape[1]) if bool(dh.grid.valid[i, k])]
+            _, d = points_check(dc.grid, i, recs, f"preprocessed frame {i}")
+            max_d = max(max_d, d)
+    print(f"preprocessed detect, 2 frames card vs CPU: ids identical, max |dxy| {max_d:.6f} px",
+          flush=True)
+    ms = cuda_ms(lambda: pipeline.preprocess_stereo_batch(a, b, stereo), reps=10, warmup=2)
+    print(f"preprocess_stereo_batch B={n} 480x640: {ms / n:.4f} ms/frame; {smi}", flush=True)
+    return launches
+
+
+def stream_phase(device, stereo, cfg, fit_cfg, frontend, smi) -> dict:
+    """Phase 10: the stream path over 2,000 frames and its chunk-by-chunk
+    equality with the batch call."""
+    import numpy as np
+    import torch
+
+    from cylinder_pose_estimation_tpu_torch.config import RegistrationConfig
+    from cylinder_pose_estimation_tpu_torch.models import pipeline
+    from cylinder_pose_estimation_tpu_torch.utils.synthetic import TiledFrames, example_pair
+
+    n, chunk, pool = STREAM_FRAMES, STREAM_CHUNK, STREAM_POOL
+    _, (p1, p2) = example_pair(480, 640, n_frames=pool, pans=[i % 13 for i in range(pool)])
+    f1 = TiledFrames(np.clip(p1, 0, 255).astype(np.uint8), n)
+    f2 = TiledFrames(np.clip(p2, 0, 255).astype(np.uint8), n)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    out, launches = run_path("stream", frontend, lambda: pipeline.estimate_poses_stream(
+        f1, f2, stereo, cfg, fit_cfg, chunk=chunk, compact=True, overlap=True, device=device))
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(device)
+    # The same stream without the overlap: one chunk at a time.
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    serial = pipeline.estimate_poses_stream(f1, f2, stereo, cfg, fit_cfg, chunk=chunk, compact=True,
+                                            overlap=False, device=device)
+    wall_serial = time.perf_counter() - t0
+    got = pipeline._tree_leaves(out)
+    for s in range(0, n, chunk):
+        live = min(chunk, n - s)
+        idx = np.minimum(np.arange(s, s + chunk), n - 1)
+        a = torch.as_tensor(np.stack([f1[i:i + 1][0] for i in idx]), device=device)
+        b = torch.as_tensor(np.stack([f2[i:i + 1][0] for i in idx]), device=device)
+        want = pipeline._tree_leaves(pipeline._summarize_batch(
+            pipeline.estimate_poses_batch(a, b, stereo, cfg, fit_cfg), RegistrationConfig()))
+        for leaf, (g, w) in enumerate(zip(got, want)):
+            w = w[:live].cpu().numpy()
+            if not np.array_equal(g[s:s + live], w, equal_nan=np.issubdtype(w.dtype, np.floating)):
+                raise AssertionError(f"stream chunk at {s}: leaf {leaf} differs from the batch call")
+    for leaf, (g, w) in enumerate(zip(got, pipeline._tree_leaves(serial))):
+        if not np.array_equal(g, w, equal_nan=np.issubdtype(w.dtype, np.floating)):
+            raise AssertionError(f"stream: leaf {leaf} differs between overlap and serial")
+    ok = int(out.ok.sum())
+    reproj = float(np.median(out.mean_reproj_error[out.ok]))
+    print(f"stream N={n} chunk={chunk} compact overlap: {n / wall:.2f} frames/s ({wall:.2f} s wall), "
+          f"ok {ok}/{n}, healthy {int(out.healthy.sum())}, median reprojection {reproj:.4f} px, peak "
+          f"device memory {peak / 2**20:.1f} MiB; every chunk equal to the batch call "
+          f"({(n + chunk - 1) // chunk} chunks, tail {n % chunk or chunk} live); {smi}", flush=True)
+    print(f"stream N={n} chunk={chunk} compact serial (overlap=False): {n / wall_serial:.2f} frames/s "
+          f"({wall_serial:.2f} s wall), equal to the overlapped run", flush=True)
+    return launches
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -465,6 +750,14 @@ def main() -> int:
     chk = plane_check(det, plane_views)
     print(f"plane views: points {chk['points']}, max|dxy| {chk['max_dxy']:.6f} px", flush=True)
 
+    # --- the experiment, preprocessing and stream paths ---------------------
+    def stereo_fn(st):
+        return stereo_from_numpy(*st, device=device)
+
+    exp_launches = registration_phase(device, stereo_fn, cfg, fit_cfg, frontend, smi)
+    pre_launches = preprocess_phase(device, stereo_fn, cfg, fit_cfg, frontend, smi)
+    stream_launches = stream_phase(device, stereo, cfg, fit_cfg, frontend, smi)
+
     # --- numerics: the bridge on the card vs on the CPU --------------------
     for label, views, c in (("main", torch.cat([a, b]), cfg), ("endpoint", torch.cat([a, b]), cfg_ep),
                             ("plane", pviews, cfg_plane)):
@@ -519,9 +812,10 @@ def main() -> int:
     print(f"plane detect V={n_views} {height}x{width}: {ms_plane / n_views:.4f} ms/view; {smi}",
           flush=True)
 
-    # Launches per kernel: summed over the three path runs (each counted
+    # Launches per kernel: summed over the six path runs (each counted
     # from zero), with the split by path beside it.
-    by_path = {"main": main_launches, "endpoint": ep_launches, "plane": plane_launches}
+    by_path = {"main": main_launches, "endpoint": ep_launches, "plane": plane_launches,
+               "experiment": exp_launches, "preprocess": pre_launches, "stream": stream_launches}
     rows = []
     for k in KERNELS:
         r = report[k]

@@ -1,4 +1,5 @@
-"""Configuration of the PyTorch port: the detection and fit dataclasses.
+"""Configuration of the PyTorch port: the detection, fit, kinematics and
+registration dataclasses.
 
 Field names and defaults equal those of ``cylinder_pose_estimation_tpu.config``
 (the JAX package), so one configuration describes the same problem in both
@@ -155,20 +156,54 @@ class FitConfig:
     dtype: str = "float32"
 
 
+@dataclasses.dataclass(frozen=True)
+class KinematicsConfig:
+    """Pan/tilt AGV->cylinder forward kinematics (ref utils/getTAGVcyl.m:8-38)."""
+
+    l1: float = 321.1   # cylinder origin -> tilt joint
+    l2: float = 143.1   # AGV origin -> tilt joint at tilt 0
+    h: float = 110.0    # tilt joint -> cylinder origin height
+
+
+@dataclasses.dataclass(frozen=True)
+class RegistrationConfig:
+    """Multi-frame camera<->AGV registration (ref utils/fitCylinderWPts3sAngs.m);
+    see the JAX package's ``config.RegistrationConfig`` for the provenance
+    of the frame-health and observability gates."""
+
+    cyl_radius: float = 45.0
+    lm_iters: int = 80
+    lm_lambda0: float = 1e-3
+    kinematics: KinematicsConfig = dataclasses.field(default_factory=KinematicsConfig)
+    min_frame_points: int = 8
+    max_frame_reproj_px: float = 2.0
+    min_observability: float = 1.5e-3
+
+
+_COUNTERPARTS = {
+    cls.__name__: cls
+    for cls in (CylinderDetectConfig, PlaneDetectConfig, FitConfig, KinematicsConfig,
+                RegistrationConfig)
+}
+
+
 def from_reference(obj):
     """Port config equal to a JAX package config object, copied field by
     field by attribute name: a JAX ``CylinderDetectConfig``,
-    ``PlaneDetectConfig`` or ``FitConfig`` becomes the class of the same name
-    here."""
+    ``PlaneDetectConfig``, ``FitConfig``, ``KinematicsConfig`` or
+    ``RegistrationConfig`` becomes the class of the same name here, and a
+    nested config field (``RegistrationConfig.kinematics``) is converted the
+    same way."""
     name = type(obj).__name__
-    target = {
-        "CylinderDetectConfig": CylinderDetectConfig,
-        "PlaneDetectConfig": PlaneDetectConfig,
-        "FitConfig": FitConfig,
-    }.get(name)
+    target = _COUNTERPARTS.get(name)
     if target is None:
         raise NotImplementedError(f"{name} has no counterpart in the port")
-    kwargs = {f.name: getattr(obj, f.name) for f in dataclasses.fields(target)}
+    kwargs = {}
+    for f in dataclasses.fields(target):
+        value = getattr(obj, f.name)
+        if dataclasses.is_dataclass(value):
+            value = from_reference(value)
+        kwargs[f.name] = value
     return target(**kwargs)
 
 

@@ -69,6 +69,18 @@ class DetectResult(NamedTuple):
     bridged_components: torch.Tensor
 
 
+class RegistrationResult(NamedTuple):
+    """Multi-frame camera<->AGV registration (ref utils/fitCylinderWPts3sAngs.m)."""
+
+    t_cam_agv: torch.Tensor    # (4, 4)
+    fval0: torch.Tensor        # () objective at the triad init
+    fval: torch.Tensor         # () objective at the solution
+    jtj_min_eig: torch.Tensor  # () min eigenvalue of the 6-dof JtJ at the
+                               # solution, per contributing frame, rotation
+                               # block scaled by the RMS point radius
+    well_posed: torch.Tensor   # () bool: jtj_min_eig >= min_observability
+
+
 def stereo_from_numpy(
     cam1_k,
     cam1_radial,

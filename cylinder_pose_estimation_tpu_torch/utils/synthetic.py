@@ -1,7 +1,9 @@
 """Synthetic stereo laser-grid scenes, in numpy (the part of the JAX package's
 utils/synthetic.py, plus the bench scene family of ``__graft_entry__``, that
-the port needs to run without JAX): cylinder and plane grids, and the laser
-image renderer.
+the port needs to run without JAX): cylinder and plane grids, the laser
+image renderer, the registration experiment's kinematically consistent
+sequence, the bench family through a distorting lens, and the tiled frame
+source of the stream benchmark.
 
 ``example_pair`` draws its noise from ``np.random.default_rng(seed)`` in the
 same order as ``__graft_entry__._example_pair``, and renders in float32 as the
@@ -12,6 +14,7 @@ before the uint8 truncation).
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Tuple
 
 import numpy as np
@@ -306,3 +309,153 @@ def apply_gap(img: np.ndarray) -> np.ndarray:
     with np.errstate(over="ignore"):
         atten = 1.0 - 0.97 * edge(yy, y0, y1) * edge(xx, x0, x1)
     return np.clip(np.asarray(img, np.float32) * atten, 0, 255)
+
+
+# Ground truth of ``registration_sequence``: T_Cam_AGV with the camera looking
+# along the AGV's +y axis, so that the cylinder axis (the arm, AGV -x at pan
+# 0) is the image's +y axis; the cylinder origin sits at (0, -40, 560) mm in
+# the camera frame at pan = tilt = 0.  Pan then moves the cylinder in depth
+# (+-53 mm at +-0.3 rad) and inclines its axis towards the camera; tilt turns
+# it in the image plane.
+T_CAM_AGV = np.array([
+    [0.0, 0.0, -1.0, 110.0],
+    [-1.0, 0.0, 0.0, 138.0],
+    [0.0, 1.0, 0.0, 560.0],
+    [0.0, 0.0, 0.0, 1.0],
+])
+
+
+def registration_angles(n_frames: int, pan: float = 0.3, tilt: float = 0.08) -> np.ndarray:
+    """(F, 2) float32 [pan, tilt] in radians: a linear pan sweep over
+    [-pan, pan] with the tilt swinging 1.5 periods of a cosine within
+    [-tilt, tilt].
+
+    The default swing keeps the 100-frame registration of
+    ``registration_sequence`` at 480x640 well posed (minimum JtJ eigenvalue
+    2.0e-3 against the 1.5e-3 gate).  The detector marks frames unstable
+    once pan and tilt together tilt its lines too far, so only about a
+    third of these frames are healthy; narrower swings keep more frames but
+    leave the problem flat along one direction (+-0.2/+-0.04: 1.2e-3 to
+    1.5e-3, depending on where the LM stops in the valley)."""
+    s = np.linspace(0.0, 1.0, n_frames)
+    return np.stack([pan * (2.0 * s - 1.0), tilt * np.cos(3.0 * np.pi * s)], axis=-1).astype(F32)
+
+
+def registration_sequence(
+    n_frames: int = 100,
+    height: int = 480,
+    width: int = 640,
+    seed: int = 0,
+    angles: np.ndarray | None = None,
+    radius: float = 45.0,
+    row_spacing: float = 18.0,
+):
+    """F kinematically consistent stereo frames of the camera<->AGV
+    registration experiment: the cylinder of frame f sits at
+    ``T_CAM_AGV @ t_agv_cyl(pan_f, tilt_f)`` (default kinematics), rendered
+    as a 9x9 grid (``row_spacing`` mm rows, 2 rad of arc) into both views of
+    ``default_stereo`` with N(0, 2) grey-level noise from ``seed``.
+
+    At other sizes than 480x640 the focal length scales with the width, so
+    the scene covers the same share of the image.  Returns (stereo, angles
+    (F, 2), (img1, img2) as (F, H, W) float32, t_cam_agv (4, 4) float64)."""
+    import torch
+
+    from cylinder_pose_estimation_tpu_torch.geometry.kinematics import t_agv_cyl
+
+    if angles is None:
+        angles = registration_angles(n_frames)
+    angles = np.asarray(angles, F32)
+    stereo = default_stereo(f=900.0 * width / 640.0, cx=width / 2.0, cy=height / 2.0)
+    a64 = torch.as_tensor(angles, dtype=torch.float64)
+    t_cam_cyl = T_CAM_AGV @ t_agv_cyl(a64[:, 0], a64[:, 1]).numpy()
+    rng = np.random.default_rng(seed)
+    views1, views2 = [], []
+    for f in range(len(angles)):
+        scene = cylinder_grid_points(
+            stereo, origin=tuple(t_cam_cyl[f, :3, 3]), direction=tuple(t_cam_cyl[f, :3, 1]),
+            radius=radius, row_spacing=row_spacing, theta_span=2.0,
+        )
+        for out, xy in ((views1, scene.xy1), (views2, scene.xy2)):
+            img = render_grid_image(xy, 9, 9, height, width).astype(F32)
+            out.append(np.clip(img + rng.normal(0, 2.0, (height, width)).astype(F32), 0, 255))
+    return stereo, angles, (np.stack(views1), np.stack(views2)), T_CAM_AGV.copy()
+
+
+# Lens of ``distorted_example_pair``: a strong but plausible barrel lens
+# (the realistic coefficients of tests/test_distortion_e2e.py).
+DISTORTION = ((-0.3, 0.08, 0.0), (1e-3, -5e-4))
+
+
+def distort_pixels(xy: np.ndarray, k: np.ndarray, radial, tangential) -> np.ndarray:
+    """Ideal pixel coords (..., 2) -> distorted sensor coords through the
+    OpenCV radial/tangential model (float32)."""
+    fx, fy, cx, cy = k[0, 0], k[1, 1], k[0, 2], k[1, 2]
+    x = (xy[..., 0] - cx) / fx
+    y = (xy[..., 1] - cy) / fy
+    k1, k2, k3 = (F32(v) for v in radial)
+    p1, p2 = (F32(v) for v in tangential)
+    r2 = x * x + y * y
+    rad = F32(1.0) + r2 * (k1 + r2 * (k2 + r2 * k3))
+    xd = x * rad + F32(2.0) * p1 * x * y + p2 * (r2 + F32(2.0) * x * x)
+    yd = y * rad + p1 * (r2 + F32(2.0) * y * y) + F32(2.0) * p2 * x * y
+    return np.stack([xd * fx + cx, yd * fy + cy], axis=-1).astype(F32)
+
+
+def distorted_example_pair(height: int = 480, width: int = 640, n_frames: int = 1,
+                           seed: int = 0, pans=None, distortion=DISTORTION):
+    """The bench scene family seen through a distorting lens: each view's grid
+    points are pushed through the forward distortion model before rendering
+    (as tests/test_distortion_e2e.py warps its views), so undistorting the
+    images recovers ``example_pair``'s geometry.  Returns (stereo with the
+    lens coefficients on both cameras, (img1, img2) as (F, H, W) float32)."""
+    radial, tangential = distortion
+    rng = np.random.default_rng(seed)
+    stereo = default_stereo(cx=width / 2.0, cy=height / 2.0)
+    if pans is None:
+        pans = [float(i) for i in range(n_frames)]
+    views1, views2 = [], []
+    for f in range(n_frames):
+        scene = cylinder_grid_points(
+            stereo, origin=(10.0 * pans[f], -40.0, 560.0), radius=70.0,
+            row_spacing=18.0, theta_span=2.0,
+        )
+        for out, xy, k in ((views1, scene.xy1, stereo.cam1_k), (views2, scene.xy2, stereo.cam2_k)):
+            img = render_grid_image(distort_pixels(xy, k, radial, tangential), 9, 9,
+                                    height, width).astype(F32)
+            out.append(np.clip(img + rng.normal(0, 2.0, (height, width)).astype(F32), 0, 255))
+    stereo = stereo._replace(
+        cam1_radial=np.asarray(radial, F32), cam1_tangential=np.asarray(tangential, F32),
+        cam2_radial=np.asarray(radial, F32), cam2_tangential=np.asarray(tangential, F32),
+    )
+    return stereo, (np.stack(views1), np.stack(views2))
+
+
+class TiledFrames:
+    """Virtual (N, H, W) uint8 frame array: a pool of P scenes tiled to N
+    frames, frame i = pool[i % P] + (i % 7) grey levels (saturating), so that
+    no two neighbouring frames are byte-identical (``bench_stream.py``'s
+    scheme).  One period of lcm(P, 7) frames is precomputed and chunks are
+    served as views of it."""
+
+    N_OFFSETS = 7
+
+    def __init__(self, pool: np.ndarray, n: int):
+        self.n = n
+        p = len(pool)
+        period = p * self.N_OFFSETS // math.gcd(p, self.N_OFFSETS)
+        idx = np.arange(period)
+        wide = pool[idx % p].astype(np.int16) + (idx % self.N_OFFSETS)[:, None, None].astype(np.int16)
+        self.arrangement = np.clip(wide, 0, 255).astype(np.uint8)
+
+    @property
+    def shape(self):
+        return (self.n,) + self.arrangement.shape[1:]
+
+    def __getitem__(self, sl):
+        start, stop, _ = sl.indices(self.n)
+        per = len(self.arrangement)
+        s0 = start % per
+        if s0 + stop - start <= per:
+            return self.arrangement[s0:s0 + stop - start]
+        return np.take(self.arrangement, np.arange(s0, s0 + stop - start) % per, axis=0)

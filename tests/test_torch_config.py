@@ -27,7 +27,9 @@ def _fields(cls):
 
 
 @pytest.mark.parametrize(
-    "name", ["DetectConfig", "CylinderDetectConfig", "PlaneDetectConfig", "FitConfig"]
+    "name",
+    ["DetectConfig", "CylinderDetectConfig", "PlaneDetectConfig", "FitConfig", "KinematicsConfig",
+     "RegistrationConfig"],
 )
 def test_fields_and_defaults_equal_reference(name):
     assert _fields(getattr(tcfg, name)) == _fields(getattr(jcfg, name))
@@ -46,12 +48,26 @@ def test_mode_and_image_shape():
         jcfg.CylinderDetectConfig(height=240, width=320, use_pallas=True, min_ok_points=7),
         jcfg.PlaneDetectConfig(height=240, width=320, roi_threshold=30.0, merge_margin=7.0),
         jcfg.FitConfig(lm_iters=11, cyl_radius=70.0),
+        jcfg.KinematicsConfig(l1=300.0, l2=150.0, h=95.0),
+        jcfg.RegistrationConfig(cyl_radius=70.0, lm_iters=12, min_frame_points=5),
     ],
 )
 def test_from_reference_copies_every_field(ref):
     port = tcfg.from_reference(ref)
     assert type(port).__name__ == type(ref).__name__
     assert dataclasses.asdict(port) == dataclasses.asdict(ref)
+
+
+def test_from_reference_converts_nested_kinematics():
+    """``RegistrationConfig.kinematics`` becomes the port's
+    ``KinematicsConfig``, not a JAX object inside a port config."""
+    ref = jcfg.RegistrationConfig(kinematics=jcfg.KinematicsConfig(l1=300.0, l2=150.0, h=95.0),
+                                  min_observability=2e-3)
+    port = tcfg.from_reference(ref)
+    assert isinstance(port, tcfg.RegistrationConfig)
+    assert type(port.kinematics) is tcfg.KinematicsConfig
+    assert dataclasses.asdict(port) == dataclasses.asdict(ref)
+    assert type(tcfg.RegistrationConfig().kinematics) is tcfg.KinematicsConfig
 
 
 def test_from_reference_refuses_plane_mode():

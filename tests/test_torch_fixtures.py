@@ -1,10 +1,13 @@
 """PyTorch port: the fixtures that ``chip_smoke.py`` holds the card to.
 
-``tests/fixtures/torch_endpoint_scenes.json`` and ``torch_plane_scenes.json``
-come from the JAX package (``tools/make_torch_port_fixtures.py``).  The fast
-test checks that the files record the generator's scenes; the slow tests
-regenerate one scene of each file from JAX and compare, and run the port on
-the CPU against both files with ``chip_smoke.py``'s own contract.
+``tests/fixtures/torch_endpoint_scenes.json``, ``torch_plane_scenes.json``
+and ``torch_registration.json`` come from the JAX package
+(``tools/make_torch_port_fixtures.py``).  The fast tests check that the
+files record the generator's scenes and that ``chip_smoke.py``'s
+registration contract accepts the JAX result and refuses a moved one; the
+slow tests regenerate one scene of each detection file from JAX and
+compare, and run the port on the CPU against all three files with
+``chip_smoke.py``'s own contract.
 """
 
 import importlib.util
@@ -107,3 +110,58 @@ def test_port_meets_fixtures_on_cpu():
     imgs = torch.as_tensor(np.stack([gen.plane_image(v["spec"]) for v in views]))
     det = detect_grid(imgs, PlaneDetectConfig(height=h, width=w, use_pallas=True, roi_threshold=30.0))
     chip_smoke.plane_check(det, views)
+
+
+def test_registration_fixture_records_the_generator():
+    fx = _load(gen.REGISTRATION_FIXTURE)
+    assert fx["generator"] == "tools/make_torch_port_fixtures.py"
+    assert fx["seed"] == gen.REG_SEED and fx["gt_pose"] == gen.REG_GT_POSE
+    assert len(fx["angles"]) == len(fx["pts"]) == gen.REG_FRAMES
+    assert fx["capacity"] == gen.REG_CAPACITY
+    assert [i for i, v in enumerate(fx["frame_valid"]) if not v] == [gen.REG_POISONED]
+    assert all(len(p) == 3 * n for p, n in zip(fx["pts"], fx["n_valid"]))
+    assert fx["result"]["well_posed"] and fx["result"]["fval"] < fx["result"]["fval0"]
+    assert chip_smoke.REGISTRATION == gen.REGISTRATION_FIXTURE
+    _, pts, valid, angles, frame_valid = chip_smoke.load_registration_fixture("cpu")
+    assert pts.shape == (gen.REG_FRAMES, gen.REG_CAPACITY, 3) and int(valid.sum()) == sum(fx["n_valid"])
+    assert angles.shape == (gen.REG_FRAMES, 2) and not bool(frame_valid[gen.REG_POISONED])
+
+
+def test_registration_check_contract():
+    """The JAX result passes chip_smoke's registration contract against
+    itself; a T_Cam_AGV moved by 0.2 mm perpendicular to the axes, a minimum
+    eigenvalue 2% off, or a flipped ``well_posed``, fails it."""
+    from cylinder_pose_estimation_tpu_torch.types import RegistrationResult
+
+    fx = _load(gen.REGISTRATION_FIXTURE)
+    want = fx["result"]
+
+    def result(t, well_posed=want["well_posed"], eig_scale=1.0):
+        return RegistrationResult(torch.as_tensor(np.asarray(t, np.float32)),
+                                  torch.tensor(want["fval0"]), torch.tensor(want["fval"]),
+                                  torch.tensor(want["jtj_min_eig"] * eig_scale),
+                                  torch.tensor(well_posed))
+
+    chk = chip_smoke.registration_check(result(want["t_cam_agv"]), want, fx["angles"], "self")
+    assert chk["axis_deg"] < 1e-3 and chk["perp_mm"] < 1e-3
+    moved = np.asarray(want["t_cam_agv"])
+    moved[:3, 3] += 0.2 * np.cross(moved[:3, 1], [0.0, 0.0, 1.0])
+    with pytest.raises(AssertionError, match="perpendicular"):
+        chip_smoke.registration_check(result(moved), want, fx["angles"], "moved")
+    with pytest.raises(AssertionError, match="jtj_min_eig"):
+        chip_smoke.registration_check(result(want["t_cam_agv"], eig_scale=1.02), want,
+                                      fx["angles"], "eig")
+    with pytest.raises(AssertionError, match="well_posed"):
+        chip_smoke.registration_check(result(want["t_cam_agv"], not want["well_posed"]), want,
+                                      fx["angles"], "flag")
+
+
+@pytest.mark.slow
+def test_port_meets_registration_fixture_on_cpu():
+    """chip_smoke.py's registration contract on the CPU."""
+    from cylinder_pose_estimation_tpu_torch.geometry.registration import fit_cylinders_with_angles
+
+    fx, pts, valid, angles, frame_valid = chip_smoke.load_registration_fixture("cpu")
+    res = fit_cylinders_with_angles(pts, valid, angles, frame_valid=frame_valid)
+    chk = chip_smoke.registration_check(res, fx["result"], fx["angles"], "CPU")
+    assert chk["axis_deg"] < 0.01 and chk["perp_mm"] < 0.01 and chk["fval_rel"] < 1e-3

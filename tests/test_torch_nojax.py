@@ -4,7 +4,8 @@ The GPU machine has no JAX, so neither the port nor ``chip_smoke.py`` may
 import it.  A subprocess blocks ``import jax``, renders a 2-frame scene with
 the port's own scene source and runs ``estimate_poses_batch`` on the CPU,
 then the endpoint-stats detector on it, plane-mode ``detect_grid`` on a
-rendered plane view and ``fit_plane``.
+rendered plane view and ``fit_plane``, and imports the preprocessing,
+kinematics, registration and stream modules and runs a small registration.
 """
 
 import ast
@@ -48,6 +49,18 @@ pl = detect_grid(torch.as_tensor(pv)[None], PlaneDetectConfig(use_pallas=True, r
 assert int(pl.grid.valid.sum()) == 99
 pts = torch.randn(1, 20, 3) * torch.tensor([50.0, 50.0, 0.0])
 assert abs(float(fit_plane(pts, torch.ones(1, 20, dtype=torch.bool))[0, 2])) > 0.999
+from cylinder_pose_estimation_tpu_torch.config import RegistrationConfig
+from cylinder_pose_estimation_tpu_torch.geometry.kinematics import t_agv_cyl
+from cylinder_pose_estimation_tpu_torch.geometry.registration import fit_cylinders_with_angles
+from cylinder_pose_estimation_tpu_torch.models.pipeline import (
+    estimate_poses_stream, full_experiment, preprocess_stereo_batch, register_sequence)
+from cylinder_pose_estimation_tpu_torch.ops.clahe import clahe
+from cylinder_pose_estimation_tpu_torch.ops.remap import undistort_image
+p1, p2 = preprocess_stereo_batch(torch.as_tensor(i1[:1]), torch.as_tensor(i2[:1]), stereo)
+assert p1.shape == (1, 480, 640) and bool(torch.isfinite(p1).all())
+ang = torch.tensor([[-0.2, 0.03], [0.2, -0.03]])
+reg = register_sequence(res, ang, RegistrationConfig(lm_iters=3))
+assert reg.t_cam_agv.shape == (4, 4) and bool(torch.isfinite(reg.t_cam_agv).all())
 assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules if sys.modules[m] is not None)
 print("NOJAX_OK", float(res.fit.mean_reproj_error.max()))
 """

@@ -1,6 +1,8 @@
-"""Write the PyTorch port's two detection fixtures from the JAX package.
+"""Write the PyTorch port's fixtures from the JAX package.
 
-    python tools/make_torch_port_fixtures.py
+    python tools/make_torch_port_fixtures.py [endpoint] [plane] [registration]
+
+(all three without arguments).
 
 * ``tests/fixtures/torch_endpoint_scenes.json``: ``estimate_pose_stereo``
   with ``CylinderDetectConfig(bridge_endpoint_stats=True)`` and
@@ -18,9 +20,19 @@
   plane's full-length lines, where the XLA path's CC converges
   (``stable_xla``).
 
-Both files record their scene specs and configs; ``chip_smoke.py`` renders
-the same inputs without JAX and holds the port to the files.  Run on the
-CPU; the interpret-mode endpoint scenes dominate the run time.
+* ``tests/fixtures/torch_registration.json``: ``fit_cylinders_with_angles``
+  with ``RegistrationConfig()`` on 100 frames of cylinder-surface points
+  from the generator of tests/test_registration.py (8x9 points per frame in
+  a capacity of 576, on the cylinders that a ground-truth T_Cam_AGV and the
+  default kinematics place at each frame's pan/tilt), with N(0, 0.3 mm)
+  noise from a recorded seed and frame 7 replaced by uniform garbage and
+  masked out through ``frame_valid``.  The points are stored (rounded to
+  1e-3 mm, the JAX result computed on the rounded values), so the port
+  reads the very same float32 inputs.
+
+The detection files record their scene specs and configs; ``chip_smoke.py``
+renders the same inputs without JAX and holds the port to the files.  Run on
+the CPU; the interpret-mode endpoint scenes dominate the run time.
 """
 
 from __future__ import annotations
@@ -44,6 +56,7 @@ HEIGHT, WIDTH = 480, 640
 FIXTURES = os.path.join(ROOT, "tests", "fixtures")
 ENDPOINT_FIXTURE = os.path.join(FIXTURES, "torch_endpoint_scenes.json")
 PLANE_FIXTURE = os.path.join(FIXTURES, "torch_plane_scenes.json")
+REGISTRATION_FIXTURE = os.path.join(FIXTURES, "torch_registration.json")
 
 # Endpoint scenes: frame indices of example_pair(480, 640, n_frames=6, seed=0),
 # and the gapped frame 0 (named as in golden_scenes.json).
@@ -152,7 +165,70 @@ def plane_image(spec):
     return plane_view(HEIGHT, WIDTH, **spec)
 
 
-def main() -> None:
+REG_SEED = 2024
+REG_FRAMES = 100
+REG_CAPACITY = 576
+REG_NOISE_MM = 0.3
+REG_POISONED = 7
+REG_GT_POSE = [0.1, -1.4, 0.05, 80.0, -20.0, 800.0]
+
+
+def registration_fixture() -> None:
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from test_registration import _make_frames
+
+    from cylinder_pose_estimation_tpu.config import RegistrationConfig
+    from cylinder_pose_estimation_tpu.geometry import transforms
+    from cylinder_pose_estimation_tpu.geometry.registration import fit_cylinders_with_angles
+
+    t0 = time.perf_counter()
+    s = np.linspace(0.0, 1.0, REG_FRAMES)
+    angles = np.stack([0.5 * (2.0 * s - 1.0), 0.15 * np.sin(2.0 * np.pi * s)], -1).astype(np.float32)
+    t_gt = transforms.vec_to_transform(jnp.asarray(REG_GT_POSE, jnp.float32))
+    pts, valid = _make_frames(t_gt, angles, capacity=REG_CAPACITY)
+    rng = np.random.default_rng(REG_SEED)
+    pts = np.asarray(pts) + rng.normal(0.0, REG_NOISE_MM, pts.shape).astype(np.float32)
+    pts[REG_POISONED] = rng.uniform(-1e4, 1e4, pts.shape[1:]).astype(np.float32)
+    valid = np.asarray(valid)
+    pts = np.where(valid[..., None], np.round(pts, 3), 0.0).astype(np.float32)
+    frame_valid = np.ones(REG_FRAMES, bool)
+    frame_valid[REG_POISONED] = False
+    res = jax.jit(lambda p, v, a, fv: fit_cylinders_with_angles(p, v, a, RegistrationConfig(),
+                                                                 frame_valid=fv))(
+        jnp.asarray(pts), jnp.asarray(valid), jnp.asarray(angles), jnp.asarray(frame_valid))
+    n_valid = valid.sum(-1)
+    fixture = {
+        "generator": "tools/make_torch_port_fixtures.py",
+        "path": "JAX package, CPU, float32: geometry.registration.fit_cylinders_with_angles("
+                "pts3s, valid, angles, RegistrationConfig(), frame_valid=frame_valid)",
+        "points": f"tests/test_registration.py::_make_frames(T(gt_pose), angles, capacity="
+                  f"{REG_CAPACITY}) + N(0, {REG_NOISE_MM} mm) from default_rng(seed), frame "
+                  f"{REG_POISONED} replaced by uniform(-1e4, 1e4) and masked, rounded to 1e-3 mm; "
+                  "each frame's valid points are its first n_valid slots",
+        "seed": REG_SEED,
+        "gt_pose": REG_GT_POSE,
+        "capacity": REG_CAPACITY,
+        "angles": angles.tolist(),
+        "frame_valid": frame_valid.tolist(),
+        "n_valid": n_valid.tolist(),
+        "pts": [[round(float(v), 3) for v in pts[f, :n_valid[f]].reshape(-1)]
+                for f in range(REG_FRAMES)],
+        "result": {
+            "t_cam_agv": np.asarray(res.t_cam_agv, np.float64).tolist(),
+            "fval0": float(res.fval0),
+            "fval": float(res.fval),
+            "jtj_min_eig": float(res.jtj_min_eig),
+            "well_posed": bool(res.well_posed),
+        },
+    }
+    with open(REGISTRATION_FIXTURE, "w") as f:
+        json.dump(fixture, f)
+    print(f"registration: fval0 {float(res.fval0):.6g}, fval {float(res.fval):.6g}, min_eig "
+          f"{float(res.jtj_min_eig):.6g}, well_posed {bool(res.well_posed)}; wrote "
+          f"{REGISTRATION_FIXTURE} ({time.perf_counter() - t0:.0f} s)")
+
+
+def endpoint_fixture() -> None:
     t0 = time.perf_counter()
     fn = endpoint_fn()
     a, b = endpoint_images()
@@ -173,7 +249,10 @@ def main() -> None:
                             "apply_gap(frame 0)",
             "scenes": scenes,
         }, f, indent=1)
+    print(f"wrote {ENDPOINT_FIXTURE} ({t_ep:.0f} s)")
 
+
+def plane_fixture() -> None:
     t1 = time.perf_counter()
     fn, fn_p = plane_fns()
     views = []
@@ -194,8 +273,13 @@ def main() -> None:
                             "(480, 640, **spec)",
             "views": views,
         }, f, indent=1)
-    print(f"wrote {ENDPOINT_FIXTURE} ({t_ep:.0f} s) and {PLANE_FIXTURE} ({t_pl:.0f} s)")
+    print(f"wrote {PLANE_FIXTURE} ({t_pl:.0f} s)")
+
+
+FIXTURE_WRITERS = {"endpoint": endpoint_fixture, "plane": plane_fixture,
+                   "registration": registration_fixture}
 
 
 if __name__ == "__main__":
-    main()
+    for name in sys.argv[1:] or list(FIXTURE_WRITERS):
+        FIXTURE_WRITERS[name]()
