@@ -28,7 +28,11 @@ phase fails.  Phases:
 6. Kernels: each CUDA kernel against its plain PyTorch version on the same
    device, on the intermediates of B=16 runs (production shapes) and on
    seeded random inputs; every output must be ``torch.equal``.  Median times
-   of both, with CUDA events after warm-up.
+   of both, with CUDA events around one call after warm-up; torch.profiler's
+   device kernels per call (at most 3 for 2.1, exactly 1 for 2.2) and their
+   summed device ms; the byte bound of each site (``frontend.min_bytes`` at
+   3.35 TB/s).  The build's ``-Xptxas -v`` lines and the launch plans of 2.1
+   and 2.2 are printed first.
 7. End to end: ms/frame of B=16 frames and the detect-only split, for the
    main and the endpoint path; their bridge and grid stage ms; plane detect
    ms/view.
@@ -91,6 +95,13 @@ PATH_KERNELS = {
 }
 for _path in ("experiment", "preprocess", "stream"):
     PATH_KERNELS[_path] = dict(PATH_KERNELS["main"])
+# The H100 SXM's HBM rate (NVIDIA data sheet) for the kernels' byte bounds.
+HBM_BYTES_PER_S = 3.35e12
+# Each kernel's design: redesigned for Hopper, or still the first port.
+DESIGN = {"preprocess_binarize": "redesigned", "connected_components": "redesigned",
+          "bridge_morphology": "first port", "component_payload_minmax": "first port"}
+# Device kernels one wrapper call may launch (None: not checked).
+DEVICE_LAUNCHES_MAX = {"preprocess_binarize": 3, "connected_components": 1}
 # Sizes of the experiment, preprocessing and stream paths.
 EXPERIMENT_FRAMES = 100
 PREPROCESS_BATCH = 16
@@ -114,6 +125,49 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def bound_ms(nbytes: int) -> float:
+    """The least time for moving ``nbytes`` at the H100 SXM's 3.35 TB/s."""
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def device_launches(fn):
+    """(CUDA kernels that one fn() call launches, their summed device ms),
+    by torch.profiler; (None, None) if it records no device activity."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    spans = [(e.time_range.end - e.time_range.start) / 1e3 for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and "memcpy" not in e.name.lower() and "memset" not in e.name.lower()]
+    return (len(spans), sum(spans)) if spans else (None, None)
+
+
+def ptxas_report(build_dir) -> list:
+    """The ``-Xptxas -v`` lines (registers, stack, spills) of each kernel in
+    build.log, one line per kernel."""
+    import re
+
+    log = os.path.join(build_dir, "build.log")
+    lines = open(log).read().splitlines() if os.path.exists(log) else []
+    out, name = [], None
+    for ln in lines:
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            name = m.group(1)
+            parts = [name]
+        elif name and ("spill" in ln or "registers" in ln):
+            parts.append(ln.split(":", 1)[-1].strip() if "registers" in ln else ln.strip())
+            if "registers" in ln:
+                out.append(" | ".join(parts))
+                name = None
+    return out
 
 
 def points_check(grid, i: int, records: list, label: str):
@@ -309,7 +363,7 @@ def kernel_phase(frontend, calls, device, seed: int = 0) -> dict:
     g = torch.Generator(device="cpu").manual_seed(seed)
     report = {}
 
-    def compare(name, kernel_fn, plain_fn, label, timed):
+    def compare(name, kernel_fn, plain_fn, label, timed, nbytes=0):
         out_k = kernel_fn()
         out_p = plain_fn()
         torch.cuda.synchronize()
@@ -324,16 +378,24 @@ def kernel_phase(frontend, calls, device, seed: int = 0) -> dict:
             if not torch.equal(a, b):
                 n_bad = int((a != b).sum())
                 raise AssertionError(f"{name} [{label}]: kernel != plain on {n_bad} elements")
-        rep = report.setdefault(name, {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "sites": []})
+        rep = report.setdefault(name, {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bytes": 0,
+                                       "device_ms": 0.0, "sites": [], "device_launches": None})
         rep["max_abs_err"] = max(rep["max_abs_err"], err)
         line = f"kernel {name} [{label}] equal"
         if timed:
             ms_k = cuda_ms(kernel_fn)
             ms_p = cuda_ms(plain_fn, reps=5, warmup=1)
+            n_dev, dev_ms = device_launches(kernel_fn)
+            rep["device_ms"] = None if dev_ms is None or rep["device_ms"] is None else rep["device_ms"] + dev_ms
             rep["ms"] += ms_k
             rep["plain_ms"] += ms_p
-            rep["sites"].append((label, ms_k, ms_p))
-            line += f"; kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms"
+            rep["bytes"] += nbytes
+            rep["sites"].append((label, ms_k, ms_p, nbytes, n_dev))
+            if n_dev is not None:
+                rep["device_launches"] = max(rep["device_launches"] or 0, n_dev)
+            dev_txt = "not measured" if dev_ms is None else f"{dev_ms:.4f} ms"
+            line += (f"; kernel {ms_k:.4f} ms (device {dev_txt}), plain {ms_p:.4f} ms, bound "
+                     f"{bound_ms(nbytes):.4f} ms ({nbytes} B), device kernels per call {n_dev}")
         print(line, flush=True)
 
     # 2.1 preprocess: the B=16 run's smoothed views + smoothed noise images.
@@ -341,7 +403,8 @@ def kernel_phase(frontend, calls, device, seed: int = 0) -> dict:
         x = args[0]
         compare("preprocess_binarize", lambda: frontend.preprocess_binarize(x, **kw),
                 lambda: frontend.preprocess_binarize_plain(x, **kw),
-                f"captured {tuple(x.shape)}", timed=(i == 0))
+                f"captured {tuple(x.shape)}", timed=(i == 0),
+                nbytes=frontend.min_bytes("preprocess_binarize", *x.shape))
         noise = torch.rand(x.shape, generator=g).mul(255.0).to(device)
         xs = _smooth(noise, CylinderDetectConfig())
         compare("preprocess_binarize", lambda: frontend.preprocess_binarize(xs, **kw),
@@ -357,7 +420,8 @@ def kernel_phase(frontend, calls, device, seed: int = 0) -> dict:
         compare("connected_components",
                 lambda: frontend.connected_components(m, kw["rounds"], kw["pools_per_round"], init),
                 lambda: frontend.connected_components_plain(m, kw["rounds"], kw["pools_per_round"], init),
-                label, timed=True)
+                label, timed=True,
+                nbytes=frontend.min_bytes("connected_components", *m.shape, warm=init is not None))
         rnd = (torch.rand(m.shape, generator=g) < 0.45).to(torch.float32).to(device)
         rinit = None
         if init is not None:
@@ -376,7 +440,8 @@ def kernel_phase(frontend, calls, device, seed: int = 0) -> dict:
         compare("component_payload_minmax",
                 lambda: frontend.component_payload_minmax(m, pay, rounds, pools),
                 lambda: frontend.component_payload_minmax_plain(m, pay, rounds, pools),
-                f"captured {tuple(m.shape)} {rounds}x{pools}", timed=True)
+                f"captured {tuple(m.shape)} {rounds}x{pools}", timed=True,
+                nbytes=frontend.min_bytes("component_payload_minmax", *m.shape))
         n, h, w = m.shape
         rnd = (torch.rand(m.shape, generator=g) < 0.45).to(torch.float32).to(device)
         rpay = torch.stack([torch.randperm(h * w, generator=g) for _ in range(n)])
@@ -394,7 +459,8 @@ def kernel_phase(frontend, calls, device, seed: int = 0) -> dict:
         compare("bridge_morphology",
                 lambda: frontend.bridge_morphology(masks, exps, angles, klen, **kw),
                 lambda: frontend.bridge_morphology_plain(masks, exps, angles, klen, **kw),
-                f"captured {tuple(masks.shape)}", timed=True)
+                f"captured {tuple(masks.shape)}", timed=True,
+                nbytes=frontend.min_bytes("bridge_morphology", *masks.shape))
         n, h, w = masks.shape
         ang_list = [0.0, math.pi / 2, 0.35, 1.2, -0.6, 2.5]
         lm = line_masks(n, h, w, ang_list, seed + 1, device).to(torch.float32)
@@ -695,6 +761,9 @@ def main() -> int:
     kernels.build()
     print(f"build: kernels built and loaded in {time.perf_counter() - t0:.1f} s "
           f"({kernels.BUILD_DIR})", flush=True)
+    for ln in ptxas_report(kernels.BUILD_DIR):
+        if "preprocess" in ln or "connected_components" in ln:
+            print(f"ptxas: {ln}", flush=True)
 
     height, width, batch = 480, 640, 16
     stereo_np, (i1, i2) = example_pair(height, width, n_frames=batch)
@@ -704,6 +773,11 @@ def main() -> int:
                                   bridge_endpoint_stats=True)
     cfg_plane = PlaneDetectConfig(height=height, width=width, use_pallas=True, roi_threshold=30.0)
     fit_cfg = FitConfig()
+    print(f"plan preprocess_binarize (2B, {height}, {width}): "
+          f"{frontend.preprocess_plan(2 * batch, height, width, joint_peak_iters=cfg.joint_peak_iters)}",
+          flush=True)
+    for shape in ((2 * 2 * batch, 128, 256), (2 * 2 * batch, 240, 384)):
+        print(f"plan connected_components {shape}: {frontend.cc_plan(*shape)}", flush=True)
     with open(GOLDEN) as f:
         golden = json.load(f)["scenes"]
     with open(ENDPOINT) as f:
@@ -819,13 +893,22 @@ def main() -> int:
     rows = []
     for k in KERNELS:
         r = report[k]
-        for label, ms_k, ms_p in r["sites"]:
-            print(f"timing {k} [{label}]: kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms", flush=True)
+        for label, ms_k, ms_p, nbytes, n_dev in r["sites"]:
+            print(f"timing {k} [{label}]: kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms, bound "
+                  f"{bound_ms(nbytes):.4f} ms ({nbytes} B, {bound_ms(nbytes) / ms_k:.1%} of it), "
+                  f"device kernels per call {n_dev}", flush=True)
+        most = DEVICE_LAUNCHES_MAX.get(k)
+        if most is not None and r["device_launches"] is not None and r["device_launches"] > most:
+            raise AssertionError(f"{k} launched {r['device_launches']} device kernels in a call (max {most})")
         rows.append({
             "name": k, "route": "cuda", "source": frontend.SOURCES[k],
             "replaces": frontend.REPLACES[k], "launches": sum(c[k] for c in by_path.values()),
             "launches_by_path": {p: c[k] for p, c in by_path.items()},
-            "max_abs_err": r["max_abs_err"], "ms": round(r["ms"], 4), "plain_ms": round(r["plain_ms"], 4),
+            "launches_per_step": main_launches[k],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "device_ms": r["device_ms"],
+            "plain_ms": r["plain_ms"],
+            "bound_ms": bound_ms(r["bytes"]), "bound_by": "bytes", "bytes": r["bytes"],
+            "library_ms": None, "device_kernels_per_call": r["device_launches"], "design": DESIGN[k],
         })
     print(smi)
     print(json.dumps({"kernels": rows}))

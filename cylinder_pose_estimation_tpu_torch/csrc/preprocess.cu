@@ -2,249 +2,516 @@
 // for a batch of already smoothed (N, H, W) float32 images.
 //
 // Replaces the TPU kernel cylinder_pose_estimation_tpu/ops/pallas/frontend.py
-// preprocess_binarize (_preprocess_kernel, pre_smoothed=True).  The TPU kept a
-// whole image in VMEM and shifted it with circular rolls; a 480x640 float
-// image (1.2 MB) does not fit in an SM's shared memory, so this is a chain of
-// simple one-thread-per-pixel passes through global memory / L2.  Every pass
-// reads a small stencil, so the chain is bound by memory traffic and launch
-// count (about 20 launches), not by arithmetic.
+// preprocess_binarize (_preprocess_kernel, pre_smoothed=True), which kept a
+// whole image in VMEM and shifted it with circular rolls.
 //
-// Exactness: built with --fmad=false, and every float sum evaluates the same
-// addition tree as the TPU kernel's Hillis-Steele doubling (_box_sum_roll),
-// so the outputs equal the plain PyTorch version bit for bit.  Out-of-image
-// reads return 0 (INT_MIN for the peak keys) where the TPU wrapped around:
-// the detector margin (>= the 23 px stencil reach) zeroes every mask within
-// it, so both conventions give the same whole images.
+// Bound: memory.  At (32, 480, 640) the function reads 39.3 MB and writes six
+// float planes, 235.9 MB: 275.3 MB, 0.0822 ms at 3.35 TB/s.  A few dozen
+// operations per pixel stay far below the compute roof.
+//
+// Design: two launches over 2-D tiles of kTileH x kTileW output pixels
+// (blockIdx.z = image, 32-bit index math inside an image).  Each tile loads
+// its input once, with its halo, into shared memory and runs its part of
+// the chain there; HBM sees the input, the six outputs and one bit-packed
+// copy of `binary` (1/32 of a plane) between the two launches.
+//   A (binarize_tiles): smoothed -> Hessian minima -> 15x15 Sauvola box
+//     sums -> binary.  Halo 9 (2 for the Hessian, 7 for the box).  Each
+//     thread keeps a run of kRun outputs of a line in registers and builds
+//     the doubling planes pows[2], pows[4], pows[8] of that run once, so a
+//     box sum costs about 6 adds and 1 shared load instead of 14 and 15.
+//   B (mask_tiles): packed binary -> 1x20 / 20x1 openings (shifted word
+//     ANDs / ORs, 32 px per word) -> joints -> 11x11 count (popcounts along
+//     x, sliding sums along y) -> joint_peak_iters masked max rounds on int
+//     keys in shared memory, each round one pass over a list of the tile's
+//     joints.  The tile's halo covers the rounds' reach, so no round leaves
+//     the block.
+//
+// Exactness: built with --fmad=false; every float box sum evaluates the
+// addition tree of the TPU kernel's Hillis-Steele doubling (_box_sum_roll:
+// parts largest first, summed left to right, recentred by size / 2); the
+// Sauvola division and square root are the correctly rounded ones.  Masks,
+// counts and keys are integers, exact in any order.  Out-of-image reads
+// return 0 (INT_MIN for keys) where the TPU wrapped around: the margin,
+// which the wrapper requires to cover the stencil reach, zeroes every mask
+// within it, so both conventions give the same whole images.
 
 #include "common.cuh"
 
 namespace {
 
-using cpe::blocks_for;
-using cpe::kThreads;
+constexpr int kTileH = 32;
+constexpr int kTileW = 64;    // a multiple of 32: tiles start on bit-word bounds
+constexpr int kRun = 8;       // outputs of a line per thread in the box sums
+constexpr int kThreadsA = kTileW * (kTileH / kRun);
+constexpr int kThreadsB = 256;
+constexpr int kTileWords = kTileW / 32;
+static_assert(kThreadsA == 256, "one column-phase task per thread");
+static_assert(kTileH % kRun == 0 && kTileW % 32 == 0, "tile shape");
 
-struct Dims {
-  int n, h, w;
+constexpr unsigned kFull = 0xffffffffu;
+
+// ---------------------------------------------------------------------------
+// Launch A: smoothed -> binary (float plane and packed bits)
+// ---------------------------------------------------------------------------
+
+// Shared-memory layout of launch A for box size `box` (floats).
+struct LayoutA {
+  int hs, rb, sh, sw, mh, mw, rw;
+  __host__ __device__ explicit LayoutA(int box) {
+    rb = box / 2;
+    hs = rb + 2;
+    sh = kTileH + 2 * hs;
+    sw = kTileW + 2 * hs;
+    mh = kTileH + 2 * rb;
+    mw = (kTileW + 2 * rb) | 1;  // odd strides: conflict-free column walks
+    rw = kTileW + 1;
+  }
+  __host__ __device__ int s_off() const { return 0; }
+  __host__ __device__ int m_off() const { return sh * sw; }
+  __host__ __device__ int r1_off() const { return m_off() + mh * mw; }
+  __host__ __device__ int r2_off() const { return r1_off() + mh * rw; }
+  __host__ __device__ int floats() const { return r2_off() + mh * rw; }
 };
 
-__device__ __forceinline__ float at(const float* img, const Dims& d, int y, int x) {
-  return (y >= 0 && y < d.h && x >= 0 && x < d.w) ? img[y * d.w + x] : 0.0f;
-}
-
-// Sum of the p = 2^k values line[pos .. pos + p) (optionally squared), in the
-// doubling order pows[2m][i] = pows[m][i] + pows[m][i + m].
-__device__ float pow_sum(const float* line, int stride, int len, int pos, int p, bool square) {
-  float v[16];
-  for (int i = 0; i < p; ++i) {
-    int q = pos + i;
-    float t = (q >= 0 && q < len) ? line[q * stride] : 0.0f;
-    v[i] = square ? t * t : t;
-  }
-  for (int width = p; width > 1; width >>= 1)
-    for (int i = 0; i < width / 2; ++i) v[i] = v[2 * i] + v[2 * i + 1];
-  return v[0];
-}
-
-// Centred odd-size box sum at index i of a line: the parts of the binary
-// decomposition of `size`, largest first, summed left to right, recentred
-// by size / 2 (_box_sum_roll).
-__device__ float box_tree(const float* line, int stride, int len, int i, int size, bool square) {
-  int j = i - size / 2;
-  int off = 0;
-  float acc = 0.0f;
-  bool first = true;
-  while (size) {
-    int p = 1 << (31 - __clz(size));
-    float part = pow_sum(line, stride, len, j + off, p, square);
-    acc = first ? part : acc + part;
-    first = false;
-    off += p;
-    size -= p;
-  }
-  return acc;
-}
-
-__global__ void hessian_minima(const float* __restrict__ s, float* __restrict__ minima, Dims d) {
-  long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  long long total = (long long)d.n * d.h * d.w;
-  if (idx >= total) return;
-  int x = idx % d.w;
-  int y = (idx / d.w) % d.h;
-  const float* img = s + (idx / ((long long)d.h * d.w)) * d.h * d.w;
-  auto gr = [&](int yy, int xx) { return 0.5f * (at(img, d, yy + 1, xx) - at(img, d, yy - 1, xx)); };
-  auto gc = [&](int yy, int xx) { return 0.5f * (at(img, d, yy, xx + 1) - at(img, d, yy, xx - 1)); };
-  float hrr = 0.5f * (gr(y + 1, x) - gr(y - 1, x));
-  float hrc = 0.5f * (gr(y, x + 1) - gr(y, x - 1));
-  float hcc = 0.5f * (gc(y, x + 1) - gc(y, x - 1));
-  float half_tr = 0.5f * (hrr + hcc);
-  float half_diff = 0.5f * (hrr - hcc);
-  float root = sqrtf(half_diff * half_diff + hrc * hrc);
-  minima[idx] = half_tr - root;
-}
-
-// Row (x) box sums of x and, if out2 is given, of x*x.
-__global__ void box_rows(const float* __restrict__ in, float* __restrict__ out1,
-                         float* __restrict__ out2, Dims d, int size) {
-  long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  long long total = (long long)d.n * d.h * d.w;
-  if (idx >= total) return;
-  int x = idx % d.w;
-  const float* line = in + (idx - x);
-  out1[idx] = box_tree(line, 1, d.w, x, size, false);
-  if (out2) out2[idx] = box_tree(line, 1, d.w, x, size, true);
-}
-
-// Column box sums of the row sums -> Sauvola threshold -> binary mask.
-__global__ void sauvola_binarize(const float* __restrict__ r1, const float* __restrict__ r2,
-                                 const float* __restrict__ minima, float* __restrict__ binary,
-                                 Dims d, int window, float k, float r, float min_contrast,
-                                 int margin) {
-  long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  long long total = (long long)d.n * d.h * d.w;
-  if (idx >= total) return;
-  int x = idx % d.w;
-  int y = (idx / d.w) % d.h;
-  long long base = idx - (long long)y * d.w;
-  float n_px = (float)(window * window);
-  float m1 = box_tree(r1 + base, d.w, d.h, y, window, false) / n_px;
-  float m2 = box_tree(r2 + base, d.w, d.h, y, window, false) / n_px;
-  float var = fmaxf(m2 - m1 * m1, 0.0f);
-  float sd = sqrtf(var);
-  float thresh = m1 * (1.0f + k * (sd / r - 1.0f));
-  float mn = minima[idx];
-  float bf = (mn > thresh) ? 0.0f : 1.0f;
-  if (min_contrast > 0.0f) bf = bf * ((mn < -min_contrast) ? 1.0f : 0.0f);
-  bool inside = y >= margin && y < d.h - margin && x >= margin && x < d.w - margin;
-  binary[idx] = bf * (inside ? 1.0f : 0.0f);
-}
-
-// Window [i - (len-1)/2, i - (len-1)/2 + len) min (erode) or max (dilate)
-// along x (into out_h) and along y (into out_v), of in_h / in_v.
-__global__ void line_minmax(const float* __restrict__ in_h, const float* __restrict__ in_v,
-                            float* __restrict__ out_h, float* __restrict__ out_v, Dims d,
-                            int len, bool take_max) {
-  long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  long long total = (long long)d.n * d.h * d.w;
-  if (idx >= total) return;
-  int x = idx % d.w;
-  int y = (idx / d.w) % d.h;
-  long long img = idx - (long long)y * d.w - x;
-  int a = (len - 1) / 2;
-  float eh = take_max ? 0.0f : 1.0f;
-  float ev = eh;
-  for (int t = 0; t < len; ++t) {
-    int xx = x - a + t;
-    int yy = y - a + t;
-    float vh = (xx >= 0 && xx < d.w) ? in_h[img + (long long)y * d.w + xx] : 0.0f;
-    float vv = (yy >= 0 && yy < d.h) ? in_v[img + (long long)yy * d.w + x] : 0.0f;
-    eh = take_max ? fmaxf(eh, vh) : fminf(eh, vh);
-    ev = take_max ? fmaxf(ev, vv) : fminf(ev, vv);
-  }
-  out_h[idx] = eh;
-  out_v[idx] = ev;
-}
-
-__global__ void joints_of(const float* __restrict__ hm, const float* __restrict__ vm,
-                          float* __restrict__ joints, long long total) {
-  long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= total) return;
-  joints[idx] = fminf(hm[idx], vm[idx]);
-}
-
-__device__ __forceinline__ int peak_key(float cnt, int y, int x, int w, int shift) {
-  return (int)cnt * (1 << shift) + (y * w + x);
-}
-
-// Column box sums of the joint row counts -> joint_cnt, and the initial
-// peak keys (INT_MIN off the joints).
-__global__ void joint_count(const float* __restrict__ rows, const float* __restrict__ joints,
-                            float* __restrict__ cnt, int* __restrict__ km, Dims d, int window,
-                            int shift) {
-  long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  long long total = (long long)d.n * d.h * d.w;
-  if (idx >= total) return;
-  int x = idx % d.w;
-  int y = (idx / d.w) % d.h;
-  long long base = idx - (long long)y * d.w;
-  float c = box_tree(rows + base, d.w, d.h, y, window, false);
-  cnt[idx] = c;
-  km[idx] = joints[idx] > 0.5f ? peak_key(c, y, x, d.w, shift) : INT_MIN;
-}
-
-// One half of a peak round: vertical 3-max (mask=false) or horizontal
-// 3-max followed by the joint mask (mask=true).
-__global__ void peak_pass(const int* __restrict__ in, int* __restrict__ out,
-                          const float* __restrict__ joints, Dims d, bool horizontal) {
-  long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  long long total = (long long)d.n * d.h * d.w;
-  if (idx >= total) return;
-  int x = idx % d.w;
-  int y = (idx / d.w) % d.h;
-  int v = in[idx];
-  if (horizontal) {
-    int a = x > 0 ? in[idx - 1] : INT_MIN;
-    int b = x < d.w - 1 ? in[idx + 1] : INT_MIN;
-    v = max(v, max(a, b));
-    out[idx] = joints[idx] > 0.5f ? v : INT_MIN;
-  } else {
-    int a = y > 0 ? in[idx - d.w] : INT_MIN;
-    int b = y < d.h - 1 ? in[idx + d.w] : INT_MIN;
-    out[idx] = max(v, max(a, b));
+// Centred box sums of kRun consecutive outputs from the kRun + BOX - 1
+// values v[] of a line: out[k] sums v[k .. k + BOX).  pows[2m][i] =
+// pows[m][i] + pows[m][i + m]; parts of BOX largest first, left to right.
+template <int BOX>
+__device__ __forceinline__ void box_run(const float (&v)[kRun + BOX - 1], float (&out)[kRun]) {
+  constexpr int nv = kRun + BOX - 1;
+  float p2[nv - 1], p4[nv - 3], p8[nv - 7];
+#pragma unroll
+  for (int i = 0; i < nv - 1; ++i) p2[i] = v[i] + v[i + 1];
+#pragma unroll
+  for (int i = 0; i < nv - 3; ++i) p4[i] = p2[i] + p2[i + 2];
+#pragma unroll
+  for (int i = 0; i < nv - 7; ++i) p8[i] = p4[i] + p4[i + 4];
+#pragma unroll
+  for (int k = 0; k < kRun; ++k) {
+    float acc = 0.0f;
+    bool first = true;
+    int off = 0;
+#pragma unroll
+    for (int p = 8; p >= 1; p >>= 1) {
+      if (BOX & p) {
+        float part = p == 8 ? p8[k + off] : p == 4 ? p4[k + off] : p == 2 ? p2[k + off] : v[k + off];
+        acc = first ? part : acc + part;
+        first = false;
+        off += p;
+      }
+    }
+    out[k] = acc;
   }
 }
 
-__global__ void peak_final(const int* __restrict__ km, const float* __restrict__ cnt,
-                           const float* __restrict__ joints, float* __restrict__ peak, Dims d,
-                           int shift) {
-  long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  long long total = (long long)d.n * d.h * d.w;
-  if (idx >= total) return;
-  int x = idx % d.w;
-  int y = (idx / d.w) % d.h;
-  float hit = km[idx] == peak_key(cnt[idx], y, x, d.w, shift) ? 1.0f : 0.0f;
-  peak[idx] = hit * joints[idx];
+template <int BOX>
+__global__ void __launch_bounds__(kThreadsA) binarize_tiles(
+    const float* __restrict__ smoothed, float* __restrict__ binary, unsigned* __restrict__ bits,
+    int h, int w, int words, int margin, float k, float r, float min_contrast) {
+  extern __shared__ float smem_a[];
+  const LayoutA L(BOX);
+  float* S = smem_a + L.s_off();
+  float* M = smem_a + L.m_off();
+  float* R1 = smem_a + L.r1_off();
+  float* R2 = smem_a + L.r2_off();
+  const int tid = threadIdx.x;
+  const int y0 = blockIdx.y * kTileH;
+  const int x0 = blockIdx.x * kTileW;
+  const size_t plane = (size_t)h * w;
+  const float* s = smoothed + blockIdx.z * plane;
+
+  // Input tile with a halo of hs, zero outside the image.
+#pragma unroll 4
+  for (int i = tid; i < L.sh * L.sw; i += kThreadsA) {
+    int gy = y0 - L.hs + i / L.sw;
+    int gx = x0 - L.hs + i % L.sw;
+    S[i] = (gy >= 0 && gy < h && gx >= 0 && gx < w) ? s[gy * w + gx] : 0.0f;
+  }
+  __syncthreads();
+
+  // Hessian minimum eigenvalue over the tile with a halo of rb (0 outside
+  // the image, as the box sums read it).
+  const int mw_used = kTileW + 2 * L.rb;
+  for (int i = tid; i < L.mh * mw_used; i += kThreadsA) {
+    int ly = i / mw_used;
+    int lx = i % mw_used;
+    int gy = y0 - L.rb + ly;
+    int gx = x0 - L.rb + lx;
+    float mn = 0.0f;
+    if (gy >= 0 && gy < h && gx >= 0 && gx < w) {
+      const float* c = S + (ly + 2) * L.sw + (lx + 2);
+      const int sw = L.sw;
+      float gr_dn = 0.5f * (c[2 * sw] - c[0]);
+      float gr_up = 0.5f * (c[0] - c[-2 * sw]);
+      float hrr = 0.5f * (gr_dn - gr_up);
+      float gr_r = 0.5f * (c[sw + 1] - c[-sw + 1]);
+      float gr_l = 0.5f * (c[sw - 1] - c[-sw - 1]);
+      float hrc = 0.5f * (gr_r - gr_l);
+      float gc_r = 0.5f * (c[2] - c[0]);
+      float gc_l = 0.5f * (c[0] - c[-2]);
+      float hcc = 0.5f * (gc_r - gc_l);
+      float half_tr = 0.5f * (hrr + hcc);
+      float half_diff = 0.5f * (hrr - hcc);
+      float root = sqrtf(half_diff * half_diff + hrc * hrc);
+      mn = half_tr - root;
+    }
+    M[ly * L.mw + lx] = mn;
+  }
+  __syncthreads();
+
+  // Row box sums of minima and minima^2 for every halo row: task = (row,
+  // run of kRun outputs), rows fastest (odd stride: no bank conflicts).
+  constexpr int nv = kRun + BOX - 1;
+  constexpr int runs = kTileW / kRun;
+  for (int t = tid; t < L.mh * runs; t += kThreadsA) {
+    int ly = t % L.mh;
+    int x = (t / L.mh) * kRun;
+    float v[nv], out[kRun];
+#pragma unroll
+    for (int i = 0; i < nv; ++i) v[i] = M[ly * L.mw + x + i];
+    box_run<BOX>(v, out);
+#pragma unroll
+    for (int j = 0; j < kRun; ++j) R1[ly * L.rw + x + j] = out[j];
+#pragma unroll
+    for (int i = 0; i < nv; ++i) v[i] = v[i] * v[i];
+    box_run<BOX>(v, out);
+#pragma unroll
+    for (int j = 0; j < kRun; ++j) R2[ly * L.rw + x + j] = out[j];
+  }
+  __syncthreads();
+
+  // Column box sums -> Sauvola threshold -> binary; one column and a run of
+  // kRun rows per thread, a warp on 32 consecutive columns of one run.
+  const int tx = tid % kTileW;
+  const int ty0 = (tid / kTileW) * kRun;
+  const int gx = x0 + tx;
+  float c1[kRun], c2[kRun];
+  {
+    float v[nv];
+#pragma unroll
+    for (int i = 0; i < nv; ++i) v[i] = R1[(ty0 + i) * L.rw + tx];
+    box_run<BOX>(v, c1);
+#pragma unroll
+    for (int i = 0; i < nv; ++i) v[i] = R2[(ty0 + i) * L.rw + tx];
+    box_run<BOX>(v, c2);
+  }
+  const float n_px = (float)(BOX * BOX);
+  const int word = (x0 + (tid % kTileW) - (tid % 32)) / 32;
+#pragma unroll
+  for (int j = 0; j < kRun; ++j) {
+    const int gy = y0 + ty0 + j;
+    float m1 = c1[j] / n_px;
+    float m2 = c2[j] / n_px;
+    float var = fmaxf(m2 - m1 * m1, 0.0f);
+    float sd = sqrtf(var);
+    float thresh = m1 * (1.0f + k * (sd / r - 1.0f));
+    float mn = M[(ty0 + j + L.rb) * L.mw + tx + L.rb];
+    float bf = (mn > thresh) ? 0.0f : 1.0f;
+    if (min_contrast > 0.0f) bf = bf * ((mn < -min_contrast) ? 1.0f : 0.0f);
+    bool inside = gy >= margin && gy < h - margin && gx >= margin && gx < w - margin;
+    float b = bf * (inside ? 1.0f : 0.0f);
+    bool in_img = gy < h && gx < w;
+    if (in_img) binary[blockIdx.z * plane + gy * w + gx] = b;
+    unsigned ball = __ballot_sync(kFull, in_img && b > 0.5f);
+    if ((tid % 32) == 0 && gy < h && word < words) bits[(blockIdx.z * (size_t)h + gy) * words + word] = ball;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Launch B: packed binary -> h_mask, v_mask, joints, joint_cnt, joint_peak
+// ---------------------------------------------------------------------------
+
+// Bit j of the result: AND (OR) of bits j .. j + len - 1 of (hi:lo), len <= 33
+// (the doubling of _line_minmax; any order is exact on bits).
+__device__ __forceinline__ unsigned run_and(unsigned lo, unsigned hi, int len) {
+  unsigned long long v = ((unsigned long long)hi << 32) | lo;
+  for (int covered = 1; covered < len;) {
+    int take = min(covered, len - covered);
+    v &= v >> take;
+    covered += take;
+  }
+  return (unsigned)v;
+}
+
+__device__ __forceinline__ unsigned run_or(unsigned lo, unsigned hi, int len) {
+  unsigned long long v = ((unsigned long long)hi << 32) | lo;
+  for (int covered = 1; covered < len;) {
+    int take = min(covered, len - covered);
+    v |= v >> take;
+    covered += take;
+  }
+  return (unsigned)v;
+}
+
+// Bit j of the result: bit j - a of the stream (prev word, then cur), 0 <= a < 32.
+__device__ __forceinline__ unsigned back(unsigned prev, unsigned cur, int a) {
+  return (unsigned)((((unsigned long long)cur << 32) | prev) >> (32 - a));
+}
+
+// Shared-memory layout of launch B (32-bit words).  Row ranges are relative
+// to the tile's first row, word ranges to its first word:
+//   B  binary bits  rows [-rj - up, TH + rj + down), words [-3, TW/32 + 3)
+//   E  row erosion  rows [-rj - a, TH + rj + len - 1 - a), words [-1, TW/32 + 1)
+//   DH, DV, J       rows [-rj, TH + rj), words [-1, TW/32 + 1)
+//   RC row counts   rows [-rj, TH + rj), pixels [-R, TW + R)
+//   CNT, K0, K1     rows [-R, TH + R), pixels [-R, TW + R)
+//   one word: the number of joints in the key region
+// with a = (len - 1) / 2, up = 2a, down = 2 (len - 1 - a), rj = R + jw / 2.
+struct LayoutB {
+  int a, up, down, rj, bh, bk, eh, jk, jh, kh, kw;
+  __host__ __device__ LayoutB(int len, int jw, int iters) {
+    a = (len - 1) / 2;
+    up = 2 * a;
+    down = 2 * (len - 1 - a);
+    rj = iters + jw / 2;
+    jh = kTileH + 2 * rj;
+    bh = jh + up + down;
+    bk = kTileWords + 6;
+    eh = jh + len - 1;
+    jk = kTileWords + 2;
+    kh = kTileH + 2 * iters;
+    kw = kTileW + 2 * iters;
+  }
+  __host__ __device__ int b_off() const { return 0; }
+  __host__ __device__ int e_off() const { return bh * bk; }
+  __host__ __device__ int dh_off() const { return e_off() + eh * jk; }
+  __host__ __device__ int dv_off() const { return dh_off() + jh * jk; }
+  __host__ __device__ int j_off() const { return dv_off() + jh * jk; }
+  __host__ __device__ int rc_off() const { return j_off() + jh * jk; }
+  __host__ __device__ int cnt_off() const { return rc_off() + jh * kw; }
+  __host__ __device__ int k0_off() const { return cnt_off() + kh * kw; }
+  __host__ __device__ int k1_off() const { return k0_off() + kh * kw; }
+  __host__ __device__ int words() const { return k1_off() + kh * kw + 1; }  // + joint count
+};
+
+__global__ void __launch_bounds__(kThreadsB) mask_tiles(
+    const unsigned* __restrict__ bits, float* __restrict__ hmask, float* __restrict__ vmask,
+    float* __restrict__ joints, float* __restrict__ jcnt, float* __restrict__ jpeak, int h, int w,
+    int words, int len, int jw, int iters, int shift) {
+  extern __shared__ unsigned smem_b[];
+  const LayoutB L(len, jw, iters);
+  unsigned* B = smem_b + L.b_off();
+  unsigned* E = smem_b + L.e_off();
+  unsigned* DH = smem_b + L.dh_off();
+  unsigned* DV = smem_b + L.dv_off();
+  unsigned* J = smem_b + L.j_off();
+  int* RC = (int*)(smem_b + L.rc_off());
+  int* CNT = (int*)(smem_b + L.cnt_off());
+  int* K0 = (int*)(smem_b + L.k0_off());
+  int* K1 = (int*)(smem_b + L.k1_off());
+  int* n_joints = (int*)(smem_b + L.k1_off() + L.kh * L.kw);
+  const int tid = threadIdx.x;
+  const int y0 = blockIdx.y * kTileH;
+  const int x0 = blockIdx.x * kTileW;
+  const int w0 = x0 / 32;
+  const size_t img = blockIdx.z;
+  const int R = iters;
+  const int jr = jw / 2;
+
+  for (int i = tid; i < L.bh * L.bk; i += kThreadsB) {
+    int gy = y0 - L.rj - L.up + i / L.bk;
+    int gw = w0 - 3 + i % L.bk;
+    B[i] = (gy >= 0 && gy < h && gw >= 0 && gw < words) ? bits[(img * h + gy) * words + gw] : 0u;
+  }
+  __syncthreads();
+
+  // Horizontal opening (erode then dilate along x) and the row erosion of
+  // the vertical opening.
+  for (int i = tid; i < L.jh * L.jk; i += kThreadsB) {
+    int row = i / L.jk;
+    int k = i % L.jk;
+    // The output word g needs binary words g - 2 .. g + 2: b[0 .. 4].
+    const unsigned* b = B + (row + L.up) * L.bk + k;
+    unsigned ar[4], er[3], orr[2];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) ar[j] = run_and(b[j], b[j + 1], len);
+#pragma unroll
+    for (int j = 0; j < 3; ++j) er[j] = back(ar[j], ar[j + 1], L.a);
+#pragma unroll
+    for (int j = 0; j < 2; ++j) orr[j] = run_or(er[j], er[j + 1], len);
+    DH[i] = back(orr[0], orr[1], L.a);
+  }
+  for (int i = tid; i < L.eh * L.jk; i += kThreadsB) {
+    int row = i / L.jk;
+    int k = i % L.jk;
+    unsigned v = kFull;
+    for (int t = 0; t < len; ++t) v &= B[(row + t) * L.bk + k + 2];
+    E[i] = v;
+  }
+  __syncthreads();
+  for (int i = tid; i < L.jh * L.jk; i += kThreadsB) {
+    int row = i / L.jk;
+    int k = i % L.jk;
+    unsigned v = 0u;
+    for (int t = 0; t < len; ++t) v |= E[(row + t) * L.jk + k];
+    DV[i] = v;
+    J[i] = DH[i] & v;
+  }
+  __syncthreads();
+
+  // The tile's three mask planes.
+  const size_t plane = (size_t)h * w;
+  for (int i = tid; i < kTileH * kTileW; i += kThreadsB) {
+    int ty = i / kTileW;
+    int tx = i % kTileW;
+    int gy = y0 + ty;
+    int gx = x0 + tx;
+    if (gy >= h || gx >= w) continue;
+    int wi = (ty + L.rj) * L.jk + tx / 32 + 1;
+    unsigned bit = 1u << (tx % 32);
+    size_t o = img * plane + gy * w + gx;
+    hmask[o] = (DH[wi] & bit) ? 1.0f : 0.0f;
+    vmask[o] = (DV[wi] & bit) ? 1.0f : 0.0f;
+    joints[o] = (J[wi] & bit) ? 1.0f : 0.0f;
+  }
+
+  // Joint counts along x (popcount of jw bits), then along y.
+  const unsigned long long wmask = (1ull << jw) - 1ull;
+  for (int i = tid; i < L.jh * L.kw; i += kThreadsB) {
+    int row = i / L.kw;
+    int u = i % L.kw - R - jr + 32;  // window start, in bits from word -1
+    int k = u >> 5;
+    const unsigned* jrow = J + row * L.jk;
+    unsigned long long v = jrow[k];
+    if (k + 1 < L.jk) v |= (unsigned long long)jrow[k + 1] << 32;
+    RC[i] = __popcll((v >> (u & 31)) & wmask);
+  }
+  __syncthreads();
+
+  // Counts along y: each task slides a window of jw row counts down a band
+  // of kBand rows of one column (integers: exact in any order).
+  constexpr int kBand = 16;
+  const int bands = (L.kh + kBand - 1) / kBand;
+  for (int t = tid; t < bands * L.kw; t += kThreadsB) {
+    const int kx = t % L.kw;
+    const int ky0 = (t / L.kw) * kBand;
+    const int ky1 = min(ky0 + kBand, L.kh);
+    int c = 0;
+    for (int d = 0; d < jw; ++d) c += RC[(ky0 + d) * L.kw + kx];
+    CNT[ky0 * L.kw + kx] = c;
+    for (int ky = ky0 + 1; ky < ky1; ++ky) {
+      c += RC[(ky + jw - 1) * L.kw + kx] - RC[(ky - 1) * L.kw + kx];
+      CNT[ky * L.kw + kx] = c;
+    }
+  }
+  if (tid == 0) *n_joints = 0;
+  __syncthreads();
+
+  // Keys, INT_MIN off the joints, in both buffers; the joints' positions go
+  // to a list (in RC's space, free now) in any order.
+  auto is_joint = [&](int ky, int kx) {  // key-region coordinates
+    int u = kx - R + 32;
+    return (J[(ky - R + L.rj) * L.jk + (u >> 5)] >> (u & 31)) & 1u;
+  };
+  int* joints_at = RC;
+  for (int i = tid; i < L.kh * L.kw; i += kThreadsB) {
+    int ky = i / L.kw;
+    int kx = i % L.kw;
+    int key = INT_MIN;
+    if (is_joint(ky, kx)) {
+      key = CNT[i] * (1 << shift) + ((y0 - R + ky) * w + (x0 - R + kx));
+      joints_at[atomicAdd(n_joints, 1)] = i;
+    }
+    K0[i] = K1[i] = key;
+  }
+  __syncthreads();
+
+  // Peak rounds.  A vertical 3-max, then a horizontal 3-max under the joint
+  // mask, is a 3x3 max at the joints (INT_MIN elsewhere, and off the image,
+  // stays so): one Jacobi pass over the joints per round.  Reads outside
+  // the key region are INT_MIN; its halo of R absorbs the error at its edge.
+  const int nj = *n_joints;
+  int* cur = K0;
+  int* nxt = K1;
+  for (int it = 0; it < iters; ++it) {
+    for (int t = tid; t < nj; t += kThreadsB) {
+      const int i = joints_at[t];
+      const int ky = i / L.kw;
+      const int kx = i % L.kw;
+      int v = INT_MIN;
+      for (int yy = max(ky - 1, 0); yy <= min(ky + 1, L.kh - 1); ++yy) {
+        const int* r = cur + yy * L.kw + kx;
+        v = max(v, r[0]);
+        if (kx > 0) v = max(v, r[-1]);
+        if (kx < L.kw - 1) v = max(v, r[1]);
+      }
+      nxt[i] = v;
+    }
+    __syncthreads();
+    int* t = cur;
+    cur = nxt;
+    nxt = t;
+  }
+
+  for (int i = tid; i < kTileH * kTileW; i += kThreadsB) {
+    int ty = i / kTileW;
+    int tx = i % kTileW;
+    int gy = y0 + ty;
+    int gx = x0 + tx;
+    if (gy >= h || gx >= w) continue;
+    int ki = (ty + R) * L.kw + tx + R;
+    int c = CNT[ki];
+    int key = c * (1 << shift) + (gy * w + gx);
+    float jf = is_joint(ty + R, tx + R) ? 1.0f : 0.0f;
+    size_t o = img * plane + gy * w + gx;
+    jcnt[o] = (float)c;
+    jpeak[o] = (cur[ki] == key ? 1.0f : 0.0f) * jf;
+  }
+}
+
+template <int BOX>
+int launch_binarize(dim3 grid, int smem, cudaStream_t stream, const float* smoothed, float* binary,
+                    unsigned* bits, int h, int w, int words, int margin, float k, float r,
+                    float min_contrast) {
+  if (smem != (int)(LayoutA(BOX).floats() * sizeof(float))) return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(binarize_tiles<BOX>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  binarize_tiles<BOX><<<grid, kThreadsA, smem, stream>>>(smoothed, binary, bits, h, w, words,
+                                                         margin, k, r, min_contrast);
+  CPE_CHECK_LAUNCH();
+  return 0;
 }
 
 }  // namespace
 
 // Outputs: binary, h_mask, v_mask, joints, joint_cnt, joint_peak (N, H, W)
-// float32.  Scratch: three float and two int32 (N, H, W) buffers.
+// float32.  Scratch: bits, (N, H, ceil(W / 32)) uint32.  The wrapper's plan
+// (ops/frontend.preprocess_plan) passes the tile shape and each launch's
+// shared bytes; they must equal this file's, or nothing launches.
 CPE_API int cpe_preprocess_binarize(const float* smoothed, float* binary, float* hmask,
                                     float* vmask, float* joints, float* jcnt, float* jpeak,
-                                    float* f0, float* f1, float* f2, int* i0, int* i1, int n,
-                                    int h, int w, int sauvola_window, int line_len, int margin,
-                                    int joint_window, int joint_peak_iters, int key_shift,
-                                    float sauvola_k, float sauvola_r, float min_contrast,
-                                    cudaStream_t stream) {
-  Dims d{n, h, w};
-  long long total = (long long)n * h * w;
-  unsigned g = blocks_for(total);
-  float* minima = f0;
-  hessian_minima<<<g, kThreads, 0, stream>>>(smoothed, minima, d);
-  CPE_CHECK_LAUNCH();
-  box_rows<<<g, kThreads, 0, stream>>>(minima, f1, f2, d, sauvola_window);
-  CPE_CHECK_LAUNCH();
-  sauvola_binarize<<<g, kThreads, 0, stream>>>(f1, f2, minima, binary, d, sauvola_window,
-                                               sauvola_k, sauvola_r, min_contrast, margin);
-  CPE_CHECK_LAUNCH();
-  // Openings: erode (into f1 / f2), then dilate.
-  line_minmax<<<g, kThreads, 0, stream>>>(binary, binary, f1, f2, d, line_len, false);
-  CPE_CHECK_LAUNCH();
-  line_minmax<<<g, kThreads, 0, stream>>>(f1, f2, hmask, vmask, d, line_len, true);
-  CPE_CHECK_LAUNCH();
-  joints_of<<<g, kThreads, 0, stream>>>(hmask, vmask, joints, total);
-  CPE_CHECK_LAUNCH();
-  box_rows<<<g, kThreads, 0, stream>>>(joints, f0, nullptr, d, joint_window);
-  CPE_CHECK_LAUNCH();
-  joint_count<<<g, kThreads, 0, stream>>>(f0, joints, jcnt, i0, d, joint_window, key_shift);
-  CPE_CHECK_LAUNCH();
-  for (int it = 0; it < joint_peak_iters; ++it) {
-    peak_pass<<<g, kThreads, 0, stream>>>(i0, i1, joints, d, false);
-    CPE_CHECK_LAUNCH();
-    peak_pass<<<g, kThreads, 0, stream>>>(i1, i0, joints, d, true);
-    CPE_CHECK_LAUNCH();
+                                    unsigned* bits, int n, int h, int w, int sauvola_window,
+                                    int line_len, int margin, int joint_window,
+                                    int joint_peak_iters, int key_shift, int tile_h, int tile_w,
+                                    int smem_a, int smem_b, float sauvola_k, float sauvola_r,
+                                    float min_contrast, cudaStream_t stream) {
+  if (tile_h != kTileH || tile_w != kTileW || line_len < 1 || line_len > 32 ||
+      joint_peak_iters < 0 || joint_peak_iters + joint_window / 2 > 32)
+    return (int)cudaErrorInvalidValue;
+  const int words = (w + 31) / 32;
+  dim3 grid((w + kTileW - 1) / kTileW, (h + kTileH - 1) / kTileH, n);
+  int rc;
+  switch (sauvola_window) {
+#define CPE_BOX(B)                                                                          \
+  case B:                                                                                   \
+    rc = launch_binarize<B>(grid, smem_a, stream, smoothed, binary, bits, h, w, words,      \
+                            margin, sauvola_k, sauvola_r, min_contrast);                    \
+    break;
+    CPE_BOX(1) CPE_BOX(3) CPE_BOX(5) CPE_BOX(7) CPE_BOX(9) CPE_BOX(11) CPE_BOX(13) CPE_BOX(15)
+#undef CPE_BOX
+    default:
+      return (int)cudaErrorInvalidValue;
   }
-  peak_final<<<g, kThreads, 0, stream>>>(i0, jcnt, joints, jpeak, d, key_shift);
+  if (rc != 0) return rc;
+  const LayoutB lb(line_len, joint_window, joint_peak_iters);
+  if (smem_b != (int)(lb.words() * sizeof(unsigned))) return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(mask_tiles, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       smem_b);
+  if (e != cudaSuccess) return (int)e;
+  mask_tiles<<<grid, kThreadsB, smem_b, stream>>>(bits, hmask, vmask, joints, jcnt, jpeak, h, w,
+                                                  words, line_len, joint_window,
+                                                  joint_peak_iters, key_shift);
   CPE_CHECK_LAUNCH();
   return 0;
 }

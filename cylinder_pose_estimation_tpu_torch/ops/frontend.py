@@ -19,6 +19,7 @@ launched the CUDA kernel (plain runs do not count).
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Tuple
 
 import torch
@@ -181,6 +182,73 @@ def preprocess_binarize_plain(
     return bf, h_open, v_open, joints, cnt, peak
 
 
+def preprocess_reach(sauvola_window: int = 15, line_len: int = 20, joint_window: int = 11) -> int:
+    """How far (px) the preprocess chain reads from a kept pixel along one
+    axis: the Hessian (2) plus the Sauvola box, the two line passes of an
+    opening, the joint count.  The kernel reads 0 outside the image where
+    the plain version wraps; with the margin at least this reach, both give
+    the same whole images."""
+    a = (line_len - 1) // 2
+    return max(2 + sauvola_window // 2, 2 * (line_len - 1 - a), joint_window // 2 + 1)
+
+
+# Output tile of both preprocess launches (csrc/preprocess.cu kTileH, kTileW).
+PREPROCESS_TILE = (32, 64)
+
+
+@functools.lru_cache(maxsize=64)
+def preprocess_plan(
+    n: int, h: int, w: int, sauvola_window: int = 15, line_len: int = 20,
+    joint_window: int = 11, joint_peak_iters: int = 8,
+) -> Dict[str, object]:
+    """Launch plan of the preprocess kernel: two launches over the same grid
+    of (image, tile row, tile column) blocks.  Launch A (binarize) loads the
+    tile with a halo of 2 + window // 2; launch B (masks, count, peak) loads
+    the bit-packed binary with the openings' and the peak rounds' halos.
+    The shared bytes mirror the kernel's layouts (it refuses other values).
+    Raises ``ValueError`` for parameters the kernel does not take.  Cached:
+    treat the returned dict as read-only."""
+    if sauvola_window % 2 != 1 or joint_window % 2 != 1 or sauvola_window > 15 or joint_window > 15:
+        raise ValueError("box windows must be odd and at most 15")
+    if not 1 <= line_len <= 32:
+        raise ValueError(f"line_len must lie in [1, 32], got {line_len}")
+    if joint_peak_iters < 0 or joint_peak_iters + joint_window // 2 > 32:
+        raise ValueError("joint_peak_iters + joint_window // 2 must lie in [0, 32]")
+    if n * h * w >= 2**31:
+        raise ValueError(f"{n}x{h}x{w} pixels overflow the kernel's 32-bit plane index")
+    th, tw = PREPROCESS_TILE
+    tile_words = tw // 32
+    # Launch A (floats): input + halo, minima + halo (odd stride), 2 row-sum planes.
+    rb = sauvola_window // 2
+    hs = rb + 2
+    mh, mw, rw = th + 2 * rb, (tw + 2 * rb) | 1, tw + 1
+    floats_a = (th + 2 * hs) * (tw + 2 * hs) + mh * mw + 2 * mh * rw
+    # Launch B (32-bit words): binary bits, row erosion, 3 word planes, row
+    # counts, counts, two key planes and the joint count.
+    a = (line_len - 1) // 2
+    up, down = 2 * a, 2 * (line_len - 1 - a)
+    rj = joint_peak_iters + joint_window // 2
+    jh = th + 2 * rj
+    kh, kw = th + 2 * joint_peak_iters, tw + 2 * joint_peak_iters
+    words_b = ((jh + up + down) * (tile_words + 6) + (jh + line_len - 1) * (tile_words + 2)
+               + 3 * jh * (tile_words + 2) + jh * kw + 3 * kh * kw + 1)
+    plan = {
+        "launches": 2,
+        "tile": (th, tw),
+        "grid": (-(-w // tw), -(-h // th), n),
+        "halo_a": hs,
+        "halo_b_rows": (rj + up, rj + down),
+        "halo_b_cols": (rj, rj),
+        "bit_words": -(-w // 32),
+        "smem_a": 4 * floats_a,
+        "smem_b": 4 * words_b,
+    }
+    for key in ("smem_a", "smem_b"):
+        if plan[key] > kernels.MAX_DYNAMIC_SMEM:
+            raise ValueError(f"{key}: {plan[key]} B of shared memory (max {kernels.MAX_DYNAMIC_SMEM})")
+    return plan
+
+
 def preprocess_binarize(
     smoothed: torch.Tensor,
     sauvola_window: int = 15,
@@ -193,27 +261,30 @@ def preprocess_binarize(
     joint_peak_iters: int = 8,
 ) -> Tuple[torch.Tensor, ...]:
     """Preprocess kernel on (N, H, W) float32 smoothed images (see
-    ``preprocess_binarize_plain`` for the outputs)."""
+    ``preprocess_binarize_plain`` for the outputs).  ``margin`` must cover
+    ``preprocess_reach``."""
     args = dict(
         sauvola_window=sauvola_window, sauvola_k=sauvola_k, sauvola_r=sauvola_r,
         min_contrast=min_contrast, line_len=line_len, margin=margin,
         joint_window=joint_window, joint_peak_iters=joint_peak_iters,
     )
+    reach = preprocess_reach(sauvola_window, line_len, joint_window)
+    if margin < reach:
+        raise ValueError(f"margin {margin} is below the stencil reach {reach}: the kernel's zero "
+                         "halo and the plain version's wrap-around would differ")
     if not _route(smoothed):
         return preprocess_binarize_plain(smoothed, **args)
     _check("smoothed", smoothed, torch.float32, 3)
     n, h, w = smoothed.shape
-    if sauvola_window % 2 != 1 or joint_window % 2 != 1 or sauvola_window > 15 or joint_window > 15:
-        raise ValueError("box windows must be odd and at most 15")
+    plan = preprocess_plan(n, h, w, sauvola_window, line_len, joint_window, joint_peak_iters)
     shift = peak_key_shift(h, w, joint_window)
-    outs = [torch.empty_like(smoothed) for _ in range(6)]
-    scratch_f = [torch.empty_like(smoothed) for _ in range(3)]
-    scratch_i = [torch.empty(smoothed.shape, dtype=torch.int32, device=smoothed.device)
-                 for _ in range(2)]
+    outs = torch.empty((6,) + smoothed.shape, dtype=torch.float32, device=smoothed.device).unbind(0)
+    bits = torch.empty((n, h, plan["bit_words"]), dtype=torch.int32, device=smoothed.device)
     kernels.launch(
         "cpe_preprocess_binarize",
-        [smoothed, *outs, *scratch_f, *scratch_i],
-        [n, h, w, sauvola_window, line_len, margin, joint_window, joint_peak_iters, shift],
+        [smoothed, *outs, bits],
+        [n, h, w, sauvola_window, line_len, margin, joint_window, joint_peak_iters, shift,
+         *plan["tile"], plan["smem_a"], plan["smem_b"]],
         [sauvola_k, sauvola_r, min_contrast],
     )
     _LAUNCHES["preprocess_binarize"] += 1
@@ -285,6 +356,27 @@ def connected_components_plain(
     return lab.to(torch.int32)
 
 
+CLUSTER_SIZES = (1, 2, 4, 8)
+
+
+@functools.lru_cache(maxsize=64)
+def cc_plan(n: int, h: int, w: int) -> Dict[str, int]:
+    """Launch plan of the CC kernel: one thread-block cluster per mask, its
+    rows split over the smallest cluster (1, 2, 4 or 8 CTAs) whose two int32
+    label buffers of rows_per_cta x W, plus three int32 entries per column,
+    fit in one CTA's shared memory.  Raises ``ValueError`` beyond 8 CTAs.
+    Cached: treat the returned dict as read-only."""
+    if n * h * w >= 2**31:
+        raise ValueError(f"{n}x{h}x{w} labels overflow the kernel's 32-bit index")
+    for c in CLUSTER_SIZES:
+        rows = -(-h // c)
+        smem = 4 * (2 * rows * w + 3 * w)
+        if smem <= kernels.MAX_DYNAMIC_SMEM and (c - 1) * rows < h:
+            return {"cluster": c, "rows_per_cta": rows, "smem": smem, "ctas": c * n}
+    raise ValueError(f"{h}x{w} masks need more than {CLUSTER_SIZES[-1]} CTAs of "
+                     f"{kernels.MAX_DYNAMIC_SMEM} B shared memory")
+
+
 def connected_components(
     mask: torch.Tensor,
     rounds: int = 10,
@@ -303,12 +395,12 @@ def connected_components(
         _check("init_labels", init_labels, torch.int32, 3)
         if init_labels.shape != mask.shape:
             raise ValueError("init_labels must have the mask's shape")
+    plan = cc_plan(n, h, w)
     out = torch.empty(mask.shape, dtype=torch.int32, device=mask.device)
-    tmp = torch.empty_like(out)
     kernels.launch(
         "cpe_connected_components",
-        [mask, init_labels, out, tmp],
-        [n, h, w, rounds, pools_per_round],
+        [mask, init_labels, out],
+        [n, h, w, rounds, pools_per_round, plan["cluster"], plan["rows_per_cta"], plan["smem"]],
         [],
     )
     _LAUNCHES["connected_components"] += 1
@@ -572,9 +664,24 @@ SOURCES = {
     "component_payload_minmax": "cylinder_pose_estimation_tpu_torch/csrc/payload_minmax.cu",
 }
 
+
+def min_bytes(name: str, n: int, h: int, w: int, warm: bool = False) -> int:
+    """The bytes kernel ``name`` must move for an (n, h, w) call: each input
+    plane read once and each output plane written once (4-byte elements).
+    The bridge's per-mask angles and offset tables (a few KB) are left out.
+    ``warm``: the CC call reads a warm-start label plane too."""
+    planes = {
+        "preprocess_binarize": 1 + 6,               # smoothed -> six planes
+        "connected_components": 2 + int(warm),      # mask (+ init) -> labels
+        "bridge_morphology": 3,                     # masks, exps -> bridged
+        "component_payload_minmax": 4,              # mask, payload -> min, max
+    }[name]
+    return 4 * planes * n * h * w
+
+
 __all__ = [
-    "preprocess_binarize", "preprocess_binarize_plain",
-    "connected_components", "connected_components_plain",
+    "preprocess_binarize", "preprocess_binarize_plain", "preprocess_plan", "preprocess_reach",
+    "connected_components", "connected_components_plain", "cc_plan", "min_bytes",
     "bridge_morphology", "bridge_morphology_plain", "bridge_schedule",
     "component_payload_minmax", "component_payload_minmax_plain",
     "launch_counts", "reset_launch_counts", "REPLACES", "SOURCES",

@@ -42,8 +42,8 @@ NVCC_FLAGS = [
 MAX_DYNAMIC_SMEM = 232448
 # C entry points: (tensor pointers, ints, floats), then the CUDA stream.
 SIGNATURES = {
-    "cpe_preprocess_binarize": (12, 9, 3),
-    "cpe_connected_components": (4, 5, 0),
+    "cpe_preprocess_binarize": (8, 13, 3),
+    "cpe_connected_components": (3, 8, 0),
     "cpe_bridge_morphology": (5, 5, 0),
     "cpe_component_payload_minmax": (6, 5, 0),
 }

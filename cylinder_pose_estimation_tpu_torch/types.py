@@ -89,11 +89,13 @@ def stereo_from_numpy(
     cam2_radial,
     cam2_tangential,
     t_c2_c1,
-    device="cpu",
+    device="cuda",
     dtype=torch.float32,
 ) -> StereoParams:
     """StereoParams on ``device`` from numpy arrays (e.g. ``np.asarray`` of
-    each leaf of a JAX ``StereoParams``)."""
+    each leaf of a JAX ``StereoParams``).  The rig lives on the card unless
+    the caller asks for the CPU: the entry points that take their device from
+    the rig (``estimate_poses_stream(device=None)``) follow it there."""
 
     def t(a):
         return torch.as_tensor(np.array(a), dtype=dtype, device=device)

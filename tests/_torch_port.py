@@ -16,7 +16,7 @@ def port_stereo(st):
                   st.cam2.k, st.cam2.radial, st.cam2.tangential, st.t_c2_c1)
     else:
         leaves = tuple(st)
-    return stereo_from_numpy(*(np.asarray(x) for x in leaves))
+    return stereo_from_numpy(*(np.asarray(x) for x in leaves), device="cpu")
 
 
 def jax_stereo(st):

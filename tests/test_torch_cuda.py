@@ -39,8 +39,11 @@ def _equal(a, b):
         assert torch.equal(x, y), int((x != y).sum())
 
 
-@pytest.mark.parametrize("shape", [(2, 96, 256), (3, 240, 320), (1, 480, 640)])
-def test_preprocess_kernel_equals_plain(dev, shape):
+@pytest.mark.parametrize("iters", [0, 5, 8])
+@pytest.mark.parametrize("shape", [(2, 96, 256), (3, 240, 320), (1, 480, 640), (1, 488, 648)])
+def test_preprocess_kernel_equals_plain(dev, shape, iters):
+    """Widths and heights that are not multiples of the 32x64 tile, and the
+    peak rounds at 0, 5 and 8 (halo 0 to 13 px)."""
     g = torch.Generator().manual_seed(sum(shape))
     img = torch.rand(shape, generator=g) * 255.0
     from cylinder_pose_estimation_tpu_torch.config import CylinderDetectConfig
@@ -48,21 +51,84 @@ def test_preprocess_kernel_equals_plain(dev, shape):
 
     x = _smooth(img.to(dev), CylinderDetectConfig())
     before = tf.launch_counts()["preprocess_binarize"]
-    kw = dict(margin=24, joint_peak_iters=5)
+    kw = dict(margin=24, joint_peak_iters=iters)
     _equal(tf.preprocess_binarize(x, **kw), tf.preprocess_binarize_plain(x, **kw))
     assert tf.launch_counts()["preprocess_binarize"] == before + 1
 
 
-@pytest.mark.parametrize("rounds, pools, warm", [(2, 4, False), (2, 2, False), (2, 2, True), (3, 1, False)])
-@pytest.mark.parametrize("shape", [(4, 128, 256), (4, 240, 384)])
+def test_preprocess_kernel_on_grid_lines(dev):
+    """A grid of bright lines: joints, counts and peaks are non-trivial."""
+    from cylinder_pose_estimation_tpu_torch.config import CylinderDetectConfig
+    from cylinder_pose_estimation_tpu_torch.models.detector import _smooth
+
+    h, w = 240, 320
+    img = torch.full((2, h, w), 20.0)
+    for y in range(30, h - 30, 17):
+        img[:, y:y + 3, 30:w - 30] += 150.0
+    for x in range(30, w - 30, 19):
+        img[:, 30:h - 30, x:x + 3] += 150.0
+    img += torch.randn(img.shape, generator=torch.Generator().manual_seed(3)) * 2.0
+    x = _smooth(img.to(dev), CylinderDetectConfig())
+    out = tf.preprocess_binarize(x, margin=24, joint_peak_iters=5)
+    _equal(out, tf.preprocess_binarize_plain(x, margin=24, joint_peak_iters=5))
+    assert float(out[5].sum()) > 0
+
+
+def test_preprocess_margin_under_reach_raises(dev):
+    x = torch.zeros((1, 96, 128), device=dev)
+    with pytest.raises(ValueError):
+        tf.preprocess_binarize(x, margin=tf.preprocess_reach() - 1)
+
+
+@pytest.mark.parametrize("rounds, pools, warm", [(2, 4, False), (2, 2, False), (2, 2, True), (3, 1, False),
+                                                (10, 4, False)])
+@pytest.mark.parametrize("shape", [(4, 128, 256), (4, 240, 384), (4, 64, 128)])
 def test_cc_kernel_equals_plain(dev, rounds, pools, warm, shape):
     g = torch.Generator().manual_seed(rounds * 10 + pools)
     m = (torch.rand(shape, generator=g) < 0.45).to(torch.float32).to(dev)
     init = None
     if warm:
+        # Warm-start values up to 2 H*W: min(init, idx) must still win.
         init = torch.randint(0, 2 * shape[1] * shape[2], shape, generator=g, dtype=torch.int32).to(dev)
+    before = tf.launch_counts()["connected_components"]
     _equal(tf.connected_components(m, rounds, pools, init),
            tf.connected_components_plain(m, rounds, pools, init))
+    assert tf.launch_counts()["connected_components"] == before + 1
+
+
+def _cluster_masks(h, w, rows_per):
+    """(3, h, w): vertical bars, half of them crossing every split row and
+    one a single run over the whole height; a serpentine that stays
+    unconverged after 2 rounds; blobs straddling each split row."""
+    m = torch.zeros((3, h, w))
+    m[0, 1:h - 1, w // 2] = 1
+    for x in range(5, w - 5, 9):
+        m[0, 3 + x % 7:h - 3 - x % 5, x] = 1
+    m[0, ::rows_per, 5::18] = 0  # every other bar stops at each split row
+    for y in range(2, h - 2, 4):
+        m[1, y, 2:w - 2] = 1
+        m[1, y:y + 4, w - 3 if (y // 4) % 2 == 0 else 2] = 1
+    for r in range(rows_per, h, rows_per):
+        for x in range(4, w - 8, 12):
+            m[2, max(r - 3, 1):min(r + 3, h - 1), x:x + 5] = 1
+    return m
+
+
+@pytest.mark.parametrize("rounds, pools", [(2, 4), (2, 2), (3, 1), (10, 4)])
+@pytest.mark.parametrize("hw", [(128, 256), (240, 384), (64, 128)])
+def test_cc_kernel_across_cluster_splits(dev, rounds, pools, hw):
+    h, w = hw
+    plan = tf.cc_plan(3, h, w)
+    m = _cluster_masks(h, w, plan["rows_per_cta"]).to(dev)
+    init = torch.full(m.shape, h * w + 5, dtype=torch.int32, device=dev)  # every value >= H*W
+    for start in (None, init):
+        _equal(tf.connected_components(m, rounds, pools, start),
+               tf.connected_components_plain(m, rounds, pools, start))
+    if rounds == 2:
+        # The serpentine is unconverged after 2 rounds, on the card as in the plain version.
+        lab = tf.connected_components(m, rounds, pools)[1]
+        on = m[1] > 0.5
+        assert int(lab[on].max()) != int(lab[on].min())
 
 
 @pytest.mark.parametrize("kernel_len", [0.0, 20.0, 124.0, 300.0])
@@ -122,7 +188,8 @@ def test_pipeline_on_card_matches_cpu(dev):
 
     st, (i1, i2) = example_pair(480, 640, n_frames=2)
     cfg = CylinderDetectConfig(use_pallas=True)
-    cpu = estimate_poses_batch(torch.as_tensor(i1), torch.as_tensor(i2), stereo_from_numpy(*st), cfg, FitConfig())
+    cpu = estimate_poses_batch(torch.as_tensor(i1), torch.as_tensor(i2), stereo_from_numpy(*st, device="cpu"),
+                               cfg, FitConfig())
     gpu = estimate_poses_batch(torch.as_tensor(i1, device=dev), torch.as_tensor(i2, device=dev),
                                stereo_from_numpy(*st, device=dev), cfg, FitConfig())
     for a, b in ((cpu.detect1, gpu.detect1), (cpu.detect2, gpu.detect2)):

@@ -61,7 +61,7 @@ def _t(x):
 def _port_stereo(st):
     return stereo_from_numpy(*(np.asarray(x) for x in (
         st.cam1.k, st.cam1.radial, st.cam1.tangential,
-        st.cam2.k, st.cam2.radial, st.cam2.tangential, st.t_c2_c1)))
+        st.cam2.k, st.cam2.radial, st.cam2.tangential, st.t_c2_c1)), device="cpu")
 
 
 def _port_gp(gp):

@@ -101,7 +101,7 @@ def test_port_meets_fixtures_on_cpu():
     a, b = gen.endpoint_images()
     cfg = CylinderDetectConfig(height=h, width=w, use_pallas=True, bridge_endpoint_stats=True)
     res = estimate_poses_batch(torch.as_tensor(np.stack(a)), torch.as_tensor(np.stack(b)),
-                               stereo_from_numpy(*default_stereo(cx=w / 2.0, cy=h / 2.0)),
+                               stereo_from_numpy(*default_stereo(cx=w / 2.0, cy=h / 2.0), device="cpu"),
                                cfg, FitConfig())
     for s, want in enumerate(_load(gen.ENDPOINT_FIXTURE)["scenes"]):
         chk = chip_smoke.golden_check(res, want, s, gauge=True)

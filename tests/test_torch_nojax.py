@@ -35,7 +35,7 @@ from cylinder_pose_estimation_tpu_torch.types import stereo_from_numpy
 from cylinder_pose_estimation_tpu_torch.utils.synthetic import example_pair, plane_view
 
 stereo_np, (i1, i2) = example_pair(480, 640, n_frames=2)
-stereo = stereo_from_numpy(*stereo_np)
+stereo = stereo_from_numpy(*stereo_np, device="cpu")
 res = estimate_poses_batch(torch.as_tensor(i1), torch.as_tensor(i2), stereo,
                            CylinderDetectConfig(use_pallas=True), FitConfig())
 assert res.fit.params.shape == (2, 6)

@@ -60,7 +60,7 @@ def golden():
 def _port_stereo(st):
     return stereo_from_numpy(*(np.asarray(x) for x in (
         st.cam1.k, st.cam1.radial, st.cam1.tangential,
-        st.cam2.k, st.cam2.radial, st.cam2.tangential, st.t_c2_c1)))
+        st.cam2.k, st.cam2.radial, st.cam2.tangential, st.t_c2_c1)), device="cpu")
 
 
 def _records(det, i):
@@ -107,7 +107,7 @@ def jax_scenes():
 @pytest.fixture(scope="module")
 def port_scenes():
     st, (i1, i2) = tsyn.example_pair(480, 640, n_frames=2)
-    return stereo_from_numpy(*st), i1, i2
+    return stereo_from_numpy(*st, device="cpu"), i1, i2
 
 
 @pytest.mark.parametrize("source", ["jax_scenes", "port_scenes"])

@@ -1,0 +1,142 @@
+"""PyTorch port, on the CPU: the launch plans of the preprocess and CC
+kernels at every shape the detector passes, the kernels' byte counts, the
+preprocess margin check and the rig's default device.  No JAX here."""
+
+import numpy as np
+import pytest
+import torch
+
+from cylinder_pose_estimation_tpu_torch.config import CylinderDetectConfig, PlaneDetectConfig
+from cylinder_pose_estimation_tpu_torch.models import detector
+from cylinder_pose_estimation_tpu_torch.ops import frontend as tf
+from cylinder_pose_estimation_tpu_torch.ops import kernels
+from cylinder_pose_estimation_tpu_torch.types import stereo_from_numpy
+from cylinder_pose_estimation_tpu_torch.utils.synthetic import default_stereo
+
+# One intra-op thread per test worker: the suite runs several workers on
+# the same cores, and oversubscribed torch thread pools spin.
+torch.set_num_threads(1)
+
+SIZES = [(480, 640), (240, 320)]
+
+
+def _cc_shapes(h, w):
+    """The (h, w) of the detector's CC canvases for h x w views: the
+    quarter-res ROI pair and the half-res h/v pair (pre-bridge and final)."""
+    z = torch.zeros((1, h, w), dtype=torch.bool)
+    return tuple(detector._pool4_pad(z).shape[-2:]), tuple(detector._pool2_pad(z).shape[-2:])
+
+
+@pytest.mark.parametrize("iters", [0, 5, 8])
+@pytest.mark.parametrize("hw", SIZES)
+def test_preprocess_plan_at_detector_shapes(hw, iters):
+    h, w = hw
+    cfg = CylinderDetectConfig(height=h, width=w)
+    plan = tf.preprocess_plan(32, h, w, cfg.sauvola_window, cfg.line_kernel_len, 11, iters)
+    th, tw = plan["tile"]
+    assert plan["launches"] <= 3
+    assert plan["grid"] == (-(-w // tw), -(-h // th), 32)
+    assert plan["grid"][0] * tw >= w and plan["grid"][1] * th >= h
+    assert plan["halo_a"] == 2 + cfg.sauvola_window // 2 == 9
+    a = (cfg.line_kernel_len - 1) // 2
+    rj = iters + 11 // 2
+    assert plan["halo_b_rows"] == (rj + 2 * a, rj + 2 * (cfg.line_kernel_len - 1 - a))
+    assert plan["halo_b_cols"] == (rj, rj) and rj <= 32  # the column halo stays in one word
+    assert plan["bit_words"] == -(-w // 32)
+    for key in ("smem_a", "smem_b"):
+        assert 0 < plan[key] <= kernels.MAX_DYNAMIC_SMEM == 232448
+
+
+def test_preprocess_plan_layouts():
+    """The shared bytes of the two launches at the defaults (32x64 tiles,
+    window 15, line 20, 8 rounds), as the kernel's layouts count them."""
+    plan = tf.preprocess_plan(32, 480, 640)
+    assert plan["tile"] == (32, 64)
+    assert plan["smem_a"] == 4 * (50 * 82 + 46 * 79 + 2 * 46 * 65)
+    jh, kh, kw = 32 + 26, 32 + 16, 64 + 16
+    assert plan["smem_b"] == 4 * ((jh + 38) * 8 + (jh + 19) * 4 + 3 * jh * 4 + jh * kw + 3 * kh * kw + 1)
+
+
+@pytest.mark.parametrize("kw, match", [
+    (dict(sauvola_window=14), "odd"), (dict(joint_window=17), "odd"), (dict(line_len=33), "line_len"),
+    (dict(joint_peak_iters=28), "joint_peak_iters"), (dict(joint_peak_iters=-1), "joint_peak_iters"),
+])
+def test_preprocess_plan_refuses(kw, match):
+    with pytest.raises(ValueError, match=match):
+        tf.preprocess_plan(2, 96, 128, **kw)
+
+
+@pytest.mark.parametrize("hw", SIZES)
+def test_cc_plan_at_detector_shapes(hw):
+    quarter, half = _cc_shapes(*hw)
+    want = {(480, 640): (2, 4), (240, 320): (1, 2)}[hw]
+    for (h, w), c in zip((quarter, half), want):
+        plan = tf.cc_plan(64, h, w)
+        rows = plan["rows_per_cta"]
+        assert plan["cluster"] == c
+        assert rows * c >= h and rows * (c - 1) < h  # every CTA holds rows
+        assert plan["smem"] == 4 * (2 * rows * w + 3 * w) <= kernels.MAX_DYNAMIC_SMEM
+        assert plan["ctas"] == 64 * c
+        if c > 1:  # the smallest cluster that fits
+            smaller = -(-h // (c // 2))
+            assert 4 * (2 * smaller * w + 3 * w) > kernels.MAX_DYNAMIC_SMEM
+
+
+def test_cc_plan_at_issue_shapes():
+    assert _cc_shapes(480, 640) == ((128, 256), (240, 384))
+    assert _cc_shapes(240, 320) == ((64, 128), (120, 256))
+    assert tf.cc_plan(64, 128, 256)["smem"] == 131072 + 3072
+    assert tf.cc_plan(64, 240, 384)["rows_per_cta"] == 60
+
+
+@pytest.mark.parametrize("hw", [(1024, 1024), (480, 2048), (8192, 64)])
+def test_cc_plan_raises_beyond_eight_ctas(hw):
+    with pytest.raises(ValueError, match="more than 8 CTAs"):
+        tf.cc_plan(1, *hw)
+
+
+def test_min_bytes_at_the_detector_sites():
+    assert tf.min_bytes("preprocess_binarize", 32, 480, 640) == 275_251_200
+    assert tf.min_bytes("connected_components", 64, 128, 256) == 16_777_216
+    assert tf.min_bytes("connected_components", 64, 240, 384) == 47_185_920
+    assert tf.min_bytes("connected_components", 64, 240, 384, warm=True) == 70_778_880
+    assert tf.min_bytes("bridge_morphology", 64, 240, 384) == 70_778_880
+    assert tf.min_bytes("component_payload_minmax", 64, 240, 384) == 94_371_840
+
+
+def test_preprocess_margin_under_reach_raises():
+    assert tf.preprocess_reach() == 20
+    x = torch.zeros((1, 64, 96))
+    with pytest.raises(ValueError, match="reach"):
+        tf.preprocess_binarize(x, margin=19)
+    assert len(tf.preprocess_binarize(x, margin=20)) == 6
+
+
+@pytest.mark.parametrize("cfg", [CylinderDetectConfig(), PlaneDetectConfig(roi_threshold=30.0)])
+def test_detector_margin_covers_the_reach(cfg):
+    reach = tf.preprocess_reach(cfg.sauvola_window, cfg.line_kernel_len, 11)
+    assert detector._border_margin(cfg) >= reach
+
+
+def test_stereo_rig_defaults_to_the_card(monkeypatch):
+    """Without ``device`` every leaf of the rig is made on the card;
+    ``device="cpu"`` keeps it on the CPU."""
+    import inspect
+
+    from cylinder_pose_estimation_tpu_torch.types import stereo_from_numpy as fn
+
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
+    seen = []
+    real = torch.as_tensor
+
+    def spy(*args, **kw):
+        seen.append(str(kw.get("device")))
+        return real(*args, **{**kw, "device": "cpu"})
+
+    monkeypatch.setattr(torch, "as_tensor", spy)
+    stereo_from_numpy(*default_stereo())
+    assert seen and set(seen) == {"cuda"}
+    monkeypatch.undo()
+    st = stereo_from_numpy(*default_stereo(), device="cpu")
+    assert st.t_c2_c1.device.type == "cpu"
+    assert np.allclose(st.t_c2_c1.numpy(), default_stereo()[6])

@@ -1,0 +1,127 @@
+#!/usr/bin/env python3
+"""Time the preprocess (2.1) and CC (2.2) kernels on one CUDA card at the
+detector's call sites.
+
+    python3 tools/torch_kernel_time.py [--root DIR] [--reps 20]
+
+Runs ``estimate_poses_batch`` once on 16 frames of the bench scene family
+(480x640, ``CylinderDetectConfig(use_pallas=True)``) to capture the kernel
+wrappers' arguments, then for each call site prints three times:
+``call`` (CUDA events around one wrapper call, median of ``reps``; the
+host's launch path is inside), ``run`` (CUDA events around ``reps``
+back-to-back calls, over ``reps``: the device's rate once the host keeps
+ahead) and ``device`` (torch.profiler: the call's CUDA kernels' summed
+durations, by kernel name).
+
+``--root`` picks the checkout whose ``cylinder_pose_estimation_tpu_torch``
+is imported (default: this one), so two trees can be timed in turns in one
+run on one card.  Ends with one JSON line of the numbers.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def event_ms(fn, reps: int, per_event: int) -> float:
+    """Median ms per call over ``reps`` event pairs, each around
+    ``per_event`` back-to-back calls."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps if per_event == 1 else 5):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(per_event):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / per_event)
+    return statistics.median(times)
+
+
+def device_ms(fn, calls: int = 5) -> dict:
+    """Summed CUDA kernel durations per call, by kernel name (ms)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    by = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            name = e.name.split("(")[0].replace("(anonymous namespace)::", "")
+            by[name] = by.get(name, 0.0) + (e.time_range.end - e.time_range.start) / 1e3 / calls
+    return by
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--root", default=HERE)
+    ap.add_argument("--reps", type=int, default=20)
+    args = ap.parse_args()
+    import torch
+
+    if not torch.cuda.is_available():
+        print("torch_kernel_time: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.abspath(args.root))
+    sys.path.insert(1, HERE)
+    from chip_smoke import Capture
+    from cylinder_pose_estimation_tpu_torch.config import CylinderDetectConfig, FitConfig
+    from cylinder_pose_estimation_tpu_torch.models.pipeline import estimate_poses_batch
+    from cylinder_pose_estimation_tpu_torch.ops import frontend, kernels
+    from cylinder_pose_estimation_tpu_torch.types import stereo_from_numpy
+    from cylinder_pose_estimation_tpu_torch.utils.synthetic import example_pair
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    kernels.build()
+    dev = torch.device("cuda:0")
+    st, (i1, i2) = example_pair(480, 640, n_frames=16)
+    stereo = stereo_from_numpy(*st, device=dev)
+    cfg = CylinderDetectConfig(height=480, width=640, use_pallas=True)
+    with Capture(frontend) as cap, torch.inference_mode():
+        estimate_poses_batch(torch.as_tensor(i1, device=dev), torch.as_tensor(i2, device=dev), stereo,
+                             cfg, FitConfig())
+    sites = []
+    for args_, kw in cap.calls["preprocess_binarize"]:
+        x = args_[0]
+        sites.append((f"preprocess_binarize {tuple(x.shape)}",
+                      lambda x=x, kw=kw: frontend.preprocess_binarize(x, **kw)))
+    for args_, kw in cap.calls["connected_components"]:
+        m, init = args_[0], kw.get("init_labels")
+        label = (f"connected_components {tuple(m.shape)} {kw['rounds']}x{kw['pools_per_round']} "
+                 f"{'warm' if init is not None else 'cold'}")
+        sites.append((label, lambda m=m, kw=kw: frontend.connected_components(m, **kw)))
+    out = []
+    with torch.inference_mode():
+        for label, fn in sites:
+            row = {"site": label, "call_ms": event_ms(fn, args.reps, 1),
+                   "run_ms": event_ms(fn, args.reps, args.reps), "device_ms": device_ms(fn)}
+            out.append(row)
+            dev_total = sum(row["device_ms"].values())
+            print(f"{args.root} {label}: call {row['call_ms']:.4f} ms, run {row['run_ms']:.4f} ms, "
+                  f"device {dev_total:.4f} ms {({k: round(v, 4) for k, v in row['device_ms'].items()})}; "
+                  f"{smi}", flush=True)
+    print(json.dumps({"root": os.path.abspath(args.root), "card": smi, "sites": out}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,147 @@
+#!/usr/bin/env python3
+"""Time the PyTorch port's B=16 step on one CUDA card.
+
+    python3 tools/torch_step_time.py [--root DIR] [--reps 10]
+
+Prints, for ``estimate_poses_batch`` on 16 frames of the bench scene family
+(480x640, ``CylinderDetectConfig(use_pallas=True)``, ``FitConfig()``):
+e2e and detect-only (``probe="detect"``) ms/frame (CUDA events, medians,
+each call on freshly perturbed frames), the preprocess and CC kernels' device
+ms per detect call, and the detect stage's device busy share: the union of
+its CUDA kernels' intervals in a torch.profiler window over the host wall
+time of that window (the profiler's own host cost is inside the wall).
+
+``--root`` picks the checkout whose ``cylinder_pose_estimation_tpu_torch``
+is imported (default: this one), so that two trees can be timed in turns in
+one run on one card.  Ends with one JSON line of the numbers.
+"""
+
+from __future__ import annotations
+
+import argparse
+import itertools
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+
+# Kernel function names of 2.1 and 2.2, before and after their redesign.
+FAMILIES = {
+    "preprocess": ("binarize_tiles", "mask_tiles", "hessian_minima", "box_rows", "sauvola_binarize",
+                   "line_minmax", "joints_of", "joint_count", "peak_pass", "peak_final"),
+    "cc": ("cc_cluster", "cc_init", "cc_pool", "cc_run_min"),
+}
+
+
+def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def busy_share(fn, calls: int = 3) -> dict:
+    """Device busy time (union of kernel intervals) over host wall time of
+    ``calls`` profiled calls, and the device ms per call by kernel family."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    spans, by_name = [], {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        spans.append((e.time_range.start, e.time_range.end))
+        key = next((fam for fam, names in FAMILIES.items() if any(n + "(" in e.name or n + "<" in e.name
+                                                                for n in names)), "other")
+        by_name[key] = by_name.get(key, 0.0) + (e.time_range.end - e.time_range.start)
+    spans.sort()
+    busy, end = 0.0, None
+    for a, b in spans:
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    return {"busy_share": busy / wall_us if wall_us else None, "kernels_per_call": len(spans) / calls,
+            "device_ms_per_call": busy / calls / 1e3, "wall_ms_per_call": wall_us / calls / 1e3,
+            "family_ms_per_call": {k: v / calls / 1e3 for k, v in by_name.items()}}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    ap.add_argument("--reps", type=int, default=10)
+    args = ap.parse_args()
+    import torch
+
+    if not torch.cuda.is_available():
+        print("torch_step_time: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.abspath(args.root))
+    from cylinder_pose_estimation_tpu_torch.config import CylinderDetectConfig, FitConfig
+    from cylinder_pose_estimation_tpu_torch.models.pipeline import estimate_poses_batch
+    from cylinder_pose_estimation_tpu_torch.ops import kernels
+    from cylinder_pose_estimation_tpu_torch.types import stereo_from_numpy
+    from cylinder_pose_estimation_tpu_torch.utils.synthetic import example_pair
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    kernels.build()
+    dev = torch.device("cuda:0")
+    batch = 16
+    st, (i1, i2) = example_pair(480, 640, n_frames=batch)
+    stereo = stereo_from_numpy(*st, device=dev)
+    cfg, fit_cfg = CylinderDetectConfig(height=480, width=640, use_pallas=True), FitConfig()
+    d1 = torch.as_tensor(i1, device=dev)
+    d2 = torch.as_tensor(i2, device=dev)
+    rep = itertools.count(1)
+
+    def e2e():
+        eps = 1e-4 * next(rep)
+        return estimate_poses_batch(d1 + eps, d2 + eps, stereo, cfg, fit_cfg).fit.params
+
+    def detect():
+        eps = 1e-4 * next(rep)
+        return estimate_poses_batch(d1 + eps, d2 + eps, stereo, cfg, fit_cfg, probe="detect").grid.xy
+
+    with torch.inference_mode():
+        ms_e2e = cuda_ms(e2e, args.reps)
+        ms_det = cuda_ms(detect, args.reps)
+        busy = busy_share(detect)
+    out = {"root": os.path.abspath(args.root), "card": smi, "batch": batch,
+           "e2e_ms_per_frame": ms_e2e / batch, "detect_ms_per_frame": ms_det / batch,
+           "detect_ms_per_step": ms_det, "detect_profile": busy}
+    print(f"{args.root}: e2e {ms_e2e / batch:.4f} ms/frame, detect {ms_det / batch:.4f} ms/frame "
+          f"({ms_det:.3f} ms/step); detect busy share {busy['busy_share']:.3f}, device "
+          f"{busy['device_ms_per_call']:.3f} ms of {busy['wall_ms_per_call']:.3f} ms wall per step "
+          f"(profiled), kernels {busy['kernels_per_call']:.0f}, by family "
+          f"{ {k: round(v, 4) for k, v in busy['family_ms_per_call'].items()} }; {smi}", flush=True)
+    print(json.dumps(out))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
