@@ -29,10 +29,12 @@ phase fails.  Phases:
    device, on the intermediates of B=16 runs (production shapes) and on
    seeded random inputs; every output must be ``torch.equal``.  Median times
    of both, with CUDA events around one call after warm-up; torch.profiler's
-   device kernels per call (at most 3 for 2.1, exactly 1 for 2.2) and their
-   summed device ms; the byte bound of each site (``frontend.min_bytes`` at
-   3.35 TB/s).  The build's ``-Xptxas -v`` lines and the launch plans of 2.1
-   and 2.2 are printed first.
+   device kernels per call (at most 3 for 2.1, exactly 1 for the others) and
+   their summed device ms; the byte bound of each site (``frontend.min_bytes``
+   at 3.35 TB/s).  The bridge is timed on the detector's bool masks and, off
+   the report, as float32; its in-kernel schedule must equal
+   ``bridge_schedule`` on the card for 10^5 angles.  The build's
+   ``-Xptxas -v`` lines and the launch plans are printed first.
 7. End to end: ms/frame of B=16 frames and the detect-only split, for the
    main and the endpoint path; their bridge and grid stage ms; plane detect
    ms/view.
@@ -99,9 +101,12 @@ for _path in ("experiment", "preprocess", "stream"):
 HBM_BYTES_PER_S = 3.35e12
 # Each kernel's design: redesigned for Hopper, or still the first port.
 DESIGN = {"preprocess_binarize": "redesigned", "connected_components": "redesigned",
-          "bridge_morphology": "first port", "component_payload_minmax": "first port"}
-# Device kernels one wrapper call may launch (None: not checked).
-DEVICE_LAUNCHES_MAX = {"preprocess_binarize": 3, "connected_components": 1}
+          "bridge_morphology": "redesigned", "component_payload_minmax": "redesigned"}
+# Device kernels one wrapper call may launch at the timed sites.
+DEVICE_LAUNCHES_MAX = {"preprocess_binarize": 3, "connected_components": 1, "bridge_morphology": 1,
+                       "component_payload_minmax": 1}
+# Angles of the bridge's in-kernel schedule check.
+SCHEDULE_ANGLES = 100_000
 # Sizes of the experiment, preprocessing and stream paths.
 EXPERIMENT_FRAMES = 100
 PREPROCESS_BATCH = 16
@@ -363,7 +368,9 @@ def kernel_phase(frontend, calls, device, seed: int = 0) -> dict:
     g = torch.Generator(device="cpu").manual_seed(seed)
     report = {}
 
-    def compare(name, kernel_fn, plain_fn, label, timed, nbytes=0):
+    def compare(name, kernel_fn, plain_fn, label, timed, nbytes=0, site=True):
+        """``timed``: time the call; ``site``: add it to the kernel's
+        report (a main-path call site)."""
         out_k = kernel_fn()
         out_p = plain_fn()
         torch.cuda.synchronize()
@@ -386,14 +393,17 @@ def kernel_phase(frontend, calls, device, seed: int = 0) -> dict:
             ms_k = cuda_ms(kernel_fn)
             ms_p = cuda_ms(plain_fn, reps=5, warmup=1)
             n_dev, dev_ms = device_launches(kernel_fn)
-            rep["device_ms"] = None if dev_ms is None or rep["device_ms"] is None else rep["device_ms"] + dev_ms
-            rep["ms"] += ms_k
-            rep["plain_ms"] += ms_p
-            rep["bytes"] += nbytes
-            rep["sites"].append((label, ms_k, ms_p, nbytes, n_dev))
-            if n_dev is not None:
+            if n_dev is None or n_dev > DEVICE_LAUNCHES_MAX[name]:
+                raise AssertionError(f"{name} [{label}]: {n_dev} device kernels in a call "
+                                     f"(at most {DEVICE_LAUNCHES_MAX[name]})")
+            if site:
+                rep["device_ms"] += dev_ms
+                rep["ms"] += ms_k
+                rep["plain_ms"] += ms_p
+                rep["bytes"] += nbytes
+                rep["sites"].append((label, ms_k, ms_p, nbytes, n_dev))
                 rep["device_launches"] = max(rep["device_launches"] or 0, n_dev)
-            dev_txt = "not measured" if dev_ms is None else f"{dev_ms:.4f} ms"
+            dev_txt = f"{dev_ms:.4f} ms"
             line += (f"; kernel {ms_k:.4f} ms (device {dev_txt}), plain {ms_p:.4f} ms, bound "
                      f"{bound_ms(nbytes):.4f} ms ({nbytes} B), device kernels per call {n_dev}")
         print(line, flush=True)
@@ -452,27 +462,66 @@ def kernel_phase(frontend, calls, device, seed: int = 0) -> dict:
                     lambda: frontend.component_payload_minmax_plain(rnd, rpay, r, p),
                     f"random {tuple(m.shape)} {r}x{p}", timed=False)
 
-    # 2.3 bridge: the captured call + line masks at non-axis angles with
-    # kernel lengths from 0 past the cap.
+    # 2.3 bridge: the captured call (bool, the detector's interface), the
+    # same as float32, line masks at non-axis angles with kernel lengths from
+    # 0 past the cap (both types), and the kernel's own schedule against
+    # bridge_schedule on the card.
     for args, kw in calls["bridge_morphology"]:
         masks, exps, angles, klen = args
         compare("bridge_morphology",
                 lambda: frontend.bridge_morphology(masks, exps, angles, klen, **kw),
                 lambda: frontend.bridge_morphology_plain(masks, exps, angles, klen, **kw),
-                f"captured {tuple(masks.shape)}", timed=True,
-                nbytes=frontend.min_bytes("bridge_morphology", *masks.shape))
+                f"captured {tuple(masks.shape)} {masks.dtype}", timed=True,
+                nbytes=frontend.min_bytes("bridge_morphology", *masks.shape, itemsize=masks.element_size()))
+        mf, ef = masks.to(torch.float32), exps.to(torch.float32)
+        compare("bridge_morphology",
+                lambda: frontend.bridge_morphology(mf, ef, angles, klen, **kw),
+                lambda: frontend.bridge_morphology_plain(mf, ef, angles, klen, **kw),
+                f"captured {tuple(mf.shape)} {mf.dtype}", timed=True, site=False,
+                nbytes=frontend.min_bytes("bridge_morphology", *mf.shape))
         n, h, w = masks.shape
         ang_list = [0.0, math.pi / 2, 0.35, 1.2, -0.6, 2.5]
-        lm = line_masks(n, h, w, ang_list, seed + 1, device).to(torch.float32)
-        ex = (torch.rand(lm.shape, generator=g) < 0.7).to(torch.float32).to(device)
+        lm = line_masks(n, h, w, ang_list, seed + 1, device)
+        ex = (torch.rand(lm.shape, generator=g) < 0.7).to(device)
         ang = torch.tensor([ang_list[i % len(ang_list)] for i in range(n)], dtype=torch.float32,
                            device=device)
         kl = torch.linspace(0.0, 260.0, n, device=device)
-        compare("bridge_morphology",
-                lambda: frontend.bridge_morphology(lm, ex, ang, kl, **kw),
-                lambda: frontend.bridge_morphology_plain(lm, ex, ang, kl, **kw),
-                f"line masks {tuple(lm.shape)}", timed=False)
+        for dtype in (torch.bool, torch.float32):
+            lmt, ext = lm.to(dtype), ex.to(dtype)
+            compare("bridge_morphology",
+                    lambda: frontend.bridge_morphology(lmt, ext, ang, kl, **kw),
+                    lambda: frontend.bridge_morphology_plain(lmt, ext, ang, kl, **kw),
+                    f"line masks {tuple(lm.shape)} {dtype}", timed=False)
+        schedule_check(frontend, device, g, **kw)
     return report
+
+
+def schedule_check(frontend, device, g, probe_len, max_kernel) -> None:
+    """The bridge kernel's in-kernel schedule (sinf, cosf, rintf) must equal
+    ``bridge_schedule`` by torch on the card for SCHEDULE_ANGLES angles and
+    a kernel length per mask pair; prints how many masks' schedules differ
+    from the CPU's."""
+    import torch
+
+    n = SCHEDULE_ANGLES
+    ang = (torch.rand(n, generator=g) * 2 - 1) * math.pi
+    kl = torch.rand(n // 2, generator=g) * 320.0
+    m = torch.zeros((n, 2, 32), dtype=torch.bool, device=device)
+    sched = torch.zeros((n, frontend.bridge_schedule_size(probe_len, max_kernel)), dtype=torch.int32,
+                        device=device)
+    frontend.bridge_morphology(m, m, ang.to(device), kl.to(device), probe_len, max_kernel, schedule_out=sched)
+
+    def flat(ang, kl):
+        ray, line = frontend.bridge_schedule(ang, kl, probe_len, max_kernel)
+        return torch.cat([ray.reshape(n, -1), line.reshape(n, -1)], 1)
+
+    card = flat(ang.to(device), kl.to(device))
+    bad = int((sched != card).any(1).sum())
+    if bad:
+        raise AssertionError(f"bridge schedule: {bad} of {n} masks differ from bridge_schedule on the card")
+    host = int((sched.cpu() != flat(ang, kl)).any(1).sum())
+    print(f"kernel bridge_morphology schedule equal to bridge_schedule on the card for {n} angles; "
+          f"{host} of them differ from the CPU's schedule", flush=True)
 
 
 def load_registration_fixture(device):
@@ -762,8 +811,7 @@ def main() -> int:
     print(f"build: kernels built and loaded in {time.perf_counter() - t0:.1f} s "
           f"({kernels.BUILD_DIR})", flush=True)
     for ln in ptxas_report(kernels.BUILD_DIR):
-        if "preprocess" in ln or "connected_components" in ln:
-            print(f"ptxas: {ln}", flush=True)
+        print(f"ptxas: {ln}", flush=True)
 
     height, width, batch = 480, 640, 16
     stereo_np, (i1, i2) = example_pair(height, width, n_frames=batch)
@@ -778,6 +826,9 @@ def main() -> int:
           flush=True)
     for shape in ((2 * 2 * batch, 128, 256), (2 * 2 * batch, 240, 384)):
         print(f"plan connected_components {shape}: {frontend.cc_plan(*shape)}", flush=True)
+    print(f"plan component_payload_minmax (4B, 240, 384): {frontend.cc_plan(4 * batch, 240, 384, channels=2)}",
+          flush=True)
+    print(f"plan bridge_morphology (4B, 240, 384): {frontend.bridge_plan(4 * batch, 240, 384)}", flush=True)
     with open(GOLDEN) as f:
         golden = json.load(f)["scenes"]
     with open(ENDPOINT) as f:
@@ -897,9 +948,6 @@ def main() -> int:
             print(f"timing {k} [{label}]: kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms, bound "
                   f"{bound_ms(nbytes):.4f} ms ({nbytes} B, {bound_ms(nbytes) / ms_k:.1%} of it), "
                   f"device kernels per call {n_dev}", flush=True)
-        most = DEVICE_LAUNCHES_MAX.get(k)
-        if most is not None and r["device_launches"] is not None and r["device_launches"] > most:
-            raise AssertionError(f"{k} launched {r['device_launches']} device kernels in a call (max {most})")
         rows.append({
             "name": k, "route": "cuda", "source": frontend.SOURCES[k],
             "replaces": frontend.REPLACES[k], "launches": sum(c[k] for c in by_path.values()),
@@ -908,7 +956,8 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "device_ms": r["device_ms"],
             "plain_ms": r["plain_ms"],
             "bound_ms": bound_ms(r["bytes"]), "bound_by": "bytes", "bytes": r["bytes"],
-            "library_ms": None, "device_kernels_per_call": r["device_launches"], "design": DESIGN[k],
+            "bound_share": bound_ms(r["bytes"]) / r["ms"], "library_ms": None,
+            "device_kernels_per_call": r["device_launches"], "design": DESIGN[k],
         })
     print(smi)
     print(json.dumps({"kernels": rows}))

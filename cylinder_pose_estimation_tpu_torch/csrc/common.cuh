@@ -18,10 +18,33 @@
 
 namespace cpe {
 
-constexpr int kThreads = 256;
+inline bool cluster_size_ok(int c) { return c == 1 || c == 2 || c == 4 || c == 8; }
 
-inline unsigned blocks_for(long long n) {
-  return (unsigned)((n + kThreads - 1) / kThreads);
+// Launch `kernel` over cluster * n CTAs of `threads` along x, in
+// thread-block clusters of `cluster` CTAs (cluster i: CTAs i * cluster ..),
+// with `smem` bytes of dynamic shared memory (opted in above 48 KB).
+// Returns 0 or the CUDA error.
+template <typename... Params, typename... Args>
+int launch_clusters(void (*kernel)(Params...), int cluster, int n, int threads, int smem,
+                    cudaStream_t stream, Args... args) {
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster * n, 1, 1);
+  cfg.blockDim = dim3(threads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (e != cudaSuccess) return (int)e;
+  CPE_CHECK_LAUNCH();
+  return 0;
 }
 
 }  // namespace cpe

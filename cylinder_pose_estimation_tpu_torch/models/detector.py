@@ -566,15 +566,16 @@ def bridge_stage(mh: torch.Tensor, mv: torch.Tensor, circle_radius0: torch.Tenso
                 n_pre = _n_components(masks, labels)
                 pre_converged = _labels_converged(masks, labels)
             angles, exps = _bridge_angle_exp_pair(masks, labels, cfg, scale=ds)
+        # Bool in, bool out; each view's kernel length covers its h/v pair.
         bridged = frontend.bridge_morphology(
-            masks.reshape(2 * v, hs, ws).to(torch.float32),
-            exps.reshape(2 * v, hs, ws).to(torch.float32),
+            masks.reshape(2 * v, hs, ws),
+            exps.reshape(2 * v, hs, ws),
             angles.reshape(2 * v),
-            kernel_len.repeat_interleave(2),
+            kernel_len,
             probe_len=probe_len,
             max_kernel=max_kernel,
         )
-        masks = bridged.reshape(v, 2, hs, ws) > 0.5
+        masks = bridged.reshape(v, 2, hs, ws)
     return Bridge(masks[:, 0], masks[:, 1], warm, angles, n_pre, pre_converged)
 
 

@@ -360,17 +360,21 @@ CLUSTER_SIZES = (1, 2, 4, 8)
 
 
 @functools.lru_cache(maxsize=64)
-def cc_plan(n: int, h: int, w: int) -> Dict[str, int]:
-    """Launch plan of the CC kernel: one thread-block cluster per mask, its
-    rows split over the smallest cluster (1, 2, 4 or 8 CTAs) whose two int32
-    label buffers of rows_per_cta x W, plus three int32 entries per column,
-    fit in one CTA's shared memory.  Raises ``ValueError`` beyond 8 CTAs.
-    Cached: treat the returned dict as read-only."""
+def cc_plan(n: int, h: int, w: int, channels: int = 1) -> Dict[str, int]:
+    """Launch plan of the CC kernel with 1 (labels) or 2 (payload min and
+    max) channels: one thread-block cluster per mask, its rows split over the
+    smallest cluster (1, 2, 4 or 8 CTAs) whose two int32 buffers per channel
+    of rows_per_cta x W, plus per column an int32 top and bottom entry per
+    channel and a one-run flag, fit in one CTA's shared memory.  Raises
+    ``ValueError`` beyond 8 CTAs.  Cached: treat the returned dict as
+    read-only."""
+    if channels not in (1, 2):
+        raise ValueError(f"channels must be 1 or 2, got {channels}")
     if n * h * w >= 2**31:
         raise ValueError(f"{n}x{h}x{w} labels overflow the kernel's 32-bit index")
     for c in CLUSTER_SIZES:
         rows = -(-h // c)
-        smem = 4 * (2 * rows * w + 3 * w)
+        smem = 4 * (2 * channels * rows * w + (2 * channels + 1) * w)
         if smem <= kernels.MAX_DYNAMIC_SMEM and (c - 1) * rows < h:
             return {"cluster": c, "rows_per_cta": rows, "smem": smem, "ctas": c * n}
     raise ValueError(f"{h}x{w} masks need more than {CLUSTER_SIZES[-1]} CTAs of "
@@ -475,7 +479,9 @@ def component_payload_minmax(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-component payload min and max of (N, H, W) masks on the Pallas
     kernel's exact round schedule (see ``component_payload_minmax_plain``).
-    The payload has the mask's shape; values must lie in [0, H*W)."""
+    The payload has the mask's shape; values must lie in [0, H*W) (not
+    checked: that would cost a host sync).  On the card: the CC kernel with
+    two channels, one launch."""
     if not _route(mask):
         return component_payload_minmax_plain(mask, payload, rounds, pools_per_round)
     mask = mask.to(torch.float32).contiguous()
@@ -485,14 +491,13 @@ def component_payload_minmax(
     if payload.shape != mask.shape:
         raise ValueError("payload must have the mask's shape")
     n, h, w = mask.shape
+    plan = cc_plan(n, h, w, channels=2)
     pmin = torch.empty(mask.shape, dtype=torch.int32, device=mask.device)
     pmax = torch.empty_like(pmin)
-    tmin = torch.empty_like(pmin)
-    tmax = torch.empty_like(pmin)
     kernels.launch(
         "cpe_component_payload_minmax",
-        [mask, payload, pmin, pmax, tmin, tmax],
-        [n, h, w, rounds, pools_per_round],
+        [mask, payload, pmin, pmax],
+        [n, h, w, rounds, pools_per_round, plan["cluster"], plan["rows_per_cta"], plan["smem"]],
         [],
     )
     _LAUNCHES["component_payload_minmax"] += 1
@@ -505,15 +510,36 @@ def component_payload_minmax(
 # --------------------------------------------------------------------------
 
 
+def _lengths_per_mask(kernel_len: torch.Tensor, n: int) -> Tuple[torch.Tensor, int]:
+    """The kernel lengths, () or (M,) with M dividing N (each length covers
+    N / M consecutive masks), as (M,) float32 and the number of masks each
+    covers."""
+    klen = kernel_len.to(torch.float32).reshape(-1)
+    m = klen.shape[0]
+    if m == 0 or n % m:
+        raise ValueError(f"kernel_len must be () or (M,) with M dividing {n}, got {tuple(kernel_len.shape)}")
+    return klen, max(n // m, 1)
+
+
+def bridge_schedule_size(probe_len: int, max_kernel: int) -> int:
+    """Ints per mask of the flat schedule the kernel can write out: the
+    ray offsets [sign][k][dy, dx] then the line steps [step][dy, dx] (steps
+    of 1, 2, 4, ... cover half = max(max_kernel // 2, 1) in
+    half.bit_length() of them)."""
+    return 4 * (probe_len + 1) + 2 * max(max_kernel // 2, 1).bit_length()
+
+
 def bridge_schedule(
     angles: torch.Tensor, kernel_len: torch.Tensor, probe_len: int, max_kernel: int
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per-mask integer offsets shared by the kernel and its plain version.
+    """Per-mask integer offsets of the bridge (the plain version's schedule;
+    the kernel computes the same in shared memory).
 
     ray: (N, 2, probe_len + 1, 2) int32, [:, s, k] = (round(sin a * k * sgn),
     round(cos a * k * sgn)) for sgn = +1 (s=0) and -1 (s=1).
     line: (N, S, 2) int32, the line-dilation doubling steps (dy, dx) with the
-    traced effective length.  Rounding is half to even, as ``jnp.round``."""
+    traced effective length.  Rounding is half to even, as ``jnp.round``.
+    ``kernel_len``: () or (M,) with M dividing N."""
     angles = angles.to(torch.float32)
     ca = torch.cos(angles)
     sa = torch.sin(angles)
@@ -526,7 +552,8 @@ def bridge_schedule(
     ray = torch.stack(ray, 1).to(torch.int32)
 
     half = max(max_kernel // 2, 1)
-    klen = torch.broadcast_to(kernel_len.to(torch.float32), angles.shape)
+    klen, group = _lengths_per_mask(kernel_len, angles.shape[0])
+    klen = klen.repeat_interleave(group)
     dyn_half = torch.clamp(klen / 2.0, 0.0, float(half))
     stride, covered = 1, 0
     dyn_covered = torch.zeros_like(dyn_half)
@@ -562,9 +589,10 @@ def bridge_morphology_plain(
     probe_len: int,
     max_kernel: int,
 ) -> torch.Tensor:
-    """Plain version of the bridge kernel: (N, H, W) float 0/1 masks and
-    expandability images, (N,) angles, () or (N,) kernel length -> bridged
-    (N, H, W) float masks."""
+    """Plain version of the bridge kernel: (N, H, W) 0/1 masks and
+    expandability images, (N,) angles, () or (M,) kernel lengths (M dividing
+    N) -> bridged (N, H, W) masks, bool or uint8 for masks of that type and
+    float32 otherwise."""
     ray, line = bridge_schedule(angles, kernel_len, probe_len, max_kernel)
     m = masks.to(torch.float32)
     expf = exp_imgs.to(torch.float32)
@@ -609,7 +637,36 @@ def bridge_morphology_plain(
     u = torch.maximum(m, grown)
     e1 = torch.minimum(u, torch.minimum(_dshift(u, zero, one, 1.0), _dshift(u, zero, -one, 1.0)))
     er = torch.minimum(e1, torch.minimum(_dshift(e1, one, zero, 1.0), _dshift(e1, -one, zero, 1.0)))
-    return torch.maximum(m, er * grown)
+    out = torch.maximum(m, er * grown)
+    return out.to(masks.dtype) if masks.dtype in (torch.bool, torch.uint8) else out
+
+
+# The bridge kernel's pixel types (bytes per pixel), its shared-memory
+# layout (csrc/bridge.cu: kPlanes bit planes, then kScheduleInts ints of
+# schedule) and the SMs of the H100 SXM, which bridge_plan fills in one wave.
+_BRIDGE_TYPES = {torch.bool: 1, torch.uint8: 1, torch.float32: 4}
+BRIDGE_PLANES = 9
+BRIDGE_SCHEDULE_INTS = 4 * (64 + 1) + 2 * 32
+H100_SMS = 132
+
+
+@functools.lru_cache(maxsize=64)
+def bridge_plan(n: int, h: int, w: int) -> Dict[str, int]:
+    """Launch plan of the bridge kernel: one thread-block cluster per mask,
+    the largest (1, 2, 4 or 8 CTAs) whose c * n CTAs fit the 132 SMs at once
+    and leave every CTA rows to load and write.  Each CTA holds the whole
+    mask as bit planes of H x ceil(W / 32) words plus the schedule; raises
+    ``ValueError`` where they do not fit.  Cached: treat the returned dict as
+    read-only."""
+    words = -(-w // 32)
+    smem = 4 * (BRIDGE_PLANES * h * words + BRIDGE_SCHEDULE_INTS)
+    if smem > kernels.MAX_DYNAMIC_SMEM:
+        raise ValueError(f"{h}x{w} masks need {smem} B of shared memory (max {kernels.MAX_DYNAMIC_SMEM})")
+    c = 1
+    for cand in CLUSTER_SIZES:
+        if cand * n <= H100_SMS and (cand - 1) * -(-h // cand) < h:
+            c = cand
+    return {"cluster": c, "rows_per_cta": -(-h // c), "words_per_row": words, "smem": smem, "ctas": c * n}
 
 
 def bridge_morphology(
@@ -619,30 +676,55 @@ def bridge_morphology(
     kernel_len: torch.Tensor,
     probe_len: int,
     max_kernel: int,
+    schedule_out: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """Bridge kernel over (N, H, W) masks (see ``bridge_morphology_plain``)."""
+    """Bridge kernel over (N, H, W) masks (see ``bridge_morphology_plain``):
+    bool, uint8 or float32 0/1 masks and expandability images (converted to
+    the masks' type if they differ); the result has the masks' type.  On the
+    card: one launch, which computes the schedule itself.
+    ``schedule_out``: an optional (N, ``bridge_schedule_size(probe_len,
+    max_kernel)``) int32 tensor that receives the offsets used
+    (``bridge_schedule``'s ray then line, flattened per mask)."""
+    n = masks.shape[0]
     if not _route(masks):
+        if schedule_out is not None:
+            ray, line = bridge_schedule(angles, kernel_len, probe_len, max_kernel)
+            schedule_out.copy_(torch.cat([ray.reshape(n, -1), line.reshape(n, -1)], 1))
         return bridge_morphology_plain(masks, exp_imgs, angles, kernel_len, probe_len, max_kernel)
-    masks = masks.to(torch.float32).contiguous()
-    exp_imgs = exp_imgs.to(torch.float32).contiguous()
-    _check("masks", masks, torch.float32, 3)
-    _check("exp_imgs", exp_imgs, torch.float32, 3)
+    if masks.dtype not in _BRIDGE_TYPES:
+        raise ValueError(f"masks: expected bool, uint8 or float32, got {masks.dtype}")
+    if exp_imgs.dtype != masks.dtype:
+        exp_imgs = exp_imgs.to(masks.dtype)
+    masks = masks.contiguous()
+    exp_imgs = exp_imgs.contiguous()
+    _check("masks", masks, masks.dtype, 3)
+    _check("exp_imgs", exp_imgs, masks.dtype, 3)
     if exp_imgs.shape != masks.shape:
         raise ValueError("exp_imgs must have the masks' shape")
-    n, h, w = masks.shape
+    _, h, w = masks.shape
+    angles = angles.to(torch.float32).contiguous()
+    _check("angles", angles, torch.float32, 1)
     if angles.shape != (n,):
         raise ValueError(f"angles must be ({n},), got {tuple(angles.shape)}")
-    if probe_len < 1 or probe_len > 64:
+    klen, group = _lengths_per_mask(kernel_len, n)
+    klen = klen.contiguous()
+    _check("kernel_len", klen, torch.float32, 1)
+    if not 1 <= probe_len <= 64:
         raise ValueError("probe_len must lie in [1, 64]")
-    smem = 2 * h * w
-    if smem > kernels.MAX_DYNAMIC_SMEM:
-        raise ValueError(f"{h}x{w} masks need {smem} B of shared memory (max {kernels.MAX_DYNAMIC_SMEM})")
-    ray, line = bridge_schedule(angles, kernel_len, probe_len, max_kernel)
+    half = max(max_kernel // 2, 1)
+    if half > 1 << 20:
+        raise ValueError(f"max_kernel {max_kernel} is beyond the kernel's 2**21")
+    if schedule_out is not None:
+        _check("schedule_out", schedule_out, torch.int32, 2)
+        if schedule_out.shape != (n, bridge_schedule_size(probe_len, max_kernel)):
+            raise ValueError(f"schedule_out must be ({n}, {bridge_schedule_size(probe_len, max_kernel)})")
+    plan = bridge_plan(n, h, w)
     out = torch.empty_like(masks)
     kernels.launch(
         "cpe_bridge_morphology",
-        [masks, exp_imgs, ray, line, out],
-        [n, h, w, probe_len, line.shape[1]],
+        [masks, exp_imgs, angles, klen, out, schedule_out],
+        [n, h, w, _BRIDGE_TYPES[masks.dtype], probe_len, half, group, plan["cluster"],
+         plan["rows_per_cta"], plan["smem"]],
         [],
     )
     _LAUNCHES["bridge_morphology"] += 1
@@ -661,28 +743,30 @@ SOURCES = {
     "preprocess_binarize": "cylinder_pose_estimation_tpu_torch/csrc/preprocess.cu",
     "connected_components": "cylinder_pose_estimation_tpu_torch/csrc/connected_components.cu",
     "bridge_morphology": "cylinder_pose_estimation_tpu_torch/csrc/bridge.cu",
-    "component_payload_minmax": "cylinder_pose_estimation_tpu_torch/csrc/payload_minmax.cu",
+    "component_payload_minmax": "cylinder_pose_estimation_tpu_torch/csrc/connected_components.cu",
 }
 
 
-def min_bytes(name: str, n: int, h: int, w: int, warm: bool = False) -> int:
+def min_bytes(name: str, n: int, h: int, w: int, warm: bool = False, itemsize: int = 4) -> int:
     """The bytes kernel ``name`` must move for an (n, h, w) call: each input
-    plane read once and each output plane written once (4-byte elements).
-    The bridge's per-mask angles and offset tables (a few KB) are left out.
-    ``warm``: the CC call reads a warm-start label plane too."""
+    plane read once and each output plane written once, ``itemsize`` bytes
+    per element (1: the bridge's bool interface).  The bridge's per-mask
+    angles and kernel lengths (8 B a mask) are left out.  ``warm``: the CC
+    call reads a warm-start label plane too."""
     planes = {
         "preprocess_binarize": 1 + 6,               # smoothed -> six planes
         "connected_components": 2 + int(warm),      # mask (+ init) -> labels
         "bridge_morphology": 3,                     # masks, exps -> bridged
         "component_payload_minmax": 4,              # mask, payload -> min, max
     }[name]
-    return 4 * planes * n * h * w
+    return itemsize * planes * n * h * w
 
 
 __all__ = [
     "preprocess_binarize", "preprocess_binarize_plain", "preprocess_plan", "preprocess_reach",
     "connected_components", "connected_components_plain", "cc_plan", "min_bytes",
-    "bridge_morphology", "bridge_morphology_plain", "bridge_schedule",
+    "bridge_morphology", "bridge_morphology_plain", "bridge_schedule", "bridge_schedule_size",
+    "bridge_plan",
     "component_payload_minmax", "component_payload_minmax_plain",
     "launch_counts", "reset_launch_counts", "REPLACES", "SOURCES",
 ]

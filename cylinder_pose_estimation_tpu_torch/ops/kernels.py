@@ -1,11 +1,12 @@
 """Build and bind the CUDA kernels in ``csrc/``.
 
 The ``.cu`` sources have a plain C interface (one entry function per kernel,
-returning a ``cudaError_t``).  At first use ``nvcc`` compiles them, for
-``sm_90a`` with ``--fmad=false`` (the kernels must reproduce the reference's
-float association exactly, with no multiply-add contraction), into one
-shared library under ``cylinder_pose_estimation_tpu_torch/_build/``, named by
-a digest of the sources and flags; ``ctypes`` loads it.  A C interface keeps
+returning a ``cudaError_t``).  At first use ``nvcc`` compiles them, one
+process per source, all at once, for ``sm_90a`` with ``--fmad=false`` (the
+kernels must reproduce the reference's float association exactly, with no
+multiply-add contraction), and links them into one shared library under
+``cylinder_pose_estimation_tpu_torch/_build/``, named by a digest of the
+sources and flags; ``ctypes`` loads it.  A C interface keeps
 PyTorch's headers out of the compile, which is what keeps the build at
 seconds: the wrappers in ``ops/frontend.py`` do the device, dtype, shape and
 contiguity checks, pass pointers and the current CUDA stream, and raise on a
@@ -34,7 +35,6 @@ NVCC_FLAGS = [
     "-std=c++17",
     "-Xptxas",
     "-v",
-    "-shared",
     "-Xcompiler",
     "-fPIC",
 ]
@@ -44,8 +44,8 @@ MAX_DYNAMIC_SMEM = 232448
 SIGNATURES = {
     "cpe_preprocess_binarize": (8, 13, 3),
     "cpe_connected_components": (3, 8, 0),
-    "cpe_bridge_morphology": (5, 5, 0),
-    "cpe_component_payload_minmax": (6, 5, 0),
+    "cpe_bridge_morphology": (6, 10, 0),
+    "cpe_component_payload_minmax": (4, 8, 0),
 }
 
 _LIB: Optional[ctypes.CDLL] = None
@@ -76,14 +76,33 @@ def build() -> ctypes.CDLL:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     so = BUILD_DIR / f"libcpe_kernels_{digest.hexdigest()[:16]}.so"
     if not so.exists():
+        # One nvcc per source, all at once, then one link.
+        nvcc = _nvcc()
+        objs = BUILD_DIR / f"obj.{os.getpid()}"
+        objs.mkdir(exist_ok=True)
+        procs = []
+        for src in sources:
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(objs / f"{src.stem}.o"), str(src)]
+            procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                                text=True)))
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        (BUILD_DIR / "build.log").write_text(
-            " ".join(cmd) + "\n" + proc.stdout + proc.stderr
-        )
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+        link = [nvcc, NVCC_FLAGS[0], "-shared", "-o", str(tmp),
+                *(str(objs / f"{src.stem}.o") for src in sources)]
+        log, failed = [], []
+        for cmd, proc in procs:
+            out, err = proc.communicate()
+            log.append(" ".join(cmd) + "\n" + out + err)
+            if proc.returncode != 0:
+                failed.append(err[-4000:])
+        if not failed:
+            proc = subprocess.run(link, capture_output=True, text=True)
+            log.append(" ".join(link) + "\n" + proc.stdout + proc.stderr)
+            if proc.returncode != 0:
+                failed.append(proc.stderr[-4000:])
+        (BUILD_DIR / "build.log").write_text("".join(log))
+        shutil.rmtree(objs, ignore_errors=True)
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
         os.replace(tmp, so)
     lib = ctypes.CDLL(str(so))
     for name, (n_ptr, n_int, n_float) in SIGNATURES.items():

@@ -151,6 +151,121 @@ def test_bridge_kernel_equals_plain(dev, kernel_len):
            tf.bridge_morphology_plain(m, ex, ang, kl, 5, 125))
 
 
+def _border_lines(n, h, w, angles, seed):
+    """(n, h, w) bool: broken 2-px lines at the given angles plus pixels on
+    all four borders (the shifts' zero fill and the erosion's one fill)."""
+    g = torch.Generator().manual_seed(seed)
+    yy = torch.arange(h, dtype=torch.float32)[:, None]
+    xx = torch.arange(w, dtype=torch.float32)[None, :]
+    m = torch.zeros((n, h, w), dtype=torch.bool)
+    for i in range(n):
+        a = float(angles[i % len(angles)])
+        d = (xx - w / 2) * math.sin(a) - (yy - h / 2) * math.cos(a)
+        al = (xx - w / 2) * math.cos(a) + (yy - h / 2) * math.sin(a)
+        shift = float(torch.rand(1, generator=g)) * 16
+        m[i] = ((torch.remainder(d + shift, 13) - 6.5).abs() < 1.0) & ((torch.remainder(al, 29) - 14.5).abs() > 3)
+    m[:, 0, ::3] = True
+    m[:, -1, 1::4] = True
+    m[:, ::5, 0] = True
+    m[:, 2::3, -1] = True
+    return m
+
+
+SWEEP = [0.0, math.pi / 2, -math.pi / 2, math.pi / 4, -math.pi / 4, 0.4, 1.1, -0.7, 2.3, 3.0, -2.9, 1.5707964]
+
+
+@pytest.mark.parametrize("dtype", [torch.bool, torch.uint8, torch.float32])
+@pytest.mark.parametrize("hw", [(37, 100), (241, 383), (240, 384), (121, 640)])
+@pytest.mark.parametrize("n", [8, 24, 64, 140])
+def test_bridge_kernel_across_cluster_splits(dev, n, hw, dtype):
+    """Clusters of 8, 4, 2 and 1 CTAs (by the batch size), widths off 32,
+    odd heights, masks on every border, one kernel length per mask pair."""
+    h, w = hw
+    assert tf.bridge_plan(n, h, w)["cluster"] == {8: 8, 24: 4, 64: 2, 140: 1}[n]
+    g = torch.Generator().manual_seed(n + h + w)
+    m = _border_lines(n, h, w, SWEEP, n + w).to(dtype).to(dev)
+    ex = (torch.rand((n, h, w), generator=g) < 0.8).to(dtype).to(dev)
+    ang = torch.tensor([SWEEP[i % len(SWEEP)] for i in range(n)], device=dev)
+    kl = torch.tensor([0.0, 20.0, 124.0, 300.0], device=dev)[torch.arange(n // 2, device=dev) % 4]
+    before = tf.launch_counts()["bridge_morphology"]
+    out = tf.bridge_morphology(m, ex, ang, kl, 5, 125)
+    _equal(out, tf.bridge_morphology_plain(m, ex, ang, kl, 5, 125))
+    assert out.dtype == dtype and tf.launch_counts()["bridge_morphology"] == before + 1
+
+
+@pytest.mark.parametrize("kernel_len", [0.0, 20.0, 124.0, 300.0])
+@pytest.mark.parametrize("probe_len", [1, 2, 3, 5, 8, 64])
+def test_bridge_kernel_probe_lengths(dev, probe_len, kernel_len):
+    n, h, w = len(SWEEP), 96, 128
+    m = _border_lines(n, h, w, SWEEP, probe_len).to(dev)
+    ex = (torch.rand((n, h, w), generator=torch.Generator().manual_seed(probe_len)) < 0.7).to(dev)
+    ang = torch.tensor(SWEEP, device=dev)
+    kl = torch.tensor(kernel_len, device=dev)
+    sched = torch.zeros((n, tf.bridge_schedule_size(probe_len, 125)), dtype=torch.int32, device=dev)
+    _equal(tf.bridge_morphology(m, ex, ang, kl, probe_len, 125, schedule_out=sched),
+           tf.bridge_morphology_plain(m, ex, ang, kl, probe_len, 125))
+    ray, line = tf.bridge_schedule(ang, kl, probe_len, 125)
+    _equal(sched, torch.cat([ray.reshape(n, -1), line.reshape(n, -1)], 1))
+
+
+@pytest.mark.parametrize("probe_len, max_kernel", [(5, 125), (64, 300)])
+def test_bridge_schedule_in_kernel_equals_torch_on_card(dev, probe_len, max_kernel):
+    """The kernel's own schedule (sinf, cosf, rintf) equals
+    ``bridge_schedule`` computed by torch on the card for 10^5 angles and a
+    kernel length per mask pair; the count that differs from the CPU's
+    schedule is printed."""
+    n = 100_000
+    g = torch.Generator().manual_seed(probe_len)
+    ang = (torch.rand(n, generator=g) * 2 - 1) * math.pi
+    ang[:len(SWEEP)] = torch.tensor(SWEEP)
+    kl = torch.rand(n // 2, generator=g) * 320.0
+    kl[:4] = torch.tensor([0.0, 20.0, 124.0, 300.0])
+    m = torch.zeros((n, 2, 32), dtype=torch.bool, device=dev)
+    sched = torch.zeros((n, tf.bridge_schedule_size(probe_len, max_kernel)), dtype=torch.int32, device=dev)
+    tf.bridge_morphology(m, m, ang.to(dev), kl.to(dev), probe_len, max_kernel, schedule_out=sched)
+    ray, line = tf.bridge_schedule(ang.to(dev), kl.to(dev), probe_len, max_kernel)
+    _equal(sched, torch.cat([ray.reshape(n, -1), line.reshape(n, -1)], 1))
+    ray_c, line_c = tf.bridge_schedule(ang, kl, probe_len, max_kernel)
+    host = torch.cat([ray_c.reshape(n, -1), line_c.reshape(n, -1)], 1)
+    print(f"in-kernel schedule vs the CPU's: {int((sched.cpu() != host).any(1).sum())} of {n} masks differ")
+
+
+def test_bridge_wrapper_refuses(dev):
+    m = torch.zeros((4, 32, 64), dtype=torch.bool, device=dev)
+    ang = torch.zeros(4, device=dev)
+    kl = torch.tensor(10.0, device=dev)
+    with pytest.raises(ValueError, match="bool, uint8 or float32"):
+        tf.bridge_morphology(m.to(torch.float64), m, ang, kl, 5, 125)
+    with pytest.raises(ValueError, match="dividing"):
+        tf.bridge_morphology(m, m, ang, torch.ones(3, device=dev), 5, 125)
+    with pytest.raises(ValueError, match="schedule_out"):
+        tf.bridge_morphology(m, m, ang, kl, 5, 125, schedule_out=torch.zeros((4, 3), dtype=torch.int32, device=dev))
+    with pytest.raises(ValueError, match="probe_len"):
+        tf.bridge_morphology(m, m, ang, kl, 65, 125)
+
+
+@pytest.mark.parametrize("rounds, pools", [(2, 4), (1, 2), (3, 1), (10, 4)])
+@pytest.mark.parametrize("hw", [(64, 128), (128, 128), (128, 256), (240, 384)])
+def test_payload_kernel_across_cluster_splits(dev, rounds, pools, hw):
+    """Two-channel clusters of 1, 2, 4 and 8 CTAs: bars across every split
+    row, a full column, an unconverged serpentine, random payload
+    permutations."""
+    h, w = hw
+    plan = tf.cc_plan(3, h, w, channels=2)
+    assert plan["cluster"] == {(64, 128): 1, (128, 128): 2, (128, 256): 4, (240, 384): 8}[hw]
+    m = _cluster_masks(h, w, plan["rows_per_cta"]).to(dev)
+    g = torch.Generator().manual_seed(rounds * 10 + pools + h + w)
+    pay = torch.stack([torch.randperm(h * w, generator=g) for _ in range(3)]).reshape(3, h, w)
+    pay = pay.to(torch.int32).to(dev)
+    before = tf.launch_counts()["component_payload_minmax"]
+    lo, hi = tf.component_payload_minmax(m, pay, rounds, pools)
+    _equal((lo, hi), tf.component_payload_minmax_plain(m, pay, rounds, pools))
+    assert tf.launch_counts()["component_payload_minmax"] == before + 1
+    if rounds == 2:  # the serpentine is still unconverged
+        on = m[1] > 0.5
+        assert int(lo[1][on].max()) != int(lo[1][on].min())
+
+
 @pytest.mark.parametrize("rounds, pools", [(2, 4), (1, 2), (3, 1)])
 @pytest.mark.parametrize("shape", [(4, 128, 256), (4, 240, 384)])
 def test_payload_minmax_kernel_equals_plain(dev, rounds, pools, shape):

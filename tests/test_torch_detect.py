@@ -103,6 +103,31 @@ def test_bridge_stage_matches(ref):
     np.testing.assert_array_equal(br.h_exp[0].numpy(), dbg.h_expanded)
 
 
+@pytest.mark.parametrize("endpoint", [False, True], ids=["moments", "endpoint"])
+def test_bridge_call_site_passes_bool(ref, endpoint, monkeypatch):
+    """The bridge stage hands the kernel its bool masks and one kernel
+    length per view, and gets the masks the float call (per-mask lengths,
+    result > 0.5) gives."""
+    _, _, dbg, st = ref
+    cfg = dataclasses.replace(TCFG, bridge_endpoint_stats=endpoint)
+    calls = []
+    real = td.frontend.bridge_morphology
+
+    def spy(*args, **kw):
+        out = real(*args, **kw)
+        calls.append((args, kw, out))
+        return out
+
+    monkeypatch.setattr(td.frontend, "bridge_morphology", spy)
+    br = td.bridge_stage(_b(dbg.h_mask), _b(dbg.v_mask), _b(st["circle_radius0"]), cfg)
+    (masks, exps, angles, klen), kw, out = calls[0]
+    assert masks.dtype == exps.dtype == out.dtype == torch.bool and klen.shape == (1,)
+    want = td.frontend.bridge_morphology_plain(masks.to(torch.float32), exps.to(torch.float32), angles,
+                                               klen.repeat_interleave(2), **kw) > 0.5
+    assert torch.equal(out, want)
+    assert torch.equal(br.h_exp, want[0::2]) and torch.equal(br.v_exp, want[1::2])
+
+
 def _grid_map(grid, i=0):
     xy = grid.xy[i].numpy()
     idx = grid.idx[i].numpy()

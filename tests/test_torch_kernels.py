@@ -163,6 +163,72 @@ def test_bridge_plain_equals_pallas(kernel_len, probe_len):
         assert out_j.sum() > ms.sum()
 
 
+AXIS_BASES = [0.0, float(np.float32(math.pi / 2))]  # detector._axis_bases
+
+
+@pytest.mark.parametrize("probe_len, max_kernel", [(5, 125), (2, 125), (64, 300)])
+def test_bridge_schedule_equals_jax_expressions(probe_len, max_kernel):
+    """``bridge_schedule`` against the Pallas kernel's own expressions
+    (``_bridge_kernel``: ``jnp.round(sa * k * sgn)`` and the ``eff`` chain)
+    over an angle sweep, with kernel lengths 0, 20, 124 and 300."""
+    special = [0.0, math.pi / 2, -math.pi / 2, math.pi / 4, -math.pi / 4, *AXIS_BASES]
+    angles = np.concatenate([np.asarray(special, np.float32),
+                             np.linspace(-math.pi, math.pi, 2001, dtype=np.float32)])
+    lengths = np.asarray([0.0, 20.0, 124.0, 300.0], np.float32)
+    klen = np.resize(lengths, angles.shape)
+    ray, line = tf.bridge_schedule(torch.as_tensor(angles), torch.as_tensor(klen), probe_len, max_kernel)
+
+    a = jnp.asarray(angles)
+    sa, ca = jnp.sin(a), jnp.cos(a)
+    for s, sgn in enumerate((1.0, -1.0)):
+        for k in range(probe_len + 1):
+            np.testing.assert_array_equal(ray[:, s, k, 0].numpy(), np.asarray(jnp.round(sa * k * sgn).astype(jnp.int32)))
+            np.testing.assert_array_equal(ray[:, s, k, 1].numpy(), np.asarray(jnp.round(ca * k * sgn).astype(jnp.int32)))
+    half = max(max_kernel // 2, 1)
+    dyn_half = jnp.clip(jnp.asarray(klen) / 2.0, 0.0, float(half))
+    stride, covered, s = 1, 0, 0
+    dyn_covered = jnp.zeros_like(dyn_half)
+    while covered < half:
+        step = min(stride, half - covered)
+        eff = jnp.clip(dyn_half - dyn_covered, 0.0, float(step))
+        np.testing.assert_array_equal(line[:, s, 0].numpy(), np.asarray(jnp.round(sa * eff).astype(jnp.int32)))
+        np.testing.assert_array_equal(line[:, s, 1].numpy(), np.asarray(jnp.round(ca * eff).astype(jnp.int32)))
+        covered += step
+        dyn_covered = dyn_covered + eff
+        stride *= 2
+        s += 1
+    assert line.shape[1] == s == tf.bridge_schedule_size(probe_len, max_kernel) // 2 - 2 * (probe_len + 1)
+
+
+def test_bridge_schedule_kernel_length_per_pair():
+    """A (M,) kernel length covers N / M consecutive masks (the detector's
+    one length per view for its h/v pair)."""
+    ang = torch.tensor([0.3, 0.3, -1.0, -1.0])
+    per_view = tf.bridge_schedule(ang, torch.tensor([20.0, 124.0]), 5, 125)
+    per_mask = tf.bridge_schedule(ang, torch.tensor([20.0, 20.0, 124.0, 124.0]), 5, 125)
+    for a, b in zip(per_view, per_mask):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="dividing"):
+        tf.bridge_schedule(ang, torch.tensor([1.0, 2.0, 3.0]), 5, 125)
+
+
+@pytest.mark.parametrize("dtype", [torch.bool, torch.uint8])
+def test_bridge_plain_bytes_equal_float(dtype):
+    """The plain bridge on bool (uint8) masks and expandability images gives
+    the float result as bool (uint8), and a schedule it is asked for equals
+    ``bridge_schedule``."""
+    ms, ex, ang = _bridge_inputs(96, 128, 3)
+    kl = torch.tensor([20.0, 124.0, 0.0])
+    want = tf.bridge_morphology(torch.as_tensor(ms), torch.as_tensor(ex), torch.as_tensor(ang), kl, 5, 125)
+    sched = torch.zeros((len(ang), tf.bridge_schedule_size(5, 125)), dtype=torch.int32)
+    got = tf.bridge_morphology(torch.as_tensor(ms).to(dtype), torch.as_tensor(ex).to(dtype),
+                               torch.as_tensor(ang), kl, 5, 125, schedule_out=sched)
+    assert got.dtype == dtype and want.dtype == torch.float32
+    assert torch.equal(got, (want > 0.5).to(dtype))
+    ray, line = tf.bridge_schedule(torch.as_tensor(ang), kl, 5, 125)
+    assert torch.equal(sched, torch.cat([ray.reshape(len(ang), -1), line.reshape(len(ang), -1)], 1))
+
+
 def test_bridge_schedule_rounds_half_to_even():
     """Offsets round half to even, as jnp.round: kernel length 7 at angle 0
     gives line steps of 1, 2 and then 0.5, which rounds to 0 (not 1)."""

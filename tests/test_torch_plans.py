@@ -1,6 +1,7 @@
-"""PyTorch port, on the CPU: the launch plans of the preprocess and CC
-kernels at every shape the detector passes, the kernels' byte counts, the
-preprocess margin check and the rig's default device.  No JAX here."""
+"""PyTorch port, on the CPU: the launch plans of the preprocess, CC (one and
+two channels) and bridge kernels at every shape the detector passes, the
+kernels' byte counts, the preprocess margin check and the rig's default
+device.  No JAX here."""
 
 import numpy as np
 import pytest
@@ -95,6 +96,59 @@ def test_cc_plan_raises_beyond_eight_ctas(hw):
         tf.cc_plan(1, *hw)
 
 
+def test_cc_plan_two_channels():
+    """The payload kernel's plan: two buffers per channel plus per column a
+    top and bottom entry per channel and the one-run flag; 8 CTAs of 30 rows
+    at the detector's half-res canvas."""
+    plan = tf.cc_plan(64, 240, 384, channels=2)
+    assert (plan["cluster"], plan["rows_per_cta"], plan["ctas"]) == (8, 30, 512)
+    assert plan["smem"] == 4 * (4 * 30 * 384 + 5 * 384) == 192_000 <= kernels.MAX_DYNAMIC_SMEM
+    assert 4 * (4 * 60 * 384 + 5 * 384) > kernels.MAX_DYNAMIC_SMEM  # 4 CTAs would not fit
+    assert tf.cc_plan(2, 64, 128, channels=2)["cluster"] == 1
+    assert tf.cc_plan(2, 128, 128, channels=2)["cluster"] == 2
+    assert tf.cc_plan(2, 128, 256, channels=2)["cluster"] == 4
+    with pytest.raises(ValueError, match="more than 8 CTAs"):
+        tf.cc_plan(1, 480, 640, channels=2)
+    with pytest.raises(ValueError, match="channels"):
+        tf.cc_plan(1, 64, 128, channels=3)
+
+
+def test_cc_plan_one_channel_unchanged():
+    assert tf.cc_plan(64, 240, 384) == tf.cc_plan(64, 240, 384, channels=1) == {
+        "cluster": 4, "rows_per_cta": 60, "smem": 188_928, "ctas": 256}
+    assert tf.cc_plan(64, 128, 256) == {"cluster": 2, "rows_per_cta": 64, "smem": 134_144, "ctas": 128}
+
+
+@pytest.mark.parametrize("hw", SIZES)
+def test_bridge_plan_at_detector_shapes(hw):
+    """At the detector's half-res canvas and 2 views x 16 frames x (h, v):
+    clusters of 2 CTAs, 128 CTAs in one wave on 132 SMs; each CTA holds the
+    nine bit planes of the whole mask and the schedule."""
+    _, (h, w) = _cc_shapes(*hw)
+    plan = tf.bridge_plan(64, h, w)
+    words = -(-w // 32)
+    assert plan["cluster"] == 2 and plan["ctas"] == 128 <= tf.H100_SMS
+    assert plan["rows_per_cta"] == -(-h // 2) and plan["words_per_row"] == words
+    assert plan["smem"] == 4 * (9 * h * words + 4 * 65 + 2 * 32) <= kernels.MAX_DYNAMIC_SMEM
+    if hw == (480, 640):
+        assert plan["smem"] == 104_976
+
+
+@pytest.mark.parametrize("n, c", [(1, 8), (16, 8), (17, 4), (33, 4), (34, 2), (66, 2), (67, 1), (100_000, 1)])
+def test_bridge_plan_fills_one_wave(n, c):
+    plan = tf.bridge_plan(n, 240, 384)
+    assert plan["cluster"] == c
+    assert plan["rows_per_cta"] * c >= 240 and plan["rows_per_cta"] * (c - 1) < 240
+
+
+def test_bridge_plan_limits():
+    assert tf.bridge_plan(1, 5, 64)["cluster"] == 2  # 4 or 8 CTAs would leave one without rows
+    with pytest.raises(ValueError, match="shared memory"):
+        tf.bridge_plan(2, 480, 640)
+    assert tf.bridge_schedule_size(5, 125) == 4 * 6 + 2 * 6
+    assert tf.bridge_schedule_size(64, 2) == 4 * 65 + 2
+
+
 def test_min_bytes_at_the_detector_sites():
     assert tf.min_bytes("preprocess_binarize", 32, 480, 640) == 275_251_200
     assert tf.min_bytes("connected_components", 64, 128, 256) == 16_777_216
@@ -102,6 +156,11 @@ def test_min_bytes_at_the_detector_sites():
     assert tf.min_bytes("connected_components", 64, 240, 384, warm=True) == 70_778_880
     assert tf.min_bytes("bridge_morphology", 64, 240, 384) == 70_778_880
     assert tf.min_bytes("component_payload_minmax", 64, 240, 384) == 94_371_840
+
+
+def test_min_bytes_of_the_bool_bridge():
+    assert tf.min_bytes("bridge_morphology", 64, 240, 384, itemsize=1) == 17_694_720
+    assert tf.min_bytes("bridge_morphology", 64, 240, 384, itemsize=4) == 70_778_880
 
 
 def test_preprocess_margin_under_reach_raises():

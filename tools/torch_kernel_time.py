@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
-"""Time the preprocess (2.1) and CC (2.2) kernels on one CUDA card at the
-detector's call sites.
+"""Time the four front-end kernels on one CUDA card at the detector's call
+sites.
 
     python3 tools/torch_kernel_time.py [--root DIR] [--reps 20]
 
 Runs ``estimate_poses_batch`` once on 16 frames of the bench scene family
-(480x640, ``CylinderDetectConfig(use_pallas=True)``) to capture the kernel
-wrappers' arguments, then for each call site prints three times:
+(480x640, ``CylinderDetectConfig(use_pallas=True)``, and again with
+``bridge_endpoint_stats=True`` for the payload kernel 2.4) to capture the
+kernel wrappers' arguments, then for each call site of the preprocess (2.1),
+CC (2.2), bridge (2.3) and payload (2.4) kernels prints three times:
 ``call`` (CUDA events around one wrapper call, median of ``reps``; the
 host's launch path is inside), ``run`` (CUDA events around ``reps``
 back-to-back calls, over ``reps``: the device's rate once the host keeps
@@ -51,8 +53,9 @@ def event_ms(fn, reps: int, per_event: int) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, calls: int = 5) -> dict:
-    """Summed CUDA kernel durations per call, by kernel name (ms)."""
+def device_ms(fn, calls: int = 5) -> tuple:
+    """Summed CUDA kernel durations per call, by kernel name (ms), and the
+    device kernels per call."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -62,12 +65,13 @@ def device_ms(fn, calls: int = 5) -> dict:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    by = {}
+    by, count = {}, 0
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             name = e.name.split("(")[0].replace("(anonymous namespace)::", "")
             by[name] = by.get(name, 0.0) + (e.time_range.end - e.time_range.start) / 1e3 / calls
-    return by
+            count += 1
+    return by, count / calls
 
 
 def main() -> int:
@@ -96,9 +100,12 @@ def main() -> int:
     st, (i1, i2) = example_pair(480, 640, n_frames=16)
     stereo = stereo_from_numpy(*st, device=dev)
     cfg = CylinderDetectConfig(height=480, width=640, use_pallas=True)
+    cfg_ep = CylinderDetectConfig(height=480, width=640, use_pallas=True, bridge_endpoint_stats=True)
+    d1, d2 = torch.as_tensor(i1, device=dev), torch.as_tensor(i2, device=dev)
     with Capture(frontend) as cap, torch.inference_mode():
-        estimate_poses_batch(torch.as_tensor(i1, device=dev), torch.as_tensor(i2, device=dev), stereo,
-                             cfg, FitConfig())
+        estimate_poses_batch(d1, d2, stereo, cfg, FitConfig())
+    with Capture(frontend) as cap_ep, torch.inference_mode():
+        estimate_poses_batch(d1, d2, stereo, cfg_ep, FitConfig())
     sites = []
     for args_, kw in cap.calls["preprocess_binarize"]:
         x = args_[0]
@@ -109,15 +116,24 @@ def main() -> int:
         label = (f"connected_components {tuple(m.shape)} {kw['rounds']}x{kw['pools_per_round']} "
                  f"{'warm' if init is not None else 'cold'}")
         sites.append((label, lambda m=m, kw=kw: frontend.connected_components(m, **kw)))
+    # The bridge as the detector calls it, and the payload kernel as the
+    # endpoint path calls it (each tree's own arguments).
+    for name, calls in (("bridge_morphology", cap.calls), ("component_payload_minmax", cap_ep.calls)):
+        for args_, kw in calls[name]:
+            label = f"{name} {tuple(args_[0].shape)} {args_[0].dtype} {kw}"
+            sites.append((label, lambda a=args_, kw=kw, f=getattr(frontend, name): f(*a, **kw)))
     out = []
     with torch.inference_mode():
         for label, fn in sites:
+            by_name, per_call = device_ms(fn)
             row = {"site": label, "call_ms": event_ms(fn, args.reps, 1),
-                   "run_ms": event_ms(fn, args.reps, args.reps), "device_ms": device_ms(fn)}
+                   "run_ms": event_ms(fn, args.reps, args.reps), "device_ms": by_name,
+                   "kernels_per_call": per_call}
             out.append(row)
             dev_total = sum(row["device_ms"].values())
             print(f"{args.root} {label}: call {row['call_ms']:.4f} ms, run {row['run_ms']:.4f} ms, "
-                  f"device {dev_total:.4f} ms {({k: round(v, 4) for k, v in row['device_ms'].items()})}; "
+                  f"device {dev_total:.4f} ms in {per_call:g} kernels "
+                  f"{({k: round(v, 4) for k, v in sorted(row['device_ms'].items(), key=lambda kv: -kv[1])[:4]})}; "
                   f"{smi}", flush=True)
     print(json.dumps({"root": os.path.abspath(args.root), "card": smi, "sites": out}))
     return 0

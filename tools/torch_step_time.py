@@ -10,6 +10,9 @@ each call on freshly perturbed frames), the preprocess and CC kernels' device
 ms per detect call, and the detect stage's device busy share: the union of
 its CUDA kernels' intervals in a torch.profiler window over the host wall
 time of that window (the profiler's own host cost is inside the wall).
+Then the bridge stage's ms (``detector.bridge_stage`` on the same front and
+ROI stages, CUDA events) with ``CylinderDetectConfig()`` and with
+``bridge_endpoint_stats=True``.
 
 ``--root`` picks the checkout whose ``cylinder_pose_estimation_tpu_torch``
 is imported (default: this one), so that two trees can be timed in turns in
@@ -28,11 +31,12 @@ import sys
 import time
 
 
-# Kernel function names of 2.1 and 2.2, before and after their redesign.
+# Kernel function names of 2.1-2.3, before and after their redesign.
 FAMILIES = {
     "preprocess": ("binarize_tiles", "mask_tiles", "hessian_minima", "box_rows", "sauvola_binarize",
                    "line_minmax", "joints_of", "joint_count", "peak_pass", "peak_final"),
     "cc": ("cc_cluster", "cc_init", "cc_pool", "cc_run_min"),
+    "bridge": ("bridge_cluster", "bridge_kernel"),
 }
 
 
@@ -102,6 +106,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.abspath(args.root))
     from cylinder_pose_estimation_tpu_torch.config import CylinderDetectConfig, FitConfig
+    from cylinder_pose_estimation_tpu_torch.models import detector as det
     from cylinder_pose_estimation_tpu_torch.models.pipeline import estimate_poses_batch
     from cylinder_pose_estimation_tpu_torch.ops import kernels
     from cylinder_pose_estimation_tpu_torch.types import stereo_from_numpy
@@ -131,14 +136,23 @@ def main() -> int:
         ms_e2e = cuda_ms(e2e, args.reps)
         ms_det = cuda_ms(detect, args.reps)
         busy = busy_share(detect)
+        views = torch.cat([d1, d2])
+        roi = det.roi_stage(det.front_stage(det._to_gray(views), cfg), cfg)
+        bridge_ms = {}
+        for label, c in (("main", cfg), ("endpoint", CylinderDetectConfig(
+                height=480, width=640, use_pallas=True, bridge_endpoint_stats=True))):
+            bridge_ms[label] = cuda_ms(lambda c=c: det.bridge_stage(roi.mh, roi.mv, roi.circle_radius0, c),
+                                       args.reps)
     out = {"root": os.path.abspath(args.root), "card": smi, "batch": batch,
            "e2e_ms_per_frame": ms_e2e / batch, "detect_ms_per_frame": ms_det / batch,
-           "detect_ms_per_step": ms_det, "detect_profile": busy}
+           "detect_ms_per_step": ms_det, "detect_profile": busy, "bridge_stage_ms": bridge_ms}
     print(f"{args.root}: e2e {ms_e2e / batch:.4f} ms/frame, detect {ms_det / batch:.4f} ms/frame "
           f"({ms_det:.3f} ms/step); detect busy share {busy['busy_share']:.3f}, device "
           f"{busy['device_ms_per_call']:.3f} ms of {busy['wall_ms_per_call']:.3f} ms wall per step "
           f"(profiled), kernels {busy['kernels_per_call']:.0f}, by family "
-          f"{ {k: round(v, 4) for k, v in busy['family_ms_per_call'].items()} }; {smi}", flush=True)
+          f"{ {k: round(v, 4) for k, v in busy['family_ms_per_call'].items()} }; bridge stage at "
+          f"V={2 * batch}: main {bridge_ms['main']:.4f} ms, endpoint {bridge_ms['endpoint']:.4f} ms; {smi}",
+          flush=True)
     print(json.dumps(out))
     return 0
 
