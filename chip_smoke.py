@@ -65,8 +65,27 @@ phase fails.  Phases:
    frames/s, the ok count, the median reprojection and the peak device
    memory; then frames/s of the same stream with ``overlap=False``, whose
    output must equal the overlapped one.
+11. XLA path (the default ``use_pallas=False``, run after phase 4):
+   ``estimate_poses_batch`` with ``CylinderDetectConfig()`` on the seven
+   scenes of phase 2 with ``gap0`` (the XLA record) in place of
+   ``gap0_pallas``, held to ``golden_scenes.json`` by the phase-2 contract
+   (direction at the fixture's norm), then ``detect_grid`` with
+   ``PlaneDetectConfig(roi_threshold=30)`` on the phase-4 views, held to
+   their points, ``ok`` and ``stable_xla``; counters reset just before and
+   read just after must show none of the four kernels.  Timed at B=16 in
+   phase 7 (e2e and detect ms/frame, device kernels per detect step).
+12. Large path (run after phase 6): the main and endpoint configs at
+   720x1280 and 1080x1920 on ``LARGE_BATCH`` frames each, counters reset
+   just before and read just after (the CC family's and the bridge's
+   global routes); every kernel call there is captured and held
+   ``torch.equal`` to its plain version on the card, with its ms, device
+   ms, device kernels per call (at most the global routes' counts; "not
+   measured" where torch.profiler reads nothing) and byte bound; the card's
+   grids are held to the CPU port's (ids identical, xy within 0.05 px,
+   ``ok`` and ``stable`` equal); ms/frame of each config and size.
 
-The second-to-last line is the kernel report as JSON, the last line
+The second-to-last line is the kernel report as JSON (the 480x640 sites;
+``large_sites`` holds the large path's), the last line
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -88,15 +107,21 @@ PLANE = os.path.join(HERE, "tests", "fixtures", "torch_plane_scenes.json")
 REGISTRATION = os.path.join(HERE, "tests", "fixtures", "torch_registration.json")
 KERNELS = ("preprocess_binarize", "connected_components", "bridge_morphology",
            "component_payload_minmax")
-# Kernels each path must launch (counts per batch call where exact).
+# Kernels each path must launch: None, at least once; a number, exactly
+# that often (0: never).
 PATH_KERNELS = {
     "main": {"preprocess_binarize": None, "connected_components": None, "bridge_morphology": None},
     "endpoint": {"preprocess_binarize": None, "connected_components": 2, "bridge_morphology": None,
                  "component_payload_minmax": None},
     "plane": {"preprocess_binarize": None, "connected_components": None, "bridge_morphology": None},
+    "xla": dict.fromkeys(KERNELS, 0),
+    "large": dict.fromkeys(KERNELS, None),
 }
 for _path in ("experiment", "preprocess", "stream"):
     PATH_KERNELS[_path] = dict(PATH_KERNELS["main"])
+# The large path: frame sizes past the cluster kernels, frames per batch.
+LARGE_SIZES = ((720, 1280), (1080, 1920))
+LARGE_BATCH = 2
 # The H100 SXM's HBM rate (NVIDIA data sheet) for the kernels' byte bounds.
 HBM_BYTES_PER_S = 3.35e12
 # Each kernel's design: redesigned for Hopper, or still the first port.
@@ -137,21 +162,32 @@ def bound_ms(nbytes: int) -> float:
     return nbytes / HBM_BYTES_PER_S * 1e3
 
 
-def device_launches(fn):
+def device_launches(fn, attempts: int = 3):
     """(CUDA kernels that one fn() call launches, their summed device ms),
-    by torch.profiler; (None, None) if it records no device activity."""
+    by torch.profiler; (None, None) if no session of ``attempts`` records
+    device activity.  Late in a long process a session may read none, or
+    lose its first kernel: each session starts with a marker kernel (a
+    one-element ``fill_``), dropped from the count when it was recorded."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
+    marker = torch.zeros(1, device="cuda")
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    spans = [(e.time_range.end - e.time_range.start) / 1e3 for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA
-             and "memcpy" not in e.name.lower() and "memset" not in e.name.lower()]
-    return (len(spans), sum(spans)) if spans else (None, None)
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            marker.fill_(1.0)
+            torch.cuda.synchronize()
+            fn()
+            torch.cuda.synchronize()
+        events = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+                         and "memcpy" not in e.name.lower() and "memset" not in e.name.lower()),
+                        key=lambda e: e.time_range.start)
+        if events and "fill" in events[0].name.lower():
+            events = events[1:]
+        if events:
+            return len(events), sum((e.time_range.end - e.time_range.start) / 1e3 for e in events)
+    return None, None
 
 
 def ptxas_report(build_dir) -> list:
@@ -232,6 +268,13 @@ def golden_check(res, want: dict, s: int, gauge: bool = False) -> dict:
     return out
 
 
+def grid_records(det, i: int) -> list:
+    """View i of a DetectResult as fixture point records."""
+    return [{"id": [int(det.grid.idx[i, k, 0]), int(det.grid.idx[i, k, 1])],
+             "x": float(det.grid.xy[i, k, 0]), "y": float(det.grid.xy[i, k, 1])}
+            for k in range(det.grid.valid.shape[1]) if bool(det.grid.valid[i, k])]
+
+
 def plane_check(det, views) -> dict:
     """The plane fixture's contract for a (V,) DetectResult: points as
     ``points_check``, ``ok`` and ``stable`` equal."""
@@ -258,7 +301,7 @@ def run_path(name, frontend, fn):
     launches = frontend.launch_counts()
     print(f"{name} path launches: {launches}", flush=True)
     for k, want in PATH_KERNELS[name].items():
-        if launches[k] < 1:
+        if want is None and launches[k] < 1:
             raise AssertionError(f"the {name} path never launched {k}")
         if want is not None and launches[k] != want:
             raise AssertionError(f"the {name} path launched {k} {launches[k]} times, not {want}")
@@ -357,9 +400,66 @@ def line_masks(n, h, w, angles, seed, device):
     return (out & ring).to(device)
 
 
+def new_report() -> dict:
+    return {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bytes": 0, "device_ms": 0.0, "sites": [],
+            "device_launches": None, "large_sites": []}
+
+
+def compare(report, name, kernel_fn, plain_fn, label, timed, nbytes=0, site=True, max_dev=None,
+            large=False):
+    """Hold a kernel call to its plain version (``torch.equal``) and add its
+    largest error to ``report[name]``.  ``timed``: time both and count the
+    kernel's device kernels per call, which must not pass ``max_dev``
+    (default ``DEVICE_LAUNCHES_MAX``); ``site``: add the times to the
+    kernel's 480x640 sites, or with ``large`` to its large-frame sites."""
+    import torch
+
+    out_k = kernel_fn()
+    out_p = plain_fn()
+    torch.cuda.synchronize()
+    outs_k = out_k if isinstance(out_k, tuple) else (out_k,)
+    outs_p = out_p if isinstance(out_p, tuple) else (out_p,)
+    err = 0.0
+    for a, b in zip(outs_k, outs_p):
+        if a.shape != b.shape or a.dtype != b.dtype:
+            raise AssertionError(f"{name} [{label}]: {a.shape}/{a.dtype} vs {b.shape}/{b.dtype}")
+        diff = (a.to(torch.float64) - b.to(torch.float64)).abs()
+        err = max(err, float(diff.max()) if diff.numel() else 0.0)
+        if not torch.equal(a, b):
+            n_bad = int((a != b).sum())
+            raise AssertionError(f"{name} [{label}]: kernel != plain on {n_bad} elements")
+    rep = report.setdefault(name, new_report())
+    rep["max_abs_err"] = max(rep["max_abs_err"], err)
+    line = f"kernel {name} [{label}] equal"
+    if timed:
+        max_dev = DEVICE_LAUNCHES_MAX[name] if max_dev is None else max_dev
+        ms_k = cuda_ms(kernel_fn)
+        ms_p = cuda_ms(plain_fn, reps=5, warmup=1)
+        n_dev, dev_ms = device_launches(kernel_fn)
+        if (n_dev is None and not large) or (n_dev is not None and n_dev > max_dev):
+            raise AssertionError(f"{name} [{label}]: {n_dev} device kernels in a call (at most {max_dev})")
+        if site and large:
+            rep["large_sites"].append({"site": label, "ms": ms_k, "device_ms": dev_ms, "plain_ms": ms_p,
+                                       "bytes": nbytes, "bound_ms": bound_ms(nbytes),
+                                       "device_kernels_per_call": n_dev})
+        elif site:
+            rep["device_ms"] += dev_ms
+            rep["ms"] += ms_k
+            rep["plain_ms"] += ms_p
+            rep["bytes"] += nbytes
+            rep["sites"].append((label, ms_k, ms_p, nbytes, n_dev))
+            rep["device_launches"] = max(rep["device_launches"] or 0, n_dev)
+        dev_txt = "not measured" if dev_ms is None else f"{dev_ms:.4f} ms"
+        line += (f"; kernel {ms_k:.4f} ms (device {dev_txt}), plain {ms_p:.4f} ms, bound "
+                 f"{bound_ms(nbytes):.4f} ms ({nbytes} B), device kernels per call {n_dev}")
+    print(line, flush=True)
+
+
 def kernel_phase(frontend, calls, device, seed: int = 0) -> dict:
     """Every kernel vs its plain version on the captured production
     intermediates plus seeded random inputs; returns per-kernel reports."""
+    import functools
+
     import torch
 
     from cylinder_pose_estimation_tpu_torch.config import CylinderDetectConfig
@@ -367,57 +467,18 @@ def kernel_phase(frontend, calls, device, seed: int = 0) -> dict:
 
     g = torch.Generator(device="cpu").manual_seed(seed)
     report = {}
-
-    def compare(name, kernel_fn, plain_fn, label, timed, nbytes=0, site=True):
-        """``timed``: time the call; ``site``: add it to the kernel's
-        report (a main-path call site)."""
-        out_k = kernel_fn()
-        out_p = plain_fn()
-        torch.cuda.synchronize()
-        outs_k = out_k if isinstance(out_k, tuple) else (out_k,)
-        outs_p = out_p if isinstance(out_p, tuple) else (out_p,)
-        err = 0.0
-        for a, b in zip(outs_k, outs_p):
-            if a.shape != b.shape or a.dtype != b.dtype:
-                raise AssertionError(f"{name} [{label}]: {a.shape}/{a.dtype} vs {b.shape}/{b.dtype}")
-            diff = (a.to(torch.float64) - b.to(torch.float64)).abs()
-            err = max(err, float(diff.max()) if diff.numel() else 0.0)
-            if not torch.equal(a, b):
-                n_bad = int((a != b).sum())
-                raise AssertionError(f"{name} [{label}]: kernel != plain on {n_bad} elements")
-        rep = report.setdefault(name, {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bytes": 0,
-                                       "device_ms": 0.0, "sites": [], "device_launches": None})
-        rep["max_abs_err"] = max(rep["max_abs_err"], err)
-        line = f"kernel {name} [{label}] equal"
-        if timed:
-            ms_k = cuda_ms(kernel_fn)
-            ms_p = cuda_ms(plain_fn, reps=5, warmup=1)
-            n_dev, dev_ms = device_launches(kernel_fn)
-            if n_dev is None or n_dev > DEVICE_LAUNCHES_MAX[name]:
-                raise AssertionError(f"{name} [{label}]: {n_dev} device kernels in a call "
-                                     f"(at most {DEVICE_LAUNCHES_MAX[name]})")
-            if site:
-                rep["device_ms"] += dev_ms
-                rep["ms"] += ms_k
-                rep["plain_ms"] += ms_p
-                rep["bytes"] += nbytes
-                rep["sites"].append((label, ms_k, ms_p, nbytes, n_dev))
-                rep["device_launches"] = max(rep["device_launches"] or 0, n_dev)
-            dev_txt = f"{dev_ms:.4f} ms"
-            line += (f"; kernel {ms_k:.4f} ms (device {dev_txt}), plain {ms_p:.4f} ms, bound "
-                     f"{bound_ms(nbytes):.4f} ms ({nbytes} B), device kernels per call {n_dev}")
-        print(line, flush=True)
+    compare_ = functools.partial(compare, report)
 
     # 2.1 preprocess: the B=16 run's smoothed views + smoothed noise images.
     for i, (args, kw) in enumerate(calls["preprocess_binarize"]):
         x = args[0]
-        compare("preprocess_binarize", lambda: frontend.preprocess_binarize(x, **kw),
+        compare_("preprocess_binarize", lambda: frontend.preprocess_binarize(x, **kw),
                 lambda: frontend.preprocess_binarize_plain(x, **kw),
                 f"captured {tuple(x.shape)}", timed=(i == 0),
                 nbytes=frontend.min_bytes("preprocess_binarize", *x.shape))
         noise = torch.rand(x.shape, generator=g).mul(255.0).to(device)
         xs = _smooth(noise, CylinderDetectConfig())
-        compare("preprocess_binarize", lambda: frontend.preprocess_binarize(xs, **kw),
+        compare_("preprocess_binarize", lambda: frontend.preprocess_binarize(xs, **kw),
                 lambda: frontend.preprocess_binarize_plain(xs, **kw),
                 f"random {tuple(xs.shape)}", timed=False)
 
@@ -427,7 +488,7 @@ def kernel_phase(frontend, calls, device, seed: int = 0) -> dict:
         init = kw.get("init_labels")
         label = (f"captured {tuple(m.shape)} {kw['rounds']}x{kw['pools_per_round']} "
                  f"{'warm' if init is not None else 'cold'}")
-        compare("connected_components",
+        compare_("connected_components",
                 lambda: frontend.connected_components(m, kw["rounds"], kw["pools_per_round"], init),
                 lambda: frontend.connected_components_plain(m, kw["rounds"], kw["pools_per_round"], init),
                 label, timed=True,
@@ -437,7 +498,7 @@ def kernel_phase(frontend, calls, device, seed: int = 0) -> dict:
         if init is not None:
             rinit = torch.randint(0, 2 * m.shape[1] * m.shape[2], m.shape, generator=g,
                                   dtype=torch.int32).to(device)
-        compare("connected_components",
+        compare_("connected_components",
                 lambda: frontend.connected_components(rnd, kw["rounds"], kw["pools_per_round"], rinit),
                 lambda: frontend.connected_components_plain(rnd, kw["rounds"], kw["pools_per_round"], rinit),
                 f"random {tuple(m.shape)}", timed=False)
@@ -447,7 +508,7 @@ def kernel_phase(frontend, calls, device, seed: int = 0) -> dict:
     for args, kw in calls["component_payload_minmax"]:
         m, pay = args
         rounds, pools = kw["rounds"], kw["pools_per_round"]
-        compare("component_payload_minmax",
+        compare_("component_payload_minmax",
                 lambda: frontend.component_payload_minmax(m, pay, rounds, pools),
                 lambda: frontend.component_payload_minmax_plain(m, pay, rounds, pools),
                 f"captured {tuple(m.shape)} {rounds}x{pools}", timed=True,
@@ -457,7 +518,7 @@ def kernel_phase(frontend, calls, device, seed: int = 0) -> dict:
         rpay = torch.stack([torch.randperm(h * w, generator=g) for _ in range(n)])
         rpay = rpay.reshape(n, h, w).to(torch.int32).to(device)
         for r, p in ((rounds, pools), (1, 2), (3, 1)):
-            compare("component_payload_minmax",
+            compare_("component_payload_minmax",
                     lambda: frontend.component_payload_minmax(rnd, rpay, r, p),
                     lambda: frontend.component_payload_minmax_plain(rnd, rpay, r, p),
                     f"random {tuple(m.shape)} {r}x{p}", timed=False)
@@ -468,13 +529,13 @@ def kernel_phase(frontend, calls, device, seed: int = 0) -> dict:
     # bridge_schedule on the card.
     for args, kw in calls["bridge_morphology"]:
         masks, exps, angles, klen = args
-        compare("bridge_morphology",
+        compare_("bridge_morphology",
                 lambda: frontend.bridge_morphology(masks, exps, angles, klen, **kw),
                 lambda: frontend.bridge_morphology_plain(masks, exps, angles, klen, **kw),
                 f"captured {tuple(masks.shape)} {masks.dtype}", timed=True,
                 nbytes=frontend.min_bytes("bridge_morphology", *masks.shape, itemsize=masks.element_size()))
         mf, ef = masks.to(torch.float32), exps.to(torch.float32)
-        compare("bridge_morphology",
+        compare_("bridge_morphology",
                 lambda: frontend.bridge_morphology(mf, ef, angles, klen, **kw),
                 lambda: frontend.bridge_morphology_plain(mf, ef, angles, klen, **kw),
                 f"captured {tuple(mf.shape)} {mf.dtype}", timed=True, site=False,
@@ -488,7 +549,7 @@ def kernel_phase(frontend, calls, device, seed: int = 0) -> dict:
         kl = torch.linspace(0.0, 260.0, n, device=device)
         for dtype in (torch.bool, torch.float32):
             lmt, ext = lm.to(dtype), ex.to(dtype)
-            compare("bridge_morphology",
+            compare_("bridge_morphology",
                     lambda: frontend.bridge_morphology(lmt, ext, ang, kl, **kw),
                     lambda: frontend.bridge_morphology_plain(lmt, ext, ang, kl, **kw),
                     f"line masks {tuple(lm.shape)} {dtype}", timed=False)
@@ -710,10 +771,7 @@ def preprocess_phase(device, stereo_fn, cfg, fit_cfg, frontend, smi) -> dict:
     max_d = 0.0
     for dc, dh in ((det_card.detect1, det_host.detect1), (det_card.detect2, det_host.detect2)):
         for i in range(2):
-            recs = [{"id": [int(dh.grid.idx[i, k, 0]), int(dh.grid.idx[i, k, 1])],
-                     "x": float(dh.grid.xy[i, k, 0]), "y": float(dh.grid.xy[i, k, 1])}
-                    for k in range(dh.grid.valid.shape[1]) if bool(dh.grid.valid[i, k])]
-            _, d = points_check(dc.grid, i, recs, f"preprocessed frame {i}")
+            _, d = points_check(dc.grid, i, grid_records(dh, i), f"preprocessed frame {i}")
             max_d = max(max_d, d)
     print(f"preprocessed detect, 2 frames card vs CPU: ids identical, max |dxy| {max_d:.6f} px",
           flush=True)
@@ -773,6 +831,150 @@ def stream_phase(device, stereo, cfg, fit_cfg, frontend, smi) -> dict:
     print(f"stream N={n} chunk={chunk} compact serial (overlap=False): {n / wall_serial:.2f} frames/s "
           f"({wall_serial:.2f} s wall), equal to the overlapped run", flush=True)
     return launches
+
+
+def xla_phase(frontend, a, b, stereo, pviews, golden, plane_views, fit_cfg) -> dict:
+    """Phase 11: the default configuration (the XLA branch) on the phase-2
+    scenes and the phase-4 views, against the XLA records; none of the four
+    kernels may launch."""
+    from cylinder_pose_estimation_tpu_torch.config import CylinderDetectConfig, PlaneDetectConfig
+    from cylinder_pose_estimation_tpu_torch.models.detector import detect_grid
+    from cylinder_pose_estimation_tpu_torch.models.pipeline import estimate_poses_batch
+
+    h, w = a.shape[-2:]
+    cfg = CylinderDetectConfig(height=h, width=w)
+    cfg_plane = PlaneDetectConfig(height=h, width=w, roi_threshold=30.0)
+    if cfg.use_pallas or cfg_plane.use_pallas:
+        raise AssertionError("the default configuration must be the XLA branch")
+    (res, det), launches = run_path("xla", frontend, lambda: (
+        estimate_poses_batch(a, b, stereo, cfg, fit_cfg), detect_grid(pviews, cfg_plane)))
+    for s, name in enumerate(list(range(6)) + ["gap0"]):
+        want = next(g for g in golden if g["scene"] == name)
+        chk = golden_check(res, want, s, gauge=True)
+        if chk["bridged_components"] != want.get("bridged_components", 0):
+            raise AssertionError(f"xla scene {name} bridged {chk['bridged_components']}")
+        print(f"xla scene {name}: points {chk['n_view1']}/{chk['n_view2']}, max|dxy| {chk['max_dxy']:.6f} px, "
+              f"max|dparams| {chk['max_dparams']:.6f} (raw {chk['max_dparams_raw']:.6f}), "
+              f"|dreproj| {chk['d_reproj']:.6f} px, bridged_components {chk['bridged_components']}", flush=True)
+    chk = plane_check(det, [dict(v, stable=v["stable_xla"]) for v in plane_views])
+    print(f"xla plane views: points {chk['points']}, max|dxy| {chk['max_dxy']:.6f} px, stable "
+          f"{det.stable.tolist()} (the XLA record)", flush=True)
+    return launches
+
+
+def large_phase(frontend, device, fit_cfg, smi):
+    """Phase 12: the main and endpoint configs at LARGE_SIZES; returns (the
+    launches, a kernel report whose ``large_sites`` hold the timed calls)."""
+    import torch
+
+    from cylinder_pose_estimation_tpu_torch.config import CylinderDetectConfig
+    from cylinder_pose_estimation_tpu_torch.models.pipeline import estimate_poses_batch
+    from cylinder_pose_estimation_tpu_torch.types import stereo_from_numpy
+    from cylinder_pose_estimation_tpu_torch.utils.synthetic import example_pair
+
+    def cfg_of(h, w, label):
+        return CylinderDetectConfig(height=h, width=w, use_pallas=True,
+                                    bridge_endpoint_stats=label == "endpoint")
+
+    inputs = {hw: example_pair(*hw, n_frames=LARGE_BATCH) for hw in LARGE_SIZES}
+    calls = {}
+
+    def drive():
+        out = {}
+        for (h, w), (st_np, (i1, i2)) in inputs.items():
+            stereo = stereo_from_numpy(*st_np, device=device)
+            a = torch.as_tensor(i1, device=device)
+            b = torch.as_tensor(i2, device=device)
+            for label in ("main", "endpoint"):
+                with Capture(frontend) as cap:
+                    out[(h, w, label)] = estimate_poses_batch(a, b, stereo, cfg_of(h, w, label), fit_cfg)
+                calls[(h, w, label)] = cap.calls
+        return out
+
+    out, launches = run_path("large", frontend, drive)
+    for (h, w, label), res in out.items():
+        st_np, (i1, i2) = inputs[(h, w)]
+        t0 = time.perf_counter()
+        host = estimate_poses_batch(torch.as_tensor(i1), torch.as_tensor(i2),
+                                    stereo_from_numpy(*st_np, device="cpu"), cfg_of(h, w, label), fit_cfg)
+        t_cpu = time.perf_counter() - t0
+        max_d, pts = 0.0, []
+        for dc, dh in ((res.detect1, host.detect1), (res.detect2, host.detect2)):
+            for i in range(LARGE_BATCH):
+                n, d = points_check(dc.grid, i, grid_records(dh, i), f"{h}x{w} {label} frame {i}")
+                pts.append(n)
+                max_d = max(max_d, d)
+                for flag in ("ok", "stable"):
+                    if bool(getattr(dc, flag)[i]) != bool(getattr(dh, flag)[i]):
+                        raise AssertionError(f"{h}x{w} {label} frame {i}: {flag} differs card vs CPU")
+        print(f"large {h}x{w} {label}, card vs CPU ({t_cpu:.1f} s on the CPU): ids identical, points {pts}, "
+              f"max |dxy| {max_d:.6f} px, ok {res.detect1.ok.tolist()}/{res.detect2.ok.tolist()}, stable "
+              f"{res.detect1.stable.tolist()}/{res.detect2.stable.tolist()}", flush=True)
+
+    report = {}
+    with torch.inference_mode():
+        for (h, w, label), cap in calls.items():
+            timed = label == "main"
+            tag = f"{h}x{w} {label}"
+            for args, kw in cap["preprocess_binarize"]:
+                x = args[0]
+                compare(report, "preprocess_binarize", lambda: frontend.preprocess_binarize(x, **kw),
+                        lambda: frontend.preprocess_binarize_plain(x, **kw), f"{tag} {tuple(x.shape)}", timed,
+                        nbytes=frontend.min_bytes("preprocess_binarize", *x.shape), large=True)
+            for args, kw in cap["connected_components"]:
+                m, init = args[0], kw.get("init_labels")
+                r, p = kw["rounds"], kw["pools_per_round"]
+                glob = frontend.cc_plan(*m.shape).get("route") == "global"
+                compare(report, "connected_components",
+                        lambda: frontend.connected_components(m, r, p, init),
+                        lambda: frontend.connected_components_plain(m, r, p, init),
+                        f"{tag} {tuple(m.shape)} {r}x{p} {'warm' if init is not None else 'cold'}"
+                        f"{' global' if glob else ''}", timed,
+                        nbytes=frontend.min_bytes("connected_components", *m.shape, warm=init is not None),
+                        max_dev=frontend.cc_global_launches(r, p) if glob else None, large=True)
+            for args, kw in cap["component_payload_minmax"]:
+                m, pay = args
+                r, p = kw["rounds"], kw["pools_per_round"]
+                glob = frontend.cc_plan(*m.shape, channels=2).get("route") == "global"
+                compare(report, "component_payload_minmax",
+                        lambda: frontend.component_payload_minmax(m, pay, r, p),
+                        lambda: frontend.component_payload_minmax_plain(m, pay, r, p),
+                        f"{tag} {tuple(m.shape)} {r}x{p}{' global' if glob else ''}", True,
+                        nbytes=frontend.min_bytes("component_payload_minmax", *m.shape),
+                        max_dev=frontend.cc_global_launches(r, p) if glob else None, large=True)
+            for args, kw in cap["bridge_morphology"]:
+                masks, exps, angles, klen = args
+                glob = frontend.bridge_plan(*masks.shape).get("route") == "global"
+                max_dev = frontend.bridge_global_launches(kw["probe_len"], kw["max_kernel"]) if glob else None
+                for mk, ek, site in ((masks, exps, True), (masks.float(), exps.float(), False)):
+                    compare(report, "bridge_morphology",
+                            lambda: frontend.bridge_morphology(mk, ek, angles, klen, **kw),
+                            lambda: frontend.bridge_morphology_plain(mk, ek, angles, klen, **kw),
+                            f"{tag} {tuple(mk.shape)} {mk.dtype}{' global' if glob else ''}", timed and site,
+                            nbytes=frontend.min_bytes("bridge_morphology", *mk.shape, itemsize=mk.element_size()),
+                            max_dev=max_dev, large=True)
+
+    rep = itertools.count(1)
+    for (h, w), (st_np, (i1, i2)) in inputs.items():
+        stereo = stereo_from_numpy(*st_np, device=device)
+        a = torch.as_tensor(i1, device=device)
+        b = torch.as_tensor(i2, device=device)
+        for label in ("main", "endpoint"):
+            cfg = cfg_of(h, w, label)
+
+            def e2e():
+                eps = 1e-4 * next(rep)
+                return estimate_poses_batch(a + eps, b + eps, stereo, cfg, fit_cfg).fit.params
+
+            def detect():
+                eps = 1e-4 * next(rep)
+                return estimate_poses_batch(a + eps, b + eps, stereo, cfg, fit_cfg, probe="detect").grid.xy
+
+            ms_e2e = cuda_ms(e2e, reps=5, warmup=1)
+            ms_det = cuda_ms(detect, reps=5, warmup=1)
+            print(f"large {label} B={LARGE_BATCH} {h}x{w}: {ms_e2e / LARGE_BATCH:.4f} ms/frame (detect "
+                  f"{ms_det / LARGE_BATCH:.4f} ms/frame); {smi}", flush=True)
+    return launches, report
 
 
 def main() -> int:
@@ -875,6 +1077,9 @@ def main() -> int:
     chk = plane_check(det, plane_views)
     print(f"plane views: points {chk['points']}, max|dxy| {chk['max_dxy']:.6f} px", flush=True)
 
+    # --- the XLA branch (the default config): no kernel may launch -------
+    xla_launches = xla_phase(frontend, a, b, stereo, pviews, golden, plane_views, fit_cfg)
+
     # --- the experiment, preprocessing and stream paths ---------------------
     def stereo_fn(st):
         return stereo_from_numpy(*st, device=device)
@@ -901,6 +1106,12 @@ def main() -> int:
     with torch.inference_mode():
         report = kernel_phase(frontend, cap.calls, device)
 
+    # --- large frames: the CC family's and the bridge's global routes -----
+    # (after the kernel phase: torch.profiler read no device activity in its
+    # first session when the registration and stream phases ran between two
+    # of its uses)
+    large_launches, large_report = large_phase(frontend, device, fit_cfg, smi)
+
     # --- end to end timing at B=16 ----------------------------------------
     # Every call perturbs the frames anew, as bench.py does.
     rep = itertools.count(1)
@@ -925,12 +1136,25 @@ def main() -> int:
         eps = 1e-4 * next(rep)
         return detect_grid(pviews + eps, cfg_plane).grid.xy
 
-    for label, fn_e2e, fn_det in (("e2e", e2e, detect), ("endpoint e2e", e2e_ep, detect_ep)):
+    cfg_xla = CylinderDetectConfig(height=height, width=width)
+
+    def e2e_xla():
+        eps = 1e-4 * next(rep)
+        return estimate_poses_batch(d1 + eps, d2 + eps, stereo, cfg_xla, fit_cfg).fit.params
+
+    def detect_xla():
+        eps = 1e-4 * next(rep)
+        return estimate_poses_batch(d1 + eps, d2 + eps, stereo, cfg_xla, fit_cfg, probe="detect").grid.xy
+
+    for label, fn_e2e, fn_det in (("e2e", e2e, detect), ("endpoint e2e", e2e_ep, detect_ep),
+                                  ("xla e2e", e2e_xla, detect_xla)):
         ms_e2e = cuda_ms(fn_e2e, reps=10, warmup=2)
         ms_det = cuda_ms(fn_det, reps=10, warmup=2)
+        n_dev, dev_ms = device_launches(fn_det)
+        dev_txt = "not measured" if n_dev is None else f"{n_dev} device kernels, {dev_ms:.4f} device ms"
         print(f"{label} B={batch} {height}x{width}: {ms_e2e / batch:.4f} ms/frame "
               f"(detect {ms_det / batch:.4f} ms/frame, fit {(ms_e2e - ms_det) / batch:.4f} ms/frame); "
-              f"{smi}", flush=True)
+              f"detect step: {dev_txt}; {smi}", flush=True)
     stage_split(torch.cat([d1, d2]), (("main", cfg), ("endpoint", cfg_ep)))
     n_views = pviews.shape[0]
     ms_plane = cuda_ms(detect_plane, reps=10, warmup=2)
@@ -940,24 +1164,34 @@ def main() -> int:
     # Launches per kernel: summed over the six path runs (each counted
     # from zero), with the split by path beside it.
     by_path = {"main": main_launches, "endpoint": ep_launches, "plane": plane_launches,
-               "experiment": exp_launches, "preprocess": pre_launches, "stream": stream_launches}
+               "experiment": exp_launches, "preprocess": pre_launches, "stream": stream_launches,
+               "xla": xla_launches, "large": large_launches}
     rows = []
     for k in KERNELS:
         r = report[k]
+        large = large_report.get(k, new_report())
         for label, ms_k, ms_p, nbytes, n_dev in r["sites"]:
             print(f"timing {k} [{label}]: kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms, bound "
                   f"{bound_ms(nbytes):.4f} ms ({nbytes} B, {bound_ms(nbytes) / ms_k:.1%} of it), "
                   f"device kernels per call {n_dev}", flush=True)
+        for site in large["large_sites"]:
+            dev = site["device_ms"]
+            print(f"timing {k} [{site['site']}]: kernel {site['ms']:.4f} ms (device "
+                  f"{'not measured' if dev is None else f'{dev:.4f} ms'}), plain {site['plain_ms']:.4f} ms, "
+                  f"bound {site['bound_ms']:.4f} ms ({site['bytes']} B), device kernels per call "
+                  f"{site['device_kernels_per_call']}", flush=True)
         rows.append({
             "name": k, "route": "cuda", "source": frontend.SOURCES[k],
             "replaces": frontend.REPLACES[k], "launches": sum(c[k] for c in by_path.values()),
             "launches_by_path": {p: c[k] for p, c in by_path.items()},
             "launches_per_step": main_launches[k],
-            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "device_ms": r["device_ms"],
+            "max_abs_err": max(r["max_abs_err"], large["max_abs_err"]), "ms": r["ms"],
+            "device_ms": r["device_ms"],
             "plain_ms": r["plain_ms"],
             "bound_ms": bound_ms(r["bytes"]), "bound_by": "bytes", "bytes": r["bytes"],
             "bound_share": bound_ms(r["bytes"]) / r["ms"], "library_ms": None,
             "device_kernels_per_call": r["device_launches"], "design": DESIGN[k],
+            "large_sites": large["large_sites"],
         })
     print(smi)
     print(json.dumps({"kernels": rows}))

@@ -5,13 +5,16 @@ Field names and defaults equal those of ``cylinder_pose_estimation_tpu.config``
 (the JAX package), so one configuration describes the same problem in both
 packages; ``from_reference`` copies a JAX config object field by field.
 
-The port runs the cylinder and plane detection paths of the JAX package's
-Pallas branch, with or without ``bridge_endpoint_stats``.  ``validate``
-rejects every branch it does not carry, naming the ROADMAP item that would
-port it.
-``use_pallas`` and ``pallas_interpret`` are accepted and ignored: the device
-of the input picks the kernel (a CUDA tensor launches the hand-written CUDA
-kernel, a CPU tensor runs its plain PyTorch version).
+The port runs both detection branches of the JAX package, in cylinder and
+plane mode, and ``use_pallas`` picks one as it does there:
+``use_pallas=True`` runs the kernel branch (with or without
+``bridge_endpoint_stats``), whose four kernels are hand-written CUDA on a
+CUDA tensor and their plain PyTorch versions on a CPU tensor;
+``use_pallas=False`` (the default) runs the XLA branch in plain PyTorch on
+either device, with ``image_dtype`` and ``cc_iters``; it ignores
+``bridge_endpoint_stats``, as the JAX package does.  ``pallas_interpret`` is
+accepted and ignored.  ``validate`` rejects every branch the port does not
+carry, naming the ROADMAP item that would port it.
 """
 
 from __future__ import annotations
@@ -219,9 +222,9 @@ _UNPORTED = (
      "subpixel_refine=True (models/refine.py)"),
     (lambda c: c.stage_probe != "", "1.17",
      "stage_probe (use the port's stage functions instead)"),
-    (lambda c: c.label_downsample != 2, "1.13",
+    (lambda c: c.label_downsample != 2, "1.13.1",
      "label_downsample != 2 (only the half-res labeling is ported)"),
-    (lambda c: not c.bridge_half_res, "1.13",
+    (lambda c: not c.bridge_half_res, "1.13.1",
      "bridge_half_res=False (only the half-res bridge is ported)"),
 )
 

@@ -33,6 +33,11 @@
 //   copies its peers' packed rows through distributed shared memory (a few
 //   KB), runs the ~25 bit passes (~3 words a thread each) on the whole mask
 //   and writes only its own rows.
+// - Large frames: where the nine planes of a mask do not fit in one CTA's
+//   shared memory (H ceil(W / 32) > 6,420 words: the detector's half-res
+//   canvas from 720x1280 on), the plan picks the global route at the end of
+//   this file instead: the same bit passes, one launch each, on planes in
+//   device memory (17,408 words, 68 KB a plane at 1080x1920).
 
 #include <cooperative_groups.h>
 
@@ -129,6 +134,36 @@ __device__ __forceinline__ uint32_t keep(uint32_t v, const Geo& g, int j) {
   return j == g.ww - 1 ? v & g.last : v;
 }
 
+// One mask's schedule (ops/frontend.bridge_schedule), by one warp: the ray
+// offsets [sign][k][dy, dx] for k = 0..probe_len into `ray`, the line steps
+// [step][dy, dx] into `line`.  sinf/cosf, rintf (round half to even, as
+// jnp.round) and the float operations of bridge_schedule in its order.
+__device__ __forceinline__ void mask_schedule(int* ray, int* line, float a, float kl, int probe_len,
+                                              int half, int lane) {
+  const float sa = sinf(a);
+  const float ca = cosf(a);
+  for (int k = lane; k <= probe_len; k += 32) {
+    for (int s = 0; s < 2; ++s) {
+      const float sgn = s ? -1.0f : 1.0f;
+      int* d = ray + 2 * (s * (probe_len + 1) + k);
+      d[0] = (int)rintf(sa * (float)k * sgn);
+      d[1] = (int)rintf(ca * (float)k * sgn);
+    }
+  }
+  if (lane == 0) {
+    const float dyn_half = fminf(fmaxf(kl / 2.0f, 0.0f), (float)half);
+    float dyn_covered = 0.0f;
+    for (int s = 0, covered = 0, stride = 1; covered < half; ++s, stride *= 2) {
+      const int step = min(stride, half - covered);
+      const float eff = fminf(fmaxf(dyn_half - dyn_covered, 0.0f), (float)step);
+      line[2 * s] = (int)rintf(sa * eff);
+      line[2 * s + 1] = (int)rintf(ca * eff);
+      covered += step;
+      dyn_covered = dyn_covered + eff;
+    }
+  }
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kBridgeThreads, 1) bridge_cluster(
     const T* __restrict__ masks, const T* __restrict__ exps, const float* __restrict__ angles,
@@ -164,31 +199,7 @@ __global__ void __launch_bounds__(kBridgeThreads, 1) bridge_cluster(
   const size_t base = ((size_t)mi * h + r0) * w;
 
   // The schedule (ops/frontend.bridge_schedule).
-  if (warp == 0) {
-    const float a = angles[mi];
-    const float sa = sinf(a);
-    const float ca = cosf(a);
-    for (int k = lane; k <= probe_len; k += 32) {
-      for (int s = 0; s < 2; ++s) {
-        const float sgn = s ? -1.0f : 1.0f;
-        int* d = ray + 2 * (s * (probe_len + 1) + k);
-        d[0] = (int)rintf(sa * (float)k * sgn);
-        d[1] = (int)rintf(ca * (float)k * sgn);
-      }
-    }
-    if (lane == 0) {
-      const float dyn_half = fminf(fmaxf(klen[mi / klen_group] / 2.0f, 0.0f), (float)half);
-      float dyn_covered = 0.0f;
-      for (int s = 0, covered = 0, stride = 1; covered < half; ++s, stride *= 2) {
-        const int step = min(stride, half - covered);
-        const float eff = fminf(fmaxf(dyn_half - dyn_covered, 0.0f), (float)step);
-        line[2 * s] = (int)rintf(sa * eff);
-        line[2 * s + 1] = (int)rintf(ca * eff);
-        covered += step;
-        dyn_covered = dyn_covered + eff;
-      }
-    }
-  }
+  if (warp == 0) mask_schedule(ray, line, angles[mi], klen[mi / klen_group], probe_len, half, lane);
 
   // Pack this CTA's rows of the mask and the expandable pixels.
   if (vec) {
@@ -400,6 +411,230 @@ int launch_bridge(const void* masks, const void* exps, const float* angles, cons
                               vec);
 }
 
+// ---------------------------------------------------------------------------
+// The large-frame route, for masks whose nine planes do not fit in one CTA's
+// shared memory: the same bit passes on planes in device memory, one launch
+// per pass (the schedule, the packing, 2 x (1 + levels) ray passes, the line
+// steps, the four closing passes and the unpacking), one thread per word.
+// ---------------------------------------------------------------------------
+
+constexpr int kGThreads = 256;
+
+__device__ __forceinline__ long long global_tid() { return (long long)blockIdx.x * kGThreads + threadIdx.x; }
+
+// Thread t's word: mask mi, row y, word j; `o` is the mask's first word and
+// `li` the word's index within the mask.
+#define GLOBAL_WORD                                                 \
+  const long long t = global_tid();                                 \
+  const long long per = (long long)g.h * g.ww;                      \
+  if (t >= per * n) return;                                         \
+  const long long mi = t / per;                                     \
+  const int li = (int)(t - mi * per);                               \
+  const int y = li / g.ww;                                          \
+  const int j = li - y * g.ww;                                      \
+  const size_t o = (size_t)mi * per;
+
+__global__ void __launch_bounds__(kGThreads) bridge_global_schedule(
+    const float* __restrict__ angles, const float* __restrict__ klen, int klen_group, int* sched,
+    int* __restrict__ sched_out, int n, int probe_len, int half, int n_steps) {
+  const long long mi = global_tid() / 32;  // one warp per mask: warp-uniform
+  if (mi >= n) return;
+  const int lane = threadIdx.x & 31;
+  int* ray = sched + mi * kScheduleInts;
+  mask_schedule(ray, ray + 4 * (probe_len + 1), angles[mi], klen[mi / klen_group], probe_len, half, lane);
+  __syncwarp();
+  if (sched_out) {
+    const int len = 4 * (probe_len + 1) + 2 * n_steps;
+    for (int i = lane; i < len; i += 32) sched_out[mi * len + i] = ray[i];
+  }
+}
+
+// One warp per word: lane b packs pixel 32 j + b.
+template <typename T>
+__global__ void __launch_bounds__(kGThreads) bridge_global_pack(const T* __restrict__ masks,
+                                                                const T* __restrict__ exps, uint32_t* M,
+                                                                uint32_t* E, Geo g, int n, int w) {
+  const long long word = global_tid() / 32;  // warp-uniform
+  const long long per = (long long)g.h * g.ww;
+  if (word >= per * n) return;
+  const int lane = threadIdx.x & 31;
+  const long long mi = word / per;
+  const int li = (int)(word - mi * per);
+  const int y = li / g.ww;
+  const int x = (li - y * g.ww) * 32 + lane;
+  const size_t px = ((size_t)mi * g.h + y) * w + x;
+  const bool ok = x < w;
+  const uint32_t wm = __ballot_sync(kFull, ok && Px<T>::on(masks[px]));
+  const uint32_t we = __ballot_sync(kFull, ok && Px<T>::on(exps[px]));
+  if (lane == 0) {
+    M[word] = wm;
+    E[word] = we;
+  }
+}
+
+// Level 0 of ray count s: pows[1] = shift(m, -d(1)); count s = 0 also clears
+// the count planes.
+__global__ void __launch_bounds__(kGThreads) bridge_global_ray_start(
+    const uint32_t* M, uint32_t* P1, uint32_t* P2, uint32_t* A1, uint32_t* A2, const int* sched, int s,
+    int probe_len, Geo g, int n) {
+  GLOBAL_WORD
+  const int* d = sched + mi * kScheduleInts + 2 * s * (probe_len + 1);
+  P1[o + li] = keep(shifted(Plane{M + o}, g, y, j, -d[2], -d[3], 0u), g, j);
+  P2[o + li] = 0u;
+  if (s == 0) A1[o + li] = A2[o + li] = 0u;
+}
+
+// Level p of ray count s, as one step of bridge_cluster's level loop.
+__global__ void __launch_bounds__(kGThreads) bridge_global_ray_level(
+    const uint32_t* M, const uint32_t* E, uint32_t* F, uint32_t* A1, uint32_t* A2, const uint32_t* p1,
+    const uint32_t* p2, uint32_t* q1, uint32_t* q2, const int* sched, int s, int p, int probe_len, Geo g,
+    int n) {
+  GLOBAL_WORD
+  const int* d = sched + mi * kScheduleInts + 2 * s * (probe_len + 1);
+  const bool grow = 2 * p <= probe_len;
+  const bool part = (probe_len & p) != 0;
+  const int off = probe_len & ~(2 * p - 1);
+  const size_t i = o + li;
+  uint32_t c1 = A1[i], c2 = A2[i];
+  if (grow) {
+    const uint32_t a1 = p1[i], a2 = p2[i];
+    const uint32_t s1 = shifted(Plane{p1 + o}, g, y, j, -d[2 * p], -d[2 * p + 1], 0u);
+    const uint32_t s2 = shifted(Plane{p2 + o}, g, y, j, -d[2 * p], -d[2 * p + 1], 0u);
+    q1[i] = keep(a1 | s1, g, j);
+    q2[i] = keep(a2 | s2 | (a1 & s1), g, j);
+  }
+  if (part) {
+    const uint32_t t1 = shifted(Plane{p1 + o}, g, y, j, -d[2 * off], -d[2 * off + 1], 0u);
+    const uint32_t t2 = shifted(Plane{p2 + o}, g, y, j, -d[2 * off], -d[2 * off + 1], 0u);
+    c2 |= t2 | (c1 & t1);
+    c1 |= t1;
+  }
+  if (grow) {
+    A1[i] = c1;
+    A2[i] = c2;
+  } else if (s == 0) {  // the last level: forward count <= 1
+    F[i] = E[i] & ~c2;
+    A1[i] = A2[i] = 0u;
+  } else {  // out = m * exp * (fwd <= 1 | bwd <= 1)
+    F[i] = M[i] & (F[i] | (E[i] & ~c2));
+  }
+}
+
+// Line step `step`: xn = x | shift(x, d) | shift(x, -d).
+__global__ void __launch_bounds__(kGThreads) bridge_global_line(const uint32_t* x, uint32_t* xn,
+                                                                const int* sched, int step, int probe_len,
+                                                                Geo g, int n) {
+  GLOBAL_WORD
+  const int* line = sched + mi * kScheduleInts + 4 * (probe_len + 1);
+  const int dy = line[2 * step], dx = line[2 * step + 1];
+  xn[o + li] = keep(x[o + li] | shifted(Plane{x + o}, g, y, j, dy, dx, 0u) |
+                        shifted(Plane{x + o}, g, y, j, -dy, -dx, 0u), g, j);
+}
+
+// The closing passes of bridge_cluster: stage 0, dst = x-dilation of src;
+// 1, dst = y-dilation of src (grown); 2, dst = x-erosion (fill 1) of
+// m | grown; 3, dst = m | (y-erosion of src & grown).
+__global__ void __launch_bounds__(kGThreads) bridge_global_close(int stage, const uint32_t* M,
+                                                                 const uint32_t* src, const uint32_t* grown,
+                                                                 uint32_t* dst, Geo g, int n) {
+  GLOBAL_WORD
+  uint32_t v;
+  if (stage == 0) {
+    v = src[o + li] | shifted(Plane{src + o}, g, y, j, 0, 1, 0u) | shifted(Plane{src + o}, g, y, j, 0, -1, 0u);
+  } else if (stage == 1) {
+    v = src[o + li] | shifted(Plane{src + o}, g, y, j, 1, 0, 0u) | shifted(Plane{src + o}, g, y, j, -1, 0, 0u);
+  } else if (stage == 2) {
+    const Union u{M + o, grown + o};
+    v = u(li) & shifted(u, g, y, j, 0, 1, kFull) & shifted(u, g, y, j, 0, -1, kFull);
+  } else {
+    const uint32_t er = src[o + li] & shifted(Plane{src + o}, g, y, j, 1, 0, kFull) &
+                        shifted(Plane{src + o}, g, y, j, -1, 0, kFull);
+    v = M[o + li] | (er & grown[o + li]);
+  }
+  dst[o + li] = keep(v, g, j);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kGThreads) bridge_global_unpack(const uint32_t* __restrict__ R,
+                                                                  T* __restrict__ out, Geo g, int n, int w) {
+  const long long t = global_tid();
+  const long long hw = (long long)g.h * w;
+  if (t >= hw * n) return;
+  const long long mi = t / hw;
+  const int px = (int)(t - mi * hw);
+  const int y = px / w, x = px - y * w;
+  out[t] = Px<T>::value((R[((size_t)mi * g.h + y) * g.ww + (x >> 5)] >> (x & 31)) & 1u);
+}
+
+#undef GLOBAL_WORD
+
+inline unsigned blocks_for(long long threads) { return (unsigned)((threads + kGThreads - 1) / kGThreads); }
+
+// scratch: 9 planes of n * h * ceil(w / 32) words, then n * kScheduleInts ints.
+template <typename T>
+int launch_bridge_global(const void* masks, const void* exps, const float* angles, const float* klen,
+                         int klen_group, void* out, int* sched_out, uint32_t* scratch, int n, int h, int w,
+                         int probe_len, int half, cudaStream_t stream) {
+  const Geo g{h, (w + 31) / 32, (w & 31) ? (1u << (w & 31)) - 1u : kFull};
+  const long long pw = (long long)n * h * g.ww;
+  uint32_t* const M = scratch;
+  uint32_t* const E = M + pw;
+  uint32_t* const F = E + pw;
+  uint32_t* const A1 = F + pw;
+  uint32_t* const A2 = A1 + pw;
+  uint32_t* const P1 = A2 + pw;
+  uint32_t* const P2 = P1 + pw;
+  uint32_t* const Q1 = P2 + pw;
+  uint32_t* const Q2 = Q1 + pw;
+  int* const sched = reinterpret_cast<int*>(Q2 + pw);
+  int n_steps = 0;
+  for (int covered = 0, stride = 1; covered < half; stride *= 2, ++n_steps) covered += min(stride, half - covered);
+  const unsigned wb = blocks_for(pw);
+
+  bridge_global_schedule<<<blocks_for(32LL * n), kGThreads, 0, stream>>>(
+      angles, klen, klen_group, sched, sched_out, n, probe_len, half, n_steps);
+  CPE_CHECK_LAUNCH();
+  bridge_global_pack<T><<<blocks_for(32 * pw), kGThreads, 0, stream>>>(
+      static_cast<const T*>(masks), static_cast<const T*>(exps), M, E, g, n, w);
+  CPE_CHECK_LAUNCH();
+  for (int s = 0; s < 2; ++s) {
+    bridge_global_ray_start<<<wb, kGThreads, 0, stream>>>(M, P1, P2, A1, A2, sched, s, probe_len, g, n);
+    CPE_CHECK_LAUNCH();
+    uint32_t *p1 = P1, *p2 = P2, *q1 = Q1, *q2 = Q2;
+    for (int p = 1; p <= probe_len; p *= 2) {
+      bridge_global_ray_level<<<wb, kGThreads, 0, stream>>>(M, E, F, A1, A2, p1, p2, q1, q2, sched, s, p,
+                                                            probe_len, g, n);
+      CPE_CHECK_LAUNCH();
+      uint32_t* t = p1;
+      p1 = q1;
+      q1 = t;
+      t = p2;
+      p2 = q2;
+      q2 = t;
+    }
+  }
+  uint32_t* x = F;
+  uint32_t* xn = A1;
+  for (int s = 0; s < n_steps; ++s) {
+    bridge_global_line<<<wb, kGThreads, 0, stream>>>(x, xn, sched, s, probe_len, g, n);
+    CPE_CHECK_LAUNCH();
+    uint32_t* t = x;
+    x = xn;
+    xn = t;
+  }
+  // G1 = P1, grown = P2, E1 = Q1, R = Q2 (as bridge_cluster).
+  const uint32_t* srcs[4] = {x, P1, nullptr, Q1};
+  uint32_t* dsts[4] = {P1, P2, Q1, Q2};
+  for (int stage = 0; stage < 4; ++stage) {
+    bridge_global_close<<<wb, kGThreads, 0, stream>>>(stage, M, srcs[stage], P2, dsts[stage], g, n);
+    CPE_CHECK_LAUNCH();
+  }
+  bridge_global_unpack<T><<<blocks_for((long long)n * h * w), kGThreads, 0, stream>>>(Q2, static_cast<T*>(out),
+                                                                                      g, n, w);
+  CPE_CHECK_LAUNCH();
+  return 0;
+}
+
 }  // namespace
 
 // masks, exps, out: (N, H, W) of one pixel type (elem_bytes 1: bool or
@@ -427,5 +662,27 @@ CPE_API int cpe_bridge_morphology(const void* masks, const void* exps, const flo
   if (elem_bytes == 4)
     return launch_bridge<float>(masks, exps, angles, klen, klen_group, out, sched, n, h, w, probe_len,
                                 half, cluster, rows_per, smem_bytes, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The large-frame route of cpe_bridge_morphology (bridge_plan's "global"
+// plan): the same arguments without the plan's cluster, plus scratch, a
+// buffer of 9 N H ceil(W / 32) + 324 N int32 (the planes, then the
+// schedule).
+CPE_API int cpe_bridge_morphology_global(const void* masks, const void* exps, const float* angles,
+                                         const float* klen, void* out, int* sched, void* scratch, int n,
+                                         int h, int w, int elem_bytes, int probe_len, int half,
+                                         int klen_group, cudaStream_t stream) {
+  if (h < 1 || w < 1 || probe_len < 1 || probe_len > kMaxProbe || half < 1 || half > kMaxHalf ||
+      klen_group < 1 || 32LL * n * h * ((w + 31) / 32) >= (1LL << 31) || !scratch)
+    return (int)cudaErrorInvalidValue;
+  if (n == 0) return 0;
+  uint32_t* buf = static_cast<uint32_t*>(scratch);
+  if (elem_bytes == 1)
+    return launch_bridge_global<unsigned char>(masks, exps, angles, klen, klen_group, out, sched, buf, n, h, w,
+                                               probe_len, half, stream);
+  if (elem_bytes == 4)
+    return launch_bridge_global<float>(masks, exps, angles, klen, klen_group, out, sched, buf, n, h, w,
+                                       probe_len, half, stream);
   return (int)cudaErrorInvalidValue;
 }

@@ -35,6 +35,13 @@
 // back; each CTA then publishes, per column and channel, the extreme of the
 // runs touching its top and bottom edges, and whether its whole segment is
 // one run, and every CTA finishes its edge runs from its neighbours' entries.
+//
+// Large frames: where even 8 CTAs cannot hold a mask's buffers (at the
+// detector's half-res canvas from 720x1280 on, with two channels from
+// 768x1024), the wrapper's plan picks the global route at the end of this
+// file instead: the same passes, one launch each, on buffers in device
+// memory.  At (n, 544, 1024) a channel's two buffers take 4.5 MB a mask, so
+// a small batch stays in the 50 MB L2 between passes.
 
 #include <cooperative_groups.h>
 
@@ -69,6 +76,56 @@ __device__ __forceinline__ int carry_in(int c, int run, bool all, int carry, int
   if (all) run = comb(c, run, carry);  // the whole prefix is one run: the step's carry joins it
   int in = forward ? __shfl_up_sync(kFull, run, 1) : __shfl_down_sync(kFull, run, 1);
   return (forward ? lane == 0 : lane == 31) ? carry : in;
+}
+
+// Row run pass of channel c over one row of w pixels, by one warp, in steps
+// of 32 x kSeg pixels, each lane on kSeg consecutive pixels in registers.  A
+// lane's (extreme of the run touching its end, all in mask) pair goes through
+// a segmented warp scan to give the next lane its carry; the step's carry
+// goes on to the next.  Forward, then back on the forward extremes.
+__device__ __forceinline__ void row_runs(int c, int b, int* row, int w, int lane) {
+  int carry = b;
+  for (int x0 = 0; x0 < w; x0 += 32 * kSeg) {
+    const int xs = x0 + lane * kSeg;
+    int v[kSeg];
+#pragma unroll
+    for (int k = 0; k < kSeg; ++k) v[k] = xs + k < w ? row[xs + k] : b;
+    int run = b;
+    bool all = true;
+#pragma unroll
+    for (int k = 0; k < kSeg; ++k) {
+      run = v[k] != b ? comb(c, run, v[k]) : b;
+      all = all && v[k] != b;
+    }
+    run = carry_in(c, run, all, carry, lane, true);
+#pragma unroll
+    for (int k = 0; k < kSeg; ++k) {
+      run = v[k] != b ? comb(c, run, v[k]) : b;
+      if (xs + k < w) row[xs + k] = run;
+    }
+    carry = __shfl_sync(kFull, run, 31);
+  }
+  carry = b;
+  for (int x0 = ((w - 1) / (32 * kSeg)) * (32 * kSeg); x0 >= 0; x0 -= 32 * kSeg) {
+    const int xs = x0 + lane * kSeg;
+    int v[kSeg];
+#pragma unroll
+    for (int k = 0; k < kSeg; ++k) v[k] = xs + k < w ? row[xs + k] : b;
+    int run = b;
+    bool all = true;
+#pragma unroll
+    for (int k = kSeg - 1; k >= 0; --k) {
+      run = v[k] != b ? comb(c, run, v[k]) : b;
+      all = all && v[k] != b;
+    }
+    run = carry_in(c, run, all, carry, lane, false);
+#pragma unroll
+    for (int k = kSeg - 1; k >= 0; --k) {
+      run = v[k] != b ? comb(c, run, v[k]) : b;
+      if (xs + k < w) row[xs + k] = run;
+    }
+    carry = __shfl_sync(kFull, run, 0);
+  }
 }
 
 // Shared ints: per channel two buffers of rows_per x w, then per channel and
@@ -161,60 +218,10 @@ __global__ void __launch_bounds__(kCCThreads, 1) cc_cluster(
       cluster.sync();
     }
 
-    // Row run pass: one warp per row, in steps of 32 x kSeg pixels, each
-    // lane on kSeg consecutive pixels in registers.  A lane's (extreme of
-    // the run touching its end, all in mask) pair goes through a segmented
-    // warp scan to give the next lane its carry; the step's carry goes on to
-    // the next.  Forward, then back on the forward extremes.
+    // Row run pass: one warp per row (row_runs).
 #pragma unroll
-    for (int c = 0; c < kCh; ++c) {
-      const int b = bg[c];
-      for (int ly = warp; ly < nr; ly += nwarps) {
-        int* row = buf(c, cur) + ly * w;
-        int carry = b;
-        for (int x0 = 0; x0 < w; x0 += 32 * kSeg) {
-          const int xs = x0 + lane * kSeg;
-          int v[kSeg];
-#pragma unroll
-          for (int k = 0; k < kSeg; ++k) v[k] = xs + k < w ? row[xs + k] : b;
-          int run = b;
-          bool all = true;
-#pragma unroll
-          for (int k = 0; k < kSeg; ++k) {
-            run = v[k] != b ? comb(c, run, v[k]) : b;
-            all = all && v[k] != b;
-          }
-          run = carry_in(c, run, all, carry, lane, true);
-#pragma unroll
-          for (int k = 0; k < kSeg; ++k) {
-            run = v[k] != b ? comb(c, run, v[k]) : b;
-            if (xs + k < w) row[xs + k] = run;
-          }
-          carry = __shfl_sync(kFull, run, 31);
-        }
-        carry = b;
-        for (int x0 = ((w - 1) / (32 * kSeg)) * (32 * kSeg); x0 >= 0; x0 -= 32 * kSeg) {
-          const int xs = x0 + lane * kSeg;
-          int v[kSeg];
-#pragma unroll
-          for (int k = 0; k < kSeg; ++k) v[k] = xs + k < w ? row[xs + k] : b;
-          int run = b;
-          bool all = true;
-#pragma unroll
-          for (int k = kSeg - 1; k >= 0; --k) {
-            run = v[k] != b ? comb(c, run, v[k]) : b;
-            all = all && v[k] != b;
-          }
-          run = carry_in(c, run, all, carry, lane, false);
-#pragma unroll
-          for (int k = kSeg - 1; k >= 0; --k) {
-            run = v[k] != b ? comb(c, run, v[k]) : b;
-            if (xs + k < w) row[xs + k] = run;
-          }
-          carry = __shfl_sync(kFull, run, 0);
-        }
-      }
-    }
+    for (int c = 0; c < kCh; ++c)
+      for (int ly = warp; ly < nr; ly += nwarps) row_runs(c, bg[c], buf(c, cur) + ly * w, w, lane);
     __syncthreads();
 
     // Column run pass within this CTA's rows, then the edge entries.
@@ -318,6 +325,136 @@ int launch_cc(const float* mask, const int* src, int* out0, int* out1, int n, in
                               out0, out1, h, w, rounds, pools, rows_per);
 }
 
+// ---------------------------------------------------------------------------
+// The large-frame route: the same schedule with the channels in device
+// memory, for masks whose buffers do not fit in one cluster's shared memory.
+// One launch per pass: the start, then per round `pools` Jacobi pools (each
+// from one buffer into the other), the row run pass (one warp per row,
+// row_runs) and the column run pass (one thread per column, walking down and
+// back; a warp's 32 columns are neighbours, so its loads coalesce).  The
+// buffers are the output and a scratch plane per channel, ordered so that the
+// last pool writes the output.
+// ---------------------------------------------------------------------------
+
+constexpr int kGThreads = 256;
+
+struct Planes {
+  int* buf[2][2];  // [channel][buffer]
+};
+
+__device__ __forceinline__ long long global_tid() { return (long long)blockIdx.x * kGThreads + threadIdx.x; }
+
+template <int kCh>
+__global__ void __launch_bounds__(kGThreads) cc_global_start(const float* __restrict__ mask,
+                                                             const int* __restrict__ src, Planes p, int n,
+                                                             int h, int w) {
+  const long long i = global_tid();
+  if (i >= (long long)n * h * w) return;
+  const int hw = h * w;
+  const int px = (int)(i % hw);
+  const int y = px / w;
+  const int x = px - y * w;
+  const int bg[2] = {hw, -1};
+  const bool in = y >= 1 && y < h - 1 && x >= 1 && x < w - 1 && mask[i] > 0.5f;
+  const int s = src ? src[i] : hw;
+  const int v0 = kCh == 1 ? min(s, px) : s;
+#pragma unroll
+  for (int c = 0; c < kCh; ++c) p.buf[c][0][i] = p.buf[c][1][i] = in ? v0 : bg[c];
+}
+
+template <int kCh>
+__global__ void __launch_bounds__(kGThreads) cc_global_pool(Planes p, int cur, int n, int h, int w) {
+  const long long i = global_tid();
+  if (i >= (long long)n * h * w || p.buf[0][cur][i] == h * w) return;  // background stays
+  // In-mask pixels lie inside the ring: their 8 neighbours are in the image.
+#pragma unroll
+  for (int c = 0; c < kCh; ++c) {
+    const int* mid = p.buf[c][cur] + i;
+    const int* up = mid - w;
+    const int* dn = mid + w;
+    int v = comb(c, mid[0], comb(c, mid[-1], mid[1]));
+    v = comb(c, v, comb(c, up[-1], comb(c, up[0], up[1])));
+    v = comb(c, v, comb(c, dn[-1], comb(c, dn[0], dn[1])));
+    p.buf[c][cur ^ 1][i] = v;
+  }
+}
+
+template <int kCh>
+__global__ void __launch_bounds__(kGThreads) cc_global_rows(Planes p, int cur, int n, int h, int w) {
+  const long long row = global_tid() / 32;  // one warp per row: the test is warp-uniform
+  if (row >= (long long)n * h) return;
+  const int bg[2] = {h * w, -1};
+#pragma unroll
+  for (int c = 0; c < kCh; ++c) row_runs(c, bg[c], p.buf[c][cur] + row * w, w, threadIdx.x & 31);
+}
+
+template <int kCh>
+__global__ void __launch_bounds__(kGThreads) cc_global_cols(Planes p, int cur, int n, int h, int w) {
+  const long long t = global_tid();
+  if (t >= (long long)n * w) return;
+  const long long img = t / w;
+  const int x = (int)(t - img * w);
+  const int bg[2] = {h * w, -1};
+#pragma unroll
+  for (int c = 0; c < kCh; ++c) {
+    const int b = bg[c];
+    int* lab = p.buf[c][cur] + img * h * w + x;
+    int run = b;
+    for (int y = 0; y < h; ++y) {
+      const int v = lab[(size_t)y * w];
+      if (v != b) {
+        run = comb(c, run, v);
+        lab[(size_t)y * w] = run;
+      } else {
+        run = b;
+      }
+    }
+    run = b;
+    for (int y = h - 1; y >= 0; --y) {
+      const int v = lab[(size_t)y * w];
+      if (v != b) {
+        run = comb(c, run, v);
+        lab[(size_t)y * w] = run;
+      } else {
+        run = b;
+      }
+    }
+  }
+}
+
+inline unsigned blocks_for(long long threads) { return (unsigned)((threads + kGThreads - 1) / kGThreads); }
+
+// outs: kCh output planes; scratch: kCh planes of n * h * w ints.
+template <int kCh>
+int launch_cc_global(const float* mask, const int* src, int* const* outs, int* scratch, int n, int h,
+                     int w, int rounds, int pools, cudaStream_t stream) {
+  if (h < 1 || w < 1 || rounds < 0 || pools < 0 || (long long)n * h * w >= (1LL << 31))
+    return (int)cudaErrorInvalidValue;
+  if (n == 0) return 0;
+  const long long px = (long long)n * h * w;
+  const int last = (int)(((long long)rounds * pools) & 1);  // the buffer the last pool writes
+  Planes p = {};
+  for (int c = 0; c < kCh; ++c) {
+    p.buf[c][last] = outs[c];
+    p.buf[c][last ^ 1] = scratch + c * px;
+  }
+  cc_global_start<kCh><<<blocks_for(px), kGThreads, 0, stream>>>(mask, src, p, n, h, w);
+  CPE_CHECK_LAUNCH();
+  int cur = 0;
+  for (int r = 0; r < rounds; ++r) {
+    for (int q = 0; q < pools; ++q) {
+      cc_global_pool<kCh><<<blocks_for(px), kGThreads, 0, stream>>>(p, cur, n, h, w);
+      CPE_CHECK_LAUNCH();
+      cur ^= 1;
+    }
+    cc_global_rows<kCh><<<blocks_for(32LL * n * h), kGThreads, 0, stream>>>(p, cur, n, h, w);
+    CPE_CHECK_LAUNCH();
+    cc_global_cols<kCh><<<blocks_for((long long)n * w), kGThreads, 0, stream>>>(p, cur, n, h, w);
+    CPE_CHECK_LAUNCH();
+  }
+  return 0;
+}
+
 }  // namespace
 
 // labels (out): (N, H, W) int32; init may be null (cold start).  The
@@ -341,4 +478,24 @@ CPE_API int cpe_component_payload_minmax(const float* mask, const int* payload, 
   if (!payload) return (int)cudaErrorInvalidValue;
   return launch_cc<2>(mask, payload, pmin, pmax, n, h, w, rounds, pools_per_round, cluster, rows_per,
                       smem_bytes, stream);
+}
+
+// The large-frame route of cpe_connected_components (cc_plan's "global"
+// plan): scratch is one (N, H, W) int32 plane; 1 + rounds (pools + 2)
+// launches.
+CPE_API int cpe_connected_components_global(const float* mask, const int* init, int* out, int* scratch,
+                                            int n, int h, int w, int rounds, int pools_per_round,
+                                            cudaStream_t stream) {
+  int* outs[1] = {out};
+  return launch_cc_global<1>(mask, init, outs, scratch, n, h, w, rounds, pools_per_round, stream);
+}
+
+// The large-frame route of cpe_component_payload_minmax: scratch is two
+// (N, H, W) int32 planes.
+CPE_API int cpe_component_payload_minmax_global(const float* mask, const int* payload, int* pmin,
+                                                int* pmax, int* scratch, int n, int h, int w, int rounds,
+                                                int pools_per_round, cudaStream_t stream) {
+  if (!payload) return (int)cudaErrorInvalidValue;
+  int* outs[2] = {pmin, pmax};
+  return launch_cc_global<2>(mask, payload, outs, scratch, n, h, w, rounds, pools_per_round, stream);
 }

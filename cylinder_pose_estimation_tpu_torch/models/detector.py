@@ -1,23 +1,34 @@
 """Laser-grid detection, cylinder and plane modes: images in, indexed grid
 points out.
 
-Port of the JAX package's models/detector.py, ``detect_grid`` with
-``use_pallas=True`` (its default TPU path), over a leading batch of views.
-Where the JAX code ``vmap``s one image, every function here takes (V, ...)
-tensors; the (h, v) line-mask pair of each view rides as a second axis and is
-flattened into (2V, ...) batches for the kernels.  The kernels
-(``ops/frontend``) run once per stage for the whole batch.
+Port of the JAX package's models/detector.py, ``detect_grid``, over a
+leading batch of views, with both of its branches: ``use_pallas=True`` (the
+kernel branch: the four kernels of ``ops/frontend``, hand-written CUDA on the
+card) and ``use_pallas=False`` (the XLA branch, the JAX package's default:
+filters, ridge binarisation, segmented-scan CC and the morphological bridge
+in plain PyTorch, ``ops/image``, ``ops/ridge``, ``ops/labeling``,
+``ops/morphology``; it launches none of the four kernels).  Where the JAX
+code ``vmap``s one image, every function here takes (V, ...) tensors; the
+(h, v) line-mask pair of each view rides as a second axis and is flattened
+into (2V, ...) batches.  Either branch takes any height and width (the
+kernel branch's front end needs multiples of 8, as in the JAX package).
 
 The stages, in order (each a function the tests can drive on its own):
-  ``front_stage``    smoothing (banded matmuls) -> preprocess kernel ->
-                     statistic images -> joint centroids
-  ``roi_stage``      quarter-res ROI / saturation CC -> ROI mask (cylinder:
-                     line-density blob; plane: threshold hull), bbox,
-                     centre seed -> saturation carve
-  ``bridge_stage``   half-res pre-bridge CC (or, under
+  ``front_stage``    kernel branch: smoothing (banded matmuls) ->
+                     preprocess kernel -> statistic images -> joint centroids
+  ``front_stage_xla``  XLA branch: Gaussian blur -> ridge binarisation ->
+                     border band -> line openings -> joint count and peaks ->
+                     the same statistic images and centroids
+  ``roi_stage``      quarter-res ROI / saturation CC (kernel, or the XLA
+                     CC) -> ROI mask (cylinder: line-density blob; plane:
+                     threshold hull), bbox, centre seed -> saturation carve
+  ``bridge_stage``   kernel branch: half-res pre-bridge CC (or, under
                      ``bridge_endpoint_stats``, the payload min/max kernel)
                      -> angles / expandability -> bridge kernel
-  ``grid_stage``     final CC (warm, or cold after the endpoint bridge) ->
+  ``bridge_stage_xla``  XLA branch: half-res CC -> angles / expandability
+                     -> ray counts, oriented line dilation, 3x3 closing
+  ``grid_stage``     final CC (kernel: warm, or cold after the endpoint
+                     bridge; XLA: cold, with the pre-bridge recount) ->
                      assign -> polyfit -> short-column merge (plane) ->
                      prune -> Newton intersections -> relabel -> index ->
                      DetectResult
@@ -33,9 +44,9 @@ import torch
 import torch.nn.functional as F
 
 from cylinder_pose_estimation_tpu_torch.config import DetectConfig, validate
-from cylinder_pose_estimation_tpu_torch.ops import frontend, labeling, morphology
+from cylinder_pose_estimation_tpu_torch.ops import frontend, labeling, morphology, ridge
 from cylinder_pose_estimation_tpu_torch.ops import mxu_conv as mxc
-from cylinder_pose_estimation_tpu_torch.ops.image import bgr_to_gray
+from cylinder_pose_estimation_tpu_torch.ops.image import bgr_to_gray, box_filter, gaussian_blur_cv
 from cylinder_pose_estimation_tpu_torch.ops.polyfit import (
     masked_polyfit,
     poly_domain,
@@ -47,6 +58,7 @@ from cylinder_pose_estimation_tpu_torch.types import DetectResult, GridPoints
 
 _SHIFT4 = 1  # quarter-res content offset inside the padded canvas
 _I32_MAX = torch.iinfo(torch.int32).max
+_I32_MIN = torch.iinfo(torch.int32).min
 _HALF_PI = math.pi / 2
 
 
@@ -201,6 +213,50 @@ def front_stage(gray: torch.Tensor, cfg: DetectConfig) -> Front:
     return Front(gray, b_f > 0.5, h_f > 0.5, v_f > 0.5, sat_mask, bright_blur, cents, cvalid)
 
 
+def _joint_peaks(joints: torch.Tensor, cnt: torch.Tensor, peak_iters: int, window: int = 11) -> torch.Tensor:
+    """Per-blob peak mask of (V, H, W) joints: the pixel whose (box count,
+    linear index) key is the largest of its 8-connected blob, by
+    ``peak_iters`` rounds of masked 3x1 then 1x3 max propagation (exact
+    int32 keys, as the preprocess kernel's peaks)."""
+    h, w = joints.shape[-2:]
+    lin = torch.arange(h * w, dtype=torch.int32, device=joints.device).reshape(h, w)
+    key = cnt.to(torch.int32) * (1 << labeling.peak_key_shift(h, w, window)) + lin
+    km = torch.where(joints, key, _I32_MIN)
+    for _ in range(peak_iters):
+        p = F.pad(km, (0, 0, 1, 1), value=_I32_MIN)
+        km = torch.maximum(torch.maximum(p[..., :-2, :], p[..., 1:-1, :]), p[..., 2:, :])
+        p = F.pad(km, (1, 1), value=_I32_MIN)
+        km = torch.maximum(torch.maximum(p[..., :-2], p[..., 1:-1]), p[..., 2:])
+        km = torch.where(joints, km, _I32_MIN)
+    return joints & (key == km)
+
+
+def front_stage_xla(gray: torch.Tensor, cfg: DetectConfig) -> Front:
+    """Stages 1-2 of the XLA branch on (V, H, W) gray images: Gaussian blur
+    (in ``cfg.image_dtype``), ridge minima and Sauvola binarisation, the
+    border band, the 1xL and Lx1 line openings, their joints, the 11x11
+    joint count and the joint peaks; the statistic images and centroids are
+    the kernel branch's."""
+    h, w = gray.shape[-2:]
+    dtype = torch.float32 if cfg.image_dtype == "float32" else torch.bfloat16
+    blurred = gaussian_blur_cv(gray.to(dtype), cfg.blur_ksize)
+    binary = ridge.binarize_ridges(blurred.to(torch.float32), cfg.ridge_sigma, cfg.sauvola_window,
+                                   cfg.sauvola_k, cfg.sauvola_r, min_contrast=0.05)
+    rr = torch.arange(h, device=gray.device)[:, None]
+    cc = torch.arange(w, device=gray.device)[None, :]
+    mrg = _border_margin(cfg)
+    binary = binary & (rr >= mrg) & (rr < h - mrg) & (cc >= mrg) & (cc < w - mrg)
+    h_mask = morphology.open_rect(binary, 1, cfg.line_kernel_len)
+    v_mask = morphology.open_rect(binary, cfg.line_kernel_len, 1)
+    joints = h_mask & v_mask
+    jf = joints.to(torch.float32)
+    joint_cnt = box_filter(jf, 11, mode="constant", normalize=False)
+    peak = _joint_peaks(joints, joint_cnt, cfg.joint_peak_iters)
+    sat_mask, bright_blur, cx, cy = _stats_images(gray, jf, joint_cnt, cfg)
+    cents, cvalid = _joint_centroids(peak.to(torch.float32), cx, cy, cfg.max_points)
+    return Front(gray, binary, h_mask, v_mask, sat_mask, bright_blur, cents, cvalid)
+
+
 # ---------------------------------------------------------------------------
 # Stages 3-5: ROI, centre seed, saturation carve
 # ---------------------------------------------------------------------------
@@ -247,6 +303,12 @@ def _cc_pairs(masks: torch.Tensor, rounds: int, pools: int, init=None) -> torch.
         init_labels=None if init is None else init.reshape(v * two, h, w),
     )
     return lab.reshape(v, two, h, w)
+
+
+def _cc_xla(masks: torch.Tensor, iters: int) -> torch.Tensor:
+    """The XLA branch's CC of (V, k, h, w) masks, all in one batch."""
+    v, k, h, w = masks.shape
+    return labeling.connected_components(masks.reshape(v * k, h, w), iters).reshape(v, k, h, w)
 
 
 def _roi_cylinder_from_labels(merged, labels, h: int, w: int, k: int) -> torch.Tensor:
@@ -358,7 +420,9 @@ class Roi(NamedTuple):
 
 
 def roi_stage(front: Front, cfg: DetectConfig) -> Roi:
-    """Stages 3-5: quarter-res ROI + saturation labeling (one CC launch),
+    """Stages 3-5: quarter-res ROI + saturation labeling (one CC kernel
+    launch, or the XLA branch's CC at min(cc_iters, 8) iterations; the
+    1-px ring is cleared on both),
     ROI mask and bbox, centre seed, saturation carve.  The ROI seed is the
     9x9-dilated line mask in cylinder mode and the grey threshold
     ``roi_threshold`` in plane mode."""
@@ -373,8 +437,11 @@ def roi_stage(front: Front, cfg: DetectConfig) -> Roi:
         roi_seed4 = morphology.dilate_rect(pooled[:, 1], 9, 9)
     sat_small = pooled[:, 0]
     ring = _ring_mask(*sat_small.shape[-2:], sat_small.device)
-    labels = _cc_pairs(torch.stack([roi_seed4 & ring, sat_small & ring], 1),
-                       rounds=cfg.lowres_cc_rounds, pools=4)
+    pair = torch.stack([roi_seed4 & ring, sat_small & ring], 1)
+    if cfg.use_pallas:
+        labels = _cc_pairs(pair, rounds=cfg.lowres_cc_rounds, pools=4)
+    else:
+        labels = _cc_xla(pair, min(cfg.cc_iters, 8))
     if plane:
         roi = _roi_plane_from_labels(roi_th, labels[:, 0], cfg)
     else:
@@ -579,6 +646,43 @@ def bridge_stage(mh: torch.Tensor, mv: torch.Tensor, circle_radius0: torch.Tenso
     return Bridge(masks[:, 0], masks[:, 1], warm, angles, n_pre, pre_converged)
 
 
+def bridge_stage_xla(mh: torch.Tensor, mv: torch.Tensor, circle_radius0: torch.Tensor,
+                     cfg: DetectConfig) -> Bridge:
+    """Stage 6a of the XLA branch (the JAX package's ``_bridge`` on the
+    pooled masks, its half-res shared arm): per repeat, the XLA CC at
+    cc_iters // 2, the median angles and expandability, the endpoints
+    (expandable mask pixels whose forward or backward ray count within the
+    halved probe is at most 1), their oriented line dilation with the halved
+    kernel length, a 3x3 dilation and the closing-style combine.  Not the
+    kernel branch's bridge: at non-axis angles the two footprints differ by
+    a discretisation pixel.  Returns masks on the half-res padded canvas, no
+    warm labels, the (V, 2) angles and the pre-bridge count of repeat 0."""
+    v = mh.shape[0]
+    dev = mh.device
+    masks = torch.stack([_pool2_pad(mh), _pool2_pad(mv)], 1)  # (V, 2, h2, w2)
+    _, _, hs, ws = masks.shape
+    klen = ((float(cfg.bridge_kernel_base) + circle_radius0) / 2.0).repeat_interleave(2)
+    max_kernel = max((cfg.bridge_kernel_base + 160) // 2, 1)
+    probe_len = max(2, (cfg.endpoint_probe_len + 1) // 2)
+    n_pre = torch.zeros((v,), dtype=torch.int32, device=dev)
+    angles = _axis_bases(dev).expand(v, 2)
+    for rep in range(cfg.bridge_repeats):
+        labels = _cc_xla(masks, cfg.cc_iters // 2)
+        if rep == 0:
+            n_pre = _n_components(masks, labels)
+        angles, exps = _bridge_angle_exp_pair(masks, labels, cfg, scale=cfg.label_downsample)
+        out = masks.reshape(2 * v, hs, ws)
+        ang = angles.reshape(2 * v)
+        fwd = morphology.directional_count(out, ang, probe_len, 1)
+        bwd = morphology.directional_count(out, ang, probe_len, -1)
+        ends = out & exps.reshape(2 * v, hs, ws) & ((fwd <= 1.0) | (bwd <= 1.0))
+        grown = morphology.dilate_rect(morphology.dilate_line(ends, ang, max_kernel, klen), 3, 3)
+        out = out | (morphology.erode_rect(out | grown, 3, 3) & grown)
+        masks = out.reshape(v, 2, hs, ws)
+    return Bridge(masks[:, 0], masks[:, 1], None, angles, n_pre,
+                  torch.ones((v,), dtype=torch.bool, device=dev))
+
+
 # ---------------------------------------------------------------------------
 # Stage 6b-6g: labels -> grid points
 # ---------------------------------------------------------------------------
@@ -743,19 +847,34 @@ class GridState(NamedTuple):
     carve_domain: torch.Tensor
 
 
+def _final_labels_xla(st: GridState, hv_masks: torch.Tensor, cfg: DetectConfig):
+    """The XLA branch's final labels: a cold CC at cc_iters of the bridged
+    pair, and (when it bridged) of the pooled pre-bridge pair, whose count
+    replaces the bridge's; one batch of 4 masks per view."""
+    if cfg.bridge_repeats == 0:
+        return _cc_xla(hv_masks, cfg.cc_iters), st.n_pre
+    pre = torch.stack([_pool2_pad(st.mh), _pool2_pad(st.mv)], 1)
+    labels = _cc_xla(torch.cat([hv_masks, pre], 1), cfg.cc_iters)
+    return labels[:, :2], _n_components(pre, labels[:, 2:])
+
+
 def grid_stage(st: GridState, cfg: DetectConfig):
     """Stages 6b-6g: final CC -> assign -> polyfit -> prune -> intersect ->
     relabel -> index.  Returns (DetectResult, (row/col coeffs + valid))."""
     v = st.cents.shape[0]
     hv_masks = torch.stack([st.h_exp, st.v_exp], 1)
-    warm = cfg.cc_warm_start and st.warm_labels is not None
-    rounds = (max(1, int(cfg.pallas_cc_rounds_warm)) if warm
-              else max(1, int(cfg.pallas_cc_rounds)))
-    lab_pair = _cc_pairs(hv_masks, rounds=rounds, pools=cfg.pallas_cc_pools,
-                         init=st.warm_labels if warm else None)
+    if cfg.use_pallas:
+        warm = cfg.cc_warm_start and st.warm_labels is not None
+        rounds = (max(1, int(cfg.pallas_cc_rounds_warm)) if warm
+                  else max(1, int(cfg.pallas_cc_rounds)))
+        lab_pair = _cc_pairs(hv_masks, rounds=rounds, pools=cfg.pallas_cc_pools,
+                             init=st.warm_labels if warm else None)
+        n_pre = st.n_pre
+    else:
+        lab_pair, n_pre = _final_labels_xla(st, hv_masks, cfg)
     labels_converged = _labels_converged(hv_masks, lab_pair)
     n_post = _n_components(hv_masks, lab_pair)
-    bridged_components = torch.clamp(st.n_pre - n_post, min=0)
+    bridged_components = torch.clamp(n_pre - n_post, min=0)
 
     ds = cfg.label_downsample
     if cfg.max_rows == cfg.max_cols:
@@ -895,12 +1014,16 @@ def grid_stage(st: GridState, cfg: DetectConfig):
 @torch.inference_mode()
 def detect_grid(images: torch.Tensor, cfg: DetectConfig, return_debug: bool = False):
     """Grid detection on a (V, H, W) or (V, H, W, 3) batch of views ->
-    DetectResult with a leading V axis (+ DetectDebug)."""
+    DetectResult with a leading V axis (+ DetectDebug).  ``cfg.use_pallas``
+    picks the branch: the kernel branch (True) or the XLA branch (False,
+    the default), as in the JAX package."""
     validate(cfg)
     gray = _to_gray(images)
-    front = front_stage(gray, cfg)
+    kernels = cfg.use_pallas
+    front = front_stage(gray, cfg) if kernels else front_stage_xla(gray, cfg)
     roi = roi_stage(front, cfg)
-    br = bridge_stage(roi.mh, roi.mv, roi.circle_radius0, cfg)
+    bridge = bridge_stage if kernels else bridge_stage_xla
+    br = bridge(roi.mh, roi.mv, roi.circle_radius0, cfg)
     st = GridState(
         cents=front.cents, inside=roi.inside, bbox=roi.bbox, h_exp=br.h_exp, v_exp=br.v_exp,
         circle_radius0=roi.circle_radius0, bright_blur=front.bright_blur,

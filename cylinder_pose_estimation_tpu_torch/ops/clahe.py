@@ -9,7 +9,7 @@ the JAX package's ``segment_sum`` of ones, and become float32 only for the
 the four surrounding tile LUTs, which follow the JAX code step by step.
 
 The cumulative sum runs in a fixed order of float32 additions
-(``_cumsum_blocked``), not ``torch.cumsum``: that accumulates in float64 on
+(``ops.image.cumsum_blocked``), not ``torch.cumsum``: that accumulates in float64 on
 the CPU and in a parallel order on the GPU, so the LUTs would differ in the
 last bits between the two devices and from the JAX package, and a detector
 threshold downstream can turn such a bit into a moved grid point.
@@ -22,7 +22,7 @@ import math
 import numpy as np
 import torch
 
-from cylinder_pose_estimation_tpu_torch.ops.image import bgr_to_gray
+from cylinder_pose_estimation_tpu_torch.ops.image import bgr_to_gray, cumsum_blocked, div_exact
 from cylinder_pose_estimation_tpu_torch.ops.remap import undistort_image
 
 
@@ -35,39 +35,6 @@ def _clip_limit(tile_px: int, clip_limit: float, n_bins: int, clip_is_normalized
         min_clip = np.float32(math.ceil(tile_px / n_bins))
         return float(min_clip + np.round(np.float32(clip_limit) * (np.float32(tile_px) - min_clip)))
     return float(np.float32(max(1.0, clip_limit * tile_px / n_bins)))
-
-
-def _div(x: torch.Tensor, d: float) -> torch.Tensor:
-    """x / d, correctly rounded on every device: PyTorch's CUDA division by
-    a Python number multiplies by the float32 reciprocal instead, which
-    differs from the CPU (and the JAX package) in the last bit."""
-    return x / torch.tensor(d, dtype=x.dtype, device=x.device)
-
-
-def _cumsum_seq(x: torch.Tensor) -> torch.Tensor:
-    """Inclusive prefix sum over the last axis, one float32 add at a time."""
-    cols = [x[..., 0]]
-    for i in range(1, x.shape[-1]):
-        cols.append(cols[-1] + x[..., i])
-    return torch.stack(cols, dim=-1)
-
-
-def _cumsum_blocked(x: torch.Tensor, base: int = 16) -> torch.Tensor:
-    """Inclusive prefix sum over the last axis in the order XLA's CPU backend
-    uses for ``jnp.cumsum``: sequential scans within blocks of ``base``, the
-    block totals scanned the same way, their exclusive prefix added to each
-    block.  Bit-identical to the JAX package on the CPU, and the same on
-    every device."""
-    n = x.shape[-1]
-    if n <= base:
-        return _cumsum_seq(x)
-    pad = -n % base
-    if pad:  # trailing zeros leave every prefix unchanged
-        x = torch.nn.functional.pad(x, (0, pad))
-    blocks = _cumsum_seq(x.reshape(x.shape[:-1] + (-1, base)))
-    totals = _cumsum_blocked(blocks[..., -1], base)
-    before = torch.nn.functional.pad(totals[..., :-1], (1, 0))
-    return (blocks + before[..., None]).flatten(-2)[..., :n]
 
 
 def clahe(
@@ -110,13 +77,13 @@ def clahe(
         excess = torch.sum(torch.clamp(hist - limit, min=0.0), dim=-1, keepdim=True)
         hist = torch.clamp(hist, max=limit) + excess / n_bins
 
-    cdf = _cumsum_blocked(hist)
+    cdf = cumsum_blocked(hist)
     # Full-range 'uniform' mapping: 255 * cdf / tilePx.
-    lut = torch.clamp(_div(255.0 * cdf, tile_px), max=255.0).reshape(b, tiles, tiles, n_bins)
+    lut = torch.clamp(div_exact(255.0 * cdf, tile_px), max=255.0).reshape(b, tiles, tiles, n_bins)
 
     # Bilinear blend of the four surrounding tile LUTs.
-    fy = _div(torch.arange(h, dtype=torch.float32, device=dev) + 0.5, th) - 0.5
-    fx = _div(torch.arange(w, dtype=torch.float32, device=dev) + 0.5, tw) - 0.5
+    fy = div_exact(torch.arange(h, dtype=torch.float32, device=dev) + 0.5, th) - 0.5
+    fx = div_exact(torch.arange(w, dtype=torch.float32, device=dev) + 0.5, tw) - 0.5
     y0 = torch.clamp(torch.floor(fy).to(torch.int64), 0, tiles - 1)
     x0 = torch.clamp(torch.floor(fx).to(torch.int64), 0, tiles - 1)
     y1 = torch.clamp(y0 + 1, 0, tiles - 1)

@@ -26,6 +26,7 @@ import torch
 
 from cylinder_pose_estimation_tpu_torch.ops import kernels
 from cylinder_pose_estimation_tpu_torch.ops.labeling import peak_key_shift
+from cylinder_pose_estimation_tpu_torch.ops.morphology import shift2d
 
 _LAUNCHES: Dict[str, int] = {
     "preprocess_binarize": 0,
@@ -360,14 +361,17 @@ CLUSTER_SIZES = (1, 2, 4, 8)
 
 
 @functools.lru_cache(maxsize=64)
-def cc_plan(n: int, h: int, w: int, channels: int = 1) -> Dict[str, int]:
+def cc_plan(n: int, h: int, w: int, channels: int = 1) -> Dict[str, object]:
     """Launch plan of the CC kernel with 1 (labels) or 2 (payload min and
     max) channels: one thread-block cluster per mask, its rows split over the
     smallest cluster (1, 2, 4 or 8 CTAs) whose two int32 buffers per channel
     of rows_per_cta x W, plus per column an int32 top and bottom entry per
-    channel and a one-run flag, fit in one CTA's shared memory.  Raises
-    ``ValueError`` beyond 8 CTAs.  Cached: treat the returned dict as
-    read-only."""
+    channel and a one-run flag, fit in one CTA's shared memory.  Where 8 CTAs
+    do not hold a mask, the large-frame route: ``{"route": "global", ...}``,
+    one launch per pass (``cc_global_launches``) on buffers in device memory
+    (``scratch_ints`` of scratch besides the outputs).  Raises
+    ``ValueError`` only where the labels overflow 32 bits.  Cached: treat
+    the returned dict as read-only."""
     if channels not in (1, 2):
         raise ValueError(f"channels must be 1 or 2, got {channels}")
     if n * h * w >= 2**31:
@@ -377,8 +381,13 @@ def cc_plan(n: int, h: int, w: int, channels: int = 1) -> Dict[str, int]:
         smem = 4 * (2 * channels * rows * w + (2 * channels + 1) * w)
         if smem <= kernels.MAX_DYNAMIC_SMEM and (c - 1) * rows < h:
             return {"cluster": c, "rows_per_cta": rows, "smem": smem, "ctas": c * n}
-    raise ValueError(f"{h}x{w} masks need more than {CLUSTER_SIZES[-1]} CTAs of "
-                     f"{kernels.MAX_DYNAMIC_SMEM} B shared memory")
+    return {"route": "global", "scratch_ints": channels * n * h * w}
+
+
+def cc_global_launches(rounds: int, pools_per_round: int) -> int:
+    """Device kernels of one call on the CC family's global route: the
+    start, then per round the pools, the row pass and the column pass."""
+    return 1 + rounds * (pools_per_round + 2)
 
 
 def connected_components(
@@ -401,12 +410,17 @@ def connected_components(
             raise ValueError("init_labels must have the mask's shape")
     plan = cc_plan(n, h, w)
     out = torch.empty(mask.shape, dtype=torch.int32, device=mask.device)
-    kernels.launch(
-        "cpe_connected_components",
-        [mask, init_labels, out],
-        [n, h, w, rounds, pools_per_round, plan["cluster"], plan["rows_per_cta"], plan["smem"]],
-        [],
-    )
+    if plan.get("route") == "global":
+        scratch = torch.empty(plan["scratch_ints"], dtype=torch.int32, device=mask.device)
+        kernels.launch("cpe_connected_components_global", [mask, init_labels, out, scratch],
+                       [n, h, w, rounds, pools_per_round], [])
+    else:
+        kernels.launch(
+            "cpe_connected_components",
+            [mask, init_labels, out],
+            [n, h, w, rounds, pools_per_round, plan["cluster"], plan["rows_per_cta"], plan["smem"]],
+            [],
+        )
     _LAUNCHES["connected_components"] += 1
     return out
 
@@ -481,7 +495,7 @@ def component_payload_minmax(
     kernel's exact round schedule (see ``component_payload_minmax_plain``).
     The payload has the mask's shape; values must lie in [0, H*W) (not
     checked: that would cost a host sync).  On the card: the CC kernel with
-    two channels, one launch."""
+    two channels, one launch (or its global route, ``cc_plan``)."""
     if not _route(mask):
         return component_payload_minmax_plain(mask, payload, rounds, pools_per_round)
     mask = mask.to(torch.float32).contiguous()
@@ -494,12 +508,17 @@ def component_payload_minmax(
     plan = cc_plan(n, h, w, channels=2)
     pmin = torch.empty(mask.shape, dtype=torch.int32, device=mask.device)
     pmax = torch.empty_like(pmin)
-    kernels.launch(
-        "cpe_component_payload_minmax",
-        [mask, payload, pmin, pmax],
-        [n, h, w, rounds, pools_per_round, plan["cluster"], plan["rows_per_cta"], plan["smem"]],
-        [],
-    )
+    if plan.get("route") == "global":
+        scratch = torch.empty(plan["scratch_ints"], dtype=torch.int32, device=mask.device)
+        kernels.launch("cpe_component_payload_minmax_global", [mask, payload, pmin, pmax, scratch],
+                       [n, h, w, rounds, pools_per_round], [])
+    else:
+        kernels.launch(
+            "cpe_component_payload_minmax",
+            [mask, payload, pmin, pmax],
+            [n, h, w, rounds, pools_per_round, plan["cluster"], plan["rows_per_cta"], plan["smem"]],
+            [],
+        )
     _LAUNCHES["component_payload_minmax"] += 1
     return pmin, pmax
 
@@ -569,18 +588,6 @@ def bridge_schedule(
     return ray.contiguous(), line.contiguous()
 
 
-def _dshift(x: torch.Tensor, dy: torch.Tensor, dx: torch.Tensor, fill: float = 0.0) -> torch.Tensor:
-    """out[b, y, x] = x[b, y - dy[b], x - dx[b]], ``fill`` where that is
-    outside the image (the Pallas ``_dshift``)."""
-    n, h, w = x.shape
-    rows = torch.arange(h, device=x.device)[None, :, None] - dy.to(torch.int64)[:, None, None]
-    cols = torch.arange(w, device=x.device)[None, None, :] - dx.to(torch.int64)[:, None, None]
-    ok = (rows >= 0) & (rows < h) & (cols >= 0) & (cols < w)
-    src = (rows.clamp(0, h - 1) * w + cols.clamp(0, w - 1)).reshape(n, -1)
-    y = x.reshape(n, -1).gather(1, src).reshape(n, h, w)
-    return torch.where(ok, y, fill)
-
-
 def bridge_morphology_plain(
     masks: torch.Tensor,
     exp_imgs: torch.Tensor,
@@ -602,11 +609,11 @@ def bridge_morphology_plain(
             return ray[:, s, k, 0], ray[:, s, k, 1]
 
         dy1, dx1 = d(1)
-        pows = {1: _dshift(m, -dy1, -dx1)}
+        pows = {1: shift2d(m, -dy1, -dx1)}
         mm = 1
         while mm * 2 <= probe_len:
             dy, dx = d(mm)
-            pows[2 * mm] = pows[mm] + _dshift(pows[mm], -dy, -dx)
+            pows[2 * mm] = pows[mm] + shift2d(pows[mm], -dy, -dx)
             mm *= 2
         cnt = None
         off = 0
@@ -617,7 +624,7 @@ def bridge_morphology_plain(
                 part = pows[p]
             else:
                 dy, dx = d(off)
-                part = _dshift(pows[p], -dy, -dx)
+                part = shift2d(pows[p], -dy, -dx)
             cnt = part if cnt is None else cnt + part
             off += p
             size -= p
@@ -629,14 +636,14 @@ def bridge_morphology_plain(
     out = m * expf * is_end
     for s in range(line.shape[1]):
         dy, dx = line[:, s, 0], line[:, s, 1]
-        out = torch.maximum(out, torch.maximum(_dshift(out, dy, dx), _dshift(out, -dy, -dx)))
+        out = torch.maximum(out, torch.maximum(shift2d(out, dy, dx), shift2d(out, -dy, -dx)))
     zero = torch.zeros_like(line[:, 0, 0])
     one = torch.ones_like(zero)
-    g1 = torch.maximum(out, torch.maximum(_dshift(out, zero, one), _dshift(out, zero, -one)))
-    grown = torch.maximum(g1, torch.maximum(_dshift(g1, one, zero), _dshift(g1, -one, zero)))
+    g1 = torch.maximum(out, torch.maximum(shift2d(out, zero, one), shift2d(out, zero, -one)))
+    grown = torch.maximum(g1, torch.maximum(shift2d(g1, one, zero), shift2d(g1, -one, zero)))
     u = torch.maximum(m, grown)
-    e1 = torch.minimum(u, torch.minimum(_dshift(u, zero, one, 1.0), _dshift(u, zero, -one, 1.0)))
-    er = torch.minimum(e1, torch.minimum(_dshift(e1, one, zero, 1.0), _dshift(e1, -one, zero, 1.0)))
+    e1 = torch.minimum(u, torch.minimum(shift2d(u, zero, one, 1.0), shift2d(u, zero, -one, 1.0)))
+    er = torch.minimum(e1, torch.minimum(shift2d(e1, one, zero, 1.0), shift2d(e1, -one, zero, 1.0)))
     out = torch.maximum(m, er * grown)
     return out.to(masks.dtype) if masks.dtype in (torch.bool, torch.uint8) else out
 
@@ -651,22 +658,38 @@ H100_SMS = 132
 
 
 @functools.lru_cache(maxsize=64)
-def bridge_plan(n: int, h: int, w: int) -> Dict[str, int]:
+def bridge_plan(n: int, h: int, w: int) -> Dict[str, object]:
     """Launch plan of the bridge kernel: one thread-block cluster per mask,
     the largest (1, 2, 4 or 8 CTAs) whose c * n CTAs fit the 132 SMs at once
     and leave every CTA rows to load and write.  Each CTA holds the whole
-    mask as bit planes of H x ceil(W / 32) words plus the schedule; raises
-    ``ValueError`` where they do not fit.  Cached: treat the returned dict as
-    read-only."""
+    mask as bit planes of H x ceil(W / 32) words plus the schedule.  Where
+    they do not fit in shared memory, the large-frame route:
+    ``{"route": "global", ...}``, one launch per bit pass
+    (``bridge_global_launches``) on planes in device memory
+    (``scratch_ints``: the nine planes, then the schedule).  Raises
+    ``ValueError`` only where its word index overflows 32 bits.  Cached:
+    treat the returned dict as read-only."""
     words = -(-w // 32)
     smem = 4 * (BRIDGE_PLANES * h * words + BRIDGE_SCHEDULE_INTS)
     if smem > kernels.MAX_DYNAMIC_SMEM:
-        raise ValueError(f"{h}x{w} masks need {smem} B of shared memory (max {kernels.MAX_DYNAMIC_SMEM})")
+        if 32 * n * h * words >= 2**31:
+            raise ValueError(f"{n}x{h}x{w} masks overflow the kernel's 32-bit index")
+        return {"route": "global", "words_per_row": words,
+                "scratch_ints": BRIDGE_PLANES * n * h * words + n * BRIDGE_SCHEDULE_INTS}
     c = 1
     for cand in CLUSTER_SIZES:
         if cand * n <= H100_SMS and (cand - 1) * -(-h // cand) < h:
             c = cand
     return {"cluster": c, "rows_per_cta": -(-h // c), "words_per_row": words, "smem": smem, "ctas": c * n}
+
+
+def bridge_global_launches(probe_len: int, max_kernel: int) -> int:
+    """Device kernels of one call on the bridge's global route: the
+    schedule, the packing, per ray direction a start and one pass per level,
+    the line steps, four closing passes and the unpacking."""
+    levels = probe_len.bit_length()
+    steps = max(max_kernel // 2, 1).bit_length()
+    return 2 + 2 * (1 + levels) + steps + 4 + 1
 
 
 def bridge_morphology(
@@ -684,7 +707,8 @@ def bridge_morphology(
     card: one launch, which computes the schedule itself.
     ``schedule_out``: an optional (N, ``bridge_schedule_size(probe_len,
     max_kernel)``) int32 tensor that receives the offsets used
-    (``bridge_schedule``'s ray then line, flattened per mask)."""
+    (``bridge_schedule``'s ray then line, flattened per mask).  Large masks
+    take the kernel's global route (``bridge_plan``)."""
     n = masks.shape[0]
     if not _route(masks):
         if schedule_out is not None:
@@ -720,13 +744,22 @@ def bridge_morphology(
             raise ValueError(f"schedule_out must be ({n}, {bridge_schedule_size(probe_len, max_kernel)})")
     plan = bridge_plan(n, h, w)
     out = torch.empty_like(masks)
-    kernels.launch(
-        "cpe_bridge_morphology",
-        [masks, exp_imgs, angles, klen, out, schedule_out],
-        [n, h, w, _BRIDGE_TYPES[masks.dtype], probe_len, half, group, plan["cluster"],
-         plan["rows_per_cta"], plan["smem"]],
-        [],
-    )
+    if plan.get("route") == "global":
+        scratch = torch.empty(plan["scratch_ints"], dtype=torch.int32, device=masks.device)
+        kernels.launch(
+            "cpe_bridge_morphology_global",
+            [masks, exp_imgs, angles, klen, out, schedule_out, scratch],
+            [n, h, w, _BRIDGE_TYPES[masks.dtype], probe_len, half, group],
+            [],
+        )
+    else:
+        kernels.launch(
+            "cpe_bridge_morphology",
+            [masks, exp_imgs, angles, klen, out, schedule_out],
+            [n, h, w, _BRIDGE_TYPES[masks.dtype], probe_len, half, group, plan["cluster"],
+             plan["rows_per_cta"], plan["smem"]],
+            [],
+        )
     _LAUNCHES["bridge_morphology"] += 1
     return out
 
@@ -764,9 +797,9 @@ def min_bytes(name: str, n: int, h: int, w: int, warm: bool = False, itemsize: i
 
 __all__ = [
     "preprocess_binarize", "preprocess_binarize_plain", "preprocess_plan", "preprocess_reach",
-    "connected_components", "connected_components_plain", "cc_plan", "min_bytes",
+    "connected_components", "connected_components_plain", "cc_plan", "cc_global_launches", "min_bytes",
     "bridge_morphology", "bridge_morphology_plain", "bridge_schedule", "bridge_schedule_size",
-    "bridge_plan",
+    "bridge_plan", "bridge_global_launches",
     "component_payload_minmax", "component_payload_minmax_plain",
     "launch_counts", "reset_launch_counts", "REPLACES", "SOURCES",
 ]

@@ -1,5 +1,6 @@
-"""Component bookkeeping on min-linear-index label images (the part of the JAX
-package's ops/labeling.py that the cylinder detection path calls).
+"""Connected components of the XLA detection branch, and the component
+bookkeeping on min-linear-index label images (the JAX package's
+ops/labeling.py).
 
 The JAX code enumerates roots and reduces per-component sums with one-hot
 matrix products, the TPU's fast form.  Here the same quantities come from
@@ -14,6 +15,51 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+import torch.nn.functional as F
+
+
+def _seg_min_scan(v: torch.Tensor, mask: torch.Tensor, bg: int) -> torch.Tensor:
+    """Forward segmented min-scan along the last axis: each in-mask pixel
+    gets the minimum of its in-mask run up to itself.  Exact and free of
+    atomics: with k the run's index along the line (a prefix count of run
+    starts), the running maximum of k (bg + 1) + (bg - v) stays inside the
+    current run and holds its smallest v so far (values lie in [0, bg])."""
+    start = mask.clone()
+    start[..., 1:] &= ~mask[..., :-1]
+    run = torch.cumsum(start, dim=-1) * (bg + 1)
+    key = run + (bg - v.to(torch.int64))
+    return bg - (torch.cummax(key, dim=-1).values - run)
+
+
+def _run_min_rows(lab: torch.Tensor, mask: torch.Tensor, bg: int) -> torch.Tensor:
+    """Each in-mask pixel of (B, H, W) takes the minimum over its contiguous
+    in-mask run of the row: the JAX package's forward and backward
+    segmented min-scans."""
+    fwd = _seg_min_scan(lab, mask, bg)
+    bwd = _seg_min_scan(lab.flip(-1), mask.flip(-1), bg).flip(-1)
+    return torch.where(mask, torch.minimum(fwd, bwd).to(lab.dtype), lab)
+
+
+def connected_components(mask: torch.Tensor, iters: int = 16) -> torch.Tensor:
+    """8-connected labels of (B, H, W) bool masks, the XLA branch's
+    segmented-scan CC: background H*W, each in-mask pixel the minimum linear
+    index of its component after exactly ``iters`` rounds (unconverged when
+    they run out).  A round: a masked 3x3 min-pool (float32, exact below
+    2^24, as the JAX code), then run minima along rows, then along columns.
+    No border ring, unlike the kernel branch's CC."""
+    _, h, w = mask.shape
+    hw = h * w
+    idx = torch.arange(hw, dtype=torch.int32, device=mask.device).reshape(h, w)
+    lab = torch.where(mask, idx, hw)
+    mask_t = mask.transpose(-1, -2).contiguous()
+    for _ in range(iters):
+        labf = torch.where(mask, lab, hw).to(torch.float32)
+        pooled = -F.max_pool2d(-labf[:, None], 3, stride=1, padding=1)[:, 0]
+        lab = torch.where(mask, torch.minimum(lab, pooled.to(torch.int32)), hw)
+        lab = torch.where(mask, _run_min_rows(lab, mask, hw), hw)
+        lab_t = _run_min_rows(lab.transpose(-1, -2).contiguous(), mask_t, hw)
+        lab = torch.where(mask, lab_t.transpose(-1, -2), hw)
+    return lab.to(torch.int32)
 
 
 class ComponentStats(NamedTuple):

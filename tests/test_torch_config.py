@@ -114,6 +114,27 @@ def test_unported_branches_raise(override, item):
         tcfg.validate(cfg)
 
 
+@pytest.mark.parametrize("use_pallas", [False, True])
+@pytest.mark.parametrize("override", [{"label_downsample": 1}, {"label_downsample": 4},
+                                      {"bridge_half_res": False}])
+def test_full_resolution_variants_refused_on_both_branches(override, use_pallas):
+    """The XLA branch is ported at the half-res arm only, like the kernel
+    branch: the other labeling and bridge resolutions stay refused under
+    their own item."""
+    cfg = tcfg.CylinderDetectConfig(use_pallas=use_pallas, **override)
+    with pytest.raises(NotImplementedError, match=r"\(ROADMAP 1\.13\.1\)"):
+        tcfg.validate(cfg)
+
+
+@pytest.mark.parametrize("cfg", [tcfg.CylinderDetectConfig(), tcfg.PlaneDetectConfig(),
+                                 tcfg.CylinderDetectConfig(image_dtype="bfloat16", cc_iters=6),
+                                 tcfg.CylinderDetectConfig(bridge_repeats=2)],
+                         ids=["cylinder", "plane", "bfloat16", "two_repeats"])
+def test_validate_accepts_the_xla_branch(cfg):
+    assert cfg.use_pallas is False
+    tcfg.validate(cfg)
+
+
 @pytest.mark.parametrize(
     "override, item",
     [({"subpixel_refine": True}, "1.14"), ({"label_downsample": 1}, "1.13")],

@@ -335,3 +335,107 @@ def test_detect_on_card_matches_cpu(dev, mode):
     np.testing.assert_array_equal(cpu.grid.idx.numpy(), gpu.grid.idx.cpu().numpy())
     np.testing.assert_allclose(cpu.grid.xy.numpy(), gpu.grid.xy.cpu().numpy(), atol=1e-3)
     assert cpu.bridged_components.tolist() == gpu.bridged_components.cpu().tolist()
+
+
+# The detector's half-res canvases (detector._pool2_pad) of the frames past
+# the cluster kernels' shared memory: 600x800, 768x1024, 1024x768, 720x1280,
+# 960x1280, 1080x1920, 1200x1600.  The two-channel CC plan takes its global
+# route at all seven, the one-channel CC and the bridge at the last four.
+LARGE_CANVASES = [(304, 512), (384, 512), (512, 384), (360, 640), (480, 640), (544, 1024), (600, 896)]
+LARGE_CC = [(hw, 1) for hw in LARGE_CANVASES[3:]] + [(hw, 2) for hw in LARGE_CANVASES]
+
+
+@pytest.mark.parametrize("hw, channels", LARGE_CC)
+def test_cc_global_route_equals_plain(dev, hw, channels):
+    """The large-frame route of the CC family: random masks and the
+    split-row structures (bars, a serpentine, blobs), cold and warm starts,
+    several round schedules; one launch count per call."""
+    h, w = hw
+    assert tf.cc_plan(2, h, w, channels=channels)["route"] == "global"
+    g = torch.Generator().manual_seed(h + w + channels)
+    rnd = (torch.rand((2, h, w), generator=g) < 0.45).to(torch.float32)
+    m = torch.cat([rnd, _cluster_masks(h, w, 64)]).to(dev)
+    n = m.shape[0]
+    key = "connected_components" if channels == 1 else "component_payload_minmax"
+    for rounds, pools in ((2, 2), (2, 4), (3, 1), (1, 0)):
+        before = tf.launch_counts()[key]
+        if channels == 1:
+            init = torch.randint(0, 2 * h * w, m.shape, generator=g, dtype=torch.int32).to(dev)
+            for start in (None, init):
+                _equal(tf.connected_components(m, rounds, pools, start),
+                       tf.connected_components_plain(m, rounds, pools, start))
+            calls = 2
+        else:
+            pay = torch.stack([torch.randperm(h * w, generator=g) for _ in range(n)]).reshape(n, h, w)
+            pay = pay.to(torch.int32).to(dev)
+            _equal(tf.component_payload_minmax(m, pay, rounds, pools),
+                   tf.component_payload_minmax_plain(m, pay, rounds, pools))
+            calls = 1
+        assert tf.launch_counts()[key] == before + calls
+
+
+@pytest.mark.parametrize("dtype", [torch.bool, torch.float32])
+@pytest.mark.parametrize("hw", LARGE_CANVASES[3:])
+def test_bridge_global_route_equals_plain(dev, hw, dtype):
+    """The bridge's large-frame route, bool and float32 interfaces: lines at
+    the sweep's angles with pixels on every border, the cylinder (5, 125)
+    and plane (5, 180) reaches and a short probe; the schedule it computes
+    equals ``bridge_schedule``."""
+    h, w = hw
+    n = len(SWEEP)
+    assert tf.bridge_plan(n, h, w)["route"] == "global"
+    g = torch.Generator().manual_seed(h + w)
+    m = _border_lines(n, h, w, SWEEP, h + w).to(dtype).to(dev)
+    ex = (torch.rand((n, h, w), generator=g) < 0.8).to(dtype).to(dev)
+    ang = torch.tensor(SWEEP, device=dev)
+    kl = torch.tensor([0.0, 20.0, 124.0, 300.0, 90.0, 180.0], device=dev)
+    for probe_len, max_kernel in ((5, 125), (5, 180), (2, 125)):
+        sched = torch.zeros((n, tf.bridge_schedule_size(probe_len, max_kernel)), dtype=torch.int32,
+                            device=dev)
+        before = tf.launch_counts()["bridge_morphology"]
+        out = tf.bridge_morphology(m, ex, ang, kl, probe_len, max_kernel, schedule_out=sched)
+        _equal(out, tf.bridge_morphology_plain(m, ex, ang, kl, probe_len, max_kernel))
+        assert out.dtype == dtype and tf.launch_counts()["bridge_morphology"] == before + 1
+        ray, line = tf.bridge_schedule(ang, kl, probe_len, max_kernel)
+        _equal(sched, torch.cat([ray.reshape(n, -1), line.reshape(n, -1)], 1))
+
+
+@pytest.mark.parametrize("shape", [(2, 720, 1280), (2, 1080, 1920)])
+def test_preprocess_kernel_at_large_frames(dev, shape):
+    """All six outputs at 720p and 1080p, where the joint-peak key needs 21
+    bits of linear index: smoothed noise and a grid of lines."""
+    from cylinder_pose_estimation_tpu_torch.config import CylinderDetectConfig
+    from cylinder_pose_estimation_tpu_torch.models.detector import _border_margin, _smooth
+
+    cfg = CylinderDetectConfig()
+    n, h, w = shape
+    img = torch.rand(shape, generator=torch.Generator().manual_seed(h)) * 255.0
+    img[1] = 20.0
+    for y in range(40, h - 40, 17):
+        img[1, y:y + 3, 40:w - 40] += 150.0
+    for x in range(40, w - 40, 19):
+        img[1, 40:h - 40, x:x + 3] += 150.0
+    x = _smooth(img.to(dev), cfg)
+    kw = dict(margin=_border_margin(cfg), joint_peak_iters=cfg.joint_peak_iters)
+    out = tf.preprocess_binarize(x, **kw)
+    _equal(out, tf.preprocess_binarize_plain(x, **kw))
+    assert float(out[5][1].sum()) > 0
+
+
+@pytest.mark.parametrize("endpoint", [False, True])
+def test_detect_large_frame_on_card_matches_cpu(dev, endpoint):
+    """One 720x1280 frame pair through the kernel branch (the global CC and
+    bridge routes) on the card and on the CPU: the same grids."""
+    from cylinder_pose_estimation_tpu_torch.config import CylinderDetectConfig
+    from cylinder_pose_estimation_tpu_torch.models.detector import detect_grid
+    from cylinder_pose_estimation_tpu_torch.utils.synthetic import example_pair
+
+    _, (i1, i2) = example_pair(720, 1280, n_frames=1)
+    imgs = np.concatenate([i1, i2])
+    cfg = CylinderDetectConfig(height=720, width=1280, use_pallas=True, bridge_endpoint_stats=endpoint)
+    cpu = detect_grid(torch.as_tensor(imgs), cfg)
+    gpu = detect_grid(torch.as_tensor(imgs, device=dev), cfg)
+    np.testing.assert_array_equal(cpu.grid.valid.numpy(), gpu.grid.valid.cpu().numpy())
+    np.testing.assert_array_equal(cpu.grid.idx.numpy(), gpu.grid.idx.cpu().numpy())
+    np.testing.assert_allclose(cpu.grid.xy.numpy(), gpu.grid.xy.cpu().numpy(), atol=1e-3)
+    assert cpu.stable.tolist() == gpu.stable.cpu().tolist()

@@ -1,7 +1,8 @@
 """PyTorch port, on the CPU: the launch plans of the preprocess, CC (one and
-two channels) and bridge kernels at every shape the detector passes, the
-kernels' byte counts, the preprocess margin check and the rig's default
-device.  No JAX here."""
+two channels) and bridge kernels at every shape the detector passes, from
+480x640 (the cluster kernels) to 1080x1920 and 1200x1600 (the CC family's
+and the bridge's large-frame routes), the kernels' byte counts, the
+preprocess margin check and the rig's default device.  No JAX here."""
 
 import numpy as np
 import pytest
@@ -19,6 +20,8 @@ from cylinder_pose_estimation_tpu_torch.utils.synthetic import default_stereo
 torch.set_num_threads(1)
 
 SIZES = [(480, 640), (240, 320)]
+# Frames whose half-res canvas is past some cluster kernel's shared memory.
+LARGE_SIZES = [(600, 800), (768, 1024), (1024, 768), (720, 1280), (960, 1280), (1080, 1920), (1200, 1600)]
 
 
 def _cc_shapes(h, w):
@@ -92,8 +95,18 @@ def test_cc_plan_at_issue_shapes():
 
 @pytest.mark.parametrize("hw", [(1024, 1024), (480, 2048), (8192, 64)])
 def test_cc_plan_raises_beyond_eight_ctas(hw):
-    with pytest.raises(ValueError, match="more than 8 CTAs"):
-        tf.cc_plan(1, *hw)
+    """Beyond 8 CTAs the plan no longer raises: it takes the global route,
+    with one scratch plane per channel."""
+    plan = tf.cc_plan(1, *hw)
+    assert plan == {"route": "global", "scratch_ints": hw[0] * hw[1]}
+    assert tf.cc_plan(3, *hw, channels=2)["scratch_ints"] == 2 * 3 * hw[0] * hw[1]
+
+
+def test_cc_plan_raises_on_index_overflow():
+    with pytest.raises(ValueError, match="32-bit"):
+        tf.cc_plan(4096, 1024, 1024)
+    with pytest.raises(ValueError, match="32-bit"):
+        tf.bridge_plan(4096, 1024, 1024)
 
 
 def test_cc_plan_two_channels():
@@ -107,8 +120,7 @@ def test_cc_plan_two_channels():
     assert tf.cc_plan(2, 64, 128, channels=2)["cluster"] == 1
     assert tf.cc_plan(2, 128, 128, channels=2)["cluster"] == 2
     assert tf.cc_plan(2, 128, 256, channels=2)["cluster"] == 4
-    with pytest.raises(ValueError, match="more than 8 CTAs"):
-        tf.cc_plan(1, 480, 640, channels=2)
+    assert tf.cc_plan(1, 480, 640, channels=2)["route"] == "global"
     with pytest.raises(ValueError, match="channels"):
         tf.cc_plan(1, 64, 128, channels=3)
 
@@ -143,10 +155,57 @@ def test_bridge_plan_fills_one_wave(n, c):
 
 def test_bridge_plan_limits():
     assert tf.bridge_plan(1, 5, 64)["cluster"] == 2  # 4 or 8 CTAs would leave one without rows
-    with pytest.raises(ValueError, match="shared memory"):
-        tf.bridge_plan(2, 480, 640)
+    # Past the shared memory (480 x 20 words x 9 planes): the global route.
+    assert tf.bridge_plan(2, 480, 640) == {"route": "global", "words_per_row": 20,
+                                           "scratch_ints": 9 * 2 * 480 * 20 + 2 * (4 * 65 + 2 * 32)}
+    assert "route" not in tf.bridge_plan(2, 321, 640)  # 321 x 20 x 9 words + the schedule fit
+    assert tf.bridge_plan(2, 322, 640)["route"] == "global"
     assert tf.bridge_schedule_size(5, 125) == 4 * 6 + 2 * 6
     assert tf.bridge_schedule_size(64, 2) == 4 * 65 + 2
+
+
+@pytest.mark.parametrize("hw", LARGE_SIZES)
+def test_plans_at_large_frames(hw):
+    """At every large frame the detector's sites get a plan: the quarter-res
+    ROI pair stays on the cluster kernel; the half-res pair takes the global
+    route for two channels everywhere and, from 720x1280 on, for one
+    channel and for the bridge.  Every global plan says its scratch."""
+    quarter, (h, w) = _cc_shapes(*hw)
+    assert "cluster" in tf.cc_plan(64, *quarter)
+    wide = hw[0] * hw[1] >= 720 * 1280
+    plan1 = tf.cc_plan(4, h, w)
+    assert (plan1.get("route") == "global") == wide
+    if wide:
+        assert plan1["scratch_ints"] == 4 * h * w
+    plan2 = tf.cc_plan(4, h, w, channels=2)
+    assert plan2["route"] == "global" and plan2["scratch_ints"] == 2 * 4 * h * w
+    bplan = tf.bridge_plan(4, h, w)
+    assert (bplan.get("route") == "global") == wide
+    words = -(-w // 32)
+    if wide:
+        assert bplan["words_per_row"] == words
+        assert bplan["scratch_ints"] == 9 * 4 * h * words + 4 * tf.BRIDGE_SCHEDULE_INTS
+    else:
+        assert bplan["smem"] == 4 * (9 * h * words + tf.BRIDGE_SCHEDULE_INTS) <= kernels.MAX_DYNAMIC_SMEM
+    pplan = tf.preprocess_plan(2, *hw)
+    assert pplan["grid"] == (-(-hw[1] // 64), -(-hw[0] // 32), 2)
+
+
+def test_large_frame_canvases():
+    assert _cc_shapes(720, 1280) == ((184, 384), (360, 640))
+    assert _cc_shapes(1080, 1920) == ((272, 512), (544, 1024))
+
+
+def test_global_route_launch_counts():
+    """Device kernels per call of the global routes at the detector's
+    settings: CC 1 + rounds x (pools + 2); bridge 2 + 2 (1 + levels) + steps
+    + 5 (probe 5: 3 levels; max_kernel 125: 6 steps, 180: 7)."""
+    assert tf.cc_global_launches(2, 4) == 13
+    assert tf.cc_global_launches(2, 2) == 9
+    assert tf.cc_global_launches(3, 2) == 13
+    assert tf.bridge_global_launches(5, 125) == 21
+    assert tf.bridge_global_launches(5, 180) == 22
+    assert tf.bridge_global_launches(1, 2) == 2 + 4 + 1 + 5
 
 
 def test_min_bytes_at_the_detector_sites():

@@ -130,7 +130,7 @@ def test_clahe_cumsum_order_is_xla_cpu_order():
     rng = np.random.default_rng(5)
     for n in (256, 40):
         x = (rng.random((9, n)) * 37).astype(np.float32)
-        got = clahe._cumsum_blocked(torch.as_tensor(x)).numpy()
+        got = image.cumsum_blocked(torch.as_tensor(x)).numpy()
         np.testing.assert_array_equal(got, np.asarray(jnp.cumsum(jnp.asarray(x), axis=-1)))
 
 
