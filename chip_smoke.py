@@ -83,14 +83,35 @@ phase fails.  Phases:
    measured" where torch.profiler reads nothing) and byte bound; the card's
    grids are held to the CPU port's (ids identical, xy within 0.05 px,
    ``ok`` and ``stable`` equal); ms/frame of each config and size.
+13. Variants (run after phase 12): the configurations of
+   ``tests/fixtures/torch_variant_scenes.json``'s 480x640 record
+   (``subpixel_refine``, ``label_downsample=1`` and ``bridge_half_res=False``
+   on both branches, the endpoint bridge at ``label_downsample=1``, plane
+   mode at ``label_downsample=1`` on both branches) on B=16 frames of
+   ``example_pair`` or the plane fixture's views; the kernel-branch and the
+   XLA-branch configurations each a path with counters reset just before
+   and read just after.  Every view is held to the JAX record (ids
+   identical, xy within 0.05 px), 2 frames card against the CPU port; every
+   kernel call at a full-resolution shape (the CC family's and the bridge's
+   global routes at (64, 480, 640) and (16, 480, 640)) is held ``torch.equal``
+   to its plain version and each site timed once; e2e and detect ms/frame
+   per configuration.
+14. CLI (run after phase 7's timing): ``cli.main`` with ``--device cuda`` for
+   ``detect-folder``, ``experiment`` (the record's arguments) and
+   ``undistort-folder`` on PNG frames of ``write_registration_folder`` in a
+   temporary directory, counters reset just before and read just after (the
+   drivers' default config launches no kernel); held to
+   ``tests/fixtures/torch_cli.json`` (the JAX CLI on the same files) and the
+   undistortion to the port on the CPU within one grey level.
 
 The second-to-last line is the kernel report as JSON (the 480x640 sites;
-``large_sites`` holds the large path's), the last line
+``large_sites`` and ``variant_sites`` hold phases 12's and 13's), the last line
 ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import functools
 import itertools
 import json
 import math
@@ -105,6 +126,8 @@ GOLDEN = os.path.join(HERE, "tests", "fixtures", "golden_scenes.json")
 ENDPOINT = os.path.join(HERE, "tests", "fixtures", "torch_endpoint_scenes.json")
 PLANE = os.path.join(HERE, "tests", "fixtures", "torch_plane_scenes.json")
 REGISTRATION = os.path.join(HERE, "tests", "fixtures", "torch_registration.json")
+VARIANTS = os.path.join(HERE, "tests", "fixtures", "torch_variant_scenes.json")
+CLI_RECORD = os.path.join(HERE, "tests", "fixtures", "torch_cli.json")
 KERNELS = ("preprocess_binarize", "connected_components", "bridge_morphology",
            "component_payload_minmax")
 # Kernels each path must launch: None, at least once; a number, exactly
@@ -119,6 +142,14 @@ PATH_KERNELS = {
 }
 for _path in ("experiment", "preprocess", "stream"):
     PATH_KERNELS[_path] = dict(PATH_KERNELS["main"])
+# The variants: the kernel-branch configurations launch all four kernels, the
+# XLA-branch ones and the command-line drivers (the default config) none.
+PATH_KERNELS["variants"] = dict.fromkeys(KERNELS, None)
+PATH_KERNELS["variants_xla"] = dict.fromkeys(KERNELS, 0)
+PATH_KERNELS["cli"] = dict.fromkeys(KERNELS, 0)
+# Frames of the variants phase (the fixture's 480x640 record) and of its
+# card-versus-CPU checks.
+VARIANT_FRAMES, VARIANT_CPU_FRAMES = 16, 2
 # The large path: frame sizes past the cluster kernels, frames per batch.
 LARGE_SIZES = ((720, 1280), (1080, 1920))
 LARGE_BATCH = 2
@@ -165,28 +196,30 @@ def bound_ms(nbytes: int) -> float:
 def device_launches(fn, attempts: int = 3):
     """(CUDA kernels that one fn() call launches, their summed device ms),
     by torch.profiler; (None, None) if no session of ``attempts`` records
-    device activity.  Late in a long process a session may read none, or
-    lose its first kernel: each session starts with a marker kernel (a
-    one-element ``fill_``), dropped from the count when it was recorded."""
+    them.  Late in a long process a session may record nothing, or lose the
+    first kernels it sees: each session runs fn() twice with a spin kernel
+    (``torch.cuda._sleep``) between the two and counts the kernels after the
+    spin, the second call's."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
-    marker = torch.zeros(1, device="cuda")
     torch.cuda.synchronize()
     for _ in range(attempts):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            marker.fill_(1.0)
+            fn()
+            torch.cuda.synchronize()
+            torch.cuda._sleep(1000)
             torch.cuda.synchronize()
             fn()
             torch.cuda.synchronize()
         events = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
                          and "memcpy" not in e.name.lower() and "memset" not in e.name.lower()),
                         key=lambda e: e.time_range.start)
-        if events and "fill" in events[0].name.lower():
-            events = events[1:]
-        if events:
-            return len(events), sum((e.time_range.end - e.time_range.start) / 1e3 for e in events)
+        spins = [i for i, e in enumerate(events) if "spin" in e.name.lower()]
+        tail = events[spins[-1] + 1:] if spins else []
+        if tail:
+            return len(tail), sum((e.time_range.end - e.time_range.start) / 1e3 for e in tail)
     return None, None
 
 
@@ -343,7 +376,7 @@ def stage_split(views, cfgs) -> None:
             br = bridge()
             st = det.GridState(
                 cents=front.cents, inside=roi.inside, bbox=roi.bbox, h_exp=br.h_exp,
-                v_exp=br.v_exp, circle_radius0=roi.circle_radius0, bright_blur=front.bright_blur,
+                v_exp=br.v_exp, circle_radius0=roi.circle_radius0, gray=front.gray, bright_blur=front.bright_blur,
                 warm_labels=br.warm_labels, bridge_angles=br.angles, n_pre=br.n_pre,
                 binary=front.binary, mh=roi.mh, mv=roi.mv, carve_domain=roi.carve_domain,
             )
@@ -402,16 +435,17 @@ def line_masks(n, h, w, angles, seed, device):
 
 def new_report() -> dict:
     return {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bytes": 0, "device_ms": 0.0, "sites": [],
-            "device_launches": None, "large_sites": []}
+            "device_launches": None, "large_sites": [], "variant_sites": []}
 
 
 def compare(report, name, kernel_fn, plain_fn, label, timed, nbytes=0, site=True, max_dev=None,
-            large=False):
+            into=None):
     """Hold a kernel call to its plain version (``torch.equal``) and add its
     largest error to ``report[name]``.  ``timed``: time both and count the
     kernel's device kernels per call, which must not pass ``max_dev``
     (default ``DEVICE_LAUNCHES_MAX``); ``site``: add the times to the
-    kernel's 480x640 sites, or with ``large`` to its large-frame sites."""
+    kernel's 480x640 main-path sites, or with ``into`` to the site list of
+    that name (``large_sites``, ``variant_sites``)."""
     import torch
 
     out_k = kernel_fn()
@@ -436,12 +470,12 @@ def compare(report, name, kernel_fn, plain_fn, label, timed, nbytes=0, site=True
         ms_k = cuda_ms(kernel_fn)
         ms_p = cuda_ms(plain_fn, reps=5, warmup=1)
         n_dev, dev_ms = device_launches(kernel_fn)
-        if (n_dev is None and not large) or (n_dev is not None and n_dev > max_dev):
+        if (n_dev is None and into is None) or (n_dev is not None and n_dev > max_dev):
             raise AssertionError(f"{name} [{label}]: {n_dev} device kernels in a call (at most {max_dev})")
-        if site and large:
-            rep["large_sites"].append({"site": label, "ms": ms_k, "device_ms": dev_ms, "plain_ms": ms_p,
-                                       "bytes": nbytes, "bound_ms": bound_ms(nbytes),
-                                       "device_kernels_per_call": n_dev})
+        if site and into is not None:
+            rep[into].append({"site": label, "ms": ms_k, "device_ms": dev_ms, "plain_ms": ms_p,
+                              "bytes": nbytes, "bound_ms": bound_ms(nbytes),
+                              "device_kernels_per_call": n_dev})
         elif site:
             rep["device_ms"] += dev_ms
             rep["ms"] += ms_k
@@ -920,7 +954,7 @@ def large_phase(frontend, device, fit_cfg, smi):
                 x = args[0]
                 compare(report, "preprocess_binarize", lambda: frontend.preprocess_binarize(x, **kw),
                         lambda: frontend.preprocess_binarize_plain(x, **kw), f"{tag} {tuple(x.shape)}", timed,
-                        nbytes=frontend.min_bytes("preprocess_binarize", *x.shape), large=True)
+                        nbytes=frontend.min_bytes("preprocess_binarize", *x.shape), into="large_sites")
             for args, kw in cap["connected_components"]:
                 m, init = args[0], kw.get("init_labels")
                 r, p = kw["rounds"], kw["pools_per_round"]
@@ -931,7 +965,7 @@ def large_phase(frontend, device, fit_cfg, smi):
                         f"{tag} {tuple(m.shape)} {r}x{p} {'warm' if init is not None else 'cold'}"
                         f"{' global' if glob else ''}", timed,
                         nbytes=frontend.min_bytes("connected_components", *m.shape, warm=init is not None),
-                        max_dev=frontend.cc_global_launches(r, p) if glob else None, large=True)
+                        max_dev=frontend.cc_global_launches(r, p) if glob else None, into="large_sites")
             for args, kw in cap["component_payload_minmax"]:
                 m, pay = args
                 r, p = kw["rounds"], kw["pools_per_round"]
@@ -941,7 +975,7 @@ def large_phase(frontend, device, fit_cfg, smi):
                         lambda: frontend.component_payload_minmax_plain(m, pay, r, p),
                         f"{tag} {tuple(m.shape)} {r}x{p}{' global' if glob else ''}", True,
                         nbytes=frontend.min_bytes("component_payload_minmax", *m.shape),
-                        max_dev=frontend.cc_global_launches(r, p) if glob else None, large=True)
+                        max_dev=frontend.cc_global_launches(r, p) if glob else None, into="large_sites")
             for args, kw in cap["bridge_morphology"]:
                 masks, exps, angles, klen = args
                 glob = frontend.bridge_plan(*masks.shape).get("route") == "global"
@@ -952,7 +986,7 @@ def large_phase(frontend, device, fit_cfg, smi):
                             lambda: frontend.bridge_morphology_plain(mk, ek, angles, klen, **kw),
                             f"{tag} {tuple(mk.shape)} {mk.dtype}{' global' if glob else ''}", timed and site,
                             nbytes=frontend.min_bytes("bridge_morphology", *mk.shape, itemsize=mk.element_size()),
-                            max_dev=max_dev, large=True)
+                            max_dev=max_dev, into="large_sites")
 
     rep = itertools.count(1)
     for (h, w), (st_np, (i1, i2)) in inputs.items():
@@ -975,6 +1009,296 @@ def large_phase(frontend, device, fit_cfg, smi):
             print(f"large {label} B={LARGE_BATCH} {h}x{w}: {ms_e2e / LARGE_BATCH:.4f} ms/frame (detect "
                   f"{ms_det / LARGE_BATCH:.4f} ms/frame); {smi}", flush=True)
     return launches, report
+
+
+def variants_phase(frontend, device, fit_cfg, smi):
+    """Phase 13: the full-resolution variants and sub-pixel refinement at
+    480x640 (``torch_variant_scenes.json``'s configurations: B=16 frames of
+    ``example_pair``, or the plane fixture's eight views), the kernel-branch
+    and the XLA-branch configurations each as a path, counters reset just
+    before and read just after.  Every view is held to the JAX record (ids
+    identical, xy within 0.05 px); the first VARIANT_CPU_FRAMES frames are
+    held card against the CPU port (ids, xy within 0.05 px, ``ok`` and
+    ``stable``); every kernel call at a full-resolution shape is held
+    ``torch.equal`` to its plain version, the first of each site timed.
+    Returns (launches by path, kernel report with ``variant_sites``)."""
+    import contextlib
+
+    import numpy as np
+    import torch
+
+    from cylinder_pose_estimation_tpu_torch.config import CylinderDetectConfig, PlaneDetectConfig
+    from cylinder_pose_estimation_tpu_torch.models.detector import detect_grid
+    from cylinder_pose_estimation_tpu_torch.models.pipeline import _tree_map, estimate_poses_batch
+    from cylinder_pose_estimation_tpu_torch.types import stereo_from_numpy
+    from cylinder_pose_estimation_tpu_torch.utils.synthetic import example_pair, plane_view
+
+    h, w = 480, 640
+    with open(VARIANTS) as f:
+        configs = json.load(f)["records"][f"{h}x{w}"]["configs"]
+    with open(PLANE) as f:
+        pspecs = [v["spec"] for v in json.load(f)["views"]]
+    st_np, (i1, i2) = example_pair(h, w, n_frames=VARIANT_FRAMES)
+    stereo = stereo_from_numpy(*st_np, device=device)
+    host_stereo = stereo_from_numpy(*st_np, device="cpu")
+    a = torch.as_tensor(i1, device=device)
+    b = torch.as_tensor(i2, device=device)
+    planes = np.stack([plane_view(h, w, **sp) for sp in pspecs])
+    pviews = torch.as_tensor(planes, device=device)
+
+    def cfg_of(c):
+        cls = PlaneDetectConfig if c["mode"] == "plane" else CylinderDetectConfig
+        return cls(height=h, width=w, use_pallas=c["use_pallas"], **c["overrides"])
+
+    def run(c, imgs=None):
+        """The configuration's entry point: detect_grid on the plane views,
+        estimate_poses_batch on the frames; returns the (V,) DetectResult."""
+        cfg = cfg_of(c)
+        if c["mode"] == "plane":
+            return detect_grid(pviews if imgs is None else imgs, cfg)
+        x, y, st = (a, b, stereo) if imgs is None else imgs
+        res = estimate_poses_batch(x, y, st, cfg, fit_cfg)
+        if not bool(torch.isfinite(res.fit.params).all()):
+            raise AssertionError(f"variant {c['name']}: non-finite fit")
+        return _tree_map(lambda p, q: torch.cat([p, q]), res.detect1, res.detect2)
+
+    calls, results = {}, {}
+
+    def drive(group, capture):
+        for c in group:
+            with Capture(frontend) if capture else contextlib.nullcontext() as cap:
+                results[c["name"]] = run(c)
+            if capture:
+                calls[c["name"]] = cap.calls
+        return results
+
+    kern = [c for c in configs if c["use_pallas"]]
+    xla = [c for c in configs if not c["use_pallas"]]
+    _, launches = run_path("variants", frontend, lambda: drive(kern, True))
+    _, launches_xla = run_path("variants_xla", frontend, lambda: drive(xla, False))
+
+    for c in configs:
+        det = results[c["name"]]
+        max_d, n_ok, n_stable, n_bridged = 0.0, 0, 0, 0
+        for i, want in enumerate(c["views"]):
+            _, d = points_check(det.grid, i, want["points"], f"variant {c['name']} view {i}")
+            max_d = max(max_d, d)
+            n_ok += bool(det.ok[i]) == want["ok"]
+            n_stable += bool(det.stable[i]) == want["stable"]
+            n_bridged += int(det.bridged_components[i]) == want["bridged_components"]
+        n = len(c["views"])
+        # Card vs CPU on the first frames (both views of each).
+        k = VARIANT_CPU_FRAMES
+        t0 = time.perf_counter()
+        if c["mode"] == "plane":
+            host = run(c, torch.as_tensor(planes[:k]))
+            pairs = [(i, i) for i in range(k)]
+        else:
+            host = run(c, (torch.as_tensor(i1[:k]), torch.as_tensor(i2[:k]), host_stereo))
+            pairs = [(i, i) for i in range(k)] + [(VARIANT_FRAMES + i, k + i) for i in range(k)]
+        t_cpu = time.perf_counter() - t0
+        max_dc = 0.0
+        for ic, ih in pairs:
+            _, d = points_check(det.grid, ic, grid_records(host, ih), f"variant {c['name']} view {ic} vs CPU")
+            max_dc = max(max_dc, d)
+            for flag in ("ok", "stable"):
+                if bool(getattr(det, flag)[ic]) != bool(getattr(host, flag)[ih]):
+                    raise AssertionError(f"variant {c['name']} view {ic}: {flag} differs card vs CPU")
+        print(f"variant {c['name']} ({c['mode']}, {n} views): ids identical to the JAX record, max |dxy| "
+              f"{max_d:.6f} px; ok {n_ok}/{n}, stable {n_stable}/{n}, bridged {n_bridged}/{n} as recorded; "
+              f"card vs CPU ({len(pairs)} views, {t_cpu:.1f} s on the CPU): ids identical, max |dxy| "
+              f"{max_dc:.6f} px", flush=True)
+
+    # Kernel calls at full-resolution shapes (the new sites) against plain.
+    report, timed_sites = {}, set()
+    with torch.inference_mode():
+        for name, cap in calls.items():
+            for kname in ("connected_components", "component_payload_minmax", "bridge_morphology"):
+                for args, kw in cap[kname]:
+                    m = args[0]
+                    if tuple(m.shape[-2:]) != (h, w):
+                        continue
+                    if kname == "bridge_morphology":
+                        masks, exps, angles, klen = args
+                        key = (kname, tuple(masks.shape), kw["probe_len"], kw["max_kernel"])
+                        glob = frontend.bridge_plan(*masks.shape).get("route") == "global"
+                        max_dev = (frontend.bridge_global_launches(kw["probe_len"], kw["max_kernel"])
+                                   if glob else None)
+                        label = (f"{name} {tuple(masks.shape)} probe {kw['probe_len']} max_kernel "
+                                 f"{kw['max_kernel']}")
+                        kfn = functools.partial(frontend.bridge_morphology, masks, exps, angles, klen, **kw)
+                        pfn = functools.partial(frontend.bridge_morphology_plain, masks, exps, angles, klen,
+                                                **kw)
+                        nbytes = frontend.min_bytes(kname, *masks.shape, itemsize=masks.element_size())
+                    else:
+                        r, p = kw["rounds"], kw["pools_per_round"]
+                        if kname == "connected_components":
+                            init = kw.get("init_labels")
+                            key = (kname, tuple(m.shape), r, p, init is not None)
+                            glob = frontend.cc_plan(*m.shape).get("route") == "global"
+                            label = f"{name} {tuple(m.shape)} {r}x{p} {'warm' if init is not None else 'cold'}"
+                            kfn = functools.partial(frontend.connected_components, m, r, p, init)
+                            pfn = functools.partial(frontend.connected_components_plain, m, r, p, init)
+                            nbytes = frontend.min_bytes(kname, *m.shape, warm=init is not None)
+                        else:
+                            pay = args[1]
+                            key = (kname, tuple(m.shape), r, p)
+                            glob = frontend.cc_plan(*m.shape, channels=2).get("route") == "global"
+                            label = f"{name} {tuple(m.shape)} {r}x{p}"
+                            kfn = functools.partial(frontend.component_payload_minmax, m, pay, r, p)
+                            pfn = functools.partial(frontend.component_payload_minmax_plain, m, pay, r, p)
+                            nbytes = frontend.min_bytes(kname, *m.shape)
+                        max_dev = frontend.cc_global_launches(r, p) if glob else None
+                    timed = key not in timed_sites
+                    timed_sites.add(key)
+                    compare(report, kname, kfn, pfn, label + (" global" if glob else ""), timed, nbytes=nbytes,
+                            max_dev=max_dev, into="variant_sites")
+
+    rep = itertools.count(1)
+    for c in configs:
+        cfg = cfg_of(c)
+        if c["mode"] == "plane":
+            ms = cuda_ms(lambda: detect_grid(pviews + 1e-4 * next(rep), cfg).grid.xy, reps=5, warmup=1)
+            print(f"variant {c['name']} V={len(pspecs)} {h}x{w}: detect {ms / len(pspecs):.4f} ms/view; {smi}",
+                  flush=True)
+            continue
+
+        def e2e():
+            eps = 1e-4 * next(rep)
+            return estimate_poses_batch(a + eps, b + eps, stereo, cfg, fit_cfg).fit.params
+
+        def detect():
+            eps = 1e-4 * next(rep)
+            return estimate_poses_batch(a + eps, b + eps, stereo, cfg, fit_cfg, probe="detect").grid.xy
+
+        ms_e2e = cuda_ms(e2e, reps=5, warmup=1)
+        ms_det = cuda_ms(detect, reps=5, warmup=1)
+        print(f"variant {c['name']} B={VARIANT_FRAMES} {h}x{w}: {ms_e2e / VARIANT_FRAMES:.4f} ms/frame "
+              f"(detect {ms_det / VARIANT_FRAMES:.4f} ms/frame); {smi}", flush=True)
+    return {"variants": launches, "variants_xla": launches_xla}, report
+
+
+_FLOAT = r"[-+]?\d*\.?\d+(?:[eE][-+]?\d+)?"
+
+
+def parse_experiment(text: str) -> dict:
+    """The printed output of ``cylpose-torch experiment``: per-frame
+    errors, the registration's fvals, healthy frames, observability and
+    T_Cam_AGV."""
+    import re
+
+    import numpy as np
+
+    frames = re.findall(rf"average error = ({_FLOAT}) -> ({_FLOAT}) mm", text)
+    fval0, fval = re.search(rf"registration fval: ({_FLOAT}) -> ({_FLOAT})", text).groups()
+    obs = re.search(rf"registration: (\d+) of \d+ frames healthy, min eigenvalue ({_FLOAT}), "
+                    r"well posed (True|False)", text)
+    t = [float(v) for v in re.findall(_FLOAT, text.split("T_Cam_AGV =")[1])[:16]]
+    return {"frames": [(float(x), float(y)) for x, y in frames], "fval0": float(fval0), "fval": float(fval),
+            "healthy": int(obs.group(1)), "jtj_min_eig": float(obs.group(2)),
+            "well_posed": obs.group(3) == "True", "t_cam_agv": np.asarray(t).reshape(4, 4)}
+
+
+def cli_phase(frontend, smi) -> dict:
+    """Phase 14: the ``cylpose-torch`` drivers on the card
+    (``cli.main([..., "--device", "cuda"])``) over PNG frames of
+    ``write_registration_folder`` in a temporary directory, counters reset
+    just before and read just after (the drivers' default config launches
+    none of the four kernels); ``detect-folder`` and ``experiment`` held to
+    ``torch_cli.json`` (the JAX CLI on the same files: ids identical, xy
+    within 0.05 px, no image in error; T_Cam_AGV within 0.05 deg and 0.1 mm,
+    fval rel 1e-2, healthy frames and well_posed equal), ``undistort-folder``
+    within one grey level of the port on the CPU."""
+    import contextlib
+    import io
+    import tempfile
+
+    import numpy as np
+
+    from cylinder_pose_estimation_tpu_torch import cli
+    from cylinder_pose_estimation_tpu_torch.geometry.registration import axis_errors
+    from cylinder_pose_estimation_tpu_torch.utils import png
+    from cylinder_pose_estimation_tpu_torch.utils.synthetic import write_registration_folder
+
+    h, w = 480, 640
+    with open(CLI_RECORD) as f:
+        rec = json.load(f)["records"][f"{h}x{w}"]
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, "in")
+        if write_registration_folder(src, rec["frames"], h, w) != rec["names"]:
+            raise AssertionError("the CLI frames' names differ from the record")
+        cam = os.path.join(src, "cameras.json")
+        wall = {}
+
+        def run(cmd, *argv, device="cuda"):
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                cli.main([cmd, "--camera-json", cam, "--input", src, *argv, "--device", device])
+            wall[f"{cmd} {device}"] = time.perf_counter() - t0
+            return buf.getvalue()
+
+        def drive():
+            return {
+                "detect": run("detect-folder", "--output", os.path.join(tmp, "detect")),
+                "experiment": run("experiment", *rec["experiment_args"]),
+                "undistort": run("undistort-folder", "--output", os.path.join(tmp, "und")),
+            }
+
+        out, launches = run_path("cli", frontend, drive)
+        with open(os.path.join(tmp, "detect", "processed_images_data.json")) as f:
+            data = json.load(f)
+        errors = {k: v["error"] for k, v in data.items() if "error" in v}
+        if errors:
+            raise AssertionError(f"detect-folder recorded errors: {errors}")
+        if set(data) != set(rec["detect_folder"]):
+            raise AssertionError(f"detect-folder files {sorted(data)} vs {sorted(rec['detect_folder'])}")
+        max_d, n_pts = 0.0, 0
+        for name, want in rec["detect_folder"].items():
+            got = {p["id"]: (p["x"], p["y"]) for p in data[name]["points"]}
+            ref = {p["id"]: (p["x"], p["y"]) for p in want["points"]}
+            if set(got) != set(ref):
+                raise AssertionError(f"detect-folder {name}: ids {sorted(got)} vs {sorted(ref)}")
+            for k, (x, y) in ref.items():
+                max_d = max(max_d, abs(got[k][0] - x), abs(got[k][1] - y))
+            n_pts += len(ref)
+            if not os.path.exists(os.path.join(tmp, "detect", os.path.splitext(name)[0] + "_arc.png")):
+                raise AssertionError(f"detect-folder wrote no overlay for {name}")
+        if max_d >= 0.05:
+            raise AssertionError(f"detect-folder: max |dxy| {max_d} px against the JAX CLI")
+        print(f"cli detect-folder ({len(data)} images, {wall['detect-folder cuda']:.1f} s): ids identical to "
+              f"the JAX CLI, {n_pts} points, max |dxy| {max_d:.6f} px", flush=True)
+
+        got = parse_experiment(out["experiment"])
+        want = rec["experiment"]
+        ang, perp = axis_errors(np.asarray(want["t_cam_agv"]), got["t_cam_agv"],
+                                np.radians(np.asarray(rec["angles_deg"], np.float64)))
+        fval_rel = abs(got["fval"] - want["fval"]) / abs(want["fval"])
+        if ang.max() >= 0.05 or perp.max() >= 0.1 or fval_rel > 1e-2:
+            raise AssertionError(f"experiment: axes {ang.max()} deg, perp {perp.max()} mm, fval rel {fval_rel}")
+        if (got["healthy"], got["well_posed"]) != (want["healthy"], want["well_posed"]):
+            raise AssertionError(f"experiment: healthy {got['healthy']}, well_posed {got['well_posed']} vs "
+                                 f"{want['healthy']}, {want['well_posed']}")
+        print(f"cli experiment {' '.join(rec['experiment_args'])} ({rec['frames']} frames, "
+              f"{wall['experiment cuda']:.1f} s): vs the JAX CLI axes {ang.max():.3e} deg, perp {perp.max():.3e} "
+              f"mm, fval {got['fval']:.6g} (rel {fval_rel:.2e}), healthy {got['healthy']}, min_eig "
+              f"{got['jtj_min_eig']:.6g}, well_posed {got['well_posed']}", flush=True)
+
+        run("undistort-folder", "--output", os.path.join(tmp, "und_cpu"), device="cpu")
+        names = sorted(os.listdir(os.path.join(tmp, "und_cpu")))
+        if sorted(os.listdir(os.path.join(tmp, "und"))) != names or len(names) != 2 * rec["frames"]:
+            raise AssertionError("undistort-folder wrote other files on the card than on the CPU")
+        max_g, n_diff = 0, 0
+        for name in names:
+            card = png.read_png(os.path.join(tmp, "und", name)).astype(np.int64)
+            host = png.read_png(os.path.join(tmp, "und_cpu", name)).astype(np.int64)
+            max_g = max(max_g, int(np.abs(card - host).max()))
+            n_diff += int((card != host).sum())
+        if max_g > 1:
+            raise AssertionError(f"undistort-folder card vs CPU: {max_g} grey levels")
+        print(f"cli undistort-folder ({len(names)} images, {wall['undistort-folder cuda']:.1f} s): card vs CPU "
+              f"max {max_g} grey level, {n_diff} pixels differ; {smi}", flush=True)
+    return launches
 
 
 def main() -> int:
@@ -1112,6 +1436,9 @@ def main() -> int:
     # of its uses)
     large_launches, large_report = large_phase(frontend, device, fit_cfg, smi)
 
+    # --- the full-resolution variants and refinement (profiled as well) ---
+    variant_launches, variant_report = variants_phase(frontend, device, fit_cfg, smi)
+
     # --- end to end timing at B=16 ----------------------------------------
     # Every call perturbs the frames anew, as bench.py does.
     rep = itertools.count(1)
@@ -1161,20 +1488,24 @@ def main() -> int:
     print(f"plane detect V={n_views} {height}x{width}: {ms_plane / n_views:.4f} ms/view; {smi}",
           flush=True)
 
+    # --- the command-line drivers on the card ------------------------------
+    cli_launches = cli_phase(frontend, smi)
+
     # Launches per kernel: summed over the six path runs (each counted
     # from zero), with the split by path beside it.
     by_path = {"main": main_launches, "endpoint": ep_launches, "plane": plane_launches,
                "experiment": exp_launches, "preprocess": pre_launches, "stream": stream_launches,
-               "xla": xla_launches, "large": large_launches}
+               "xla": xla_launches, "large": large_launches, **variant_launches, "cli": cli_launches}
     rows = []
     for k in KERNELS:
         r = report[k]
         large = large_report.get(k, new_report())
+        variant = variant_report.get(k, new_report())
         for label, ms_k, ms_p, nbytes, n_dev in r["sites"]:
             print(f"timing {k} [{label}]: kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms, bound "
                   f"{bound_ms(nbytes):.4f} ms ({nbytes} B, {bound_ms(nbytes) / ms_k:.1%} of it), "
                   f"device kernels per call {n_dev}", flush=True)
-        for site in large["large_sites"]:
+        for site in large["large_sites"] + variant["variant_sites"]:
             dev = site["device_ms"]
             print(f"timing {k} [{site['site']}]: kernel {site['ms']:.4f} ms (device "
                   f"{'not measured' if dev is None else f'{dev:.4f} ms'}), plain {site['plain_ms']:.4f} ms, "
@@ -1185,13 +1516,13 @@ def main() -> int:
             "replaces": frontend.REPLACES[k], "launches": sum(c[k] for c in by_path.values()),
             "launches_by_path": {p: c[k] for p, c in by_path.items()},
             "launches_per_step": main_launches[k],
-            "max_abs_err": max(r["max_abs_err"], large["max_abs_err"]), "ms": r["ms"],
+            "max_abs_err": max(r["max_abs_err"], large["max_abs_err"], variant["max_abs_err"]), "ms": r["ms"],
             "device_ms": r["device_ms"],
             "plain_ms": r["plain_ms"],
             "bound_ms": bound_ms(r["bytes"]), "bound_by": "bytes", "bytes": r["bytes"],
             "bound_share": bound_ms(r["bytes"]) / r["ms"], "library_ms": None,
             "device_kernels_per_call": r["device_launches"], "design": DESIGN[k],
-            "large_sites": large["large_sites"],
+            "large_sites": large["large_sites"], "variant_sites": variant["variant_sites"],
         })
     print(smi)
     print(json.dumps({"kernels": rows}))

@@ -12,8 +12,10 @@ plane mode, and ``use_pallas`` picks one as it does there:
 CUDA tensor and their plain PyTorch versions on a CPU tensor;
 ``use_pallas=False`` (the default) runs the XLA branch in plain PyTorch on
 either device, with ``image_dtype`` and ``cc_iters``; it ignores
-``bridge_endpoint_stats``, as the JAX package does.  ``pallas_interpret`` is
-accepted and ignored.  ``validate`` rejects every branch the port does not
+``bridge_endpoint_stats``, as the JAX package does.  Both branches carry
+the full-resolution variants (``label_downsample`` 1 or 2,
+``bridge_half_res`` either way) and ``subpixel_refine``.
+``pallas_interpret`` is accepted and ignored.  ``validate`` rejects every branch the port does not
 carry, naming the ROADMAP item that would port it.
 """
 
@@ -218,14 +220,10 @@ _UNPORTED = (
      "smooth_mxu=False (the in-kernel smoothing, not carried)"),
     (lambda c: not c.bright_at_points, "1.17",
      "bright_at_points=False (full-image brightness, not carried)"),
-    (lambda c: c.subpixel_refine, "1.14",
-     "subpixel_refine=True (models/refine.py)"),
     (lambda c: c.stage_probe != "", "1.17",
      "stage_probe (use the port's stage functions instead)"),
-    (lambda c: c.label_downsample != 2, "1.13.1",
-     "label_downsample != 2 (only the half-res labeling is ported)"),
-    (lambda c: not c.bridge_half_res, "1.13.1",
-     "bridge_half_res=False (only the half-res bridge is ported)"),
+    (lambda c: c.label_downsample not in (1, 2), "1.13.1",
+     "label_downsample other than 1 or 2 (the JAX package has no arm for it)"),
 )
 
 

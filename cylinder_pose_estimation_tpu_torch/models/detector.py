@@ -22,17 +22,21 @@ The stages, in order (each a function the tests can drive on its own):
   ``roi_stage``      quarter-res ROI / saturation CC (kernel, or the XLA
                      CC) -> ROI mask (cylinder: line-density blob; plane:
                      threshold hull), bbox, centre seed -> saturation carve
-  ``bridge_stage``   kernel branch: half-res pre-bridge CC (or, under
+  ``bridge_stage``   kernel branch: pre-bridge CC (or, under
                      ``bridge_endpoint_stats``, the payload min/max kernel)
                      -> angles / expandability -> bridge kernel
-  ``bridge_stage_xla``  XLA branch: half-res CC -> angles / expandability
-                     -> ray counts, oriented line dilation, 3x3 closing
+  ``bridge_stage_xla``  XLA branch: CC -> angles / expandability -> ray
+                     counts, oriented line dilation, 3x3 closing
   ``grid_stage``     final CC (kernel: warm, or cold after the endpoint
                      bridge; XLA: cold, with the pre-bridge recount) ->
                      assign -> polyfit -> short-column merge (plane) ->
-                     prune -> Newton intersections -> relabel -> index ->
-                     DetectResult
-Fixed shapes and masks throughout, no host synchronisation.
+                     sub-pixel refinement (``subpixel_refine``) -> prune ->
+                     Newton intersections -> relabel -> index -> DetectResult
+The labels run at ``label_downsample`` 2 (the half-res padded canvas) or 1
+(full resolution); the bridge runs on the half-res canvas with a halved
+reach (``bridge_half_res`` with ``label_downsample=2``, the defaults) or on
+the full-resolution masks.  Fixed shapes and masks throughout, no host
+synchronisation.
 """
 
 from __future__ import annotations
@@ -44,6 +48,7 @@ import torch
 import torch.nn.functional as F
 
 from cylinder_pose_estimation_tpu_torch.config import DetectConfig, validate
+from cylinder_pose_estimation_tpu_torch.models.refine import refine_curves_cog
 from cylinder_pose_estimation_tpu_torch.ops import frontend, labeling, morphology, ridge
 from cylinder_pose_estimation_tpu_torch.ops import mxu_conv as mxc
 from cylinder_pose_estimation_tpu_torch.ops.image import bgr_to_gray, box_filter, gaussian_blur_cv
@@ -453,7 +458,7 @@ def roi_stage(front: Front, cfg: DetectConfig) -> Roi:
 
 
 # ---------------------------------------------------------------------------
-# Stage 6a: bridging at half resolution
+# Stage 6a: bridging
 # ---------------------------------------------------------------------------
 
 
@@ -591,94 +596,132 @@ class Bridge(NamedTuple):
     pre_converged: torch.Tensor
 
 
+def _upsample2(small: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """Undo ``_pool2_pad`` on (..., hp, wp): crop the half-res canvas, 2x
+    nearest upsample, crop to (h, w)."""
+    s = small[..., :(h + 1) // 2, :(w + 1) // 2]
+    return s.repeat_interleave(2, dim=-2).repeat_interleave(2, dim=-1)[..., :h, :w]
+
+
+def _bridge_reach(circle_radius0: torch.Tensor, cfg: DetectConfig, half: bool):
+    """(kernel lengths (V,), max kernel, probe length) of the bridge: the
+    reference's reach, halved with the probe for the half-res bridge."""
+    kernel_len = float(cfg.bridge_kernel_base) + circle_radius0
+    max_kernel = cfg.bridge_kernel_base + 160
+    if not half:
+        return kernel_len, max_kernel, cfg.endpoint_probe_len
+    return kernel_len / 2.0, max(max_kernel // 2, 1), max(2, (cfg.endpoint_probe_len + 1) // 2)
+
+
 def bridge_stage(mh: torch.Tensor, mv: torch.Tensor, circle_radius0: torch.Tensor,
                  cfg: DetectConfig) -> Bridge:
-    """Stage 6a: the half-res bridge of the carved h/v line masks; returns
-    masks on the half-res padded canvas, the pre-bridge labels (warm start;
-    None under ``bridge_endpoint_stats``, whose payload kernel gives no
-    labels), the (V, 2) median angles and the pre-bridge component count."""
+    """Stage 6a: the bridge of the carved h/v line masks (the JAX package's
+    ``_bridge_pair``, kernel branch).  Under ``label_downsample=2`` and
+    ``bridge_half_res`` (the defaults) everything runs on the half-res padded
+    canvas with a halved reach and probe; otherwise the bridge kernel runs
+    on the (H, W) masks with the full reach, its statistics come from the
+    half-res canvas (``label_downsample=2``, expandability upsampled) or
+    from the full masks (``label_downsample=1``).  Returns the bridged
+    masks, the statistics CC's labels (warm start; None under
+    ``bridge_endpoint_stats``, whose payload kernel gives no labels), the
+    (V, 2) median angles and the pre-bridge component count."""
     v = mh.shape[0]
+    h_img, w_img = mh.shape[-2:]
     dev = mh.device
     ds = cfg.label_downsample
-    masks = torch.stack([_pool2_pad(mh), _pool2_pad(mv)], 1)  # (V, 2, h2, w2)
-    kernel_len = (float(cfg.bridge_kernel_base) + circle_radius0) / 2.0
-    max_kernel = max((cfg.bridge_kernel_base + 160) // 2, 1)
-    probe_len = max(2, (cfg.endpoint_probe_len + 1) // 2)
+    half = ds == 2 and cfg.bridge_half_res
+    masks = torch.stack([mh, mv], 1)
+    if half:
+        masks = _pool2_pad(masks)  # (V, 2, h2, w2)
+    kernel_len, max_kernel, probe_len = _bridge_reach(circle_radius0, cfg, half)
     rounds = max(1, int(cfg.pallas_cc_rounds_prebridge))
     n_pre = torch.zeros((v,), dtype=torch.int32, device=dev)
     pre_converged = torch.full((v,), cfg.bridge_repeats == 0, dtype=torch.bool, device=dev)
     warm = None
     angles = _axis_bases(dev).expand(v, 2)
-    _, _, hs, ws = masks.shape
+    _, _, hm, wm = masks.shape
     for rep in range(cfg.bridge_repeats):
+        small = _pool2_pad(masks) if ds == 2 and not half else masks
+        _, _, hs, ws = small.shape
         if cfg.bridge_endpoint_stats:
             pay = _scan_payloads(hs, ws, dev).expand(v, 2, hs, ws)
             # The JAX package calls this kernel with its default 4 pools per
             # round, not cfg.pallas_cc_pools.
             pmin, pmax = frontend.component_payload_minmax(
-                masks.reshape(2 * v, hs, ws).to(torch.float32),
+                small.reshape(2 * v, hs, ws).to(torch.float32),
                 pay.reshape(2 * v, hs, ws), rounds=rounds, pools_per_round=4,
             )
             pmin = pmin.reshape(v, 2, hs, ws)
             pmax = pmax.reshape(v, 2, hs, ws)
             if rep == 0:
                 # One pixel per component holds its scan-order payload minimum.
-                root = masks & (pay == pmin)
+                root = small & (pay == pmin)
                 n_pre = torch.sum(root.reshape(v, -1), dim=-1).to(torch.int32)
-            angles, exps = _bridge_angle_exp_endpoint_pair(masks, pmin, pmax, cfg, scale=ds)
+            angles, exps = _bridge_angle_exp_endpoint_pair(small, pmin, pmax, cfg, scale=ds)
         else:
-            labels = _cc_pairs(masks, rounds=rounds, pools=cfg.pallas_cc_pools)
+            labels = _cc_pairs(small, rounds=rounds, pools=cfg.pallas_cc_pools)
             warm = labels
             if rep == 0:
-                n_pre = _n_components(masks, labels)
-                pre_converged = _labels_converged(masks, labels)
-            angles, exps = _bridge_angle_exp_pair(masks, labels, cfg, scale=ds)
+                n_pre = _n_components(small, labels)
+                pre_converged = _labels_converged(small, labels)
+            angles, exps = _bridge_angle_exp_pair(small, labels, cfg, scale=ds)
+        if ds == 2 and not half:
+            exps = _upsample2(exps, h_img, w_img)
         # Bool in, bool out; each view's kernel length covers its h/v pair.
         bridged = frontend.bridge_morphology(
-            masks.reshape(2 * v, hs, ws),
-            exps.reshape(2 * v, hs, ws),
+            masks.reshape(2 * v, hm, wm),
+            exps.reshape(2 * v, hm, wm),
             angles.reshape(2 * v),
             kernel_len,
             probe_len=probe_len,
             max_kernel=max_kernel,
         )
-        masks = bridged.reshape(v, 2, hs, ws)
+        masks = bridged.reshape(v, 2, hm, wm)
     return Bridge(masks[:, 0], masks[:, 1], warm, angles, n_pre, pre_converged)
 
 
 def bridge_stage_xla(mh: torch.Tensor, mv: torch.Tensor, circle_radius0: torch.Tensor,
                      cfg: DetectConfig) -> Bridge:
-    """Stage 6a of the XLA branch (the JAX package's ``_bridge`` on the
-    pooled masks, its half-res shared arm): per repeat, the XLA CC at
-    cc_iters // 2, the median angles and expandability, the endpoints
-    (expandable mask pixels whose forward or backward ray count within the
-    halved probe is at most 1), their oriented line dilation with the halved
-    kernel length, a 3x3 dilation and the closing-style combine.  Not the
-    kernel branch's bridge: at non-axis angles the two footprints differ by
-    a discretisation pixel.  Returns masks on the half-res padded canvas, no
-    warm labels, the (V, 2) angles and the pre-bridge count of repeat 0."""
+    """Stage 6a of the XLA branch (the JAX package's ``_bridge`` per mask):
+    per repeat, the XLA CC at cc_iters // 2, the median angles and
+    expandability, the endpoints (expandable mask pixels whose forward or
+    backward ray count within the probe is at most 1), their oriented line
+    dilation, a 3x3 dilation and the closing-style combine.  Resolutions as
+    ``bridge_stage``: all on the half-res canvas with the halved reach and
+    probe under the defaults, else on the (H, W) masks with statistics from
+    the half-res canvas (upsampled) or the full masks.  Not the kernel
+    branch's bridge: at non-axis angles the two footprints differ by a
+    discretisation pixel.  Returns the bridged masks, no warm labels, the
+    (V, 2) angles and the pre-bridge count of repeat 0."""
     v = mh.shape[0]
+    h_img, w_img = mh.shape[-2:]
     dev = mh.device
-    masks = torch.stack([_pool2_pad(mh), _pool2_pad(mv)], 1)  # (V, 2, h2, w2)
-    _, _, hs, ws = masks.shape
-    klen = ((float(cfg.bridge_kernel_base) + circle_radius0) / 2.0).repeat_interleave(2)
-    max_kernel = max((cfg.bridge_kernel_base + 160) // 2, 1)
-    probe_len = max(2, (cfg.endpoint_probe_len + 1) // 2)
+    ds = cfg.label_downsample
+    half = ds == 2 and cfg.bridge_half_res
+    masks = torch.stack([mh, mv], 1)
+    if half:
+        masks = _pool2_pad(masks)  # (V, 2, h2, w2)
+    _, _, hm, wm = masks.shape
+    kernel_len, max_kernel, probe_len = _bridge_reach(circle_radius0, cfg, half)
+    klen = kernel_len.repeat_interleave(2)
     n_pre = torch.zeros((v,), dtype=torch.int32, device=dev)
     angles = _axis_bases(dev).expand(v, 2)
     for rep in range(cfg.bridge_repeats):
-        labels = _cc_xla(masks, cfg.cc_iters // 2)
+        small = _pool2_pad(masks) if ds == 2 and not half else masks
+        labels = _cc_xla(small, cfg.cc_iters // 2)
         if rep == 0:
-            n_pre = _n_components(masks, labels)
-        angles, exps = _bridge_angle_exp_pair(masks, labels, cfg, scale=cfg.label_downsample)
-        out = masks.reshape(2 * v, hs, ws)
+            n_pre = _n_components(small, labels)
+        angles, exps = _bridge_angle_exp_pair(small, labels, cfg, scale=ds)
+        if ds == 2 and not half:
+            exps = _upsample2(exps, h_img, w_img)
+        out = masks.reshape(2 * v, hm, wm)
         ang = angles.reshape(2 * v)
         fwd = morphology.directional_count(out, ang, probe_len, 1)
         bwd = morphology.directional_count(out, ang, probe_len, -1)
-        ends = out & exps.reshape(2 * v, hs, ws) & ((fwd <= 1.0) | (bwd <= 1.0))
+        ends = out & exps.reshape(2 * v, hm, wm) & ((fwd <= 1.0) | (bwd <= 1.0))
         grown = morphology.dilate_rect(morphology.dilate_line(ends, ang, max_kernel, klen), 3, 3)
         out = out | (morphology.erode_rect(out | grown, 3, 3) & grown)
-        masks = out.reshape(v, 2, hs, ws)
+        masks = out.reshape(v, 2, hm, wm)
     return Bridge(masks[:, 0], masks[:, 1], None, angles, n_pre,
                   torch.ones((v,), dtype=torch.bool, device=dev))
 
@@ -828,8 +871,9 @@ def _median_tilt(coeffs, dom, valid_lab):
 
 class GridState(NamedTuple):
     """The inputs of ``grid_stage``: the JAX detector's ``bridge_state``
-    probe plus what it leaves out (the bridge's warm labels, angles and
-    counts, and the masks for the retention fence)."""
+    probe (the grey image feeds ``subpixel_refine``) plus what it leaves out
+    (the bridge's warm labels, angles and counts, and the masks for the
+    retention fence)."""
 
     cents: torch.Tensor
     inside: torch.Tensor
@@ -837,6 +881,7 @@ class GridState(NamedTuple):
     h_exp: torch.Tensor
     v_exp: torch.Tensor
     circle_radius0: torch.Tensor
+    gray: torch.Tensor
     bright_blur: torch.Tensor
     warm_labels: torch.Tensor | None
     bridge_angles: torch.Tensor
@@ -849,34 +894,47 @@ class GridState(NamedTuple):
 
 def _final_labels_xla(st: GridState, hv_masks: torch.Tensor, cfg: DetectConfig):
     """The XLA branch's final labels: a cold CC at cc_iters of the bridged
-    pair, and (when it bridged) of the pooled pre-bridge pair, whose count
-    replaces the bridge's; one batch of 4 masks per view."""
+    pair, and (when it bridged) of the pre-bridge pair on the same canvas,
+    whose count replaces the bridge's; one batch of 4 masks per view."""
     if cfg.bridge_repeats == 0:
         return _cc_xla(hv_masks, cfg.cc_iters), st.n_pre
-    pre = torch.stack([_pool2_pad(st.mh), _pool2_pad(st.mv)], 1)
+    pre = torch.stack([st.mh, st.mv], 1)
+    if cfg.label_downsample == 2:
+        pre = _pool2_pad(pre)
     labels = _cc_xla(torch.cat([hv_masks, pre], 1), cfg.cc_iters)
     return labels[:, :2], _n_components(pre, labels[:, 2:])
 
 
-def grid_stage(st: GridState, cfg: DetectConfig):
-    """Stages 6b-6g: final CC -> assign -> polyfit -> prune -> intersect ->
-    relabel -> index.  Returns (DetectResult, (row/col coeffs + valid))."""
-    v = st.cents.shape[0]
+def final_labels(st: GridState, cfg: DetectConfig):
+    """Stage 6b: the final row/column labels of the bridged masks on the
+    labeling canvas (half-res padded at ``label_downsample=2``, the masks'
+    own (H, W) at 1).  Returns ((V, 2, h, w) masks, their labels, the
+    pre-bridge component count)."""
     hv_masks = torch.stack([st.h_exp, st.v_exp], 1)
-    if cfg.use_pallas:
-        warm = cfg.cc_warm_start and st.warm_labels is not None
-        rounds = (max(1, int(cfg.pallas_cc_rounds_warm)) if warm
-                  else max(1, int(cfg.pallas_cc_rounds)))
-        lab_pair = _cc_pairs(hv_masks, rounds=rounds, pools=cfg.pallas_cc_pools,
-                             init=st.warm_labels if warm else None)
-        n_pre = st.n_pre
-    else:
-        lab_pair, n_pre = _final_labels_xla(st, hv_masks, cfg)
+    if cfg.label_downsample == 2 and not cfg.bridge_half_res:
+        # The full-res bridge's masks, labelled on the half-res canvas.
+        hv_masks = _pool2_pad(hv_masks)
+    if not cfg.use_pallas:
+        return (hv_masks, *_final_labels_xla(st, hv_masks, cfg))
+    # Warm start where the bridge's labels share the final canvas.
+    warm = (cfg.cc_warm_start and st.warm_labels is not None
+            and st.warm_labels.shape == hv_masks.shape)
+    rounds = max(1, int(cfg.pallas_cc_rounds_warm)) if warm else max(1, int(cfg.pallas_cc_rounds))
+    lab_pair = _cc_pairs(hv_masks, rounds=rounds, pools=cfg.pallas_cc_pools,
+                         init=st.warm_labels if warm else None)
+    return hv_masks, lab_pair, st.n_pre
+
+
+def grid_stage(st: GridState, cfg: DetectConfig):
+    """Stages 6b-6g: final CC -> assign -> polyfit (-> sub-pixel refinement)
+    -> prune -> intersect -> relabel -> index.  Returns (DetectResult, (row/col coeffs + valid))."""
+    v = st.cents.shape[0]
+    ds = cfg.label_downsample
+    hv_masks, lab_pair, n_pre = final_labels(st, cfg)
     labels_converged = _labels_converged(hv_masks, lab_pair)
     n_post = _n_components(hv_masks, lab_pair)
     bridged_components = torch.clamp(n_pre - n_post, min=0)
 
-    ds = cfg.label_downsample
     if cfg.max_rows == cfg.max_cols:
         hs, ws = lab_pair.shape[-2:]
         of, okk = _assign_labels(
@@ -910,6 +968,14 @@ def grid_stage(st: GridState, cfg: DetectConfig):
         col_of = leader.gather(1, col_of.to(torch.int64))
         col_coeffs, col_dom, col_valid, col_count = _fit_column_polys(
             st.cents, col_of, col_ok, cfg)
+    if cfg.subpixel_refine:
+        # Fitted curves moved to the grey-level centre of gravity.
+        row_coeffs = refine_curves_cog(st.gray, row_coeffs, row_dom, row_valid, cfg.poly_degree,
+                                       n_samples=cfg.subpixel_samples, window=cfg.subpixel_window,
+                                       swap_xy=False)
+        col_coeffs = refine_curves_cog(st.gray, col_coeffs, col_dom, col_valid, cfg.poly_degree,
+                                       n_samples=cfg.subpixel_samples, window=cfg.subpixel_window,
+                                       swap_xy=True)
     if cfg.drop_first_row:
         row_min_y = _label_min(st.cents[..., 1], row_of, row_ok, r)
         first = torch.argmin(torch.where(row_count >= 1, row_min_y, float("inf")), dim=-1)
@@ -1026,7 +1092,7 @@ def detect_grid(images: torch.Tensor, cfg: DetectConfig, return_debug: bool = Fa
     br = bridge(roi.mh, roi.mv, roi.circle_radius0, cfg)
     st = GridState(
         cents=front.cents, inside=roi.inside, bbox=roi.bbox, h_exp=br.h_exp, v_exp=br.v_exp,
-        circle_radius0=roi.circle_radius0, bright_blur=front.bright_blur,
+        circle_radius0=roi.circle_radius0, gray=front.gray, bright_blur=front.bright_blur,
         warm_labels=br.warm_labels, bridge_angles=br.angles, n_pre=br.n_pre,
         binary=front.binary, mh=roi.mh, mv=roi.mv, carve_domain=roi.carve_domain,
     )

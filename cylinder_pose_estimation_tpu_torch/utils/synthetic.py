@@ -205,6 +205,27 @@ def plane_view(
     return np.clip(img, 0, 255).astype(F32)
 
 
+def cylinder_view(
+    height: int,
+    width: int,
+    origin,
+    radius: float,
+    row_spacing: float,
+    theta_span: float,
+    seed: int,
+    band=None,
+) -> np.ndarray:
+    """One rendered (H, W) float32 view of a 9x9 cylinder grid seen by
+    ``default_stereo``'s camera 1, with N(0, 2) grey-level noise from
+    ``seed``; ``band`` (y0, y1, x0, x1) is a laser dropout (``apply_gap``)."""
+    stereo = default_stereo(cx=width / 2.0, cy=height / 2.0)
+    sc = cylinder_grid_points(stereo, origin=tuple(origin), radius=radius,
+                              row_spacing=row_spacing, theta_span=theta_span)
+    img = render_grid_image(sc.xy1, 9, 9, height, width).astype(F32)
+    img = np.clip(img + np.random.default_rng(seed).normal(0, 2.0, (height, width)).astype(F32), 0, 255)
+    return img if band is None else apply_gap(img, band)
+
+
 def render_grid_image(
     xy: np.ndarray,
     n_rows: int,
@@ -297,9 +318,10 @@ def example_pair(height: int = 480, width: int = 640, n_frames: int | None = Non
     return stereo, (np.stack([p[0] for p in pairs]), np.stack([p[1] for p in pairs]))
 
 
-def apply_gap(img: np.ndarray) -> np.ndarray:
-    """Attenuate the ``GAP`` band with smooth edges (tests/make_golden.py)."""
-    y0, y1, x0, x1 = GAP
+def apply_gap(img: np.ndarray, band=GAP) -> np.ndarray:
+    """Attenuate a (y0, y1, x0, x1) band, by default ``GAP``, to 3% with
+    smooth edges (tests/make_golden.py)."""
+    y0, y1, x0, x1 = band
     yy = np.arange(img.shape[0], dtype=np.float32)[:, None]
     xx = np.arange(img.shape[1], dtype=np.float32)[None, :]
 
@@ -380,6 +402,41 @@ def registration_sequence(
             img = render_grid_image(xy, 9, 9, height, width).astype(F32)
             out.append(np.clip(img + rng.normal(0, 2.0, (height, width)).astype(F32), 0, 255))
     return stereo, angles, (np.stack(views1), np.stack(views2)), T_CAM_AGV.copy()
+
+
+def integer_degree_angles(n_frames: int) -> np.ndarray:
+    """(F, 2) int [pan, tilt] in degrees: ``registration_angles``'s default
+    swing rounded to whole degrees (pan -17..17, tilt -5..5)."""
+    s = np.linspace(0.0, 1.0, n_frames)
+    pan = np.round(np.degrees(0.3) * (2.0 * s - 1.0))
+    tilt = np.round(np.degrees(0.08) * np.cos(3.0 * np.pi * s))
+    return np.stack([pan, tilt], -1).astype(int)
+
+
+def write_registration_folder(folder: str, n_frames: int, height: int = 480, width: int = 640) -> list:
+    """The command-line experiment's input: ``registration_sequence`` at
+    ``integer_degree_angles``, each stereo pair written as
+    '<pan><tilt>L.png' / 'R.png' (single-digit tilts, so the names parse
+    back exactly) with the rig's ``cameras.json``.  Returns the names in
+    frame order."""
+    import os
+
+    from cylinder_pose_estimation_tpu_torch.cli import save_image
+    from cylinder_pose_estimation_tpu_torch.types import stereo_from_numpy
+    from cylinder_pose_estimation_tpu_torch.utils.io import save_stereo_json
+
+    deg = integer_degree_angles(n_frames)
+    names = [f"{pan}{tilt}" for pan, tilt in deg]
+    if len(set(names)) != n_frames:
+        raise ValueError(f"{n_frames} frames repeat a pan/tilt name")
+    st, _, (i1, i2), _ = registration_sequence(n_frames, height, width,
+                                               angles=np.radians(deg).astype(F32))
+    os.makedirs(folder, exist_ok=True)
+    save_stereo_json(os.path.join(folder, "cameras.json"), stereo_from_numpy(*st, device="cpu"))
+    for name, a, b in zip(names, i1, i2):
+        save_image(os.path.join(folder, f"{name}L.png"), a)
+        save_image(os.path.join(folder, f"{name}R.png"), b)
+    return names
 
 
 # Lens of ``distorted_example_pair``: a strong but plausible barrel lens

@@ -85,8 +85,16 @@ def test_from_reference_refuses_plane_mode():
         tcfg.PlaneDetectConfig(use_pallas=True, roi_threshold=30.0),
         tcfg.PlaneDetectConfig(bridge_endpoint_stats=True),
         tcfg.CylinderDetectConfig(merge_short_cols=True),
+        tcfg.CylinderDetectConfig(subpixel_refine=True),
+        tcfg.PlaneDetectConfig(use_pallas=True, subpixel_refine=True),
+        tcfg.CylinderDetectConfig(use_pallas=True, label_downsample=1),
+        tcfg.CylinderDetectConfig(bridge_half_res=False),
+        tcfg.CylinderDetectConfig(use_pallas=True, bridge_endpoint_stats=True, bridge_half_res=False),
+        tcfg.PlaneDetectConfig(label_downsample=1, bridge_half_res=False, subpixel_refine=True),
     ],
-    ids=["endpoint_stats", "plane", "plane_endpoint_stats", "cylinder_merge_short_cols"],
+    ids=["endpoint_stats", "plane", "plane_endpoint_stats", "cylinder_merge_short_cols",
+         "subpixel_refine", "plane_subpixel_refine", "full_res_labels", "full_res_bridge",
+         "endpoint_full_res_bridge", "plane_full_res_refine"],
 )
 def test_validate_accepts_ported_branches(cfg):
     tcfg.validate(cfg)
@@ -95,17 +103,17 @@ def test_validate_accepts_ported_branches(cfg):
 @pytest.mark.parametrize(
     "override, item",
     [
-        # The ported endpoint bridge and column merge do not hide the
-        # refusal of an unported branch set beside them.
-        ({"bridge_endpoint_stats": True, "bridge_half_res": False}, "1.13"),
+        # The ported variants beside an unported branch do not hide its
+        # refusal.
+        ({"bridge_endpoint_stats": True, "label_downsample": 3}, "1.13"),
         ({"pallas_cc_cross_cap": 16}, "1.17"),
         ({"smooth_mxu": False}, "1.17"),
         ({"bright_at_points": False}, "1.17"),
-        ({"subpixel_refine": True}, "1.14"),
-        ({"merge_short_cols": True, "subpixel_refine": True}, "1.14"),
+        ({"subpixel_refine": True, "smooth_mxu": False}, "1.17"),
+        ({"merge_short_cols": True, "subpixel_refine": True, "label_downsample": 3}, "1.13"),
         ({"stage_probe": "bridge_state"}, "1.17"),
-        ({"label_downsample": 1}, "1.13"),
-        ({"bridge_half_res": False}, "1.13"),
+        ({"label_downsample": 3}, "1.13"),
+        ({"bridge_half_res": False, "label_downsample": 0}, "1.13"),
     ],
 )
 def test_unported_branches_raise(override, item):
@@ -115,15 +123,17 @@ def test_unported_branches_raise(override, item):
 
 
 @pytest.mark.parametrize("use_pallas", [False, True])
-@pytest.mark.parametrize("override", [{"label_downsample": 1}, {"label_downsample": 4},
-                                      {"bridge_half_res": False}])
+@pytest.mark.parametrize("override", [{"label_downsample": 3}, {"label_downsample": 4},
+                                      {"label_downsample": 3, "bridge_half_res": False}])
 def test_full_resolution_variants_refused_on_both_branches(override, use_pallas):
-    """The XLA branch is ported at the half-res arm only, like the kernel
-    branch: the other labeling and bridge resolutions stay refused under
-    their own item."""
+    """Both branches carry label_downsample 1 and 2 with either bridge
+    resolution; any other labeling resolution, for which the JAX package
+    has no arm, stays refused under its own item."""
     cfg = tcfg.CylinderDetectConfig(use_pallas=use_pallas, **override)
     with pytest.raises(NotImplementedError, match=r"\(ROADMAP 1\.13\.1\)"):
         tcfg.validate(cfg)
+    tcfg.validate(dataclasses.replace(cfg, label_downsample=1))
+    tcfg.validate(dataclasses.replace(cfg, label_downsample=2))
 
 
 @pytest.mark.parametrize("cfg", [tcfg.CylinderDetectConfig(), tcfg.PlaneDetectConfig(),
@@ -137,7 +147,7 @@ def test_validate_accepts_the_xla_branch(cfg):
 
 @pytest.mark.parametrize(
     "override, item",
-    [({"subpixel_refine": True}, "1.14"), ({"label_downsample": 1}, "1.13")],
+    [({"subpixel_refine": True, "label_downsample": 3}, "1.13"), ({"label_downsample": 4}, "1.13")],
 )
 def test_unported_branches_raise_in_plane_mode(override, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):

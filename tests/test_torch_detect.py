@@ -144,7 +144,7 @@ def test_grid_stage_matches(ref):
     gs = td.GridState(
         cents=_b(st["cents"]), inside=_b(st["inside"]), bbox=_b(st["bbox"]),
         h_exp=_b(st["h_exp"]), v_exp=_b(st["v_exp"]), circle_radius0=_b(st["circle_radius0"]),
-        bright_blur=front.bright_blur, warm_labels=br.warm_labels, bridge_angles=br.angles,
+        gray=_b(st["gray"]), bright_blur=front.bright_blur, warm_labels=br.warm_labels, bridge_angles=br.angles,
         n_pre=br.n_pre, binary=_b(dbg.binary), mh=_b(dbg.h_mask), mv=_b(dbg.v_mask),
         carve_domain=roi.carve_domain,
     )

@@ -5,7 +5,12 @@ import it.  A subprocess blocks ``import jax``, renders a 2-frame scene with
 the port's own scene source and runs ``estimate_poses_batch`` on the CPU,
 then the endpoint-stats detector on it, plane-mode ``detect_grid`` on a
 rendered plane view and ``fit_plane``, and imports the preprocessing,
-kinematics, registration and stream modules and runs a small registration.
+kinematics, registration and stream modules and runs a small registration,
+then imports the package and every module of the user surface (refinement,
+JSON contracts, PNG files, viz, profiling, CLI, examples) and runs the
+full-resolution and refinement variants.  A second subprocess blocks JAX,
+Pillow and matplotlib (a minimal GPU installation) and runs
+``cylpose-torch detect-folder`` and ``undistort-folder`` on two PNGs.
 """
 
 import ast
@@ -61,6 +66,16 @@ assert p1.shape == (1, 480, 640) and bool(torch.isfinite(p1).all())
 ang = torch.tensor([[-0.2, 0.03], [0.2, -0.03]])
 reg = register_sequence(res, ang, RegistrationConfig(lm_iters=3))
 assert reg.t_cam_agv.shape == (4, 4) and bool(torch.isfinite(reg.t_cam_agv).all())
+import cylinder_pose_estimation_tpu_torch as pkg
+from cylinder_pose_estimation_tpu_torch import cli
+from cylinder_pose_estimation_tpu_torch.examples import quickstart, streaming_serving
+from cylinder_pose_estimation_tpu_torch.models import refine
+from cylinder_pose_estimation_tpu_torch.utils import io, png, profiling, viz
+assert pkg.io is io and pkg.detect_grid is detect_grid
+for over in ({"subpixel_refine": True}, {"label_downsample": 1}, {"bridge_half_res": False}):
+    for up in (True, False):
+        d = detect_grid(torch.as_tensor(i1[:1]), CylinderDetectConfig(use_pallas=up, **over))
+        assert bool(d.ok.all()), (over, up)
 assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules if sys.modules[m] is not None)
 print("NOJAX_OK", float(res.fit.mean_reproj_error.max()))
 """
@@ -75,6 +90,60 @@ def test_port_runs_without_jax():
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "NOJAX_OK" in proc.stdout
+
+
+_CLI_SCRIPT = r"""
+import sys
+for blocked in ("jax", "PIL", "matplotlib"):
+    sys.modules[blocked] = None  # importing any of them now raises ImportError
+sys.path.insert(0, sys.argv[1])
+import json, os, tempfile
+import numpy as np
+import torch
+torch.set_num_threads(1)
+from cylinder_pose_estimation_tpu_torch import cli
+from cylinder_pose_estimation_tpu_torch.types import stereo_from_numpy
+from cylinder_pose_estimation_tpu_torch.utils.io import save_stereo_json
+from cylinder_pose_estimation_tpu_torch.utils.synthetic import example_pair
+
+st, (i1, i2) = example_pair(240, 320, n_frames=1)
+with tempfile.TemporaryDirectory() as d:
+    src = os.path.join(d, "in")
+    os.makedirs(src)
+    cli.save_image(os.path.join(src, "00L.png"), i1[0])
+    cli.save_image(os.path.join(src, "00R.png"), i2[0])
+    with open(os.path.join(src, "01L.jpg"), "wb") as f:
+        f.write(b"a jpeg without Pillow")
+    cam = os.path.join(d, "cameras.json")
+    save_stereo_json(cam, stereo_from_numpy(*st, device="cpu"))
+    cli.main(["detect-folder", "--camera-json", cam, "--input", src, "--output", os.path.join(d, "out"),
+              "--device", "cpu", "--chunk", "2"])
+    with open(os.path.join(d, "out", "processed_images_data.json")) as f:
+        data = json.load(f)
+    assert all(len(data[n]["points"]) >= 5 for n in ("00L.png", "00R.png")), data
+    assert "Pillow" in data["01L.jpg"]["error"]
+    assert os.path.getsize(os.path.join(d, "out", "00L_arc.png")) > 1000
+    cli.main(["undistort-folder", "--camera-json", cam, "--input", src, "--output", os.path.join(d, "und"),
+              "--device", "cpu"])
+    assert sorted(os.listdir(os.path.join(d, "und"))) == ["00L_undistorted.png", "00R_undistorted.png"]
+loaded = [m for m in ("jax", "PIL", "matplotlib") if sys.modules.get(m) is not None]
+assert not loaded, loaded
+print("CLI_OK")
+"""
+
+
+def test_cli_runs_without_jax_pillow_matplotlib():
+    """A GPU host may have neither Pillow nor matplotlib: detect-folder
+    reads and writes PNGs with the package's own codec, draws its overlays
+    in numpy, and records a .jpg it cannot read as that file's error."""
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    proc = subprocess.run(
+        [sys.executable, "-c", _CLI_SCRIPT, str(ROOT)],
+        capture_output=True, text=True, env=env, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "CLI_OK" in proc.stdout
 
 
 def _imported_modules(path: Path):

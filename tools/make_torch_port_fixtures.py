@@ -1,8 +1,8 @@
 """Write the PyTorch port's fixtures from the JAX package.
 
-    python tools/make_torch_port_fixtures.py [endpoint] [plane] [registration]
+    python tools/make_torch_port_fixtures.py [endpoint] [plane] [registration] [variants] [cli]
 
-(all three without arguments).
+(all five without arguments).
 
 * ``tests/fixtures/torch_endpoint_scenes.json``: ``estimate_pose_stereo``
   with ``CylinderDetectConfig(bridge_endpoint_stats=True)`` and
@@ -30,6 +30,22 @@
   1e-3 mm, the JAX result computed on the rounded values), so the port
   reads the very same float32 inputs.
 
+* ``tests/fixtures/torch_variant_scenes.json``: ``detect_grid`` with the
+  full-resolution variants and sub-pixel refinement (``VARIANT_CONFIGS``)
+  on both branches (the kernel branch in interpret mode), at 240x320 (two
+  ``cylinder_view`` scenes, one with a dropout the bridge closes, and one
+  plane view with a fragmented column; with SHA-256 digests of the JAX
+  bridged masks and final labels, and the full-resolution ``_bridge`` case
+  of tests/test_detector_hardening.py) and at 480x640 (the 16 frames of
+  ``example_pair`` and the plane fixture's eight views; grids only).
+* ``tests/fixtures/torch_cli.json``: the JAX package's ``cylpose``
+  ``detect-folder`` and ``experiment`` on PNG frames of
+  ``registration_sequence`` at integer-degree pan/tilt names, written by
+  the port's PNG writer, with the camera JSON of ``save_stereo_json``; at
+  240x320 and 480x640, each with the fewest frames (from ``CLI_MIN_FRAMES``
+  up) whose registration reads well posed on two or more healthy frames in
+  the JAX package and in the port on the CPU (``experiment --no-clahe``).
+
 The detection files record their scene specs and configs; ``chip_smoke.py``
 renders the same inputs without JAX and holds the port to the files.  Run on
 the CPU; the interpret-mode endpoint scenes dominate the run time.
@@ -37,6 +53,7 @@ the CPU; the interpret-mode endpoint scenes dominate the run time.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import sys
@@ -276,8 +293,294 @@ def plane_fixture() -> None:
     print(f"wrote {PLANE_FIXTURE} ({t_pl:.0f} s)")
 
 
+VARIANT_FIXTURE = os.path.join(FIXTURES, "torch_variant_scenes.json")
+CLI_FIXTURE = os.path.join(FIXTURES, "torch_cli.json")
+
+# (name, use_pallas, overrides): the configurations of the variants record;
+# "sizes" limits a configuration to some of the records.
+VARIANT_CONFIGS = [
+    {"name": f"{name}_{branch}", "use_pallas": branch == "kernel", "overrides": ov, "sizes": sizes}
+    for name, ov, sizes in (
+        ("refine", {"subpixel_refine": True}, ("240x320", "480x640")),
+        ("ds1", {"label_downsample": 1}, ("240x320", "480x640")),
+        ("halfres_off", {"bridge_half_res": False}, ("240x320", "480x640")),
+        ("ds1_halfres_off", {"label_downsample": 1, "bridge_half_res": False}, ("240x320",)),
+    )
+    for branch in ("kernel", "xla")
+] + [{"name": "endpoint_ds1_kernel", "use_pallas": True, "sizes": ("240x320", "480x640"),
+      "overrides": {"bridge_endpoint_stats": True, "label_downsample": 1}}]
+PLANE_VARIANT_CONFIGS = [
+    {"name": f"plane_ds1_{branch}", "use_pallas": branch == "kernel",
+     "overrides": {"label_downsample": 1, "roi_threshold": 30.0}}
+    for branch in ("kernel", "xla")
+]
+SMALL_CYLINDER = dict(origin=[0.0, -15.0, 560.0], radius=52.0, row_spacing=12.0, theta_span=2.2, seed=0)
+SMALL_CYLINDER_SPECS = [SMALL_CYLINDER, dict(SMALL_CYLINDER, band=[112, 122, 130, 140])]
+SMALL_PLANE_SPECS = [dict(origin=[5.0, 0.0, 700.0], normal=[0.05, -0.08, -1.0], n_rows=9, n_cols=9,
+                          spacing=15.0, seed=16, gap_col=2)]
+VARIANT_FRAMES = 16
+# tests/test_detector_hardening.py's full-resolution _bridge case: masks,
+# and the circle radius that gives its 60 px kernel (91 + r0).
+BRIDGE_CASE_R0 = -31.0
+
+
+def digest(x) -> str:
+    return hashlib.sha256(np.ascontiguousarray(np.asarray(x)).tobytes()).hexdigest()
+
+
+def bridge_case_mask(h: int, w: int) -> np.ndarray:
+    m = np.zeros((h, w), bool)
+    m[60:62, 40:280] = True     # long unbroken line (sets the maximum extent)
+    m[120:122, 40:140] = True   # a broken line: two fragments, 20 px gap
+    m[120:122, 160:280] = True
+    return m
+
+
+def variant_cfg(spec: dict, plane: bool, h: int, w: int, jax_side: bool = True):
+    if jax_side:
+        from cylinder_pose_estimation_tpu.config import CylinderDetectConfig, PlaneDetectConfig
+    else:
+        from cylinder_pose_estimation_tpu_torch.config import CylinderDetectConfig, PlaneDetectConfig
+    cls = PlaneDetectConfig if plane else CylinderDetectConfig
+    extra = {"pallas_interpret": True} if jax_side else {}
+    return cls(height=h, width=w, use_pallas=spec["use_pallas"], **extra, **spec["overrides"])
+
+
+def jax_variant_fn(cfg, with_stages: bool):
+    """jit(image -> (DetectResult, stage digests inputs)): with_stages adds
+    the bridged masks and the final labels, computed from the JAX
+    detector's own bridge inputs by its own stages (detector.py:1434-1545)."""
+    from cylinder_pose_estimation_tpu.models import detector as jd
+    from cylinder_pose_estimation_tpu.ops.pallas.frontend import connected_components as cc_pallas
+
+    def fn(img):
+        res, dbg = jd.detect_grid(img, cfg, return_debug=True)
+        if not with_stages:
+            return res, ()
+        kernel_len = jnp.asarray(cfg.bridge_kernel_base, jnp.float32) + res.circle_radius0
+        h_exp, v_exp, warm, _, _, _ = jd._bridge_pair(dbg.h_mask, dbg.v_mask, kernel_len,
+                                                     cfg.bridge_kernel_base + 160, cfg)
+        ds = cfg.label_downsample
+        if ds == 2 and not cfg.bridge_half_res:
+            hv = jnp.stack([jd._pool2_pad(h_exp), jd._pool2_pad(v_exp)])
+        else:
+            hv = jnp.stack([h_exp, v_exp])
+        if cfg.use_pallas:
+            use_warm = cfg.cc_warm_start and warm is not None and warm.shape == hv.shape
+            rounds = cfg.pallas_cc_rounds_warm if use_warm else cfg.pallas_cc_rounds
+            labels = cc_pallas(hv, rounds=max(1, int(rounds)), pools_per_round=cfg.pallas_cc_pools,
+                               interpret=True, init_labels=warm if use_warm else None)
+        else:
+            labels = jnp.stack([jd._cc(hv[0], cfg.cc_iters, cfg), jd._cc(hv[1], cfg.cc_iters, cfg)])
+        same = jnp.array_equal(h_exp, dbg.h_expanded) & jnp.array_equal(v_exp, dbg.v_expanded)
+        return res, (h_exp, v_exp, labels.astype(jnp.int32), same)
+
+    return jax.jit(fn)
+
+
+def variant_view_record(res, stages) -> dict:
+    rec = {"points": grid_records(res.grid), "ok": bool(res.ok), "stable": bool(res.stable),
+           "bridged_components": int(res.bridged_components)}
+    if stages:
+        h_exp, v_exp, labels, same = stages
+        if not bool(same):
+            raise AssertionError("the JAX bridge stage disagrees with detect_grid's debug masks")
+        rec.update(h_exp=digest(h_exp), v_exp=digest(v_exp), labels=digest(labels),
+                   canvas=list(np.asarray(labels).shape[-2:]))
+    return rec
+
+
+def variant_images(size: str):
+    from cylinder_pose_estimation_tpu_torch.utils.synthetic import (
+        cylinder_view,
+        example_pair,
+        plane_view,
+    )
+
+    h, w = (int(v) for v in size.split("x"))
+    if size == "240x320":
+        cyl = [cylinder_view(h, w, **spec) for spec in SMALL_CYLINDER_SPECS]
+        plane = [plane_view(h, w, **spec) for spec in SMALL_PLANE_SPECS]
+        return cyl, plane, {"cylinder_views": SMALL_CYLINDER_SPECS, "plane_views": SMALL_PLANE_SPECS}
+    _, (i1, i2) = example_pair(h, w, n_frames=VARIANT_FRAMES)
+    plane = [plane_view(h, w, **spec) for spec in PLANE_SPECS]
+    return list(np.concatenate([i1, i2])), plane, {
+        "cylinder_views": f"example_pair({h}, {w}, n_frames={VARIANT_FRAMES}, seed=0): the img1 frames, "
+                          "then the img2 frames",
+        "plane_views": "the specs of torch_plane_scenes.json"}
+
+
+def bridge_case_record() -> dict:
+    from cylinder_pose_estimation_tpu.config import CylinderDetectConfig
+    from cylinder_pose_estimation_tpu.models.detector import _bridge
+
+    cfg = CylinderDetectConfig(height=240, width=320)
+    m = bridge_case_mask(240, 320)
+    out, angle, n_pre = jax.jit(lambda x: _bridge(
+        x, 0.0, jnp.float32(cfg.bridge_kernel_base + BRIDGE_CASE_R0), cfg.bridge_kernel_base + 160, cfg))(
+        jnp.asarray(m))
+    out = np.asarray(out)
+    if not out[118:124, 140:160].any():
+        raise AssertionError("the full-resolution _bridge case did not bridge")
+    return {"circle_radius0": BRIDGE_CASE_R0, "h_exp": digest(out), "pixels": int(out.sum()),
+            "angle": float(angle), "n_pre": int(n_pre)}
+
+
+def variants_fixture() -> None:
+    t0 = time.perf_counter()
+    records = {}
+    for size in ("240x320", "480x640"):
+        h, w = (int(v) for v in size.split("x"))
+        small = size == "240x320"
+        cyl, plane, scenes = variant_images(size)
+        rec = {"scenes": scenes, "configs": []}
+        for spec, views, is_plane in ([(c, cyl, False) for c in VARIANT_CONFIGS if size in c["sizes"]]
+                                      + [(c, plane, True) for c in PLANE_VARIANT_CONFIGS]):
+            t1 = time.perf_counter()
+            fn = jax_variant_fn(variant_cfg(spec, is_plane, h, w), with_stages=small)
+            out = [variant_view_record(*fn(jnp.asarray(v))) for v in views]
+            rec["configs"].append({"name": spec["name"], "mode": "plane" if is_plane else "cylinder",
+                                   "use_pallas": spec["use_pallas"], "overrides": spec["overrides"],
+                                   "views": out})
+            print(f"variants {size} {spec['name']}: points {[len(v['points']) for v in out]}, bridged "
+                  f"{[v['bridged_components'] for v in out]} ({time.perf_counter() - t1:.0f} s)", flush=True)
+        if small:
+            rec["bridge_case"] = bridge_case_record()
+        records[size] = rec
+    with open(VARIANT_FIXTURE, "w") as f:
+        json.dump({
+            "generator": "tools/make_torch_port_fixtures.py",
+            "path": "JAX package, CPU, float32: detect_grid with CylinderDetectConfig / "
+                    "PlaneDetectConfig(height, width, use_pallas, **overrides), the kernel branch in "
+                    "interpret mode; digests: SHA-256 of the bool bridged masks and the int32 final "
+                    "labels (2, h, w) as C-order bytes",
+            "records": records,
+        }, f)
+    print(f"wrote {VARIANT_FIXTURE} ({time.perf_counter() - t0:.0f} s)")
+
+
+# The CLI record: frames of registration_sequence at integer-degree angles
+# (the default swing, rounded), the fewest from CLI_MIN_FRAMES up whose
+# registration is well posed on two or more healthy frames in both packages.
+# The experiment runs with --no-clahe: on these synthetic frames adapthisteq
+# lifts the noise floor until no frame detects a stable grid, and the
+# registration then fits every frame's few points.
+CLI_EXPERIMENT_ARGS = ("--no-clahe",)
+CLI_MIN_FRAMES = 4
+CLI_MAX_FRAMES = 30
+
+
+def port_cli_well_posed(folder: str) -> bool:
+    """The port's experiment on the CPU: well posed, on two or more healthy
+    frames (so the health mask is in force)."""
+    import contextlib
+    import io
+    import re
+
+    from cylinder_pose_estimation_tpu_torch import cli as tcli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        tcli.main(["experiment", "--camera-json", os.path.join(folder, "cameras.json"),
+                   "--input", folder, "--device", "cpu", *CLI_EXPERIMENT_ARGS])
+    m = re.search(r"registration: (\d+) of \d+ frames healthy.*well posed (True|False)", buf.getvalue())
+    return int(m.group(1)) >= 2 and m.group(2) == "True"
+
+
+def jax_cli_record(folder: str, out_dir: str) -> dict:
+    """The JAX CLI's detect-folder and experiment on ``folder``; the
+    experiment's jitted step is recorded by wrapping ``jax.jit``."""
+    import contextlib
+    import io
+
+    from cylinder_pose_estimation_tpu import cli as jcli
+    from cylinder_pose_estimation_tpu.models.pipeline import frame_health
+
+    cam = os.path.join(folder, "cameras.json")
+    jcli.main(["detect-folder", "--camera-json", cam, "--input", folder,
+               "--output", os.path.join(out_dir, "detect")])
+    with open(os.path.join(out_dir, "detect", "processed_images_data.json")) as f:
+        detect = json.load(f)
+    outs, real_jit = [], jax.jit
+
+    def recording_jit(fn, *a, **k):
+        compiled = real_jit(fn, *a, **k)
+
+        def call(*args, **kw):
+            out = compiled(*args, **kw)
+            outs.append(out)
+            return out
+
+        return call
+
+    buf = io.StringIO()
+    jax.jit = recording_jit
+    try:
+        with contextlib.redirect_stdout(buf):
+            jcli.main(["experiment", "--camera-json", cam, "--input", folder,
+                       "--output", os.path.join(out_dir, "experiment"), *CLI_EXPERIMENT_ARGS])
+    finally:
+        jax.jit = real_jit
+    batch, reg = outs[-1]
+    t = np.load(os.path.join(out_dir, "experiment", "T_cam_agv.npy"))
+    return {
+        "detect_folder": detect,
+        "experiment": {
+            "stdout": buf.getvalue().splitlines()[:-1],
+            "fvals": np.asarray(batch.fit.fvals, np.float64).tolist(),
+            "healthy": int(np.asarray(frame_health(batch)).sum()),
+            "healthy_frames": np.asarray(frame_health(batch)).tolist(),
+            "t_cam_agv": np.asarray(t, np.float64).tolist(),
+            "fval0": float(reg.fval0), "fval": float(reg.fval),
+            "jtj_min_eig": float(reg.jtj_min_eig), "well_posed": bool(reg.well_posed),
+        },
+    }
+
+
+def cli_fixture() -> None:
+    import tempfile
+
+    from cylinder_pose_estimation_tpu_torch.utils.synthetic import (
+        integer_degree_angles,
+        write_registration_folder,
+    )
+
+    t0 = time.perf_counter()
+    records = {}
+    for size in ("240x320", "480x640"):
+        h, w = (int(v) for v in size.split("x"))
+        with tempfile.TemporaryDirectory() as tmp:
+            for n in range(CLI_MIN_FRAMES, CLI_MAX_FRAMES + 1):
+                folder = os.path.join(tmp, f"in{n}")
+                names = write_registration_folder(folder, n, h, w)
+                if not port_cli_well_posed(folder):
+                    continue
+                rec = jax_cli_record(folder, os.path.join(tmp, f"out{n}"))
+                print(f"cli {size} F={n}: JAX well_posed {rec['experiment']['well_posed']}, healthy "
+                      f"{rec['experiment']['healthy']} ({time.perf_counter() - t0:.0f} s)", flush=True)
+                if rec["experiment"]["well_posed"] and rec["experiment"]["healthy"] >= 2:
+                    records[size] = {"frames": n, "names": names,
+                                     "experiment_args": list(CLI_EXPERIMENT_ARGS),
+                                     "angles_deg": integer_degree_angles(n).tolist(), **rec}
+                    break
+            else:
+                raise AssertionError(f"no frame count up to {CLI_MAX_FRAMES} is well posed at {size}")
+    with open(CLI_FIXTURE, "w") as f:
+        json.dump({
+            "generator": "tools/make_torch_port_fixtures.py",
+            "path": "JAX package's cli.main on the CPU, defaults (use_pallas=False), experiment with "
+                    "experiment_args: detect-folder's processed_images_data.json and experiment's "
+                    "per-frame fvals and registration",
+            "inputs": "cylinder_pose_estimation_tpu_torch.utils.synthetic.write_registration_folder"
+                      "(folder, frames, H, W)",
+            "records": records,
+        }, f)
+    print(f"wrote {CLI_FIXTURE} ({time.perf_counter() - t0:.0f} s)")
+
+
 FIXTURE_WRITERS = {"endpoint": endpoint_fixture, "plane": plane_fixture,
-                   "registration": registration_fixture}
+                   "registration": registration_fixture, "variants": variants_fixture,
+                   "cli": cli_fixture}
 
 
 if __name__ == "__main__":

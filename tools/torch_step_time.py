@@ -114,7 +114,8 @@ def stage_ms(det, views, cfg, reps: int) -> dict:
     br = bridge_fn(roi.mh, roi.mv, roi.circle_radius0, cfg)
     st = det.GridState(
         cents=front.cents, inside=roi.inside, bbox=roi.bbox, h_exp=br.h_exp, v_exp=br.v_exp,
-        circle_radius0=roi.circle_radius0, bright_blur=front.bright_blur, warm_labels=br.warm_labels,
+        circle_radius0=roi.circle_radius0, gray=front.gray, bright_blur=front.bright_blur,
+        warm_labels=br.warm_labels,
         bridge_angles=br.angles, n_pre=br.n_pre, binary=front.binary, mh=roi.mh, mv=roi.mv,
         carve_domain=roi.carve_domain)
     return {
