@@ -79,8 +79,10 @@ phase fails.  Phases:
    just before and read just after (the CC family's and the bridge's
    global routes); every kernel call there is captured and held
    ``torch.equal`` to its plain version on the card, with its ms, device
-   ms, device kernels per call (at most the global routes' counts; "not
-   measured" where torch.profiler reads nothing) and byte bound; the card's
+   ms and device ms by kernel name, device kernels per call (at most the
+   global routes' counts, ``frontend.cc_global_launches`` and
+   ``bridge_global_launches``; "not measured" where torch.profiler reads
+   nothing) and byte bound; the card's
    grids are held to the CPU port's (ids identical, xy within 0.05 px,
    ``ok`` and ``stable`` equal); ms/frame of each config and size.
 13. Variants (run after phase 12): the configurations of
@@ -193,18 +195,34 @@ def bound_ms(nbytes: int) -> float:
     return nbytes / HBM_BYTES_PER_S * 1e3
 
 
+def kernel_name(e) -> str:
+    """A profiler event's kernel name without its arguments and namespace."""
+    return e.name.replace("(anonymous namespace)::", "").split("(")[0].replace("void ", "")
+
+
 def device_launches(fn, attempts: int = 3):
-    """(CUDA kernels that one fn() call launches, their summed device ms),
-    by torch.profiler; (None, None) if no session of ``attempts`` records
-    them.  Late in a long process a session may record nothing, or lose the
-    first kernels it sees: each session runs fn() twice with a spin kernel
-    (``torch.cuda._sleep``) between the two and counts the kernels after the
-    spin, the second call's."""
+    """(CUDA kernels that one fn() call launches, their summed device ms,
+    device ms by kernel name), by torch.profiler; (None, None, None) if no
+    session of ``attempts`` records them.  Late in a long process a session
+    may record nothing, or lose the first kernels it sees: each session runs
+    fn() twice with a spin kernel (``torch.cuda._sleep``) between the two
+    and counts the kernels after the spin, the second call's.  Where nothing
+    follows the spin but the session holds two identical calls' kernels (the
+    spin's place in the trace lost), the second of them counts.  After a
+    session that recorded no whole call it waits half a second."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    def summary(evs):
+        by_name = {}
+        for e in evs:
+            name = kernel_name(e)
+            by_name[name] = by_name.get(name, 0.0) + (e.time_range.end - e.time_range.start) / 1e3
+        return len(evs), sum(by_name.values()), by_name
+
     fn()
     torch.cuda.synchronize()
+    seen = []
     for _ in range(attempts):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fn()
@@ -219,8 +237,16 @@ def device_launches(fn, attempts: int = 3):
         spins = [i for i, e in enumerate(events) if "spin" in e.name.lower()]
         tail = events[spins[-1] + 1:] if spins else []
         if tail:
-            return len(tail), sum((e.time_range.end - e.time_range.start) / 1e3 for e in tail)
-    return None, None
+            return summary(tail)
+        calls = [e for e in events if "spin" not in e.name.lower()]
+        half = len(calls) // 2
+        if calls and len(calls) % 2 == 0 and [e.name for e in calls[:half]] == [e.name for e in calls[half:]]:
+            return summary(calls[half:])
+        seen.append([kernel_name(e) for e in events])
+        time.sleep(0.5)
+    print(f"device_launches: no profiler session recorded a whole call; kernels seen per session: {seen}",
+          flush=True)
+    return None, None, None
 
 
 def ptxas_report(build_dir) -> list:
@@ -469,13 +495,13 @@ def compare(report, name, kernel_fn, plain_fn, label, timed, nbytes=0, site=True
         max_dev = DEVICE_LAUNCHES_MAX[name] if max_dev is None else max_dev
         ms_k = cuda_ms(kernel_fn)
         ms_p = cuda_ms(plain_fn, reps=5, warmup=1)
-        n_dev, dev_ms = device_launches(kernel_fn)
+        n_dev, dev_ms, by_name = device_launches(kernel_fn)
         if (n_dev is None and into is None) or (n_dev is not None and n_dev > max_dev):
             raise AssertionError(f"{name} [{label}]: {n_dev} device kernels in a call (at most {max_dev})")
         if site and into is not None:
             rep[into].append({"site": label, "ms": ms_k, "device_ms": dev_ms, "plain_ms": ms_p,
                               "bytes": nbytes, "bound_ms": bound_ms(nbytes),
-                              "device_kernels_per_call": n_dev})
+                              "device_kernels_per_call": n_dev, "device_ms_by_kernel": by_name})
         elif site:
             rep["device_ms"] += dev_ms
             rep["ms"] += ms_k
@@ -486,6 +512,8 @@ def compare(report, name, kernel_fn, plain_fn, label, timed, nbytes=0, site=True
         dev_txt = "not measured" if dev_ms is None else f"{dev_ms:.4f} ms"
         line += (f"; kernel {ms_k:.4f} ms (device {dev_txt}), plain {ms_p:.4f} ms, bound "
                  f"{bound_ms(nbytes):.4f} ms ({nbytes} B), device kernels per call {n_dev}")
+        if by_name and len(by_name) > 1:
+            line += f", device ms by kernel {({k: round(v, 4) for k, v in by_name.items()})}"
     print(line, flush=True)
 
 
@@ -958,24 +986,28 @@ def large_phase(frontend, device, fit_cfg, smi):
             for args, kw in cap["connected_components"]:
                 m, init = args[0], kw.get("init_labels")
                 r, p = kw["rounds"], kw["pools_per_round"]
-                glob = frontend.cc_plan(*m.shape).get("route") == "global"
+                plan = frontend.cc_plan(*m.shape, pools_per_round=p)
+                glob = plan.get("route") == "global"
                 compare(report, "connected_components",
                         lambda: frontend.connected_components(m, r, p, init),
                         lambda: frontend.connected_components_plain(m, r, p, init),
                         f"{tag} {tuple(m.shape)} {r}x{p} {'warm' if init is not None else 'cold'}"
                         f"{' global' if glob else ''}", timed,
                         nbytes=frontend.min_bytes("connected_components", *m.shape, warm=init is not None),
-                        max_dev=frontend.cc_global_launches(r, p) if glob else None, into="large_sites")
+                        max_dev=frontend.cc_global_launches(r, p, plan["fused"]) if glob else None,
+                        into="large_sites")
             for args, kw in cap["component_payload_minmax"]:
                 m, pay = args
                 r, p = kw["rounds"], kw["pools_per_round"]
-                glob = frontend.cc_plan(*m.shape, channels=2).get("route") == "global"
+                plan = frontend.cc_plan(*m.shape, channels=2, pools_per_round=p)
+                glob = plan.get("route") == "global"
                 compare(report, "component_payload_minmax",
                         lambda: frontend.component_payload_minmax(m, pay, r, p),
                         lambda: frontend.component_payload_minmax_plain(m, pay, r, p),
                         f"{tag} {tuple(m.shape)} {r}x{p}{' global' if glob else ''}", True,
                         nbytes=frontend.min_bytes("component_payload_minmax", *m.shape),
-                        max_dev=frontend.cc_global_launches(r, p) if glob else None, into="large_sites")
+                        max_dev=frontend.cc_global_launches(r, p, plan["fused"]) if glob else None,
+                        into="large_sites")
             for args, kw in cap["bridge_morphology"]:
                 masks, exps, angles, klen = args
                 glob = frontend.bridge_plan(*masks.shape).get("route") == "global"
@@ -1135,7 +1167,7 @@ def variants_phase(frontend, device, fit_cfg, smi):
                         if kname == "connected_components":
                             init = kw.get("init_labels")
                             key = (kname, tuple(m.shape), r, p, init is not None)
-                            glob = frontend.cc_plan(*m.shape).get("route") == "global"
+                            plan = frontend.cc_plan(*m.shape, pools_per_round=p)
                             label = f"{name} {tuple(m.shape)} {r}x{p} {'warm' if init is not None else 'cold'}"
                             kfn = functools.partial(frontend.connected_components, m, r, p, init)
                             pfn = functools.partial(frontend.connected_components_plain, m, r, p, init)
@@ -1143,12 +1175,13 @@ def variants_phase(frontend, device, fit_cfg, smi):
                         else:
                             pay = args[1]
                             key = (kname, tuple(m.shape), r, p)
-                            glob = frontend.cc_plan(*m.shape, channels=2).get("route") == "global"
+                            plan = frontend.cc_plan(*m.shape, channels=2, pools_per_round=p)
                             label = f"{name} {tuple(m.shape)} {r}x{p}"
                             kfn = functools.partial(frontend.component_payload_minmax, m, pay, r, p)
                             pfn = functools.partial(frontend.component_payload_minmax_plain, m, pay, r, p)
                             nbytes = frontend.min_bytes(kname, *m.shape)
-                        max_dev = frontend.cc_global_launches(r, p) if glob else None
+                        glob = plan.get("route") == "global"
+                        max_dev = frontend.cc_global_launches(r, p, plan["fused"]) if glob else None
                     timed = key not in timed_sites
                     timed_sites.add(key)
                     compare(report, kname, kfn, pfn, label + (" global" if glob else ""), timed, nbytes=nbytes,
@@ -1355,6 +1388,10 @@ def main() -> int:
     print(f"plan component_payload_minmax (4B, 240, 384): {frontend.cc_plan(4 * batch, 240, 384, channels=2)}",
           flush=True)
     print(f"plan bridge_morphology (4B, 240, 384): {frontend.bridge_plan(4 * batch, 240, 384)}", flush=True)
+    for shape, ch, pools in (((4 * batch, 480, 640), 1, 2), ((4 * batch, 480, 640), 2, 4),
+                             ((4 * LARGE_BATCH, 360, 640), 1, 2), ((4 * LARGE_BATCH, 544, 1024), 2, 4)):
+        print(f"plan global route {shape} channels {ch} pools {pools}: "
+              f"{frontend.cc_plan(*shape, channels=ch, pools_per_round=pools)}", flush=True)
     with open(GOLDEN) as f:
         golden = json.load(f)["scenes"]
     with open(ENDPOINT) as f:
@@ -1477,7 +1514,7 @@ def main() -> int:
                                   ("xla e2e", e2e_xla, detect_xla)):
         ms_e2e = cuda_ms(fn_e2e, reps=10, warmup=2)
         ms_det = cuda_ms(fn_det, reps=10, warmup=2)
-        n_dev, dev_ms = device_launches(fn_det)
+        n_dev, dev_ms, _ = device_launches(fn_det)
         dev_txt = "not measured" if n_dev is None else f"{n_dev} device kernels, {dev_ms:.4f} device ms"
         print(f"{label} B={batch} {height}x{width}: {ms_e2e / batch:.4f} ms/frame "
               f"(detect {ms_det / batch:.4f} ms/frame, fit {(ms_e2e - ms_det) / batch:.4f} ms/frame); "
@@ -1507,10 +1544,11 @@ def main() -> int:
                   f"device kernels per call {n_dev}", flush=True)
         for site in large["large_sites"] + variant["variant_sites"]:
             dev = site["device_ms"]
+            by_name = {n: round(v, 4) for n, v in (site["device_ms_by_kernel"] or {}).items()}
             print(f"timing {k} [{site['site']}]: kernel {site['ms']:.4f} ms (device "
                   f"{'not measured' if dev is None else f'{dev:.4f} ms'}), plain {site['plain_ms']:.4f} ms, "
                   f"bound {site['bound_ms']:.4f} ms ({site['bytes']} B), device kernels per call "
-                  f"{site['device_kernels_per_call']}", flush=True)
+                  f"{site['device_kernels_per_call']} {by_name}", flush=True)
         rows.append({
             "name": k, "route": "cuda", "source": frontend.SOURCES[k],
             "replaces": frontend.REPLACES[k], "launches": sum(c[k] for c in by_path.values()),

@@ -38,10 +38,19 @@
 //
 // Large frames: where even 8 CTAs cannot hold a mask's buffers (at the
 // detector's half-res canvas from 720x1280 on, with two channels from
-// 768x1024), the wrapper's plan picks the global route at the end of this
-// file instead: the same passes, one launch each, on buffers in device
-// memory.  At (n, 544, 1024) a channel's two buffers take 4.5 MB a mask, so
-// a small batch stays in the 50 MB L2 between passes.
+// 600x800 on, and every full-resolution 480x640 mask), the wrapper's plan
+// picks the global route at the end of this file.  It is bound by memory as
+// well: each round must read the state once and write it once (at
+// (64, 480, 640) one channel plane is 78.6 MB, past the 50 MB L2).  A first
+// version ran one launch per pass and walked each column with one thread
+// over the full height, ~2h dependent loads per thread on 10 warps per SM or
+// fewer: latency-bound, 1.5-4% of the byte bound.  The band design keeps a
+// round in one pass over the planes: each CTA holds a band of rows with a
+// halo of `pools` rows in shared memory, runs the pools, the row runs and
+// its band's column runs there, and a small edge table joins the runs that
+// cross bands (the cluster kernel's scheme, with device memory in place of
+// distributed shared memory).  Column walks shrink from 2h steps to 2
+// band_rows steps on n x bands x w threads.
 
 #include <cooperative_groups.h>
 
@@ -326,20 +335,51 @@ int launch_cc(const float* mask, const int* src, int* out0, int* out1, int n, in
 }
 
 // ---------------------------------------------------------------------------
-// The large-frame route: the same schedule with the channels in device
-// memory, for masks whose buffers do not fit in one cluster's shared memory.
-// One launch per pass: the start, then per round `pools` Jacobi pools (each
-// from one buffer into the other), the row run pass (one warp per row,
-// row_runs) and the column run pass (one thread per column, walking down and
-// back; a warp's 32 columns are neighbours, so its loads coalesce).  The
-// buffers are the output and a scratch plane per channel, ordered so that the
-// last pool writes the output.
+// The large-frame route, for masks whose buffers do not fit in one cluster's
+// shared memory: the same schedule in bands of band_rows rows at full width,
+// two launches per round.
+//  * cc_band: one CTA per (mask, band) loads the band's rows of the exact
+//    state (round 1: the start values from the mask and src) with a halo of
+//    `pools` rows on each side into shared memory, runs the round's Jacobi
+//    pools there (the rows it can trust shrink by one per pool, so after the
+//    pools the band's own rows are exact), then the row runs (row_runs) and
+//    the column runs over the band's rows.  It writes the band and, per
+//    column, the edge tables: per channel the extreme of the run touching
+//    the band's top and bottom edges, and the two runs' lengths in rows (the
+//    band's height: the whole column segment is one run).
+//  * cc_fix: one thread per (mask, band, column) finishes the runs that
+//    cross band edges, as the cluster kernel joins its CTAs: it walks up
+//    (down) over the other bands' edge entries while they stay in the mask
+//    and are one run, and rewrites its band's edge runs in place.  The state
+//    is then exact, and the next round's halos read it.
+// Where two buffers per channel and the halo leave fewer than max(pools, 1)
+// rows of a band (masks some thousands of pixels wide), the pools run as one
+// launch each on device-memory planes (cc_global_pool) and the band kernel
+// runs the row and column runs only (the plan's "fused" false).  The state
+// lives in the output and a scratch plane per channel, ordered so that the
+// last round writes the output.
 // ---------------------------------------------------------------------------
 
 constexpr int kGThreads = 256;
 
 struct Planes {
   int* buf[2][2];  // [channel][buffer]
+};
+
+// The planes a band launch reads (unused in round 1 of the fused route) and
+// writes, per channel.
+struct BandIo {
+  const int* in[2];
+  int* out[2];
+};
+
+// The edge tables, per (mask, band) = blockIdx.x of cc_band, and side (0:
+// top, 1: bottom): vals [mask, band][side][channel][w] holds the extreme of
+// the run touching that edge (the channel's background where the edge pixel
+// is out of the mask), lens [mask, band][side][w] that run's length in rows.
+struct Edges {
+  int* vals;
+  int* lens;
 };
 
 __device__ __forceinline__ long long global_tid() { return (long long)blockIdx.x * kGThreads + threadIdx.x; }
@@ -379,78 +419,274 @@ __global__ void __launch_bounds__(kGThreads) cc_global_pool(Planes p, int cur, i
   }
 }
 
+// Shared ints: per channel nbuf buffers (2 with pools, for the Jacobi
+// passes; else 1) of (band_rows + 2 pools) x w.
 template <int kCh>
-__global__ void __launch_bounds__(kGThreads) cc_global_rows(Planes p, int cur, int n, int h, int w) {
-  const long long row = global_tid() / 32;  // one warp per row: the test is warp-uniform
-  if (row >= (long long)n * h) return;
-  const int bg[2] = {h * w, -1};
-#pragma unroll
-  for (int c = 0; c < kCh; ++c) row_runs(c, bg[c], p.buf[c][cur] + row * w, w, threadIdx.x & 31);
-}
+__global__ void __launch_bounds__(kCCThreads, 1) cc_band(const float* __restrict__ mask,
+                                                        const int* __restrict__ src, BandIo io, Edges e,
+                                                        int h, int w, int bands, int band_rows, int pools,
+                                                        int first) {
+  extern __shared__ int smem_band[];
+  const int tid = threadIdx.x;
+  const int lane = tid % 32;
+  const int warp = tid / 32;
+  const int nwarps = kCCThreads / 32;
+  const int img = blockIdx.x / bands;
+  const int y0 = (blockIdx.x - img * bands) * band_rows;
+  const int nr = min(band_rows, h - y0);            // the band's rows
+  const int ly0 = max(y0 - pools, 0);               // the first loaded row
+  const int n_px = (min(y0 + nr + pools, h) - ly0) * w;
+  const int off = (y0 - ly0) * w;                   // the band's first pixel in a buffer
+  const int hw = h * w;
+  const int big = hw;
+  const int bg[2] = {big, -1};
+  const int nbuf = pools > 0 ? 2 : 1;
+  const int buf_len = (band_rows + 2 * pools) * w;
+  auto buf = [&](int c, int b) { return smem_band + (nbuf * c + b) * buf_len; };
+  const size_t base = (size_t)img * hw + (size_t)ly0 * w;
 
-template <int kCh>
-__global__ void __launch_bounds__(kGThreads) cc_global_cols(Planes p, int cur, int n, int h, int w) {
-  const long long t = global_tid();
-  if (t >= (long long)n * w) return;
-  const long long img = t / w;
-  const int x = (int)(t - img * w);
-  const int bg[2] = {h * w, -1};
+  // Round 1's pixel (y, x), stepped kCCThreads pixels at a time without a
+  // division per pixel.
+  const int step_y = kCCThreads / w;
+  const int step_x = kCCThreads - step_y * w;
+  int y = ly0 + tid / w;
+  int x = tid % w;
+  for (int i0 = tid; i0 < n_px; i0 += kIlp * kCCThreads) {
+    int v[kCh][kIlp];
+    if (first) {
+      float mv[kIlp];
+      int sv[kIlp];
 #pragma unroll
-  for (int c = 0; c < kCh; ++c) {
-    const int b = bg[c];
-    int* lab = p.buf[c][cur] + img * h * w + x;
-    int run = b;
-    for (int y = 0; y < h; ++y) {
-      const int v = lab[(size_t)y * w];
-      if (v != b) {
-        run = comb(c, run, v);
-        lab[(size_t)y * w] = run;
-      } else {
-        run = b;
+      for (int u = 0; u < kIlp; ++u) {
+        const int i = i0 + u * kCCThreads;
+        mv[u] = i < n_px ? mask[base + i] : 0.0f;
+        sv[u] = (src && i < n_px) ? src[base + i] : big;
+      }
+#pragma unroll
+      for (int u = 0; u < kIlp; ++u) {
+        const bool in = y >= 1 && y < h - 1 && x >= 1 && x < w - 1 && mv[u] > 0.5f;
+        const int v0 = kCh == 1 ? min(sv[u], y * w + x) : sv[u];
+        y += step_y;
+        x += step_x;
+        if (x >= w) {
+          x -= w;
+          ++y;
+        }
+#pragma unroll
+        for (int c = 0; c < kCh; ++c) v[c][u] = in ? v0 : bg[c];
+      }
+    } else {
+#pragma unroll
+      for (int u = 0; u < kIlp; ++u) {
+        const int i = i0 + u * kCCThreads;
+#pragma unroll
+        for (int c = 0; c < kCh; ++c) v[c][u] = i < n_px ? io.in[c][base + i] : bg[c];
       }
     }
-    run = b;
-    for (int y = h - 1; y >= 0; --y) {
-      const int v = lab[(size_t)y * w];
-      if (v != b) {
-        run = comb(c, run, v);
-        lab[(size_t)y * w] = run;
-      } else {
-        run = b;
+#pragma unroll
+    for (int u = 0; u < kIlp; ++u) {
+      const int i = i0 + u * kCCThreads;
+      if (i < n_px) {
+#pragma unroll
+        for (int c = 0; c < kCh; ++c) {
+          buf(c, 0)[i] = v[c][u];
+          if (nbuf == 2) buf(c, 1)[i] = v[c][u];
+        }
       }
+    }
+  }
+  __syncthreads();
+
+  // Jacobi pools over the loaded rows.  The first and last loaded rows lack
+  // a neighbour row and keep their loaded values; only halo rows read them.
+  // Background pixels hold their background in both buffers from the load.
+  int cur = 0;
+  for (int q = 0; q < pools; ++q) {
+#pragma unroll 4
+    for (int i = w + tid; i < n_px - w; i += kCCThreads) {
+      if (buf(0, cur)[i] != big) {
+#pragma unroll
+        for (int c = 0; c < kCh; ++c) {
+          const int* mid = buf(c, cur) + i;
+          const int* up = mid - w;
+          const int* dn = mid + w;
+          int v = comb(c, mid[0], comb(c, mid[-1], mid[1]));
+          v = comb(c, v, comb(c, up[-1], comb(c, up[0], up[1])));
+          v = comb(c, v, comb(c, dn[-1], comb(c, dn[0], dn[1])));
+          buf(c, cur ^ 1)[i] = v;
+        }
+      }
+    }
+    cur ^= 1;
+    __syncthreads();
+  }
+
+  // Row run pass over the band's rows: one warp per row (row_runs).
+#pragma unroll
+  for (int c = 0; c < kCh; ++c)
+    for (int ly = warp; ly < nr; ly += nwarps) row_runs(c, bg[c], buf(c, cur) + off + ly * w, w, lane);
+  __syncthreads();
+
+  // Column run pass over the band's rows, then the edge tables.
+  const size_t edge = (size_t)blockIdx.x * 2;  // [mask, band][side 0]
+  for (int x = tid; x < w; x += kCCThreads) {
+    int top = nr, bot = nr;  // lengths of the runs touching the top and bottom edges
+#pragma unroll
+    for (int c = 0; c < kCh; ++c) {
+      const int b = bg[c];
+      int* lab = buf(c, cur) + off + x;
+      int run = b;
+      for (int ly = 0; ly < nr; ++ly) {
+        const int v = lab[ly * w];
+        if (v != b) {
+          run = comb(c, run, v);
+          lab[ly * w] = run;
+        } else {
+          run = b;
+          if (top == nr) top = ly;
+        }
+      }
+      run = b;
+      for (int ly = nr - 1; ly >= 0; --ly) {
+        const int v = lab[ly * w];
+        if (v != b) {
+          run = comb(c, run, v);
+          lab[ly * w] = run;
+        } else {
+          run = b;
+          if (bot == nr) bot = nr - 1 - ly;
+        }
+      }
+      e.vals[(edge * kCh + c) * w + x] = lab[0];
+      e.vals[((edge + 1) * kCh + c) * w + x] = lab[(nr - 1) * w];
+    }
+    e.lens[edge * w + x] = top;
+    e.lens[(edge + 1) * w + x] = bot;
+  }
+  __syncthreads();
+
+  const size_t out = (size_t)img * hw + (size_t)y0 * w;
+#pragma unroll
+  for (int c = 0; c < kCh; ++c) {
+    const int* lab = buf(c, cur) + off;
+    for (int i = tid; i < nr * w; i += kCCThreads) io.out[c][out + i] = lab[i];
+  }
+}
+
+// Runs crossing band edges: one thread per (mask, band, column) walks up
+// (down) while the neighbour's edge pixel is in the mask, past neighbours
+// that are one run, then rewrites its own edge runs of io.out (in place:
+// no other thread touches them).
+template <int kCh>
+__global__ void __launch_bounds__(kGThreads) cc_fix(BandIo io, Edges e, int n, int h, int w, int bands,
+                                                    int band_rows) {
+  const long long t = global_tid();
+  if (t >= (long long)n * bands * w) return;
+  const int x = (int)(t % w);
+  const int mb = (int)(t / w);  // mask * bands + band
+  const int band = mb % bands;
+  const int m0 = mb - band;     // the mask's first band
+  const int y0 = band * band_rows;
+  const int nr = min(band_rows, h - y0);
+  const int bg[2] = {h * w, -1};
+  auto len = [&](int b, int side) { return e.lens[((size_t)(m0 + b) * 2 + side) * w + x]; };
+  auto val = [&](int b, int side, int c) { return e.vals[(((size_t)(m0 + b) * 2 + side) * kCh + c) * w + x]; };
+  auto rows = [&](int b) { return min(band_rows, h - b * band_rows); };
+  const int top = len(band, 0);
+  const int bot = len(band, 1);
+  int up[kCh], dn[kCh];
+#pragma unroll
+  for (int c = 0; c < kCh; ++c) up[c] = dn[c] = bg[c];
+  if (top > 0) {
+    for (int b = band - 1; b >= 0; --b) {
+      if (len(b, 1) == 0) break;
+#pragma unroll
+      for (int c = 0; c < kCh; ++c) up[c] = comb(c, up[c], val(b, 1, c));
+      if (len(b, 0) < rows(b)) break;
+    }
+  }
+  if (bot > 0) {
+    for (int b = band + 1; b < bands; ++b) {
+      if (len(b, 0) == 0) break;
+#pragma unroll
+      for (int c = 0; c < kCh; ++c) dn[c] = comb(c, dn[c], val(b, 0, c));
+      if (len(b, 1) < rows(b)) break;
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < kCh; ++c) {
+    int* o = io.out[c] + (size_t)(mb / bands) * h * w + (size_t)y0 * w + x;
+    const int vt = val(band, 0, c);
+    const int vb = val(band, 1, c);
+    if (top == nr) {  // one run: both carries reach every row
+      const int v = comb(c, vt, comb(c, up[c], dn[c]));
+      if (v != vt)
+        for (int ly = 0; ly < nr; ++ly) o[(size_t)ly * w] = v;
+    } else {
+      const int a = comb(c, vt, up[c]);
+      if (a != vt)
+        for (int ly = 0; ly < top; ++ly) o[(size_t)ly * w] = a;
+      const int z = comb(c, vb, dn[c]);
+      if (z != vb)
+        for (int ly = nr - bot; ly < nr; ++ly) o[(size_t)ly * w] = z;
     }
   }
 }
 
 inline unsigned blocks_for(long long threads) { return (unsigned)((threads + kGThreads - 1) / kGThreads); }
 
-// outs: kCh output planes; scratch: kCh planes of n * h * w ints.
+// outs: kCh output planes; scratch: kCh planes of n * h * w ints, then the
+// edge tables, n * bands * w * (2 kCh + 2) ints.  The plan
+// (ops/frontend.cc_plan) passes band_rows, fused and the shared bytes; they
+// must agree with cc_band's layout, or nothing launches.  Launches: fused,
+// 2 per round (1 with no round); else the start, then per round the pools,
+// the band and the fix.
 template <int kCh>
 int launch_cc_global(const float* mask, const int* src, int* const* outs, int* scratch, int n, int h,
-                     int w, int rounds, int pools, cudaStream_t stream) {
-  if (h < 1 || w < 1 || rounds < 0 || pools < 0 || (long long)n * h * w >= (1LL << 31))
+                     int w, int rounds, int pools, int band_rows, int fused, int smem_bytes,
+                     cudaStream_t stream) {
+  if (h < 1 || w < 1 || rounds < 0 || pools < 0 || band_rows < 1 || (long long)n * h * w >= (1LL << 31))
+    return (int)cudaErrorInvalidValue;
+  const int kp = fused ? pools : 0;  // pools inside the band kernel
+  if ((long long)smem_bytes != 4LL * kCh * (kp > 0 ? 2 : 1) * (band_rows + 2LL * kp) * w)
     return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
   const long long px = (long long)n * h * w;
-  const int last = (int)(((long long)rounds * pools) & 1);  // the buffer the last pool writes
+  const int bands = (h + band_rows - 1) / band_rows;
+  const int flips = fused ? 1 : pools + 1;  // buffer swaps per round
+  const int last = (int)(((long long)rounds * flips) & 1);
   Planes p = {};
   for (int c = 0; c < kCh; ++c) {
     p.buf[c][last] = outs[c];
     p.buf[c][last ^ 1] = scratch + c * px;
   }
-  cc_global_start<kCh><<<blocks_for(px), kGThreads, 0, stream>>>(mask, src, p, n, h, w);
-  CPE_CHECK_LAUNCH();
+  const Edges e = {scratch + kCh * px, scratch + kCh * px + 2LL * kCh * n * bands * w};
+  if (!fused || rounds == 0) {
+    cc_global_start<kCh><<<blocks_for(px), kGThreads, 0, stream>>>(mask, src, p, n, h, w);
+    CPE_CHECK_LAUNCH();
+  }
+  if (rounds == 0) return 0;
+  cudaError_t err = cudaFuncSetAttribute(cc_band<kCh>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (err != cudaSuccess) return (int)err;
   int cur = 0;
   for (int r = 0; r < rounds; ++r) {
-    for (int q = 0; q < pools; ++q) {
+    for (int q = 0; q < pools - kp; ++q) {
       cc_global_pool<kCh><<<blocks_for(px), kGThreads, 0, stream>>>(p, cur, n, h, w);
       CPE_CHECK_LAUNCH();
       cur ^= 1;
     }
-    cc_global_rows<kCh><<<blocks_for(32LL * n * h), kGThreads, 0, stream>>>(p, cur, n, h, w);
+    BandIo io = {};
+    for (int c = 0; c < kCh; ++c) {
+      io.in[c] = p.buf[c][cur];
+      io.out[c] = p.buf[c][cur ^ 1];
+    }
+    cc_band<kCh><<<(unsigned)(n * bands), kCCThreads, smem_bytes, stream>>>(
+        mask, src, io, e, h, w, bands, band_rows, kp, fused && r == 0);
     CPE_CHECK_LAUNCH();
-    cc_global_cols<kCh><<<blocks_for((long long)n * w), kGThreads, 0, stream>>>(p, cur, n, h, w);
+    cc_fix<kCh><<<blocks_for((long long)n * bands * w), kGThreads, 0, stream>>>(io, e, n, h, w, bands,
+                                                                               band_rows);
     CPE_CHECK_LAUNCH();
+    cur ^= 1;
   }
   return 0;
 }
@@ -481,21 +717,24 @@ CPE_API int cpe_component_payload_minmax(const float* mask, const int* payload, 
 }
 
 // The large-frame route of cpe_connected_components (cc_plan's "global"
-// plan): scratch is one (N, H, W) int32 plane; 1 + rounds (pools + 2)
-// launches.
+// plan): scratch holds one (N, H, W) int32 plane and the edge tables
+// (plan["scratch_ints"]); band_rows, fused and smem_bytes come from the plan.
 CPE_API int cpe_connected_components_global(const float* mask, const int* init, int* out, int* scratch,
                                             int n, int h, int w, int rounds, int pools_per_round,
-                                            cudaStream_t stream) {
+                                            int band_rows, int fused, int smem_bytes, cudaStream_t stream) {
   int* outs[1] = {out};
-  return launch_cc_global<1>(mask, init, outs, scratch, n, h, w, rounds, pools_per_round, stream);
+  return launch_cc_global<1>(mask, init, outs, scratch, n, h, w, rounds, pools_per_round, band_rows, fused,
+                             smem_bytes, stream);
 }
 
-// The large-frame route of cpe_component_payload_minmax: scratch is two
-// (N, H, W) int32 planes.
+// The large-frame route of cpe_component_payload_minmax: scratch holds two
+// (N, H, W) int32 planes and the edge tables.
 CPE_API int cpe_component_payload_minmax_global(const float* mask, const int* payload, int* pmin,
                                                 int* pmax, int* scratch, int n, int h, int w, int rounds,
-                                                int pools_per_round, cudaStream_t stream) {
+                                                int pools_per_round, int band_rows, int fused,
+                                                int smem_bytes, cudaStream_t stream) {
   if (!payload) return (int)cudaErrorInvalidValue;
   int* outs[2] = {pmin, pmax};
-  return launch_cc_global<2>(mask, payload, outs, scratch, n, h, w, rounds, pools_per_round, stream);
+  return launch_cc_global<2>(mask, payload, outs, scratch, n, h, w, rounds, pools_per_round, band_rows, fused,
+                             smem_bytes, stream);
 }

@@ -361,17 +361,16 @@ CLUSTER_SIZES = (1, 2, 4, 8)
 
 
 @functools.lru_cache(maxsize=64)
-def cc_plan(n: int, h: int, w: int, channels: int = 1) -> Dict[str, object]:
+def cc_plan(n: int, h: int, w: int, channels: int = 1, pools_per_round: int = 4) -> Dict[str, object]:
     """Launch plan of the CC kernel with 1 (labels) or 2 (payload min and
     max) channels: one thread-block cluster per mask, its rows split over the
     smallest cluster (1, 2, 4 or 8 CTAs) whose two int32 buffers per channel
     of rows_per_cta x W, plus per column an int32 top and bottom entry per
     channel and a one-run flag, fit in one CTA's shared memory.  Where 8 CTAs
-    do not hold a mask, the large-frame route: ``{"route": "global", ...}``,
-    one launch per pass (``cc_global_launches``) on buffers in device memory
-    (``scratch_ints`` of scratch besides the outputs).  Raises
-    ``ValueError`` only where the labels overflow 32 bits.  Cached: treat
-    the returned dict as read-only."""
+    do not hold a mask, the large-frame route (``_band_plan``):
+    ``{"route": "global", ...}``, rows in bands.  ``pools_per_round`` only
+    shapes the global plan.  Raises ``ValueError`` where the labels overflow
+    32 bits.  Cached: treat the returned dict as read-only."""
     if channels not in (1, 2):
         raise ValueError(f"channels must be 1 or 2, got {channels}")
     if n * h * w >= 2**31:
@@ -381,13 +380,52 @@ def cc_plan(n: int, h: int, w: int, channels: int = 1) -> Dict[str, object]:
         smem = 4 * (2 * channels * rows * w + (2 * channels + 1) * w)
         if smem <= kernels.MAX_DYNAMIC_SMEM and (c - 1) * rows < h:
             return {"cluster": c, "rows_per_cta": rows, "smem": smem, "ctas": c * n}
-    return {"route": "global", "scratch_ints": channels * n * h * w}
+    return _band_plan(n, h, w, channels, pools_per_round)
 
 
-def cc_global_launches(rounds: int, pools_per_round: int) -> int:
-    """Device kernels of one call on the CC family's global route: the
-    start, then per round the pools, the row pass and the column pass."""
+def _band_plan(n: int, h: int, w: int, channels: int, pools: int) -> Dict[str, object]:
+    """The global route's plan (csrc/connected_components.cu ``cc_band``):
+    one CTA per (mask, band of ``band_rows`` rows), holding per channel two
+    Jacobi buffers of the band plus a halo of ``pools`` rows on each side
+    (one buffer without pools), the bands as tall as shared memory allows
+    and evened out over H.  ``fused``: the pools run inside the band kernel;
+    where that leaves bands of fewer than max(pools, 1) rows, they run as
+    device-memory passes and the band kernel holds one buffer and no halo.
+    ``scratch_ints``: a state plane per channel, then the edge tables (per
+    mask, band and column: the top and bottom runs' extremes per channel and
+    lengths).  Raises ``ValueError`` where not one row of a channel fits."""
+    if pools < 0:
+        raise ValueError(f"pools_per_round must be >= 0, got {pools}")
+    row = 4 * channels * w
+    fused = pools == 0 or kernels.MAX_DYNAMIC_SMEM // (2 * row) - 2 * pools >= pools
+    halo = pools if fused else 0
+    nbuf = 2 if halo else 1
+    rows_max = kernels.MAX_DYNAMIC_SMEM // (nbuf * row) - 2 * halo
+    if rows_max < 1:
+        raise ValueError(f"a {w}-pixel row of {channels} channel(s) passes the band kernel's shared memory")
+    bands = -(-h // rows_max)
+    band_rows = -(-h // bands)
+    return {"route": "global", "band_rows": band_rows, "bands": bands, "fused": fused,
+            "smem": nbuf * row * (band_rows + 2 * halo), "ctas": n * bands,
+            "scratch_ints": channels * n * h * w + n * bands * w * (2 * channels + 2)}
+
+
+def cc_global_launches(rounds: int, pools_per_round: int, fused: bool = True) -> int:
+    """Device kernels of one call on the CC family's global route: per round
+    the band kernel and the fix (with no round, the start alone); unfused,
+    the start and per round the pools, the band kernel and the fix."""
+    if fused:
+        return 2 * rounds if rounds else 1
     return 1 + rounds * (pools_per_round + 2)
+
+
+def _cc_global(name: str, mask: torch.Tensor, src, outs, rounds: int, pools_per_round: int,
+               plan: Dict[str, object]) -> None:
+    """Launch the global route ``name`` with its scratch (``_band_plan``)."""
+    n, h, w = mask.shape
+    scratch = torch.empty(plan["scratch_ints"], dtype=torch.int32, device=mask.device)
+    kernels.launch(name, [mask, src, *outs, scratch],
+                   [n, h, w, rounds, pools_per_round, plan["band_rows"], int(plan["fused"]), plan["smem"]], [])
 
 
 def connected_components(
@@ -408,12 +446,10 @@ def connected_components(
         _check("init_labels", init_labels, torch.int32, 3)
         if init_labels.shape != mask.shape:
             raise ValueError("init_labels must have the mask's shape")
-    plan = cc_plan(n, h, w)
+    plan = cc_plan(n, h, w, pools_per_round=pools_per_round)
     out = torch.empty(mask.shape, dtype=torch.int32, device=mask.device)
     if plan.get("route") == "global":
-        scratch = torch.empty(plan["scratch_ints"], dtype=torch.int32, device=mask.device)
-        kernels.launch("cpe_connected_components_global", [mask, init_labels, out, scratch],
-                       [n, h, w, rounds, pools_per_round], [])
+        _cc_global("cpe_connected_components_global", mask, init_labels, [out], rounds, pools_per_round, plan)
     else:
         kernels.launch(
             "cpe_connected_components",
@@ -505,13 +541,12 @@ def component_payload_minmax(
     if payload.shape != mask.shape:
         raise ValueError("payload must have the mask's shape")
     n, h, w = mask.shape
-    plan = cc_plan(n, h, w, channels=2)
+    plan = cc_plan(n, h, w, channels=2, pools_per_round=pools_per_round)
     pmin = torch.empty(mask.shape, dtype=torch.int32, device=mask.device)
     pmax = torch.empty_like(pmin)
     if plan.get("route") == "global":
-        scratch = torch.empty(plan["scratch_ints"], dtype=torch.int32, device=mask.device)
-        kernels.launch("cpe_component_payload_minmax_global", [mask, payload, pmin, pmax, scratch],
-                       [n, h, w, rounds, pools_per_round], [])
+        _cc_global("cpe_component_payload_minmax_global", mask, payload, [pmin, pmax], rounds, pools_per_round,
+                   plan)
     else:
         kernels.launch(
             "cpe_component_payload_minmax",

@@ -46,8 +46,8 @@ SIGNATURES = {
     "cpe_connected_components": (3, 8, 0),
     "cpe_bridge_morphology": (6, 10, 0),
     "cpe_component_payload_minmax": (4, 8, 0),
-    "cpe_connected_components_global": (4, 5, 0),
-    "cpe_component_payload_minmax_global": (5, 5, 0),
+    "cpe_connected_components_global": (4, 8, 0),
+    "cpe_component_payload_minmax_global": (5, 8, 0),
     "cpe_bridge_morphology_global": (7, 7, 0),
 }
 

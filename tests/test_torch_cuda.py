@@ -8,7 +8,9 @@ without JAX it runs as
 ``chip_smoke.py`` is the full check at the production shapes.
 """
 
+import functools
 import math
+import time
 
 import numpy as np
 import pytest
@@ -372,6 +374,135 @@ def test_cc_global_route_equals_plain(dev, hw, channels):
                    tf.component_payload_minmax_plain(m, pay, rounds, pools))
             calls = 1
         assert tf.launch_counts()[key] == before + calls
+
+
+def _band_masks(n, h, w, band_rows, seed):
+    """(n, h, w) float masks that stress the band route: random pixels, and
+    in mask 0 a column in the mask over the whole height (one run across
+    every band), runs ending exactly on each band edge, one-pixel gaps on
+    the first and on the last row of each band; in mask 1 a serpentine
+    across the bands."""
+    g = torch.Generator().manual_seed(seed)
+    m = torch.rand((n, h, w), generator=g) < 0.45
+    m[0, :, 3] = True
+    m[0, :, 8] = True
+    m[0, :, 9] = True
+    for y0 in range(band_rows, h, band_rows):
+        m[0, y0 - 3:y0, 6] = True
+        m[0, y0:y0 + 2, 6] = False
+        m[0, y0, 8] = False
+        m[0, y0 - 1, 9] = False
+    if n > 1:
+        m[1] = False
+        for y in range(2, h - 2, 3):
+            m[1, y, 2:w - 2] = True
+            m[1, y:y + 3, w - 3 if (y // 3) % 2 == 0 else 2] = True
+    return m.to(torch.float32)
+
+
+def _device_kernels_per_call(fns, attempts=3):
+    """CUDA kernels that each call in ``fns`` launches, from one
+    torch.profiler session with a spin kernel (``torch.cuda._sleep``) before
+    each call.  Sessions late in a long process may record nothing or lose a
+    spin (PERF.md): such a session is retried after a pause."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for fn in fns:
+                torch.cuda._sleep(1000)
+                fn()
+            torch.cuda.synchronize()
+        events = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+                         and "memcpy" not in e.name.lower() and "memset" not in e.name.lower()),
+                        key=lambda e: e.time_range.start)
+        counts = []
+        for e in events:
+            if "spin" in e.name.lower():
+                counts.append(0)
+            elif counts:
+                counts[-1] += 1
+        if len(counts) == len(fns):
+            return counts
+        time.sleep(0.5)
+    pytest.fail(f"no profiler session of {attempts} recorded the {len(fns)} calls")
+
+
+# (n, h, w): H a multiple of the bands' rows and not, widths where two
+# channels fuse their pools and where they do not (2048), one mask and the
+# ds=1 variants' 64 masks at 480x640.
+BAND_CASES = [(2, 360, 640), (2, 481, 640), (2, 500, 700), (2, 544, 1024), (2, 480, 2048), (1, 480, 640),
+              (64, 480, 640)]
+
+
+@pytest.mark.parametrize("channels", [1, 2])
+@pytest.mark.parametrize("shape", BAND_CASES)
+def test_cc_band_route_equals_plain(dev, shape, channels):
+    """The band route on masks built around its band edges (``_band_masks``
+    with the plan's band rows), every schedule of the detector plus 1x0,
+    cold and warm; each call is one wrapper launch and
+    ``cc_global_launches`` device kernels."""
+    n, h, w = shape
+    key = "connected_components" if channels == 1 else "component_payload_minmax"
+    timed, want = [], []
+    for rounds, pools in ((2, 2), (2, 4), (3, 2), (1, 0)):
+        plan = tf.cc_plan(n, h, w, channels=channels, pools_per_round=pools)
+        assert plan["route"] == "global"
+        m = _band_masks(n, h, w, plan["band_rows"], h + w + rounds + pools).to(dev)
+        g = torch.Generator().manual_seed(rounds * 10 + pools)
+        if channels == 1:
+            init = torch.randint(0, 2 * h * w, m.shape, generator=g, dtype=torch.int32).to(dev)
+            calls = [functools.partial(tf.connected_components, m, rounds, pools, start) for start in (None, init)]
+            plains = [functools.partial(tf.connected_components_plain, m, rounds, pools, start)
+                      for start in (None, init)]
+        else:
+            pay = torch.stack([torch.randperm(h * w, generator=g) for _ in range(n)]).reshape(n, h, w)
+            pay = pay.to(torch.int32).to(dev)
+            calls = [functools.partial(tf.component_payload_minmax, m, pay, rounds, pools)]
+            plains = [functools.partial(tf.component_payload_minmax_plain, m, pay, rounds, pools)]
+        for call, plain in zip(calls, plains):
+            before = tf.launch_counts()[key]
+            _equal(call(), plain())
+            assert tf.launch_counts()[key] == before + 1
+        timed.append(calls[0])
+        want.append(tf.cc_global_launches(rounds, pools, plan["fused"]))
+        if rounds == 2 and n > 1 and channels == 1:  # the serpentine is still unconverged
+            lab = calls[0]()[1]
+            on = m[1] > 0.5
+            assert int(lab[on].max()) != int(lab[on].min())
+    assert _device_kernels_per_call(timed) == want
+
+
+@pytest.mark.parametrize("fused", [True, False])
+@pytest.mark.parametrize("band_rows", [1, 2, 3, 7, 18, 33, 100])
+def test_cc_band_rows_equal_plain(dev, band_rows, fused):
+    """The band kernel at band heights the plans do not pick (bands shorter
+    than the halo, one row, H not a multiple), through the wrappers' launch
+    helper with a plan of that height: labels cold and warm and the payload
+    equal the plain versions."""
+    n, h, w = 3, 100, 130
+    m = _band_masks(n, h, w, band_rows, band_rows).to(dev)
+    g = torch.Generator().manual_seed(band_rows)
+    init = torch.randint(0, 2 * h * w, m.shape, generator=g, dtype=torch.int32).to(dev)
+    pay = torch.stack([torch.randperm(h * w, generator=g) for _ in range(n)]).reshape(n, h, w)
+    pay = pay.to(torch.int32).to(dev)
+    for rounds, pools in ((2, 2), (2, 4), (3, 1), (1, 0)):
+        for channels in (1, 2):
+            kp = pools if fused else 0  # pools inside the band kernel
+            plan = {"band_rows": band_rows, "fused": fused,
+                    "smem": 4 * channels * (2 if kp else 1) * (band_rows + 2 * kp) * w,
+                    "scratch_ints": channels * n * h * w + n * -(-h // band_rows) * w * (2 * channels + 2)}
+            outs = [torch.empty(m.shape, dtype=torch.int32, device=dev) for _ in range(channels)]
+            if channels == 1:
+                for start in (None, init):
+                    tf._cc_global("cpe_connected_components_global", m, start, outs, rounds, pools, plan)
+                    _equal(outs[0], tf.connected_components_plain(m, rounds, pools, start))
+            else:
+                tf._cc_global("cpe_component_payload_minmax_global", m, pay, outs, rounds, pools, plan)
+                _equal(tuple(outs), tf.component_payload_minmax_plain(m, pay, rounds, pools))
 
 
 @pytest.mark.parametrize("dtype", [torch.bool, torch.float32])

@@ -96,10 +96,19 @@ def test_cc_plan_at_issue_shapes():
 @pytest.mark.parametrize("hw", [(1024, 1024), (480, 2048), (8192, 64)])
 def test_cc_plan_raises_beyond_eight_ctas(hw):
     """Beyond 8 CTAs the plan no longer raises: it takes the global route,
-    with one scratch plane per channel."""
+    rows in bands, with one scratch plane per channel and the edge tables
+    (per mask, band and column: two extremes per channel, two lengths)."""
+    h, w = hw
     plan = tf.cc_plan(1, *hw)
-    assert plan == {"route": "global", "scratch_ints": hw[0] * hw[1]}
-    assert tf.cc_plan(3, *hw, channels=2)["scratch_ints"] == 2 * 3 * hw[0] * hw[1]
+    bands = -(-h // plan["band_rows"])
+    assert plan == {"route": "global", "band_rows": plan["band_rows"], "bands": bands, "fused": True,
+                    "smem": 2 * 4 * w * (plan["band_rows"] + 8), "ctas": bands,
+                    "scratch_ints": h * w + bands * w * 4}
+    plan2 = tf.cc_plan(3, *hw, channels=2)
+    assert plan2["scratch_ints"] == 2 * 3 * h * w + 3 * plan2["bands"] * w * 6
+    # At 2048 two channels leave no band under a 4-row halo: the pools run
+    # as device-memory passes and the band kernel holds one buffer.
+    assert plan2["fused"] == (w < 2048)
 
 
 def test_cc_plan_raises_on_index_overflow():
@@ -176,9 +185,9 @@ def test_plans_at_large_frames(hw):
     plan1 = tf.cc_plan(4, h, w)
     assert (plan1.get("route") == "global") == wide
     if wide:
-        assert plan1["scratch_ints"] == 4 * h * w
+        assert plan1["scratch_ints"] == 4 * h * w + 4 * plan1["bands"] * w * 4
     plan2 = tf.cc_plan(4, h, w, channels=2)
-    assert plan2["route"] == "global" and plan2["scratch_ints"] == 2 * 4 * h * w
+    assert plan2["route"] == "global" and plan2["scratch_ints"] == 2 * 4 * h * w + 4 * plan2["bands"] * w * 6
     bplan = tf.bridge_plan(4, h, w)
     assert (bplan.get("route") == "global") == wide
     words = -(-w // 32)
@@ -198,14 +207,64 @@ def test_large_frame_canvases():
 
 def test_global_route_launch_counts():
     """Device kernels per call of the global routes at the detector's
-    settings: CC 1 + rounds x (pools + 2); bridge 2 + 2 (1 + levels) + steps
-    + 5 (probe 5: 3 levels; max_kernel 125: 6 steps, 180: 7)."""
-    assert tf.cc_global_launches(2, 4) == 13
-    assert tf.cc_global_launches(2, 2) == 9
-    assert tf.cc_global_launches(3, 2) == 13
+    settings: CC 2 per round (the band kernel and the fix; 1 with no round),
+    or where the pools do not fuse 1 + rounds x (pools + 2); bridge 2 + 2 (1
+    + levels) + steps + 5 (probe 5: 3 levels; max_kernel 125: 6 steps, 180:
+    7)."""
+    assert tf.cc_global_launches(2, 4) == 4
+    assert tf.cc_global_launches(2, 2) == 4
+    assert tf.cc_global_launches(3, 2) == 6
+    assert tf.cc_global_launches(1, 0) == 2
+    assert tf.cc_global_launches(0, 4) == 1
+    assert tf.cc_global_launches(2, 4, fused=False) == 13
+    assert tf.cc_global_launches(3, 2, fused=False) == 13
     assert tf.bridge_global_launches(5, 125) == 21
     assert tf.bridge_global_launches(5, 180) == 22
     assert tf.bridge_global_launches(1, 2) == 2 + 4 + 1 + 5
+
+
+# The detector's half-res canvases of the frames past the cluster kernels'
+# shared memory (tests/test_torch_cuda.py LARGE_CANVASES), and the
+# full-resolution 480x640 masks of the kernel branch's ds=1 and plane
+# variants at B=16.
+BAND_SHAPES = [(8, 304, 512), (8, 384, 512), (8, 512, 384), (8, 360, 640), (8, 480, 640), (8, 544, 1024),
+               (8, 600, 896), (64, 480, 640), (16, 480, 640)]
+
+
+@pytest.mark.parametrize("pools", [0, 1, 2, 3, 4])
+@pytest.mark.parametrize("channels", [1, 2])
+@pytest.mark.parametrize("shape", BAND_SHAPES)
+def test_band_plan_fits_shared_memory(shape, channels, pools):
+    """The global plan at every large canvas: the pools fuse (bands of at
+    least max(pools, 1) rows under a halo of ``pools`` rows), the bands
+    cover H evenly, and the band kernel's buffers fit the opt-in shared
+    memory."""
+    n, h, w = shape
+    plan = tf.cc_plan(n, h, w, channels=channels, pools_per_round=pools)
+    if "cluster" in plan:  # (8, 304, 512) and the like hold one channel in a cluster
+        assert channels == 1
+        return
+    r, bands = plan["band_rows"], plan["bands"]
+    assert plan["fused"] and r >= max(pools, 1)
+    assert (bands - 1) * r < h <= bands * r and plan["ctas"] == n * bands
+    nbuf = 2 if pools else 1
+    assert plan["smem"] == 4 * channels * nbuf * (r + 2 * pools) * w <= kernels.MAX_DYNAMIC_SMEM
+    if bands > 1:  # the fewest bands that fit: one band fewer would not
+        assert 4 * channels * nbuf * (-(-h // (bands - 1)) + 2 * pools) * w > kernels.MAX_DYNAMIC_SMEM
+
+
+def test_band_plan_at_the_variant_sites():
+    """(64, 480, 640): 12 bands of 40 rows for labels at 2 pools, 35 bands
+    of 14 rows for the payload at 4; (8, 544, 1024): 23 bands of 24 rows and
+    91 of 6."""
+    p1 = tf.cc_plan(64, 480, 640, pools_per_round=2)
+    assert (p1["band_rows"], p1["bands"], p1["smem"]) == (40, 12, 2 * 4 * 640 * 44)
+    p2 = tf.cc_plan(64, 480, 640, channels=2, pools_per_round=4)
+    assert (p2["band_rows"], p2["bands"], p2["smem"]) == (14, 35, 2 * 2 * 4 * 640 * 22)
+    assert tf.cc_plan(8, 544, 1024, pools_per_round=2)["band_rows"] == 24
+    assert tf.cc_plan(8, 544, 1024, channels=2, pools_per_round=4)["bands"] == 91
+    with pytest.raises(ValueError, match="shared memory"):
+        tf.cc_plan(1, 8, 40_000, channels=2, pools_per_round=2)
 
 
 def test_min_bytes_at_the_detector_sites():

@@ -15,6 +15,14 @@ back-to-back calls, over ``reps``: the device's rate once the host keeps
 ahead) and ``device`` (torch.profiler: the call's CUDA kernels' summed
 durations, by kernel name).
 
+Then the CC family's global-route sites (2.2 and 2.4 past the cluster
+kernels' shared memory), captured the same way: the kernel branch with
+``label_downsample=1`` and with its endpoint bridge on the same 16 frames
+((64, 480, 640): CC 2x2 cold and warm, 3x2 cold, payload 2x4), and the main
+and endpoint configs on 2 frames of 720x1280 ((8, 360, 640)) and 1080x1920
+((8, 544, 1024)).  ``--sites`` picks the main path's sites, the global
+ones, or both.
+
 ``--root`` picks the checkout whose ``cylinder_pose_estimation_tpu_torch``
 is imported (default: this one), so two trees can be timed in turns in one
 run on one card.  Ends with one JSON line of the numbers.
@@ -68,7 +76,7 @@ def device_ms(fn, calls: int = 5) -> tuple:
     by, count = {}, 0
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
-            name = e.name.split("(")[0].replace("(anonymous namespace)::", "")
+            name = e.name.replace("(anonymous namespace)::", "").split("(")[0].replace("void ", "")
             by[name] = by.get(name, 0.0) + (e.time_range.end - e.time_range.start) / 1e3 / calls
             count += 1
     return by, count / calls
@@ -78,6 +86,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=HERE)
     ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--sites", choices=("main", "global", "all"), default="all")
     args = ap.parse_args()
     import torch
 
@@ -106,6 +115,29 @@ def main() -> int:
         estimate_poses_batch(d1, d2, stereo, cfg, FitConfig())
     with Capture(frontend) as cap_ep, torch.inference_mode():
         estimate_poses_batch(d1, d2, stereo, cfg_ep, FitConfig())
+    sites = main_sites(frontend, cap, cap_ep) if args.sites != "global" else []
+    if args.sites != "main":
+        sites += global_sites(frontend, Capture, (d1, d2, stereo))
+    out = []
+    with torch.inference_mode():
+        for label, fn in sites:
+            by_name, per_call = device_ms(fn)
+            row = {"site": label, "call_ms": event_ms(fn, args.reps, 1),
+                   "run_ms": event_ms(fn, args.reps, args.reps), "device_ms": by_name,
+                   "kernels_per_call": per_call}
+            out.append(row)
+            dev_total = sum(row["device_ms"].values())
+            print(f"{args.root} {label}: call {row['call_ms']:.4f} ms, run {row['run_ms']:.4f} ms, "
+                  f"device {dev_total:.4f} ms in {per_call:g} kernels "
+                  f"{({k: round(v, 4) for k, v in sorted(row['device_ms'].items(), key=lambda kv: -kv[1])[:4]})}; "
+                  f"{smi}", flush=True)
+    print(json.dumps({"root": os.path.abspath(args.root), "card": smi, "sites": out}))
+    return 0
+
+
+def main_sites(frontend, cap, cap_ep) -> list:
+    """(label, call) of each kernel call site of the B=16 main path, and the
+    payload kernel's of the endpoint path."""
     sites = []
     for args_, kw in cap.calls["preprocess_binarize"]:
         x = args_[0]
@@ -122,21 +154,49 @@ def main() -> int:
         for args_, kw in calls[name]:
             label = f"{name} {tuple(args_[0].shape)} {args_[0].dtype} {kw}"
             sites.append((label, lambda a=args_, kw=kw, f=getattr(frontend, name): f(*a, **kw)))
-    out = []
-    with torch.inference_mode():
-        for label, fn in sites:
-            by_name, per_call = device_ms(fn)
-            row = {"site": label, "call_ms": event_ms(fn, args.reps, 1),
-                   "run_ms": event_ms(fn, args.reps, args.reps), "device_ms": by_name,
-                   "kernels_per_call": per_call}
-            out.append(row)
-            dev_total = sum(row["device_ms"].values())
-            print(f"{args.root} {label}: call {row['call_ms']:.4f} ms, run {row['run_ms']:.4f} ms, "
-                  f"device {dev_total:.4f} ms in {per_call:g} kernels "
-                  f"{({k: round(v, 4) for k, v in sorted(row['device_ms'].items(), key=lambda kv: -kv[1])[:4]})}; "
-                  f"{smi}", flush=True)
-    print(json.dumps({"root": os.path.abspath(args.root), "card": smi, "sites": out}))
-    return 0
+    return sites
+
+
+# The canvases of the CC family's global route at the captured sites.
+GLOBAL_CANVASES = ((480, 640), (360, 640), (544, 1024))
+
+
+def global_sites(frontend, capture, batch) -> list:
+    """(label, call) of each distinct CC and payload call on a global-route
+    canvas: the ds=1 kernel branch and its endpoint bridge on the B=16
+    frames ``batch``, the main and endpoint configs at 720x1280 and
+    1080x1920 on 2 frames."""
+    import torch
+
+    from cylinder_pose_estimation_tpu_torch.config import CylinderDetectConfig, FitConfig
+    from cylinder_pose_estimation_tpu_torch.models.pipeline import estimate_poses_batch
+    from cylinder_pose_estimation_tpu_torch.types import stereo_from_numpy
+    from cylinder_pose_estimation_tpu_torch.utils.synthetic import example_pair
+
+    runs = [(480, 640, batch, {"label_downsample": 1}),
+            (480, 640, batch, {"label_downsample": 1, "bridge_endpoint_stats": True})]
+    for h, w in ((720, 1280), (1080, 1920)):
+        st, (i1, i2) = example_pair(h, w, n_frames=2)
+        dev = batch[0].device
+        frames = (torch.as_tensor(i1, device=dev), torch.as_tensor(i2, device=dev), stereo_from_numpy(*st, device=dev))
+        runs += [(h, w, frames, {}), (h, w, frames, {"bridge_endpoint_stats": True})]
+    sites, seen = [], set()
+    for h, w, (a, b, stereo), overrides in runs:
+        cfg = CylinderDetectConfig(height=h, width=w, use_pallas=True, **overrides)
+        with capture(frontend) as cap, torch.inference_mode():
+            estimate_poses_batch(a, b, stereo, cfg, FitConfig())
+        for name in ("connected_components", "component_payload_minmax"):
+            for args_, kw in cap.calls[name]:
+                shape = tuple(args_[0].shape)
+                if shape[-2:] not in GLOBAL_CANVASES:
+                    continue
+                label = f"{name} {shape} {kw['rounds']}x{kw['pools_per_round']}"
+                if name == "connected_components":
+                    label += " warm" if kw.get("init_labels") is not None else " cold"
+                if label not in seen:
+                    seen.add(label)
+                    sites.append((label, lambda a=args_, kw=kw, f=getattr(frontend, name): f(*a, **kw)))
+    return sites
 
 
 if __name__ == "__main__":
