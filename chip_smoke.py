@@ -76,13 +76,13 @@ phase fails.  Phases:
    phase 7 (e2e and detect ms/frame, device kernels per detect step).
 12. Large path (run after phase 6): the main and endpoint configs at
    720x1280 and 1080x1920 on ``LARGE_BATCH`` frames each, counters reset
-   just before and read just after (the CC family's and the bridge's
-   global routes); every kernel call there is captured and held
+   just before and read just after (the CC family's global route and the
+   bridge's split route); every kernel call there is captured and held
    ``torch.equal`` to its plain version on the card, with its ms, device
    ms and device ms by kernel name, device kernels per call (at most the
-   global routes' counts, ``frontend.cc_global_launches`` and
-   ``bridge_global_launches``; "not measured" where torch.profiler reads
-   nothing) and byte bound; the card's
+   global route's count, ``frontend.cc_global_launches``, and 1 for the
+   bridge; "not measured" where torch.profiler reads nothing) and byte
+   bound; the card's
    grids are held to the CPU port's (ids identical, xy within 0.05 px,
    ``ok`` and ``stable`` equal); ms/frame of each config and size.
 13. Variants (run after phase 12): the configurations of
@@ -94,10 +94,10 @@ phase fails.  Phases:
    XLA-branch configurations each a path with counters reset just before
    and read just after.  Every view is held to the JAX record (ids
    identical, xy within 0.05 px), 2 frames card against the CPU port; every
-   kernel call at a full-resolution shape (the CC family's and the bridge's
-   global routes at (64, 480, 640) and (16, 480, 640)) is held ``torch.equal``
-   to its plain version and each site timed once; e2e and detect ms/frame
-   per configuration.
+   kernel call at a full-resolution shape (the CC family's global route and
+   the bridge's split route at (64, 480, 640) and (16, 480, 640)) is held
+   ``torch.equal`` to its plain version and each site timed once; e2e and
+   detect ms/frame per configuration.
 14. CLI (run after phase 7's timing): ``cli.main`` with ``--device cuda`` for
    ``detect-folder``, ``experiment`` (the record's arguments) and
    ``undistort-folder`` on PNG frames of ``write_registration_folder`` in a
@@ -106,9 +106,20 @@ phase fails.  Phases:
    ``tests/fixtures/torch_cli.json`` (the JAX CLI on the same files) and the
    undistortion to the port on the CPU within one grey level.
 
-The second-to-last line is the kernel report as JSON (the 480x640 sites;
-``large_sites`` and ``variant_sites`` hold phases 12's and 13's), the last line
-``{"ok": true, "device": {...}}``.
+15. Bridge routes (run after phase 13): ``frontend.bridge_morphology`` on
+   line masks at one shape of each route of ``bridge_plan`` (cluster
+   (64, 240, 384), split (2, 720, 1280) at full resolution, global
+   (2, 2160, 3840): the 4K frame's full-resolution masks, past what 8 CTAs
+   hold), counters reset just before and read just after: each route must
+   launch; each call ``torch.equal`` to plain, its schedule equal to
+   ``bridge_schedule``, timed.
+
+The second-to-last line is the kernel report as JSON: one row per kernel
+(the 480x640 sites; ``large_sites`` and ``variant_sites`` hold phases 12's
+and 13's), the bridge's cluster route in its own row and its split and
+global routes in rows of their own (``bridge_morphology.split``,
+``bridge_morphology.global``: their timed sites of phases 12, 13 and 15).
+The last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -149,6 +160,21 @@ for _path in ("experiment", "preprocess", "stream"):
 PATH_KERNELS["variants"] = dict.fromkeys(KERNELS, None)
 PATH_KERNELS["variants_xla"] = dict.fromkeys(KERNELS, 0)
 PATH_KERNELS["cli"] = dict.fromkeys(KERNELS, 0)
+# The bridge's routes (frontend.bridge_plan): the cluster kernel at the
+# 480x640 paths' half-res canvases, the split kernel at the large frames'
+# canvases and the full-resolution variants, and each route once in phase 15.
+BRIDGE_ROUTES = ("bridge_morphology.cluster", "bridge_morphology.split", "bridge_morphology.global")
+for _path in ("main", "endpoint", "plane", "experiment", "preprocess", "stream"):
+    PATH_KERNELS[_path]["bridge_morphology.cluster"] = None
+PATH_KERNELS["large"]["bridge_morphology.split"] = None
+PATH_KERNELS["variants"]["bridge_morphology.split"] = None
+PATH_KERNELS["routes"] = dict.fromkeys(BRIDGE_ROUTES, None)
+# Rows of the kernels line: the kernels, the bridge's cluster route in its
+# own row, then the bridge's other routes.
+ROWS = KERNELS + BRIDGE_ROUTES[1:]
+# The shape of each bridge route in phase 15.
+ROUTE_SHAPES = {"bridge_morphology.cluster": (64, 240, 384), "bridge_morphology.split": (2, 720, 1280),
+                "bridge_morphology.global": (2, 2160, 3840)}
 # Frames of the variants phase (the fixture's 480x640 record) and of its
 # card-versus-CPU checks.
 VARIANT_FRAMES, VARIANT_CPU_FRAMES = 16, 2
@@ -159,10 +185,12 @@ LARGE_BATCH = 2
 HBM_BYTES_PER_S = 3.35e12
 # Each kernel's design: redesigned for Hopper, or still the first port.
 DESIGN = {"preprocess_binarize": "redesigned", "connected_components": "redesigned",
-          "bridge_morphology": "redesigned", "component_payload_minmax": "redesigned"}
-# Device kernels one wrapper call may launch at the timed sites.
+          "bridge_morphology": "redesigned", "component_payload_minmax": "redesigned",
+          "bridge_morphology.split": "redesigned", "bridge_morphology.global": "first port"}
+# Device kernels one wrapper call may launch at the timed sites (the
+# bridge's global route: frontend.bridge_global_launches).
 DEVICE_LAUNCHES_MAX = {"preprocess_binarize": 3, "connected_components": 1, "bridge_morphology": 1,
-                       "component_payload_minmax": 1}
+                       "component_payload_minmax": 1, "bridge_morphology.split": 1}
 # Angles of the bridge's in-kernel schedule check.
 SCHEDULE_ANGLES = 100_000
 # Sizes of the experiment, preprocessing and stream paths.
@@ -461,7 +489,18 @@ def line_masks(n, h, w, angles, seed, device):
 
 def new_report() -> dict:
     return {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bytes": 0, "device_ms": 0.0, "sites": [],
-            "device_launches": None, "large_sites": [], "variant_sites": []}
+            "device_launches": None, "large_sites": [], "variant_sites": [], "route_sites": []}
+
+
+def bridge_route(frontend, shape, kw):
+    """(report row, most device kernels per call) of a bridge call of
+    ``shape``: the plan's route picks the row; ``max_dev`` for ``compare``."""
+    route = frontend.bridge_plan(*shape).get("route", "cluster")
+    if route == "cluster":
+        return "bridge_morphology", None
+    if route == "global":
+        return "bridge_morphology.global", frontend.bridge_global_launches(kw["probe_len"], kw["max_kernel"])
+    return "bridge_morphology.split", DEVICE_LAUNCHES_MAX["bridge_morphology.split"]
 
 
 def compare(report, name, kernel_fn, plain_fn, label, timed, nbytes=0, site=True, max_dev=None,
@@ -1010,13 +1049,12 @@ def large_phase(frontend, device, fit_cfg, smi):
                         into="large_sites")
             for args, kw in cap["bridge_morphology"]:
                 masks, exps, angles, klen = args
-                glob = frontend.bridge_plan(*masks.shape).get("route") == "global"
-                max_dev = frontend.bridge_global_launches(kw["probe_len"], kw["max_kernel"]) if glob else None
+                row, max_dev = bridge_route(frontend, masks.shape, kw)
                 for mk, ek, site in ((masks, exps, True), (masks.float(), exps.float(), False)):
-                    compare(report, "bridge_morphology",
+                    compare(report, row,
                             lambda: frontend.bridge_morphology(mk, ek, angles, klen, **kw),
                             lambda: frontend.bridge_morphology_plain(mk, ek, angles, klen, **kw),
-                            f"{tag} {tuple(mk.shape)} {mk.dtype}{' global' if glob else ''}", timed and site,
+                            f"{tag} {tuple(mk.shape)} {mk.dtype} {row}", timed and site,
                             nbytes=frontend.min_bytes("bridge_morphology", *mk.shape, itemsize=mk.element_size()),
                             max_dev=max_dev, into="large_sites")
 
@@ -1150,14 +1188,13 @@ def variants_phase(frontend, device, fit_cfg, smi):
                     m = args[0]
                     if tuple(m.shape[-2:]) != (h, w):
                         continue
+                    row = kname
                     if kname == "bridge_morphology":
                         masks, exps, angles, klen = args
                         key = (kname, tuple(masks.shape), kw["probe_len"], kw["max_kernel"])
-                        glob = frontend.bridge_plan(*masks.shape).get("route") == "global"
-                        max_dev = (frontend.bridge_global_launches(kw["probe_len"], kw["max_kernel"])
-                                   if glob else None)
+                        row, max_dev = bridge_route(frontend, masks.shape, kw)
                         label = (f"{name} {tuple(masks.shape)} probe {kw['probe_len']} max_kernel "
-                                 f"{kw['max_kernel']}")
+                                 f"{kw['max_kernel']} {row}")
                         kfn = functools.partial(frontend.bridge_morphology, masks, exps, angles, klen, **kw)
                         pfn = functools.partial(frontend.bridge_morphology_plain, masks, exps, angles, klen,
                                                 **kw)
@@ -1182,10 +1219,11 @@ def variants_phase(frontend, device, fit_cfg, smi):
                             nbytes = frontend.min_bytes(kname, *m.shape)
                         glob = plan.get("route") == "global"
                         max_dev = frontend.cc_global_launches(r, p, plan["fused"]) if glob else None
+                        label += " global" if glob else ""
                     timed = key not in timed_sites
                     timed_sites.add(key)
-                    compare(report, kname, kfn, pfn, label + (" global" if glob else ""), timed, nbytes=nbytes,
-                            max_dev=max_dev, into="variant_sites")
+                    compare(report, row, kfn, pfn, label, timed, nbytes=nbytes, max_dev=max_dev,
+                            into="variant_sites")
 
     rep = itertools.count(1)
     for c in configs:
@@ -1209,6 +1247,58 @@ def variants_phase(frontend, device, fit_cfg, smi):
         print(f"variant {c['name']} B={VARIANT_FRAMES} {h}x{w}: {ms_e2e / VARIANT_FRAMES:.4f} ms/frame "
               f"(detect {ms_det / VARIANT_FRAMES:.4f} ms/frame); {smi}", flush=True)
     return {"variants": launches, "variants_xla": launches_xla}, report
+
+
+def routes_phase(frontend, device):
+    """Phase 15: ``bridge_morphology`` at ROUTE_SHAPES, one call per route
+    of ``bridge_plan``, counters reset just before and read just after; then
+    each call held to plain (``torch.equal``) and timed, its schedule to
+    ``bridge_schedule``.  Returns (the launches, a report whose
+    ``route_sites`` hold the calls)."""
+    import torch
+
+    kw = {"probe_len": 9, "max_kernel": 251}
+    angs = torch.tensor([math.pi / 2, 1.45, 0.35, -0.6, 2.5, 0.0], device=device)
+    inputs = {}
+    for row, (n, h, w) in ROUTE_SHAPES.items():
+        # Broken 2-px lines every 23 px at near-vertical and other angles,
+        # pixels on every border, made on the card.
+        a = angs[torch.arange(n, device=device) % len(angs)][:, None, None]
+        yy = torch.arange(h, dtype=torch.float32, device=device)[None, :, None] - h / 2
+        xx = torch.arange(w, dtype=torch.float32, device=device)[None, None, :] - w / 2
+        d = xx * torch.sin(a) - yy * torch.cos(a)
+        along = xx * torch.cos(a) + yy * torch.sin(a)
+        m = ((torch.remainder(d, 23.0) - 11.5).abs() < 1.0) & ((torch.remainder(along, 41.0) - 20.5).abs() > 4)
+        m[:, 0, ::3] = True
+        m[:, -1, 1::4] = True
+        m[:, ::5, 0] = True
+        m[:, 2::3, -1] = True
+        ex = torch.remainder(xx * 7 + yy * 13, 10.0).expand(n, h, w) < 8
+        inputs[row] = (m, ex, angs[torch.arange(n, device=device) % len(angs)],
+                       torch.linspace(20.0, 300.0, n, device=device))
+
+    def drive():
+        return {row: frontend.bridge_morphology(*args, **kw) for row, args in inputs.items()}
+
+    _, launches = run_path("routes", frontend, drive)
+    report = {}
+    with torch.inference_mode():
+        for want, (m, ex, ang, kl) in inputs.items():
+            n = m.shape[0]
+            row, max_dev = bridge_route(frontend, m.shape, kw)
+            if (row if row != "bridge_morphology" else "bridge_morphology.cluster") != want:
+                raise AssertionError(f"bridge {tuple(m.shape)}: plan route {row}, not {want}")
+            sched = torch.zeros((n, frontend.bridge_schedule_size(**kw)), dtype=torch.int32, device=device)
+            compare(report, row, lambda: frontend.bridge_morphology(m, ex, ang, kl, schedule_out=sched, **kw),
+                    lambda: frontend.bridge_morphology_plain(m, ex, ang, kl, **kw),
+                    f"routes {tuple(m.shape)} {m.dtype} probe 9 max_kernel 251 {want}", True,
+                    nbytes=frontend.min_bytes("bridge_morphology", *m.shape, itemsize=1), max_dev=max_dev,
+                    into="route_sites")
+            ray, line = frontend.bridge_schedule(ang, kl, **kw)
+            if not torch.equal(sched, torch.cat([ray.reshape(n, -1), line.reshape(n, -1)], 1)):
+                raise AssertionError(f"bridge {want} {tuple(m.shape)}: schedule differs from bridge_schedule")
+            print(f"bridge {want} {tuple(m.shape)}: schedule equal to bridge_schedule", flush=True)
+    return launches, report
 
 
 _FLOAT = r"[-+]?\d*\.?\d+(?:[eE][-+]?\d+)?"
@@ -1388,6 +1478,9 @@ def main() -> int:
     print(f"plan component_payload_minmax (4B, 240, 384): {frontend.cc_plan(4 * batch, 240, 384, channels=2)}",
           flush=True)
     print(f"plan bridge_morphology (4B, 240, 384): {frontend.bridge_plan(4 * batch, 240, 384)}", flush=True)
+    for shape in ((4 * batch, 480, 640), (batch, 480, 640), (4 * LARGE_BATCH, 360, 640),
+                  (4 * LARGE_BATCH, 544, 1024), *ROUTE_SHAPES.values()):
+        print(f"plan bridge_morphology {shape}: {frontend.bridge_plan(*shape)}", flush=True)
     for shape, ch, pools in (((4 * batch, 480, 640), 1, 2), ((4 * batch, 480, 640), 2, 4),
                              ((4 * LARGE_BATCH, 360, 640), 1, 2), ((4 * LARGE_BATCH, 544, 1024), 2, 4)):
         print(f"plan global route {shape} channels {ch} pools {pools}: "
@@ -1467,7 +1560,7 @@ def main() -> int:
     with torch.inference_mode():
         report = kernel_phase(frontend, cap.calls, device)
 
-    # --- large frames: the CC family's and the bridge's global routes -----
+    # --- large frames: the CC family's global route, the bridge's split ---
     # (after the kernel phase: torch.profiler read no device activity in its
     # first session when the registration and stream phases ran between two
     # of its uses)
@@ -1475,6 +1568,9 @@ def main() -> int:
 
     # --- the full-resolution variants and refinement (profiled as well) ---
     variant_launches, variant_report = variants_phase(frontend, device, fit_cfg, smi)
+
+    # --- each route of the bridge once (profiled as well) -----------------
+    route_launches, route_report = routes_phase(frontend, device)
 
     # --- end to end timing at B=16 ----------------------------------------
     # Every call perturbs the frames anew, as bench.py does.
@@ -1532,35 +1628,49 @@ def main() -> int:
     # from zero), with the split by path beside it.
     by_path = {"main": main_launches, "endpoint": ep_launches, "plane": plane_launches,
                "experiment": exp_launches, "preprocess": pre_launches, "stream": stream_launches,
-               "xla": xla_launches, "large": large_launches, **variant_launches, "cli": cli_launches}
+               "xla": xla_launches, "large": large_launches, **variant_launches, "cli": cli_launches,
+               "routes": route_launches}
     rows = []
-    for k in KERNELS:
-        r = report[k]
+    for k in ROWS:
+        r = report.get(k, new_report())
         large = large_report.get(k, new_report())
         variant = variant_report.get(k, new_report())
+        route = route_report.get(k, new_report())
+        extra = large["large_sites"] + variant["variant_sites"] + route["route_sites"]
         for label, ms_k, ms_p, nbytes, n_dev in r["sites"]:
             print(f"timing {k} [{label}]: kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms, bound "
                   f"{bound_ms(nbytes):.4f} ms ({nbytes} B, {bound_ms(nbytes) / ms_k:.1%} of it), "
                   f"device kernels per call {n_dev}", flush=True)
-        for site in large["large_sites"] + variant["variant_sites"]:
+        for site in extra:
             dev = site["device_ms"]
             by_name = {n: round(v, 4) for n, v in (site["device_ms_by_kernel"] or {}).items()}
             print(f"timing {k} [{site['site']}]: kernel {site['ms']:.4f} ms (device "
                   f"{'not measured' if dev is None else f'{dev:.4f} ms'}), plain {site['plain_ms']:.4f} ms, "
                   f"bound {site['bound_ms']:.4f} ms ({site['bytes']} B), device kernels per call "
                   f"{site['device_kernels_per_call']} {by_name}", flush=True)
+        if k in KERNELS:  # the 480x640 sites
+            ms, dev_ms, plain_ms, nbytes, n_dev = r["ms"], r["device_ms"], r["plain_ms"], r["bytes"], r["device_launches"]
+        else:  # a bridge route: its timed sites of phases 12, 13 and 15
+            ms, plain_ms = sum(x["ms"] for x in extra), sum(x["plain_ms"] for x in extra)
+            nbytes = sum(x["bytes"] for x in extra)
+            devs = [x["device_ms"] for x in extra]
+            dev_ms = None if None in devs else sum(devs)
+            ns = [x["device_kernels_per_call"] for x in extra if x["device_kernels_per_call"] is not None]
+            n_dev = max(ns) if ns else None  # measured sites only
+        count = "bridge_morphology.cluster" if k == "bridge_morphology" else k
         rows.append({
-            "name": k, "route": "cuda", "source": frontend.SOURCES[k],
-            "replaces": frontend.REPLACES[k], "launches": sum(c[k] for c in by_path.values()),
-            "launches_by_path": {p: c[k] for p, c in by_path.items()},
-            "launches_per_step": main_launches[k],
-            "max_abs_err": max(r["max_abs_err"], large["max_abs_err"], variant["max_abs_err"]), "ms": r["ms"],
-            "device_ms": r["device_ms"],
-            "plain_ms": r["plain_ms"],
-            "bound_ms": bound_ms(r["bytes"]), "bound_by": "bytes", "bytes": r["bytes"],
-            "bound_share": bound_ms(r["bytes"]) / r["ms"], "library_ms": None,
-            "device_kernels_per_call": r["device_launches"], "design": DESIGN[k],
+            "name": k, "route": "cuda", "source": frontend.SOURCES["bridge_morphology" if k in ROWS[4:] else k],
+            "replaces": frontend.REPLACES["bridge_morphology" if k in ROWS[4:] else k],
+            "launches": sum(c[count] for c in by_path.values()),
+            "launches_by_path": {p: c[count] for p, c in by_path.items()},
+            "launches_per_step": main_launches[count],
+            "max_abs_err": max(r["max_abs_err"], large["max_abs_err"], variant["max_abs_err"], route["max_abs_err"]),
+            "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms(nbytes), "bound_by": "bytes", "bytes": nbytes,
+            "bound_share": bound_ms(nbytes) / ms if ms else None, "library_ms": None,
+            "device_kernels_per_call": n_dev, "design": DESIGN[k],
             "large_sites": large["large_sites"], "variant_sites": variant["variant_sites"],
+            "route_sites": route["route_sites"],
         })
     print(smi)
     print(json.dumps({"kernels": rows}))

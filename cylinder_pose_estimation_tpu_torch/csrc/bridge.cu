@@ -1,5 +1,7 @@
 // Bridge morphology for a batch of (N, H, W) line masks: one thread-block
-// cluster per mask, every plane bit-packed in shared memory.
+// cluster per mask, every plane bit-packed in shared memory (bridge_cluster;
+// bridge_split for larger masks), or one launch per bit pass for masks past
+// what 8 CTAs hold.
 //
 // Replaces the TPU kernel cylinder_pose_estimation_tpu/ops/pallas/frontend.py
 // bridge_morphology (_bridge_kernel, _dshift): endpoint ray counts ->
@@ -33,11 +35,15 @@
 //   copies its peers' packed rows through distributed shared memory (a few
 //   KB), runs the ~25 bit passes (~3 words a thread each) on the whole mask
 //   and writes only its own rows.
-// - Large frames: where the nine planes of a mask do not fit in one CTA's
+// - Large masks: where the nine planes of a mask do not fit in one CTA's
 //   shared memory (H ceil(W / 32) > 6,420 words: the detector's half-res
-//   canvas from 720x1280 on), the plan picks the global route at the end of
-//   this file instead: the same bit passes, one launch each, on planes in
-//   device memory (17,408 words, 68 KB a plane at 1080x1920).
+//   canvas from 720x1280 on, every full-resolution mask from 480x640 on),
+//   the plan picks bridge_split: each CTA of the cluster holds only its rows
+//   of four planes and reads the others' rows through distributed shared
+//   memory, one launch (up to ~100,000 words a plane over 8 CTAs).  Only
+//   masks past that (4K frames at full resolution) take the global route at
+//   the end of this file: the same bit passes as bridge_cluster, one launch
+//   each, on planes in device memory.
 
 #include <cooperative_groups.h>
 
@@ -109,6 +115,23 @@ struct Union {
   __device__ uint32_t operator()(int i) const { return a[i] | b[i]; }
 };
 
+// Word j of a row shifted by dx (word k of the row is row(k)): the row's
+// bits x - dx, and `fill` (0 or ~0) where that lies outside the row, past W
+// in the last word included.
+template <typename Row>
+__device__ __forceinline__ uint32_t shifted_in_row(Row row, const Geo& g, int j, int dx, uint32_t fill) {
+  const int off = -dx;             // source column of bit 0: 32 j + off
+  const int q = j + (off >> 5);    // floor division
+  const int r = off & 31;
+  const uint32_t pad = fill & ~g.last;
+  auto word = [&](int k) -> uint32_t {
+    if (k < 0 || k >= g.ww) return fill;
+    const uint32_t v = row(k);
+    return k == g.ww - 1 ? v | pad : v;
+  };
+  return __funnelshift_r(word(q), word(q + 1), r);
+}
+
 // Word j of row y of the plane shifted by (dy, dx), as _dshift:
 // out(y, x) = src(y - dy, x - dx), and `fill` (0 or ~0) where that lies
 // outside the image, past W in the last word included.
@@ -117,16 +140,8 @@ __device__ __forceinline__ uint32_t shifted(Src src, const Geo& g, int y, int j,
                                             uint32_t fill) {
   const int sy = y - dy;
   if (sy < 0 || sy >= g.h) return fill;
-  const int off = -dx;             // source column of bit 0: 32 j + off
-  const int q = j + (off >> 5);    // floor division
-  const int r = off & 31;
-  const uint32_t pad = fill & ~g.last;
-  auto word = [&](int k) -> uint32_t {
-    if (k < 0 || k >= g.ww) return fill;
-    const uint32_t v = src(sy * g.ww + k);
-    return k == g.ww - 1 ? v | pad : v;
-  };
-  return __funnelshift_r(word(q), word(q + 1), r);
+  const int base = sy * g.ww;
+  return shifted_in_row([&](int k) { return src(base + k); }, g, j, dx, fill);
 }
 
 // A word to store: the bits past W stay 0.
@@ -412,10 +427,329 @@ int launch_bridge(const void* masks, const void* exps, const float* angles, cons
 }
 
 // ---------------------------------------------------------------------------
-// The large-frame route, for masks whose nine planes do not fit in one CTA's
-// shared memory: the same bit passes on planes in device memory, one launch
-// per pass (the schedule, the packing, 2 x (1 + levels) ray passes, the line
-// steps, the four closing passes and the unpacking), one thread per word.
+// The split route (bridge_plan's "split" plan), for masks whose nine planes
+// do not fit in one CTA's shared memory: one cluster of c CTAs per mask,
+// each holding only its rows [rank R, rank R + R) of four bit planes.  A
+// pass reads row sy of a plane from the CTA that owns it (sy / R: its own
+// shared memory or, through distributed shared memory, any other CTA of
+// the cluster) by a table of row pointers.  Bands with the reach as their
+// halo would not fit: at max_kernel 251 (361) the line reaches 125 (180)
+// rows, so with the probe and the closing a 480-row mask's bands would
+// recompute most of it.
+//
+// Bound: memory, as bridge_cluster: 59.0 MB at the full-resolution
+// (64, 480, 640) bool masks, 0.0176 ms at 3.35 TB/s.
+//
+// The passes, with their planes (M, E, X, Y):
+// - load and pack this CTA's rows of M and E (16-byte vectors where W is a
+//   multiple of 32 and the pointers are aligned, a warp ballot elsewhere);
+// - the ray counts in one pass: the doubling of bridge_cluster sums m
+//   shifted by a fixed list of offsets T (pows[p]'s entry i is d(1) plus
+//   d(q) for each bit q of i; the part of bit p adds d(the bits of
+//   probe_len above p)).  Each direction's offsets share their signs, so
+//   the doubling's intermediate shifts lie between y and y + T and its
+//   zero fill is m(y + T)'s: count = sum of m(y + T) over the list, as two
+//   saturating bit words in registers.  X = M & E & (fwd <= 1 | bwd <= 1).
+// - the line steps X <-> Y (a step of offset (0, 0) changes nothing and
+//   runs no pass);
+// - G1 = x-dilation of x -> E; grown = y-dilation of G1 -> the line's
+//   other plane; E1 = x-erosion (fill 1) of M | grown -> x's plane;
+//   R = M | (y-erosion of E1 & grown) -> E, unpacked as 16-byte vectors.
+// A cluster barrier separates a pass from the next where the next reads
+// other CTAs' rows of what it wrote, or overwrites a plane they read; a CTA
+// barrier where it reads only its own rows (tests/test_torch_bridge_split.py
+// holds a model of these passes, planes and barriers to the plain version).
+// ---------------------------------------------------------------------------
+
+// 16-byte vectors of pixels for bridge_split's loads and stores: 16 bytes
+// (bool, uint8) or 4 floats, as a mask of kPx bits.
+template <typename T>
+struct Wide;
+
+template <>
+struct Wide<unsigned char> {
+  using Vec = uint4;
+  static constexpr int kPx = 16;
+  __device__ static unsigned bits(Vec v) {
+    using P = Px<unsigned char>;
+    return P::nibble(v.x) | (P::nibble(v.y) << 4) | (P::nibble(v.z) << 8) | (P::nibble(v.w) << 12);
+  }
+  __device__ static Vec vec(unsigned b) {
+    using P = Px<unsigned char>;
+    return make_uint4(P::vec(b & 0xfu), P::vec((b >> 4) & 0xfu), P::vec((b >> 8) & 0xfu), P::vec((b >> 12) & 0xfu));
+  }
+};
+
+template <>
+struct Wide<float> {
+  using Vec = float4;
+  static constexpr int kPx = 4;
+  __device__ static unsigned bits(Vec v) { return Px<float>::nibble(v); }
+  __device__ static Vec vec(unsigned b) { return Px<float>::vec(b); }
+};
+
+constexpr int kSplitThreads = 512;
+constexpr int kSplitWarps = kSplitThreads / 32;
+constexpr int kSplitPlanes = 4;
+// The schedule, then the ray offsets' totals [sign][k][dy, dx], k < probe_len.
+constexpr int kSplitScheduleInts = kScheduleInts + 4 * kMaxProbe;
+
+// Word j of row y of the plane at offset `pl` (words) from M, shifted by
+// (dy, dx) as shifted(); row sy comes from the CTA that owns it.
+__device__ __forceinline__ uint32_t split_shifted(const uint32_t* const* rowp, int pl, const Geo& g, int y, int j,
+                                                  int dy, int dx, uint32_t fill) {
+  const int sy = y - dy;
+  if (sy < 0 || sy >= g.h) return fill;
+  const uint32_t* row = rowp[sy] + pl;
+  return shifted_in_row([&](int k) { return row[k]; }, g, j, dx, fill);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kSplitThreads, 2) bridge_split(
+    const T* __restrict__ masks, const T* __restrict__ exps, const float* __restrict__ angles,
+    const float* __restrict__ klen, int klen_group, T* __restrict__ out, int* __restrict__ sched_out,
+    int h, int w, int probe_len, int half, int rows_per, bool vec) {
+  extern __shared__ __align__(16) unsigned char smem_split[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int csize = (int)cluster.num_blocks();
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int mi = blockIdx.x / csize;
+  const Geo g{h, (w + 31) / 32, (w & 31) ? (1u << (w & 31)) - 1u : kFull};
+  const int pw = rows_per * g.ww;  // words of each plane in every CTA
+  // Row y of M in the shared memory of the CTA that owns it; plane k of
+  // the row at + k pw.
+  const uint32_t** const rowp = reinterpret_cast<const uint32_t**>(smem_split);
+  uint32_t* const M = reinterpret_cast<uint32_t*>(smem_split + 8 * h);
+  uint32_t* const E = M + pw;
+  uint32_t* const X = E + pw;
+  uint32_t* const Y = X + pw;
+  int* const ray = reinterpret_cast<int*>(Y + pw);  // [sign][k][dy, dx], k = 0..probe_len
+  int* const line = ray + 4 * (probe_len + 1);      // [step][dy, dx]
+  int* const tot = ray + kScheduleInts;             // [sign][k][dy, dx], k < probe_len
+  int n_steps = 0;
+  for (int covered = 0, stride = 1; covered < half; stride *= 2, ++n_steps)
+    covered += min(stride, half - covered);
+  const int r0 = rank * rows_per;
+  const int nr = min(rows_per, h - r0);
+  const int n_px = nr * w;
+  const int own = nr * g.ww;  // this CTA's words of a plane
+  const size_t base = ((size_t)mi * h + r0) * w;
+
+  for (int y = tid; y < h; y += kSplitThreads) {
+    const int o = y / rows_per;
+    const uint32_t* b = o == rank ? M : cluster.map_shared_rank(M, o);
+    rowp[y] = b + (y - o * rows_per) * g.ww;
+  }
+
+  // The schedule (ops/frontend.bridge_schedule), then the offsets' totals.
+  if (warp == 0) {
+    mask_schedule(ray, line, angles[mi], klen[mi / klen_group], probe_len, half, lane);
+    __syncwarp();
+    const int top = 1 << (31 - __clz(probe_len));
+    for (int k = lane; k < 2 * probe_len; k += 32) {
+      const int s = k / probe_len;
+      const int* d = ray + 2 * s * (probe_len + 1);
+      int rem = k - s * probe_len, off = 0;
+      for (int p = top; p; p >>= 1) {
+        if (!(probe_len & p)) continue;
+        if (rem < p) break;
+        rem -= p;
+        off += p;
+      }
+      int ty = d[2] + d[2 * off], tx = d[3] + d[2 * off + 1];
+      for (int q = 1; q <= rem; q *= 2) {
+        if (rem & q) {
+          ty += d[2 * q];
+          tx += d[2 * q + 1];
+        }
+      }
+      tot[2 * k] = ty;
+      tot[2 * k + 1] = tx;
+    }
+  }
+
+  // Pack this CTA's rows of the mask and the expandable pixels.
+  using Wv = Wide<T>;
+  constexpr int kPer = 32 / Wv::kPx;  // vectors to a word
+  if (vec) {
+    using Vec = typename Wv::Vec;
+    const Vec* mv = reinterpret_cast<const Vec*>(masks + base);
+    const Vec* ev = reinterpret_cast<const Vec*>(exps + base);
+    const int n_vec = n_px / Wv::kPx;  // W % 32 == 0: whole words
+    for (int k0 = warp * 32 * kIlp; k0 < n_vec; k0 += kSplitWarps * 32 * kIlp) {
+      Vec a[kIlp], b[kIlp];
+#pragma unroll
+      for (int u = 0; u < kIlp; ++u) {
+        const int k = k0 + u * 32 + lane;
+        if (k < n_vec) {
+          a[u] = mv[k];
+          b[u] = ev[k];
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kIlp; ++u) {
+        const int k = k0 + u * 32 + lane;
+        uint32_t wm = k < n_vec ? Wv::bits(a[u]) << (Wv::kPx * (lane % kPer)) : 0u;
+        uint32_t we = k < n_vec ? Wv::bits(b[u]) << (Wv::kPx * (lane % kPer)) : 0u;
+#pragma unroll
+        for (int d = 1; d < kPer; d *= 2) {
+          wm |= __shfl_xor_sync(kFull, wm, d);
+          we |= __shfl_xor_sync(kFull, we, d);
+        }
+        if (lane % kPer == 0 && k < n_vec) {
+          M[k / kPer] = wm;
+          E[k / kPer] = we;
+        }
+      }
+    }
+  } else {
+    const T* m = masks + base;
+    const T* e = exps + base;
+    for (int i0 = warp; i0 < own; i0 += kSplitWarps * kIlp) {
+      bool bm[kIlp], be[kIlp];
+#pragma unroll
+      for (int u = 0; u < kIlp; ++u) {
+        const int i = i0 + u * kSplitWarps;
+        const int y = i / g.ww;
+        const int x = (i - y * g.ww) * 32 + lane;
+        const bool ok = i < own && x < w;
+        bm[u] = ok && Px<T>::on(m[y * w + x]);
+        be[u] = ok && Px<T>::on(e[y * w + x]);
+      }
+#pragma unroll
+      for (int u = 0; u < kIlp; ++u) {
+        const int i = i0 + u * kSplitWarps;
+        const uint32_t wm = __ballot_sync(kFull, bm[u]);
+        const uint32_t we = __ballot_sync(kFull, be[u]);
+        if (lane == 0 && i < own) {
+          M[i] = wm;
+          E[i] = we;
+        }
+      }
+    }
+  }
+  cluster.sync();  // every CTA's rows of M, its row table and schedule
+  if (sched_out && rank == 0) {
+    const int len = 4 * (probe_len + 1) + 2 * n_steps;
+    for (int i = tid; i < len; i += kSplitThreads) sched_out[(size_t)mi * len + i] = ray[i];
+  }
+
+#define FOR_OWN(i, y, j)                                                      \
+  for (int i = tid, y = r0 + i / g.ww, j = i - (y - r0) * g.ww; i < own;    \
+       i += kSplitThreads, y = r0 + i / g.ww, j = i - (y - r0) * g.ww)
+
+  // Endpoints: the ray counts from the offsets' totals, in registers.
+  FOR_OWN(i, y, j) {
+    uint32_t ended = kFull;
+    for (int s = 0; s < 2; ++s) {
+      const int* t = tot + 2 * s * probe_len;
+      uint32_t c1 = 0u, c2 = 0u;
+      for (int k = 0; k < probe_len; ++k) {
+        const uint32_t v = split_shifted(rowp, 0, g, y, j, -t[2 * k], -t[2 * k + 1], 0u);
+        c2 |= c1 & v;
+        c1 |= v;
+      }
+      ended &= c2;
+    }
+    X[i] = keep(M[i] & E[i] & ~ended, g, j);
+  }
+
+  // Oriented line dilation: x |= shift(x, d) | shift(x, -d) per step.
+  uint32_t* x = X;
+  uint32_t* xn = Y;
+  int xo = 2 * pw, xno = 3 * pw;
+  for (int s = 0; s < n_steps; ++s) {
+    const int dy = line[2 * s], dx = line[2 * s + 1];
+    if (dy == 0 && dx == 0) continue;  // uniform over the cluster: one mask
+    cluster.sync();
+    FOR_OWN(i, y, j) {
+      xn[i] = keep(x[i] | split_shifted(rowp, xo, g, y, j, dy, dx, 0u) |
+                       split_shifted(rowp, xo, g, y, j, -dy, -dx, 0u), g, j);
+    }
+    uint32_t* t = x;
+    x = xn;
+    xn = t;
+    const int to = xo;
+    xo = xno;
+    xno = to;
+  }
+  __syncthreads();
+
+  // The closing: G1 -> E (own rows of x only); grown -> xn; E1 -> x; R -> E.
+  FOR_OWN(i, y, j) {
+    E[i] = keep(x[i] | split_shifted(rowp, xo, g, y, j, 0, 1, 0u) | split_shifted(rowp, xo, g, y, j, 0, -1, 0u),
+                g, j);
+  }
+  cluster.sync();
+  uint32_t* const grown = xn;
+  FOR_OWN(i, y, j) {
+    grown[i] = keep(E[i] | split_shifted(rowp, pw, g, y, j, 1, 0, 0u) | split_shifted(rowp, pw, g, y, j, -1, 0, 0u),
+                    g, j);
+  }
+  __syncthreads();
+  FOR_OWN(i, y, j) {
+    const uint32_t* rm = M + (i - j);
+    const uint32_t* rg = grown + (i - j);
+    auto u = [&](int k) -> uint32_t { return rm[k] | rg[k]; };
+    x[i] = keep(u(j) & shifted_in_row(u, g, j, 1, kFull) & shifted_in_row(u, g, j, -1, kFull), g, j);
+  }
+  cluster.sync();
+  FOR_OWN(i, y, j) {
+    const uint32_t er = x[i] & split_shifted(rowp, xo, g, y, j, 1, 0, kFull) &
+                        split_shifted(rowp, xo, g, y, j, -1, 0, kFull);
+    E[i] = keep(M[i] | (er & grown[i]), g, j);
+  }
+#undef FOR_OWN
+  __syncthreads();
+
+  // Unpack this CTA's rows.
+  T* o = out + base;
+  if (vec) {
+    using Vec = typename Wv::Vec;
+    Vec* ov = reinterpret_cast<Vec*>(o);
+    constexpr unsigned kBits = (1u << Wv::kPx) - 1u;
+    for (int k = tid; k < n_px / Wv::kPx; k += kSplitThreads)
+      ov[k] = Wv::vec((E[k / kPer] >> (Wv::kPx * (k % kPer))) & kBits);
+  } else {
+    for (int i = tid; i < n_px; i += kSplitThreads) {
+      const int y = i / w, xx = i - y * w;
+      o[i] = Px<T>::value((E[y * g.ww + (xx >> 5)] >> (xx & 31)) & 1u);
+    }
+  }
+  cluster.sync();  // no CTA leaves while a peer still reads its rows
+}
+
+template <typename T>
+int launch_bridge_split(const void* masks, const void* exps, const float* angles, const float* klen,
+                        int klen_group, void* out, int* sched, int n, int h, int w, int probe_len, int half,
+                        int cluster, int rows_per, int smem, cudaStream_t stream) {
+  const bool vec = w % 32 == 0 &&
+                   ((reinterpret_cast<uintptr_t>(masks) | reinterpret_cast<uintptr_t>(exps) |
+                     reinterpret_cast<uintptr_t>(out)) & 15) == 0;
+  return cpe::launch_clusters(bridge_split<T>, cluster, n, kSplitThreads, smem, stream,
+                              static_cast<const T*>(masks), static_cast<const T*>(exps), angles, klen,
+                              klen_group, static_cast<T*>(out), sched, h, w, probe_len, half, rows_per, vec);
+}
+
+// Clusters of `cluster` bridge_split<T> CTAs with `smem` shared bytes each
+// that the card can hold at once (cudaOccupancyMaxActiveClusters).
+template <typename T>
+int split_max_clusters(int cluster, int smem, int* out) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  int rc = cpe::cluster_config(bridge_split<T>, cluster, 1, kSplitThreads, smem, 0, &cfg, &attr);
+  if (rc) return rc;
+  return (int)cudaOccupancyMaxActiveClusters(out, bridge_split<T>, &cfg);
+}
+
+// ---------------------------------------------------------------------------
+// The global route, for masks that no 8-CTA split holds: the same bit
+// passes as bridge_cluster on planes in device memory, one launch per pass
+// (the schedule, the packing, 2 x (1 + levels) ray passes, the line steps,
+// the four closing passes and the unpacking), one thread per word.
 // ---------------------------------------------------------------------------
 
 constexpr int kGThreads = 256;
@@ -662,6 +996,40 @@ CPE_API int cpe_bridge_morphology(const void* masks, const void* exps, const flo
   if (elem_bytes == 4)
     return launch_bridge<float>(masks, exps, angles, klen, klen_group, out, sched, n, h, w, probe_len,
                                 half, cluster, rows_per, smem_bytes, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The split route of cpe_bridge_morphology (bridge_plan's "split" plan):
+// the same arguments; the plan's cluster (2, 4 or 8 CTAs), rows per CTA
+// and shared bytes (row table, four planes, schedule) must agree with
+// bridge_split's layout, or nothing launches.
+CPE_API int cpe_bridge_morphology_split(const void* masks, const void* exps, const float* angles,
+                                        const float* klen, void* out, int* sched, int n, int h, int w,
+                                        int elem_bytes, int probe_len, int half, int klen_group, int cluster,
+                                        int rows_per, int smem_bytes, cudaStream_t stream) {
+  const long long smem =
+      8LL * h + 4LL * ((long long)kSplitPlanes * rows_per * ((w + 31) / 32) + kSplitScheduleInts);
+  if (cluster < 2 || !cpe::cluster_size_ok(cluster) || h < 1 || w < 1 || probe_len < 1 ||
+      probe_len > kMaxProbe || half < 1 || half > kMaxHalf || klen_group < 1 || rows_per < 1 ||
+      (long long)rows_per * cluster < h || (long long)rows_per * (cluster - 1) >= h ||
+      (long long)cluster * n >= (1LL << 31) || smem_bytes != smem)
+    return (int)cudaErrorInvalidValue;
+  if (n == 0) return 0;
+  if (elem_bytes == 1)
+    return launch_bridge_split<unsigned char>(masks, exps, angles, klen, klen_group, out, sched, n, h, w,
+                                              probe_len, half, cluster, rows_per, smem_bytes, stream);
+  if (elem_bytes == 4)
+    return launch_bridge_split<float>(masks, exps, angles, klen, klen_group, out, sched, n, h, w, probe_len,
+                                      half, cluster, rows_per, smem_bytes, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+// How many clusters of the split route the card holds at once for a plan's
+// cluster size and shared bytes (elem_bytes 1 or 4), into *out.
+CPE_API int cpe_bridge_split_max_clusters(int elem_bytes, int cluster, int smem_bytes, int* out) {
+  if (!out || !cpe::cluster_size_ok(cluster)) return (int)cudaErrorInvalidValue;
+  if (elem_bytes == 1) return split_max_clusters<unsigned char>(cluster, smem_bytes, out);
+  if (elem_bytes == 4) return split_max_clusters<float>(cluster, smem_bytes, out);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -14,7 +14,8 @@ hand-written CUDA kernel from ``csrc/`` (built at first use, see
 ``ops/kernels.py``) and raises if it cannot.  Nothing falls back.
 
 ``launch_counts()`` holds, per kernel, the number of wrapper calls that
-launched the CUDA kernel (plain runs do not count).
+launched the CUDA kernel (plain runs do not count), and the bridge's calls
+per route (``bridge_morphology.cluster``, ``.split``, ``.global``).
 """
 
 from __future__ import annotations
@@ -33,6 +34,11 @@ _LAUNCHES: Dict[str, int] = {
     "connected_components": 0,
     "bridge_morphology": 0,
     "component_payload_minmax": 0,
+    # The bridge's calls by route (``bridge_plan``); they add up to
+    # "bridge_morphology".
+    "bridge_morphology.cluster": 0,
+    "bridge_morphology.split": 0,
+    "bridge_morphology.global": 0,
 }
 
 
@@ -690,23 +696,65 @@ _BRIDGE_TYPES = {torch.bool: 1, torch.uint8: 1, torch.float32: 4}
 BRIDGE_PLANES = 9
 BRIDGE_SCHEDULE_INTS = 4 * (64 + 1) + 2 * 32
 H100_SMS = 132
+# The split route (csrc/bridge.cu ``bridge_split``): per CTA a row-pointer
+# table (8 B a mask row), kSplitPlanes bit planes of its rows, the schedule
+# and the ray offsets' sums (kSplitScheduleInts); 512 threads a CTA with
+# __launch_bounds__(512, 2), so two CTAs share an SM's 228 KB (233,472 B,
+# 1 KB of it reserved per CTA) where their shared memory allows.
+BRIDGE_SPLIT_PLANES = 4
+BRIDGE_SPLIT_SCHEDULE_INTS = BRIDGE_SCHEDULE_INTS + 2 * 2 * 64
+BRIDGE_SPLIT_CTAS_PER_SM = 2
+H100_SM_SMEM = 233472
+
+
+def bridge_split_smem(h: int, w: int, rows: int) -> int:
+    """Shared bytes of one ``bridge_split`` CTA holding ``rows`` rows of an
+    (h, w) mask."""
+    return 8 * h + 4 * (BRIDGE_SPLIT_PLANES * rows * -(-w // 32) + BRIDGE_SPLIT_SCHEDULE_INTS)
+
+
+def _split_plan(n: int, h: int, w: int) -> Dict[str, object] | None:
+    """The split route's plan: the smallest cluster of 2, 4 or 8 CTAs whose
+    share of the rows fits one CTA, raised while c n CTAs still run in one
+    wave on the 132 SMs; every CTA keeps rows.  None where 8 CTAs do not
+    hold the mask."""
+    plan = None
+    for c in CLUSTER_SIZES[1:]:
+        rows = -(-h // c)
+        smem = bridge_split_smem(h, w, rows)
+        if smem > kernels.MAX_DYNAMIC_SMEM or (c - 1) * rows >= h:
+            continue
+        per_sm = min(BRIDGE_SPLIT_CTAS_PER_SM, H100_SM_SMEM // (smem + 1024))
+        if plan is not None and c * n > H100_SMS * per_sm:
+            break
+        plan = {"route": "split", "cluster": c, "rows_per_cta": rows, "smem": smem, "ctas": c * n}
+    return plan
 
 
 @functools.lru_cache(maxsize=64)
 def bridge_plan(n: int, h: int, w: int) -> Dict[str, object]:
-    """Launch plan of the bridge kernel: one thread-block cluster per mask,
-    the largest (1, 2, 4 or 8 CTAs) whose c * n CTAs fit the 132 SMs at once
-    and leave every CTA rows to load and write.  Each CTA holds the whole
-    mask as bit planes of H x ceil(W / 32) words plus the schedule.  Where
-    they do not fit in shared memory, the large-frame route:
-    ``{"route": "global", ...}``, one launch per bit pass
-    (``bridge_global_launches``) on planes in device memory
-    (``scratch_ints``: the nine planes, then the schedule).  Raises
-    ``ValueError`` only where its word index overflows 32 bits.  Cached:
-    treat the returned dict as read-only."""
+    """Launch plan of the bridge kernel, one of three routes.
+
+    * Cluster (no ``"route"`` key): one thread-block cluster per mask, the
+      largest (1, 2, 4 or 8 CTAs) whose c * n CTAs fit the 132 SMs at once
+      and leave every CTA rows to load and write; each CTA holds the whole
+      mask as nine bit planes of H x ceil(W / 32) words plus the schedule.
+    * ``{"route": "split", ...}`` where the nine planes pass one CTA's shared
+      memory (``_split_plan``): one cluster of c CTAs per mask, each holding
+      only its ``rows_per_cta`` rows of four bit planes and reading the
+      other rows from their CTA's shared memory; one launch.
+    * ``{"route": "global", ...}`` where 8 CTAs do not hold the mask either:
+      one launch per bit pass (``bridge_global_launches``) on planes in
+      device memory (``scratch_ints``: the nine planes, then the schedule).
+
+    Raises ``ValueError`` only where the global route's word index
+    overflows 32 bits.  Cached: treat the returned dict as read-only."""
     words = -(-w // 32)
     smem = 4 * (BRIDGE_PLANES * h * words + BRIDGE_SCHEDULE_INTS)
     if smem > kernels.MAX_DYNAMIC_SMEM:
+        split = _split_plan(n, h, w)
+        if split is not None:
+            return split
         if 32 * n * h * words >= 2**31:
             raise ValueError(f"{n}x{h}x{w} masks overflow the kernel's 32-bit index")
         return {"route": "global", "words_per_row": words,
@@ -739,11 +787,16 @@ def bridge_morphology(
     """Bridge kernel over (N, H, W) masks (see ``bridge_morphology_plain``):
     bool, uint8 or float32 0/1 masks and expandability images (converted to
     the masks' type if they differ); the result has the masks' type.  On the
-    card: one launch, which computes the schedule itself.
+    card: one launch (cluster and split routes), which computes the
+    schedule itself.
     ``schedule_out``: an optional (N, ``bridge_schedule_size(probe_len,
     max_kernel)``) int32 tensor that receives the offsets used
-    (``bridge_schedule``'s ray then line, flattened per mask).  Large masks
-    take the kernel's global route (``bridge_plan``)."""
+    (``bridge_schedule``'s ray then line, flattened per mask).  The plan
+    (``bridge_plan``) picks the route: masks whose nine bit planes fit one
+    CTA's shared memory take the cluster kernel, larger ones the split
+    kernel (still one launch), and only masks that 8 CTAs cannot hold the
+    global route, one launch per pass.  A route whose launch fails raises;
+    none falls back to another."""
     n = masks.shape[0]
     if not _route(masks):
         if schedule_out is not None:
@@ -778,8 +831,9 @@ def bridge_morphology(
         if schedule_out.shape != (n, bridge_schedule_size(probe_len, max_kernel)):
             raise ValueError(f"schedule_out must be ({n}, {bridge_schedule_size(probe_len, max_kernel)})")
     plan = bridge_plan(n, h, w)
+    route = plan.get("route", "cluster")
     out = torch.empty_like(masks)
-    if plan.get("route") == "global":
+    if route == "global":
         scratch = torch.empty(plan["scratch_ints"], dtype=torch.int32, device=masks.device)
         kernels.launch(
             "cpe_bridge_morphology_global",
@@ -789,13 +843,14 @@ def bridge_morphology(
         )
     else:
         kernels.launch(
-            "cpe_bridge_morphology",
+            "cpe_bridge_morphology_split" if route == "split" else "cpe_bridge_morphology",
             [masks, exp_imgs, angles, klen, out, schedule_out],
             [n, h, w, _BRIDGE_TYPES[masks.dtype], probe_len, half, group, plan["cluster"],
              plan["rows_per_cta"], plan["smem"]],
             [],
         )
     _LAUNCHES["bridge_morphology"] += 1
+    _LAUNCHES[f"bridge_morphology.{route}"] += 1
     return out
 
 
@@ -834,7 +889,7 @@ __all__ = [
     "preprocess_binarize", "preprocess_binarize_plain", "preprocess_plan", "preprocess_reach",
     "connected_components", "connected_components_plain", "cc_plan", "cc_global_launches", "min_bytes",
     "bridge_morphology", "bridge_morphology_plain", "bridge_schedule", "bridge_schedule_size",
-    "bridge_plan", "bridge_global_launches",
+    "bridge_plan", "bridge_split_smem", "bridge_global_launches",
     "component_payload_minmax", "component_payload_minmax_plain",
     "launch_counts", "reset_launch_counts", "REPLACES", "SOURCES",
 ]

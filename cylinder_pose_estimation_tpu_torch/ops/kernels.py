@@ -49,6 +49,7 @@ SIGNATURES = {
     "cpe_connected_components_global": (4, 8, 0),
     "cpe_component_payload_minmax_global": (5, 8, 0),
     "cpe_bridge_morphology_global": (7, 7, 0),
+    "cpe_bridge_morphology_split": (6, 10, 0),
 }
 
 _LIB: Optional[ctypes.CDLL] = None
@@ -117,6 +118,8 @@ def build() -> ctypes.CDLL:
         )
     lib.cpe_error_string.restype = ctypes.c_char_p
     lib.cpe_error_string.argtypes = [ctypes.c_int]
+    lib.cpe_bridge_split_max_clusters.restype = ctypes.c_int
+    lib.cpe_bridge_split_max_clusters.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
     _LIB = lib
     return lib
 
@@ -140,3 +143,16 @@ def launch(
         rc = getattr(lib, name)(*args)
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA error {rc}: {lib.cpe_error_string(rc).decode()}")
+
+
+def bridge_split_max_clusters(elem_bytes: int, cluster: int, smem: int, device: int = 0) -> int:
+    """Clusters of the bridge's split kernel (``cluster`` CTAs of ``smem``
+    shared bytes, pixels of ``elem_bytes``) that card ``device`` holds at
+    once (``cudaOccupancyMaxActiveClusters``); 0: the plan cannot launch."""
+    lib = build()
+    out = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        rc = lib.cpe_bridge_split_max_clusters(elem_bytes, cluster, smem, ctypes.byref(out))
+    if rc != 0:
+        raise RuntimeError(f"cpe_bridge_split_max_clusters: CUDA error {rc}: {lib.cpe_error_string(rc).decode()}")
+    return out.value

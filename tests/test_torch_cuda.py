@@ -10,7 +10,6 @@ without JAX it runs as
 
 import functools
 import math
-import time
 
 import numpy as np
 import pytest
@@ -342,7 +341,8 @@ def test_detect_on_card_matches_cpu(dev, mode):
 # The detector's half-res canvases (detector._pool2_pad) of the frames past
 # the cluster kernels' shared memory: 600x800, 768x1024, 1024x768, 720x1280,
 # 960x1280, 1080x1920, 1200x1600.  The two-channel CC plan takes its global
-# route at all seven, the one-channel CC and the bridge at the last four.
+# route at all seven, the one-channel CC at the last four, where the bridge
+# takes its split route.
 LARGE_CANVASES = [(304, 512), (384, 512), (512, 384), (360, 640), (480, 640), (544, 1024), (600, 896)]
 LARGE_CC = [(hw, 1) for hw in LARGE_CANVASES[3:]] + [(hw, 2) for hw in LARGE_CANVASES]
 
@@ -400,35 +400,38 @@ def _band_masks(n, h, w, band_rows, seed):
     return m.to(torch.float32)
 
 
-def _device_kernels_per_call(fns, attempts=3):
-    """CUDA kernels that each call in ``fns`` launches, from one
-    torch.profiler session with a spin kernel (``torch.cuda._sleep``) before
-    each call.  Sessions late in a long process may record nothing or lose a
-    spin (PERF.md): such a session is retried after a pause."""
-    from torch.profiler import ProfilerActivity, profile
+def _device_kernels_per_call(fns):
+    """CUDA kernels that each call in ``fns`` launches: the kernel nodes of
+    a CUDA graph captured from one call, read through the driver
+    (cuStreamGetCaptureInfo, cuGraphGetNodes, cuGraphNodeGetType) before the
+    capture ends.  Unlike a torch.profiler session, which late in a long
+    process may record nothing (PERF.md), the count does not depend on the
+    process's history."""
+    import ctypes
 
+    cu = ctypes.CDLL("libcuda.so.1")
+    counts = []
     for fn in fns:
         fn()
-    torch.cuda.synchronize()
-    for _ in range(attempts):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for fn in fns:
-                torch.cuda._sleep(1000)
-                fn()
-            torch.cuda.synchronize()
-        events = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
-                         and "memcpy" not in e.name.lower() and "memset" not in e.name.lower()),
-                        key=lambda e: e.time_range.start)
-        counts = []
-        for e in events:
-            if "spin" in e.name.lower():
-                counts.append(0)
-            elif counts:
-                counts[-1] += 1
-        if len(counts) == len(fns):
-            return counts
-        time.sleep(0.5)
-    pytest.fail(f"no profiler session of {attempts} recorded the {len(fns)} calls")
+        torch.cuda.synchronize()
+        types = []
+        with torch.cuda.graph(torch.cuda.CUDAGraph(), capture_error_mode="relaxed"):
+            fn()
+            stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+            status, cid, graph = ctypes.c_int(), ctypes.c_uint64(), ctypes.c_void_p()
+            deps, ndeps, size = ctypes.c_void_p(), ctypes.c_size_t(), ctypes.c_size_t()
+            assert cu.cuStreamGetCaptureInfo_v2(stream, ctypes.byref(status), ctypes.byref(cid),
+                                                ctypes.byref(graph), ctypes.byref(deps), ctypes.byref(ndeps)) == 0
+            assert status.value == 1  # CU_STREAM_CAPTURE_STATUS_ACTIVE
+            assert cu.cuGraphGetNodes(graph, None, ctypes.byref(size)) == 0
+            nodes = (ctypes.c_void_p * size.value)()
+            assert cu.cuGraphGetNodes(graph, nodes, ctypes.byref(size)) == 0
+            for node in nodes:
+                kind = ctypes.c_int()
+                assert cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)) == 0
+                types.append(kind.value)
+        counts.append(types.count(0))  # CU_GRAPH_NODE_TYPE_KERNEL
+    return counts
 
 
 # (n, h, w): H a multiple of the bands' rows and not, widths where two
@@ -505,13 +508,36 @@ def test_cc_band_rows_equal_plain(dev, band_rows, fused):
                 _equal(tuple(outs), tf.component_payload_minmax_plain(m, pay, rounds, pools))
 
 
+def _bridge_route_call(dev, m, ex, ang, kl, probe_len, max_kernel, route):
+    """One bridge call on ``route``: ``torch.equal`` to plain, its schedule
+    equal to ``bridge_schedule``, one wrapper launch counted for the bridge
+    and for the route."""
+    n = m.shape[0]
+    sched = torch.zeros((n, tf.bridge_schedule_size(probe_len, max_kernel)), dtype=torch.int32, device=dev)
+    before = tf.launch_counts()
+    out = tf.bridge_morphology(m, ex, ang, kl, probe_len, max_kernel, schedule_out=sched)
+    _equal(out, tf.bridge_morphology_plain(m, ex, ang, kl, probe_len, max_kernel))
+    after = tf.launch_counts()
+    assert out.dtype == m.dtype
+    for key in ("bridge_morphology", f"bridge_morphology.{route}"):
+        assert after[key] == before[key] + 1
+    ray, line = tf.bridge_schedule(ang, kl, probe_len, max_kernel)
+    _equal(sched, torch.cat([ray.reshape(n, -1), line.reshape(n, -1)], 1))
+
+
+# (h, w) masks that no 8-CTA split holds (4K frames at full resolution).
+GLOBAL_ONLY = [(2160, 3840), (1100, 4096)]
+
+
 @pytest.mark.parametrize("dtype", [torch.bool, torch.float32])
-@pytest.mark.parametrize("hw", LARGE_CANVASES[3:])
+@pytest.mark.parametrize("hw", GLOBAL_ONLY)
 def test_bridge_global_route_equals_plain(dev, hw, dtype):
-    """The bridge's large-frame route, bool and float32 interfaces: lines at
-    the sweep's angles with pixels on every border, the cylinder (5, 125)
-    and plane (5, 180) reaches and a short probe; the schedule it computes
-    equals ``bridge_schedule``."""
+    """The bridge's per-pass route, where it remains (masks past what 8 CTAs
+    of the split route hold), bool and float32 interfaces: lines at the
+    sweep's angles with pixels on every border, kernel lengths from 0 (every
+    line step (0, 0)) past the caps, the cylinder (5, 125) and plane (5, 180)
+    reaches and a short probe; the schedule it computes equals
+    ``bridge_schedule``."""
     h, w = hw
     n = len(SWEEP)
     assert tf.bridge_plan(n, h, w)["route"] == "global"
@@ -521,14 +547,74 @@ def test_bridge_global_route_equals_plain(dev, hw, dtype):
     ang = torch.tensor(SWEEP, device=dev)
     kl = torch.tensor([0.0, 20.0, 124.0, 300.0, 90.0, 180.0], device=dev)
     for probe_len, max_kernel in ((5, 125), (5, 180), (2, 125)):
-        sched = torch.zeros((n, tf.bridge_schedule_size(probe_len, max_kernel)), dtype=torch.int32,
-                            device=dev)
-        before = tf.launch_counts()["bridge_morphology"]
-        out = tf.bridge_morphology(m, ex, ang, kl, probe_len, max_kernel, schedule_out=sched)
-        _equal(out, tf.bridge_morphology_plain(m, ex, ang, kl, probe_len, max_kernel))
-        assert out.dtype == dtype and tf.launch_counts()["bridge_morphology"] == before + 1
-        ray, line = tf.bridge_schedule(ang, kl, probe_len, max_kernel)
-        _equal(sched, torch.cat([ray.reshape(n, -1), line.reshape(n, -1)], 1))
+        _bridge_route_call(dev, m, ex, ang, kl, probe_len, max_kernel, "global")
+
+
+# The split route's cases: every LARGE_CANVASES shape it takes, the
+# full-resolution 480x640 sites (ds=1 at B=16: 64 masks; plane mode: 16),
+# 720x1280 at full resolution, and a single mask with H off its 8 CTAs' rows
+# and W off 32.  Near-vertical angles: the line reach runs along the rows.
+SPLIT_CASES = [(12, *hw) for hw in LARGE_CANVASES[3:]] + [(64, 480, 640), (16, 480, 640), (2, 720, 1280),
+                                                           (1, 481, 650)]
+SPLIT_SWEEP = SWEEP + [1.45, -1.5, 1.62, 1.68]
+SPLIT_REACH = ((9, 251), (9, 361), (5, 125), (2, 125))
+
+
+def _split_inputs(shape, dtype, dev):
+    n, h, w = shape
+    g = torch.Generator().manual_seed(n + h + w)
+    m = _border_lines(n, h, w, SPLIT_SWEEP, n + h).to(dtype).to(dev)
+    ex = (torch.rand((n, h, w), generator=g) < 0.8).to(dtype).to(dev)
+    ang = torch.tensor([SPLIT_SWEEP[i % len(SPLIT_SWEEP)] for i in range(n)], device=dev)
+    kl = torch.tensor([300.0, 20.0, 124.0, 0.0, 251.0, 361.0, 90.0, 180.0], device=dev)[torch.arange(n) % 8]
+    return m, ex, ang, kl
+
+
+@pytest.mark.parametrize("dtype", [torch.bool, torch.uint8, torch.float32])
+@pytest.mark.parametrize("shape", SPLIT_CASES)
+def test_bridge_split_route_equals_plain(dev, shape, dtype):
+    """The split route: per mask a cluster of 2-8 CTAs, each with its rows
+    of the bit planes, the other rows read from their CTA.  Lines at the
+    sweep's angles (near vertical among them: line steps of up to 180 rows
+    cross two or more CTAs of 45-120 rows) with pixels on every border,
+    per-mask kernel lengths from 0 past the caps, the reaches of the
+    detector's sites; each call equal to plain, with its schedule."""
+    n, h, w = shape
+    plan = tf.bridge_plan(n, h, w)
+    assert plan["route"] == "split" and plan["rows_per_cta"] < 181
+    m, ex, ang, kl = _split_inputs(shape, dtype, dev)
+    for probe_len, max_kernel in SPLIT_REACH:
+        _bridge_route_call(dev, m, ex, ang, kl, probe_len, max_kernel, "split")
+
+
+def test_bridge_split_route_one_device_kernel(dev):
+    """One device kernel per call at the sites the split route serves:
+    (64,480,640) probe 9 max kernel 251, (16,480,640) 9/361, (8,360,640)
+    and (8,544,1024) 5/125."""
+    calls = []
+    for shape, (probe_len, max_kernel) in (((64, 480, 640), (9, 251)), ((16, 480, 640), (9, 361)),
+                                           ((8, 360, 640), (5, 125)), ((8, 544, 1024), (5, 125))):
+        assert tf.bridge_plan(*shape)["route"] == "split"
+        m, ex, ang, kl = _split_inputs(shape, torch.bool, dev)
+        calls.append(functools.partial(tf.bridge_morphology, m, ex, ang, kl, probe_len, max_kernel))
+    assert _device_kernels_per_call(calls) == [1, 1, 1, 1]
+
+
+def test_bridge_split_plans_fit_the_card(dev):
+    """Every split plan of the detector's shapes (the half-res canvases of
+    720x1280 to 1200x1600 at B=2 and B=16, the full-resolution masks of
+    480x640 at B=16 and of 720x1280 and 1080x1920 at B=2) can launch: the
+    card holds at least one cluster at its shared memory
+    (cudaOccupancyMaxActiveClusters), for both pixel sizes."""
+    from cylinder_pose_estimation_tpu_torch.ops import kernels
+
+    shapes = [(n, *hw) for n in (8, 64) for hw in LARGE_CANVASES[3:]]
+    shapes += [(64, 480, 640), (16, 480, 640), (8, 720, 1280), (8, 1080, 1920)]
+    for shape in shapes:
+        plan = tf.bridge_plan(*shape)
+        assert plan["route"] == "split"
+        for elem in (1, 4):
+            assert kernels.bridge_split_max_clusters(elem, plan["cluster"], plan["smem"]) >= 1, (shape, plan)
 
 
 @pytest.mark.parametrize("shape", [(2, 720, 1280), (2, 1080, 1920)])
@@ -556,7 +642,7 @@ def test_preprocess_kernel_at_large_frames(dev, shape):
 @pytest.mark.parametrize("endpoint", [False, True])
 def test_detect_large_frame_on_card_matches_cpu(dev, endpoint):
     """One 720x1280 frame pair through the kernel branch (the global CC and
-    bridge routes) on the card and on the CPU: the same grids."""
+    split bridge routes) on the card and on the CPU: the same grids."""
     from cylinder_pose_estimation_tpu_torch.config import CylinderDetectConfig
     from cylinder_pose_estimation_tpu_torch.models.detector import detect_grid
     from cylinder_pose_estimation_tpu_torch.utils.synthetic import example_pair

@@ -114,8 +114,11 @@ def test_cc_plan_raises_beyond_eight_ctas(hw):
 def test_cc_plan_raises_on_index_overflow():
     with pytest.raises(ValueError, match="32-bit"):
         tf.cc_plan(4096, 1024, 1024)
+    # The bridge's split route indexes within a mask: only the global
+    # route, past what 8 CTAs hold, still has a batch-wide 32-bit index.
+    assert tf.bridge_plan(4096, 1024, 1024)["route"] == "split"
     with pytest.raises(ValueError, match="32-bit"):
-        tf.bridge_plan(4096, 1024, 1024)
+        tf.bridge_plan(4096, 2048, 2048)
 
 
 def test_cc_plan_two_channels():
@@ -164,11 +167,18 @@ def test_bridge_plan_fills_one_wave(n, c):
 
 def test_bridge_plan_limits():
     assert tf.bridge_plan(1, 5, 64)["cluster"] == 2  # 4 or 8 CTAs would leave one without rows
-    # Past the shared memory (480 x 20 words x 9 planes): the global route.
-    assert tf.bridge_plan(2, 480, 640) == {"route": "global", "words_per_row": 20,
-                                           "scratch_ints": 9 * 2 * 480 * 20 + 2 * (4 * 65 + 2 * 32)}
+    # Past the shared memory (480 x 20 words x 9 planes): the split route,
+    # 8 CTAs of 60 rows (16 CTAs fill one wave), each a table of 480 row
+    # pointers, 4 planes of 60 x 20 words and the schedule with the ray
+    # offsets' totals.
+    assert tf.bridge_plan(2, 480, 640) == {"route": "split", "cluster": 8, "rows_per_cta": 60,
+                                           "smem": 8 * 480 + 4 * (4 * 60 * 20 + 4 * 65 + 2 * 32 + 4 * 64),
+                                           "ctas": 16}
     assert "route" not in tf.bridge_plan(2, 321, 640)  # 321 x 20 x 9 words + the schedule fit
-    assert tf.bridge_plan(2, 322, 640)["route"] == "global"
+    assert tf.bridge_plan(2, 322, 640)["route"] == "split"
+    # Past what 8 CTAs hold (2160 rows of 120 words: 270 a CTA): the global route.
+    assert tf.bridge_plan(2, 2160, 3840) == {"route": "global", "words_per_row": 120,
+                                             "scratch_ints": 9 * 2 * 2160 * 120 + 2 * (4 * 65 + 2 * 32)}
     assert tf.bridge_schedule_size(5, 125) == 4 * 6 + 2 * 6
     assert tf.bridge_schedule_size(64, 2) == 4 * 65 + 2
 
@@ -178,7 +188,8 @@ def test_plans_at_large_frames(hw):
     """At every large frame the detector's sites get a plan: the quarter-res
     ROI pair stays on the cluster kernel; the half-res pair takes the global
     route for two channels everywhere and, from 720x1280 on, for one
-    channel and for the bridge.  Every global plan says its scratch."""
+    channel; the bridge takes its split route there.  Every global plan
+    says its scratch."""
     quarter, (h, w) = _cc_shapes(*hw)
     assert "cluster" in tf.cc_plan(64, *quarter)
     wide = hw[0] * hw[1] >= 720 * 1280
@@ -189,11 +200,12 @@ def test_plans_at_large_frames(hw):
     plan2 = tf.cc_plan(4, h, w, channels=2)
     assert plan2["route"] == "global" and plan2["scratch_ints"] == 2 * 4 * h * w + 4 * plan2["bands"] * w * 6
     bplan = tf.bridge_plan(4, h, w)
-    assert (bplan.get("route") == "global") == wide
+    assert (bplan.get("route") == "split") == wide
     words = -(-w // 32)
     if wide:
-        assert bplan["words_per_row"] == words
-        assert bplan["scratch_ints"] == 9 * 4 * h * words + 4 * tf.BRIDGE_SCHEDULE_INTS
+        rows = bplan["rows_per_cta"]
+        assert bplan["cluster"] == 8 and (8 - 1) * rows < h <= 8 * rows
+        assert bplan["smem"] == tf.bridge_split_smem(h, w, rows) <= kernels.MAX_DYNAMIC_SMEM
     else:
         assert bplan["smem"] == 4 * (9 * h * words + tf.BRIDGE_SCHEDULE_INTS) <= kernels.MAX_DYNAMIC_SMEM
     pplan = tf.preprocess_plan(2, *hw)
@@ -221,6 +233,50 @@ def test_global_route_launch_counts():
     assert tf.bridge_global_launches(5, 125) == 21
     assert tf.bridge_global_launches(5, 180) == 22
     assert tf.bridge_global_launches(1, 2) == 2 + 4 + 1 + 5
+
+
+def _split_checks(plan, n, h, w):
+    """A split plan: the smallest cluster whose share fits, raised while c n
+    CTAs run in one wave at two CTAs an SM; rows for every CTA."""
+    c, rows = plan["cluster"], plan["rows_per_cta"]
+    assert plan["route"] == "split" and c in (2, 4, 8) and plan["ctas"] == c * n
+    assert rows == -(-h // c) and (c - 1) * rows < h <= c * rows
+    assert plan["smem"] == 8 * h + 4 * (4 * rows * -(-w // 32) + tf.BRIDGE_SPLIT_SCHEDULE_INTS)
+    assert plan["smem"] <= kernels.MAX_DYNAMIC_SMEM
+    assert 4 * (9 * h * -(-w // 32) + tf.BRIDGE_SCHEDULE_INTS) > kernels.MAX_DYNAMIC_SMEM  # past one CTA
+    per_sm = min(2, tf.H100_SM_SMEM // (plan["smem"] + 1024))
+    if c > 2 and tf.bridge_split_smem(h, w, -(-h // (c // 2))) <= kernels.MAX_DYNAMIC_SMEM:
+        assert c * n <= tf.H100_SMS * per_sm  # raised only within one wave
+    if c < 8:  # not raised further: 2c CTAs a mask would not fit one wave
+        more = tf.bridge_split_smem(h, w, -(-h // (2 * c)))
+        assert 2 * c * n > tf.H100_SMS * min(2, tf.H100_SM_SMEM // (more + 1024))
+
+
+@pytest.mark.parametrize("n, hw, want", [
+    (64, (480, 640), (4, 120, 44_560)),   # ds=1, half-res off, endpoint ds=1 at B=16: 256 CTAs, 2 an SM
+    (16, (480, 640), (8, 60, 25_360)),    # plane mode at ds=1, 8 views
+    (8, (720, 1280), (8, 45, 19_600)),    # half-res canvases of 720x1280 to 1200x1600 at B=2
+    (8, (960, 1280), (8, 60, 25_360)),
+    (8, (1080, 1920), (8, 68, 41_488)),
+    (8, (1200, 1600), (8, 75, 40_720)),
+])
+def test_split_plan_at_detector_shapes(n, hw, want):
+    """The split plan at the detector's bridge sites past the cluster
+    kernel: full resolution 480x640 at n = 64 and 16, and the half-res
+    canvases from 720x1280 to 1200x1600 at n = 8."""
+    h, w = hw if n > 8 else _cc_shapes(*hw)[1]
+    plan = tf.bridge_plan(n, h, w)
+    _split_checks(plan, n, h, w)
+    assert (plan["cluster"], plan["rows_per_cta"], plan["smem"]) == want
+
+
+@pytest.mark.parametrize("shape", [(1, 481, 650), (3, 333, 1000), (2, 720, 1280), (2, 1080, 1920), (64, 544, 1024),
+                                   (200, 480, 640), (8, 1100, 1600)])
+def test_split_plan_limits(shape):
+    """Single masks, H off every cluster, W off 32, full-resolution 720p and
+    1080p masks, more masks than one wave holds, and the tallest masks 8 CTAs
+    take."""
+    _split_checks(tf.bridge_plan(*shape), *shape)
 
 
 # The detector's half-res canvases of the frames past the cluster kernels'

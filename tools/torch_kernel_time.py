@@ -15,13 +15,20 @@ back-to-back calls, over ``reps``: the device's rate once the host keeps
 ahead) and ``device`` (torch.profiler: the call's CUDA kernels' summed
 durations, by kernel name).
 
-Then the CC family's global-route sites (2.2 and 2.4 past the cluster
-kernels' shared memory), captured the same way: the kernel branch with
-``label_downsample=1`` and with its endpoint bridge on the same 16 frames
-((64, 480, 640): CC 2x2 cold and warm, 3x2 cold, payload 2x4), and the main
-and endpoint configs on 2 frames of 720x1280 ((8, 360, 640)) and 1080x1920
-((8, 544, 1024)).  ``--sites`` picks the main path's sites, the global
-ones, or both.
+Then the large-mask sites of the CC family (2.2 and 2.4 past the cluster
+kernels' shared memory) and of the bridge (2.3), captured the same way: the
+kernel branch with ``label_downsample=1`` and with its endpoint bridge on
+the same 16 frames ((64, 480, 640): CC 2x2 cold and warm, 3x2 cold, payload
+2x4, bridge probe 9 max kernel 251), plane mode at ``label_downsample=1`` on
+the eight views of ``tests/fixtures/torch_plane_scenes.json`` (bridge
+(16, 480, 640) 9/361), and the main and endpoint configs on 2 frames of
+720x1280 ((8, 360, 640)) and 1080x1920 ((8, 544, 1024)).  ``--sites``
+picks the main path's sites, the large ones, both, or the bridge's alone
+(``bridge``: its main-path site and its large ones, each large one also
+with kernel length 0, where every line step has offset (0, 0), and with
+kernel length 0 at probe 1: the differences price the line steps and the
+ray counts, the rest is the loads, the stores, the closing and the
+barriers).
 
 ``--root`` picks the checkout whose ``cylinder_pose_estimation_tpu_torch``
 is imported (default: this one), so two trees can be timed in turns in one
@@ -86,7 +93,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=HERE)
     ap.add_argument("--reps", type=int, default=20)
-    ap.add_argument("--sites", choices=("main", "global", "all"), default="all")
+    ap.add_argument("--sites", choices=("main", "global", "all", "bridge"), default="all")
     args = ap.parse_args()
     import torch
 
@@ -117,7 +124,9 @@ def main() -> int:
         estimate_poses_batch(d1, d2, stereo, cfg_ep, FitConfig())
     sites = main_sites(frontend, cap, cap_ep) if args.sites != "global" else []
     if args.sites != "main":
-        sites += global_sites(frontend, Capture, (d1, d2, stereo))
+        sites += global_sites(frontend, Capture, (d1, d2, stereo), args.sites == "bridge")
+    if args.sites == "bridge":
+        sites = [(label, fn) for label, fn in sites if label.startswith("bridge_morphology")]
     out = []
     with torch.inference_mode():
         for label, fn in sites:
@@ -161,41 +170,63 @@ def main_sites(frontend, cap, cap_ep) -> list:
 GLOBAL_CANVASES = ((480, 640), (360, 640), (544, 1024))
 
 
-def global_sites(frontend, capture, batch) -> list:
-    """(label, call) of each distinct CC and payload call on a global-route
-    canvas: the ds=1 kernel branch and its endpoint bridge on the B=16
-    frames ``batch``, the main and endpoint configs at 720x1280 and
-    1080x1920 on 2 frames."""
+def global_sites(frontend, capture, batch, breakdown=False) -> list:
+    """(label, call) of each distinct CC, payload and bridge call on a
+    large-mask canvas: the ds=1 kernel branch and its endpoint bridge on the
+    B=16 frames ``batch``, plane mode at ds=1 on the plane fixture's views,
+    the main and endpoint configs at 720x1280 and 1080x1920 on 2 frames;
+    ``breakdown``: each bridge site also with kernel length 0, and with
+    kernel length 0 at probe 1."""
+    import json
+
+    import numpy as np
     import torch
 
-    from cylinder_pose_estimation_tpu_torch.config import CylinderDetectConfig, FitConfig
+    from cylinder_pose_estimation_tpu_torch.config import CylinderDetectConfig, FitConfig, PlaneDetectConfig
+    from cylinder_pose_estimation_tpu_torch.models.detector import detect_grid
     from cylinder_pose_estimation_tpu_torch.models.pipeline import estimate_poses_batch
     from cylinder_pose_estimation_tpu_torch.types import stereo_from_numpy
-    from cylinder_pose_estimation_tpu_torch.utils.synthetic import example_pair
+    from cylinder_pose_estimation_tpu_torch.utils.synthetic import example_pair, plane_view
 
+    dev = batch[0].device
     runs = [(480, 640, batch, {"label_downsample": 1}),
             (480, 640, batch, {"label_downsample": 1, "bridge_endpoint_stats": True})]
+    with open(os.path.join(HERE, "tests", "fixtures", "torch_plane_scenes.json")) as f:
+        specs = [v["spec"] for v in json.load(f)["views"]]
+    runs.append((480, 640, torch.as_tensor(np.stack([plane_view(480, 640, **sp) for sp in specs]), device=dev),
+                 {"label_downsample": 1, "roi_threshold": 30.0}))
     for h, w in ((720, 1280), (1080, 1920)):
         st, (i1, i2) = example_pair(h, w, n_frames=2)
-        dev = batch[0].device
         frames = (torch.as_tensor(i1, device=dev), torch.as_tensor(i2, device=dev), stereo_from_numpy(*st, device=dev))
         runs += [(h, w, frames, {}), (h, w, frames, {"bridge_endpoint_stats": True})]
     sites, seen = [], set()
-    for h, w, (a, b, stereo), overrides in runs:
-        cfg = CylinderDetectConfig(height=h, width=w, use_pallas=True, **overrides)
+    for h, w, inputs, overrides in runs:
         with capture(frontend) as cap, torch.inference_mode():
-            estimate_poses_batch(a, b, stereo, cfg, FitConfig())
-        for name in ("connected_components", "component_payload_minmax"):
+            if isinstance(inputs, tuple):
+                cfg = CylinderDetectConfig(height=h, width=w, use_pallas=True, **overrides)
+                estimate_poses_batch(*inputs, cfg, FitConfig())
+            else:
+                detect_grid(inputs, PlaneDetectConfig(height=h, width=w, use_pallas=True, **overrides))
+        for name in ("connected_components", "component_payload_minmax", "bridge_morphology"):
             for args_, kw in cap.calls[name]:
                 shape = tuple(args_[0].shape)
                 if shape[-2:] not in GLOBAL_CANVASES:
                     continue
-                label = f"{name} {shape} {kw['rounds']}x{kw['pools_per_round']}"
+                if name == "bridge_morphology":
+                    label = f"{name} {shape} probe {kw['probe_len']} max_kernel {kw['max_kernel']}"
+                else:
+                    label = f"{name} {shape} {kw['rounds']}x{kw['pools_per_round']}"
                 if name == "connected_components":
                     label += " warm" if kw.get("init_labels") is not None else " cold"
                 if label not in seen:
                     seen.add(label)
                     sites.append((label, lambda a=args_, kw=kw, f=getattr(frontend, name): f(*a, **kw)))
+                    if name == "bridge_morphology" and breakdown:
+                        zero = (*args_[:3], torch.zeros_like(args_[3]))
+                        sites.append((label + " kernel_len 0",
+                                      lambda a=zero, kw=kw: frontend.bridge_morphology(*a, **kw)))
+                        sites.append((label + " kernel_len 0 probe 1",
+                                      lambda a=zero, kw=kw: frontend.bridge_morphology(*a, **{**kw, "probe_len": 1})))
     return sites
 
 
