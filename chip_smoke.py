@@ -113,6 +113,22 @@ phase fails.  Phases:
    hold), counters reset just before and read just after: each route must
    launch; each call ``torch.equal`` to plain, its schedule equal to
    ``bridge_schedule``, timed.
+16. Mesh path (run after phase 14): (a) ``parallel.sharding.sharded_pipeline``
+   over a one-rank NCCL group (a ``FileStore``) on phase 8's 100 frames,
+   counters reset just before and read just after: ids and ``ok`` equal to
+   phase 8's unsharded result, the registration by phase 8's contract.
+   (b) ``mesh_rank`` on MESH_RANKS_PER_CARD ranks sharing this card (gloo,
+   the check mode), spawned by ``parallel.dryrun.launch``: every kernel call
+   of ``sharded_pipeline`` on MESH_FRAMES main-path frames and of a
+   two-chunk stream, at each rank's shapes, held ``torch.equal`` to its plain
+   version; then the pipeline and the compact stream over
+   MESH_STREAM_FRAMES frames at chunk 64, counters reset just before and
+   read just after on every rank; rank 0 holds both to the unsharded run
+   (``parallel.dryrun.held``: every leaf equal but the LM's outputs, which
+   must meet the fit contract), frames 0-5 to the golden fixture and the
+   registration to phase 8's contract.  Prints frames/s at 1 and 2 ranks,
+   each rank's device kernels per detect step and its peak memory.  (c)
+   With two cards or more, the same on 2 or 4 NCCL ranks, one per card.
 
 The second-to-last line is the kernel report as JSON: one row per kernel
 (the 480x640 sites; ``large_sites`` and ``variant_sites`` hold phases 12's
@@ -153,7 +169,7 @@ PATH_KERNELS = {
     "xla": dict.fromkeys(KERNELS, 0),
     "large": dict.fromkeys(KERNELS, None),
 }
-for _path in ("experiment", "preprocess", "stream"):
+for _path in ("experiment", "preprocess", "stream", "mesh", "mesh_ranks"):
     PATH_KERNELS[_path] = dict(PATH_KERNELS["main"])
 # The variants: the kernel-branch configurations launch all four kernels, the
 # XLA-branch ones and the command-line drivers (the default config) none.
@@ -164,7 +180,7 @@ PATH_KERNELS["cli"] = dict.fromkeys(KERNELS, 0)
 # 480x640 paths' half-res canvases, the split kernel at the large frames'
 # canvases and the full-resolution variants, and each route once in phase 15.
 BRIDGE_ROUTES = ("bridge_morphology.cluster", "bridge_morphology.split", "bridge_morphology.global")
-for _path in ("main", "endpoint", "plane", "experiment", "preprocess", "stream"):
+for _path in ("main", "endpoint", "plane", "experiment", "preprocess", "stream", "mesh", "mesh_ranks"):
     PATH_KERNELS[_path]["bridge_morphology.cluster"] = None
 PATH_KERNELS["large"]["bridge_morphology.split"] = None
 PATH_KERNELS["variants"]["bridge_morphology.split"] = None
@@ -197,6 +213,13 @@ SCHEDULE_ANGLES = 100_000
 EXPERIMENT_FRAMES = 100
 PREPROCESS_BATCH = 16
 STREAM_FRAMES, STREAM_CHUNK, STREAM_POOL = 2000, 64, 16
+# The mesh path (phase 16): frames of the sharded pipeline and of the
+# sharded stream (at STREAM_CHUNK), and ranks that share the one card in the
+# check mode.
+MESH_FRAMES, MESH_STREAM_FRAMES, MESH_RANKS_PER_CARD = 16, 512, 2
+# Turns of the mesh stream's timing: all ranks, then rank 0 alone, in
+# alternating order.
+MESH_TIMING_PAIRS = 3
 
 
 def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -764,9 +787,10 @@ def sync_sites(fn) -> dict:
     return sites
 
 
-def registration_phase(device, stereo_fn, cfg, fit_cfg, frontend, smi) -> dict:
+def registration_phase(device, stereo_fn, cfg, fit_cfg, frontend, smi):
     """Phase 8: the registration fixture on the card, then the experiment
-    path with its CPU recomputation."""
+    path with its CPU recomputation.  Returns (the launches, the experiment's
+    inputs and unsharded result for phase 16)."""
     import numpy as np
     import torch
 
@@ -830,7 +854,7 @@ def registration_phase(device, stereo_fn, cfg, fit_cfg, frontend, smi) -> dict:
     ms_reg = cuda_ms(lambda: pipeline.register_sequence(batch, ang), reps=3, warmup=1)
     print(f"experiment F={n_frames}: detect+fit {ms_df:.2f} ms, registration {ms_reg:.2f} ms, "
           f"total {ms_df + ms_reg:.2f} ms; {smi}", flush=True)
-    return launches
+    return launches, {"frames": (i1, i2, ang_np), "stereo": stereo, "batch": batch, "reg": reg}
 
 
 def preprocess_phase(device, stereo_fn, cfg, fit_cfg, frontend, smi) -> dict:
@@ -1424,6 +1448,228 @@ def cli_phase(frontend, smi) -> dict:
     return launches
 
 
+def hold_calls(frontend, calls, label) -> dict:
+    """Hold every captured call of the main path's kernels to its plain
+    version on the same inputs (``torch.equal``, untimed); the number of
+    calls held per kernel."""
+    import torch
+
+    report = {}
+    with torch.inference_mode():
+        for args, kw in calls["preprocess_binarize"]:
+            x = args[0]
+            compare(report, "preprocess_binarize", lambda: frontend.preprocess_binarize(x, **kw),
+                    lambda: frontend.preprocess_binarize_plain(x, **kw), f"{label} {tuple(x.shape)}", False)
+        for args, kw in calls["connected_components"]:
+            m, init = args[0], kw.get("init_labels")
+            r, p = kw["rounds"], kw["pools_per_round"]
+            compare(report, "connected_components", lambda: frontend.connected_components(m, r, p, init),
+                    lambda: frontend.connected_components_plain(m, r, p, init),
+                    f"{label} {tuple(m.shape)} {r}x{p} {'warm' if init is not None else 'cold'}", False)
+        for args, kw in calls["bridge_morphology"]:
+            masks, exps, angles, klen = args
+            row, _ = bridge_route(frontend, masks.shape, kw)
+            compare(report, row, lambda: frontend.bridge_morphology(masks, exps, angles, klen, **kw),
+                    lambda: frontend.bridge_morphology_plain(masks, exps, angles, klen, **kw),
+                    f"{label} {tuple(masks.shape)} {row}", False)
+    if calls["component_payload_minmax"]:
+        raise AssertionError(f"{label}: the main path called component_payload_minmax")
+    return {k: len(v) for k, v in calls.items()}
+
+
+def mesh_rank(mesh, stream_frames: int, chunk: int) -> dict:
+    """Phase 16 on one rank of a mesh (``parallel.dryrun.launch``): the main
+    configuration at 480x640 on MESH_FRAMES frames of ``example_pair``
+    through ``sharded_pipeline``, then the compact stream over
+    ``stream_frames`` uint8 frames (phase 10's scheme) at ``chunk`` with the
+    mesh.  First every kernel call of both at this rank's shapes is held to
+    its plain version; then the two run as the main path, counters reset
+    just before and read just after.  Rank 0 then runs both unsharded and
+    holds the sharded results to them (``dryrun.held``; frames 0-5 also to
+    the golden fixture by the phase-2 contract, the registration by phase
+    8's)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from cylinder_pose_estimation_tpu_torch.config import CylinderDetectConfig, FitConfig
+    from cylinder_pose_estimation_tpu_torch.models import pipeline
+    from cylinder_pose_estimation_tpu_torch.ops import frontend
+    from cylinder_pose_estimation_tpu_torch.parallel.dryrun import digest, held
+    from cylinder_pose_estimation_tpu_torch.parallel.mesh import frame_slice, gather_frames
+    from cylinder_pose_estimation_tpu_torch.parallel.sharding import sharded_pipeline
+    from cylinder_pose_estimation_tpu_torch.types import stereo_from_numpy
+    from cylinder_pose_estimation_tpu_torch.utils.synthetic import TiledFrames, example_pair, registration_angles
+
+    dev, n = mesh.device, MESH_FRAMES
+    st_np, (i1, i2) = example_pair(480, 640, n_frames=n)
+    stereo = stereo_from_numpy(*st_np, device=dev)
+    cfg = CylinderDetectConfig(height=480, width=640, use_pallas=True)
+    fit_cfg = FitConfig()
+    angles = registration_angles(n)
+    pipe = sharded_pipeline(mesh, stereo, cfg, fit_cfg)
+    _, (p1, p2) = example_pair(480, 640, n_frames=STREAM_POOL, pans=[i % 13 for i in range(STREAM_POOL)])
+    p1, p2 = (np.clip(p, 0, 255).astype(np.uint8) for p in (p1, p2))
+
+    def stream(frames, on_mesh):
+        return pipeline.estimate_poses_stream(TiledFrames(p1, frames), TiledFrames(p2, frames), stereo, cfg,
+                                              fit_cfg, chunk=chunk, compact=True,
+                                              mesh=mesh if on_mesh else None, device=None if on_mesh else dev)
+
+    def sync():
+        torch.cuda.synchronize(dev)
+        dist.barrier(group=mesh.group)
+
+    # Every kernel call at this rank's shapes against plain (and the warm-up).
+    with Capture(frontend) as cap:
+        pipe(i1, i2, angles)
+        stream(2 * chunk, True)
+    calls = hold_calls(frontend, cap.calls, f"rank {mesh.rank}")
+    del cap
+    torch.cuda.empty_cache()
+
+    # The main path: counters reset just before and read just after.
+    sync()
+    torch.cuda.reset_peak_memory_stats(dev)
+    frontend.reset_launch_counts()
+    batch, reg = pipe(i1, i2, angles)
+    sync()
+    t0 = time.perf_counter()
+    out = stream(stream_frames, True)
+    walls = [time.perf_counter() - t0]
+    launches = frontend.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    regs = gather_frames(reg.t_cam_agv[None], mesh)
+
+    # The stream's wall time on all ranks and on rank 0 alone (the others
+    # waiting), in alternating turns.
+    walls_one, ref_out = [], None
+    for k in range(MESH_TIMING_PAIRS):
+        for on_mesh in ((False, True) if k % 2 == 0 else (True, False)):
+            sync()
+            if on_mesh or mesh.rank == 0:
+                t0 = time.perf_counter()
+                r = stream(stream_frames, on_mesh)
+                (walls if on_mesh else walls_one).append(time.perf_counter() - t0)
+                ref_out = ref_out if on_mesh else r
+
+    # Device kernels of this rank's detect step, one rank at a time.
+    start, stop = frame_slice(mesh, n)
+    a = torch.as_tensor(i1[start:stop], device=dev)
+    b = torch.as_tensor(i2[start:stop], device=dev)
+    n_dev = dev_ms = None
+    for r in range(mesh.size):
+        if r == mesh.rank:
+            n_dev, dev_ms, _ = device_launches(
+                lambda: pipeline.estimate_poses_batch(a, b, stereo, cfg, fit_cfg, probe="detect").grid.xy)
+        sync()
+    res = {"rank": mesh.rank, "device": str(dev), "backend": mesh.backend, "launches": launches,
+           "calls_held": calls, "stream_s": walls, "peak_mib": peak / 2**20,
+           "detect_step_device_kernels": n_dev, "detect_step_device_ms": dev_ms,
+           "digest": [digest(batch), digest(reg), digest(out)],
+           "t_cam_agv_ranks_equal": bool(all(torch.equal(regs[0], t) for t in regs))}
+    if mesh.rank == 0:
+        ref = pipeline.estimate_poses_batch(torch.as_tensor(i1, device=dev), torch.as_tensor(i2, device=dev),
+                                            stereo, cfg, fit_cfg)
+        ref_reg = pipeline.register_sequence(ref, torch.as_tensor(angles, device=dev))
+        res["batch"] = held(batch, ref)
+        with open(GOLDEN) as f:
+            golden = {g["scene"]: g for g in json.load(f)["scenes"]}
+        res["golden"] = [golden_check(batch, golden[s], s) for s in range(6)]
+        res["registration"] = registration_check(reg, reg_dict(ref_reg), angles, "mesh registration")
+        res["stream_1rank_s"] = walls_one
+        res["stream"] = held(out, ref_out)
+        res["stream_ok_frames"] = int(out.ok.sum())
+    sync()
+    return res
+
+
+def mesh_ranks(ranks: int, ranks_per_card: int, smi: str) -> dict:
+    """``mesh_rank`` on ``ranks`` spawned processes (``parallel.dryrun.
+    launch``), checked and printed; the launches summed over the ranks."""
+    from cylinder_pose_estimation_tpu_torch.parallel.dryrun import launch
+
+    results = launch(mesh_rank, (MESH_STREAM_FRAMES, STREAM_CHUNK), ranks=ranks, device="cuda",
+                     ranks_per_card=ranks_per_card, timeout=600)
+    r0 = results[0]
+    label = f"mesh {ranks} ranks on {-(-ranks // ranks_per_card)} card(s), {r0['backend']}"
+    for r in results:
+        for k, want in PATH_KERNELS["mesh_ranks"].items():
+            if want is None and r["launches"][k] < 1:
+                raise AssertionError(f"{label}: rank {r['rank']} never launched {k}")
+        if r["digest"] != r0["digest"] or not r["t_cam_agv_ranks_equal"]:
+            raise AssertionError(f"{label}: rank {r['rank']}'s result differs from rank 0's")
+        dev = ("not measured" if r["detect_step_device_kernels"] is None else
+               f"{r['detect_step_device_kernels']} device kernels, {r['detect_step_device_ms']:.4f} device ms")
+        print(f"{label}: rank {r['rank']} on {r['device']}: kernel calls held equal to plain "
+              f"{r['calls_held']}; detect step of {MESH_FRAMES // ranks} frames: {dev}; peak device memory "
+              f"{r['peak_mib']:.1f} MiB; stream {MESH_STREAM_FRAMES} frames in "
+              f"{[round(x, 3) for x in r['stream_s']]} s; launches "
+              f"{ {k: v for k, v in r['launches'].items() if v} }", flush=True)
+    for name in ("batch", "stream"):
+        if not r0[name]["ok"]:
+            raise AssertionError(f"{label}: the sharded {name} breaks its contract against the unsharded one: "
+                                 f"{r0[name]}")
+    # Each turn's wall time over the ranks is its slowest rank's.
+    fps_n = [MESH_STREAM_FRAMES / max(w) for w in zip(*(r["stream_s"] for r in results))]
+    fps_1 = [MESH_STREAM_FRAMES / w for w in r0["stream_1rank_s"]]
+    g = r0["golden"]
+    print(f"{label}: sharded_pipeline on {MESH_FRAMES} frames vs unsharded: {r0['batch']}; golden scenes 0-5 "
+          f"max|dxy| {max(x['max_dxy'] for x in g):.6f} px, max|dparams| {max(x['max_dparams'] for x in g):.6f}; "
+          f"registration vs unsharded: axes {r0['registration']['axis_deg']:.3e} deg, fval rel "
+          f"{r0['registration']['fval_rel']:.2e}; ranks agree", flush=True)
+    print(f"{label}: stream N={MESH_STREAM_FRAMES} chunk={STREAM_CHUNK} compact, frames/s by turn: {ranks} ranks "
+          f"{[round(x, 2) for x in fps_n]} (the first: the main path's run), 1 rank {[round(x, 2) for x in fps_1]}; "
+          f"median ratio {statistics.median(fps_n[1:]) / statistics.median(fps_1):.3f}; ok "
+          f"{r0['stream_ok_frames']}/{MESH_STREAM_FRAMES}; vs unsharded {r0['stream']}; {smi}", flush=True)
+    return {k: sum(r["launches"][k] for r in results) for k in r0["launches"]}
+
+
+def mesh_phase(frontend, device, cfg, fit_cfg, smi, experiment) -> dict:
+    """Phase 16: (a) ``sharded_pipeline`` over a one-rank NCCL group on
+    phase 8's 100 frames, counters reset just before and read just after,
+    against phase 8's unsharded result; (b) ``mesh_rank`` on
+    MESH_RANKS_PER_CARD ranks sharing this card (gloo, the check mode);
+    (c) with two cards or more, on 2 or 4 NCCL ranks, one per card."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from cylinder_pose_estimation_tpu_torch.models import pipeline
+    from cylinder_pose_estimation_tpu_torch.parallel.dryrun import digest
+    from cylinder_pose_estimation_tpu_torch.parallel.mesh import TIMEOUT, make_mesh
+    from cylinder_pose_estimation_tpu_torch.parallel.sharding import sharded_pipeline
+
+    i1, i2, ang = experiment["frames"]
+    with tempfile.TemporaryDirectory(prefix="cpe_mesh_") as tmp:
+        dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1), rank=0,
+                                world_size=1, timeout=TIMEOUT, device_id=device)
+        try:
+            fn = sharded_pipeline(make_mesh(devices=[device]), experiment["stereo"], cfg, fit_cfg)
+            (batch, reg), launches = run_path("mesh", frontend, lambda: fn(i1, i2, ang))
+        finally:
+            dist.destroy_process_group()
+    batch = pipeline._tree_map(lambda x: x.cpu(), batch)
+    want, want_reg = pipeline._tree_map(lambda x: x.cpu(), experiment["batch"]), experiment["reg"]
+    for view in ("detect1", "detect2"):
+        g, w = getattr(batch, view), getattr(want, view)
+        for f in range(len(ang)):
+            points_check(g.grid, f, grid_records(w, f), f"mesh {view} frame {f}")
+        if not torch.equal(g.ok, w.ok):
+            raise AssertionError(f"mesh {view}: ok differs from the unsharded experiment")
+    chk = registration_check(reg, reg_dict(want_reg), ang, "mesh registration, 1 rank vs phase 8")
+    print(f"mesh 1 rank NCCL, F={len(ang)} 480x640: ids and ok equal to phase 8, registration axes "
+          f"{chk['axis_deg']:.3e} deg, perp {chk['perp_mm']:.3e} mm, fval rel {chk['fval_rel']:.2e}; bit-equal "
+          f"batch {digest(batch) == digest(want)}, registration {digest(reg) == digest(want_reg)}", flush=True)
+    del batch, reg
+    torch.cuda.empty_cache()
+    out = {"mesh": launches, "mesh_ranks": mesh_ranks(MESH_RANKS_PER_CARD, MESH_RANKS_PER_CARD, smi)}
+    if torch.cuda.device_count() >= 2:
+        out["mesh_cards"] = mesh_ranks(4 if torch.cuda.device_count() >= 4 else 2, 1, smi)
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1538,7 +1784,7 @@ def main() -> int:
     def stereo_fn(st):
         return stereo_from_numpy(*st, device=device)
 
-    exp_launches = registration_phase(device, stereo_fn, cfg, fit_cfg, frontend, smi)
+    exp_launches, experiment = registration_phase(device, stereo_fn, cfg, fit_cfg, frontend, smi)
     pre_launches = preprocess_phase(device, stereo_fn, cfg, fit_cfg, frontend, smi)
     stream_launches = stream_phase(device, stereo, cfg, fit_cfg, frontend, smi)
 
@@ -1624,12 +1870,15 @@ def main() -> int:
     # --- the command-line drivers on the card ------------------------------
     cli_launches = cli_phase(frontend, smi)
 
+    # --- the mesh path: one NCCL rank, then ranks over torch.distributed ---
+    mesh_launches = mesh_phase(frontend, device, cfg, fit_cfg, smi, experiment)
+
     # Launches per kernel: summed over the six path runs (each counted
     # from zero), with the split by path beside it.
     by_path = {"main": main_launches, "endpoint": ep_launches, "plane": plane_launches,
                "experiment": exp_launches, "preprocess": pre_launches, "stream": stream_launches,
                "xla": xla_launches, "large": large_launches, **variant_launches, "cli": cli_launches,
-               "routes": route_launches}
+               "routes": route_launches, **mesh_launches}
     rows = []
     for k in ROWS:
         r = report.get(k, new_report())

@@ -13,6 +13,8 @@ module paths here mirror it:
   models/    the detector (kernel and XLA branches, cylinder and plane
              modes), sub-pixel refinement, the per-frame fit and the
              pipelines (batch, stream, whole experiment).
+  parallel/  frame-parallel serving over ``torch.distributed``, one process
+             per device: the frame mesh, the sharded pipelines, a dry run.
   utils/     the reference's JSON contracts (``io``), PNG files, synthetic
              scenes, visualisation, profiling.
   cli.py     the ``cylpose-torch`` drivers.

@@ -251,30 +251,44 @@ def estimate_poses_stream(
     ``overlap=False`` runs one chunk at a time.  Either way each chunk's
     result is that of ``estimate_poses_batch`` on the same frames.
 
-    ``mesh`` (multi-device serving) is not ported (ROADMAP 1.15)."""
-    if mesh is not None:
-        raise NotImplementedError("estimate_poses_stream(mesh=...): multi-device serving "
-                                  "is not ported (ROADMAP 1.15)")
+    ``mesh`` (a ``parallel.mesh.FrameMesh``): multi-device serving, the
+    stream running on every rank of the mesh with the same arguments.  Each
+    chunk (its tail padded first) splits into ``mesh.size`` blocks; each
+    rank loads, uploads and computes only its block on ``mesh.device``,
+    then all-gathers the chunk's result (the summary when ``compact``), so
+    every rank returns the whole sequence.  ``chunk`` must be divisible by
+    the mesh size."""
     n = images1.shape[0]
     if n == 0:
         raise ValueError("estimate_poses_stream needs at least one frame")
+    lo, hi = 0, chunk
+    if mesh is not None:
+        from cylinder_pose_estimation_tpu_torch.parallel.mesh import FrameMesh, frame_slice, gather_frames
+
+        if not isinstance(mesh, FrameMesh):
+            raise TypeError(f"estimate_poses_stream: mesh must be a FrameMesh (parallel.mesh.make_mesh), "
+                            f"not {type(mesh).__name__}")
+        if device is not None and torch.device(device) != mesh.device:
+            raise ValueError(f"estimate_poses_stream: device {device} is not the mesh's {mesh.device}")
+        device = mesh.device
+        lo, hi = frame_slice(mesh, chunk)
     device = torch.device(stereo.t_c2_c1.device if device is None else device)
     stereo = _stereo_to(stereo, device)
 
     def load(s):
-        e = min(s + chunk, n)
-        a = np.ascontiguousarray(images1[s:e])
-        b = np.ascontiguousarray(images2[s:e])
+        """Frames [s + lo, s + hi) of the chunk at s, past the sequence's end
+        repeating its last frame."""
+        a0, a1 = min(s + lo, n), min(s + hi, n)
+        src = slice(a0, a1) if a1 > a0 else slice(n - 1, n)
+        a = np.ascontiguousarray(images1[src])
+        b = np.ascontiguousarray(images2[src])
         if not (a.flags.writeable and b.flags.writeable):
             a, b = a.copy(), b.copy()
-        pad = chunk - (e - s)
+        pad = hi - lo - a.shape[0]
         if pad:
             a = np.concatenate([a, np.repeat(a[-1:], pad, axis=0)])
             b = np.concatenate([b, np.repeat(b[-1:], pad, axis=0)])
-        return a, b, e - s
-
-    first = load(0)
-    uploader = _Uploader(device, first[0].shape, first[0].dtype)
+        return a, b, min(chunk, n - s)
 
     def stage(s):
         a, b, live = first if s == 0 else load(s)
@@ -287,7 +301,8 @@ def estimate_poses_stream(
             da.record_stream(compute)
             db.record_stream(compute)
         batch = estimate_poses_batch(da, db, stereo, detect_cfg, fit_cfg)
-        return _summarize_batch(batch, reg_cfg) if compact else batch
+        r = _summarize_batch(batch, reg_cfg) if compact else batch
+        return r if mesh is None else gather_frames(r, mesh)
 
     def start_readback(r):
         if device.type != "cuda":
@@ -307,6 +322,9 @@ def estimate_poses_stream(
     starts = list(range(0, n, chunk))
     outs = []
     with torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext():
+        # The pinned buffers and the side stream belong to this device.
+        first = load(0)
+        uploader = _Uploader(device, first[0].shape, first[0].dtype)
         if overlap:
             pending = None
             with ThreadPoolExecutor(max_workers=1) as ex:

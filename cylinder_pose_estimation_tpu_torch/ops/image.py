@@ -247,3 +247,17 @@ def cubic_sample(img: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> torch.T
             row = row + wxi * img[..., y0 + (j - 1), x0 + (i - 1)]
         out = out + wyj * row
     return out
+
+
+def patch_mean_at(img_boxmean: torch.Tensor, xy: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """A precomputed box-mean image (H, W) read at the nearest pixel of each
+    point (..., 2) (x, y), clipped to the image; -inf at invalid points.  A
+    NaN coordinate reads pixel 0 and an infinite one the border, as XLA's
+    saturating float-to-int conversion does."""
+    h, w = img_boxmean.shape
+
+    def index(v, n):
+        return torch.nan_to_num(torch.round(v), nan=0.0).clamp(0, n - 1).to(torch.int64)
+
+    vals = img_boxmean[index(xy[..., 1], h), index(xy[..., 0], w)]
+    return torch.where(valid, vals, torch.tensor(-torch.inf, dtype=vals.dtype, device=vals.device))

@@ -145,10 +145,11 @@ def launch(
         raise RuntimeError(f"{name}: CUDA error {rc}: {lib.cpe_error_string(rc).decode()}")
 
 
-def bridge_split_max_clusters(elem_bytes: int, cluster: int, smem: int, device: int = 0) -> int:
+def bridge_split_max_clusters(elem_bytes: int, cluster: int, smem: int, device) -> int:
     """Clusters of the bridge's split kernel (``cluster`` CTAs of ``smem``
-    shared bytes, pixels of ``elem_bytes``) that card ``device`` holds at
-    once (``cudaOccupancyMaxActiveClusters``); 0: the plan cannot launch."""
+    shared bytes, pixels of ``elem_bytes``) that card ``device`` (the
+    caller's: a ``torch.device`` or an index) holds at once
+    (``cudaOccupancyMaxActiveClusters``); 0: the plan cannot launch."""
     lib = build()
     out = ctypes.c_int(0)
     with torch.cuda.device(device):

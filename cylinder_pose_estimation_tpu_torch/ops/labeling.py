@@ -17,6 +17,8 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from cylinder_pose_estimation_tpu_torch.ops.image import cumsum_blocked, fma32
+
 
 def _seg_min_scan(v: torch.Tensor, mask: torch.Tensor, bg: int) -> torch.Tensor:
     """Forward segmented min-scan along the last axis: each in-mask pixel
@@ -66,6 +68,7 @@ class ComponentStats(NamedTuple):
     root: torch.Tensor      # (..., K) int32 root label (sentinel if empty)
     count: torch.Tensor     # (..., K) int32
     centroid: torch.Tensor  # (..., K, 2) float (x, y)
+    bbox: torch.Tensor      # (..., K, 4) int32 x0, y0, x1, y1 (inclusive)
     valid: torch.Tensor     # (..., K)
     mxx: torch.Tensor
     mxy: torch.Tensor
@@ -128,7 +131,9 @@ def component_stats_first_k(
     min_area: int = 1,
     value_shape: tuple | None = None,
 ) -> ComponentStats:
-    """Stats of the first K components in scan order of (..., h, w) labels.
+    """Stats of the first K components in scan order of (..., h, w) labels,
+    without boxes (``bbox`` all zero: the JAX function's
+    ``compute_bbox=False``, the only form the detector calls).
 
     ``value_shape`` (vh, vw): labels are a min-pooled view whose VALUES are
     linear indices of the (vh, vw) grid; the root test maps each value to
@@ -170,10 +175,79 @@ def component_stats_first_k(
         root=torch.where(valid, root_k, vhw).to(torch.int32),
         count=cnt.to(torch.int32),
         centroid=torch.stack([cx, cy], -1),
+        bbox=torch.zeros(lead + (k, 4), dtype=torch.int32, device=labels.device),
         valid=valid,
         mxx=mxx,
         mxy=mxy,
         myy=myy,
+    )
+
+
+def component_stats(labels: torch.Tensor, k: int, min_area: int = 1) -> ComponentStats:
+    """Stats of the K largest components of (..., h, w) labels, the JAX
+    function's sort-based reduction: a stable sort of the flat labels (so
+    components of equal size keep the smaller label first), runs of equal
+    labels, per-run sums as differences of one float32 prefix sum in XLA's
+    CPU order (``image.cumsum_blocked``), per-run boxes from the run's
+    minima and maxima, and the K longest runs by a stable sort.  The second
+    moments ``s / c - m * m`` are fused multiply-adds (``image.fma32``), as
+    XLA's CPU backend compiles them, so every field equals the JAX
+    function's on the CPU.
+
+    Roots, counts, boxes and validity are exact.  The moments are not: the
+    prefix sum of x^2 and y^2 reaches ~4e10 at 480x640, so a run sorted late
+    carries an absolute moment error up to ~2.5e3 (~0.05 px of centroid);
+    ``component_stats_first_k`` sums exactly where K slots in scan order
+    suffice."""
+    h, w = labels.shape[-2:]
+    hw = h * w
+    lead = labels.shape[:-2]
+    flat = labels.reshape(lead + (hw,))
+    sl, order = torch.sort(flat, dim=-1, stable=True)
+    xs = (order % w).to(torch.float32)
+    ys = (order // w).to(torch.float32)
+    csum = cumsum_blocked(torch.stack([xs, ys, xs * xs, xs * ys, ys * ys], dim=-2))  # (..., 5, hw)
+
+    pos = torch.arange(hw, device=labels.device).expand(sl.shape)
+    boundary = torch.ones_like(sl, dtype=torch.bool)
+    boundary[..., 1:] = sl[..., 1:] != sl[..., :-1]
+    # Sorted run starts; the slots past the last run park at hw.
+    starts = torch.sort(torch.where(boundary, pos, hw), dim=-1).values
+    ends = torch.cat([starts[..., 1:], torch.full(lead + (1,), hw, device=labels.device)], -1)
+    root = sl.gather(-1, starts.clamp(max=hw - 1))
+    length = torch.where((starts < hw) & (root < hw), ends - starts, 0)  # background: 0
+
+    sel = torch.sort(-length, dim=-1, stable=True).indices[..., :k]
+    cnt_k = length.gather(-1, sel)
+    valid = cnt_k >= min_area
+    s_idx = starts.gather(-1, sel).clamp(max=hw - 1)
+    e_idx = (ends.gather(-1, sel) - 1).clamp(0, hw - 1)
+
+    def at(idx):
+        return csum.gather(-1, idx[..., None, :].expand(lead + (5, idx.shape[-1])))
+
+    sums = at(e_idx) - torch.where(s_idx[..., None, :] > 0, at((s_idx - 1).clamp(min=0)), 0.0)
+    c = torch.clamp(cnt_k.to(torch.float32), min=1.0)
+    cx = sums[..., 0, :] / c
+    cy = sums[..., 1, :] / c
+
+    # Boxes: each run's extremes, read at the run holding e_idx.
+    run = torch.cumsum(boundary, dim=-1) - 1
+    run_e = run.gather(-1, e_idx)
+    ext = []
+    for v, reduce in ((xs, "amin"), (ys, "amin"), (xs, "amax"), (ys, "amax")):
+        table = torch.zeros_like(v).scatter_reduce(-1, run, v, reduce=reduce, include_self=False)
+        ext.append(table.gather(-1, run_e))
+    bbox = torch.where(valid[..., None], torch.stack(ext, -1), 0.0).to(torch.int32)
+    return ComponentStats(
+        root=torch.where(valid, root.gather(-1, sel), hw).to(torch.int32),
+        count=cnt_k.to(torch.int32),
+        centroid=torch.stack([cx, cy], -1),
+        bbox=bbox,
+        valid=valid,
+        mxx=fma32(-cx, cx, sums[..., 2, :] / c),
+        mxy=fma32(-cx, cy, sums[..., 3, :] / c),
+        myy=fma32(-cy, cy, sums[..., 4, :] / c),
     )
 
 

@@ -614,7 +614,7 @@ def test_bridge_split_plans_fit_the_card(dev):
         plan = tf.bridge_plan(*shape)
         assert plan["route"] == "split"
         for elem in (1, 4):
-            assert kernels.bridge_split_max_clusters(elem, plan["cluster"], plan["smem"]) >= 1, (shape, plan)
+            assert kernels.bridge_split_max_clusters(elem, plan["cluster"], plan["smem"], dev) >= 1, (shape, plan)
 
 
 @pytest.mark.parametrize("shape", [(2, 720, 1280), (2, 1080, 1920)])

@@ -6,7 +6,8 @@ the port's own scene source and runs ``estimate_poses_batch`` on the CPU,
 then the endpoint-stats detector on it, plane-mode ``detect_grid`` on a
 rendered plane view and ``fit_plane``, and imports the preprocessing,
 kinematics, registration and stream modules and runs a small registration,
-then imports the package and every module of the user surface (refinement,
+imports ``parallel/`` and runs ``sharded_pipeline`` over a one-rank gloo
+group (equal to the unsharded batch and registration), then imports the package and every module of the user surface (refinement,
 JSON contracts, PNG files, viz, profiling, CLI, examples) and runs the
 full-resolution and refinement variants.  A second subprocess blocks JAX,
 Pillow and matplotlib (a minimal GPU installation) and runs
@@ -66,6 +67,15 @@ assert p1.shape == (1, 480, 640) and bool(torch.isfinite(p1).all())
 ang = torch.tensor([[-0.2, 0.03], [0.2, -0.03]])
 reg = register_sequence(res, ang, RegistrationConfig(lm_iters=3))
 assert reg.t_cam_agv.shape == (4, 4) and bool(torch.isfinite(reg.t_cam_agv).all())
+import datetime
+import torch.distributed as dist
+from cylinder_pose_estimation_tpu_torch.parallel import dryrun, mesh, sharding
+dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1,
+                        timeout=datetime.timedelta(seconds=60))
+sb, sr = sharding.sharded_pipeline(mesh.make_mesh(devices=["cpu"]), stereo, CylinderDetectConfig(use_pallas=True),
+                                   FitConfig(), RegistrationConfig(lm_iters=3))(i1, i2, ang.numpy())
+dist.destroy_process_group()
+assert dryrun.digest(sb) == dryrun.digest(res) and dryrun.digest(sr) == dryrun.digest(reg)
 import cylinder_pose_estimation_tpu_torch as pkg
 from cylinder_pose_estimation_tpu_torch import cli
 from cylinder_pose_estimation_tpu_torch.examples import quickstart, streaming_serving

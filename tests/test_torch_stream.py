@@ -20,8 +20,10 @@ repeating its last frame):
   pass within 0.01 mm of JAX's origin; 1 mm on the unhealthy frame 3, whose
   fit fails at 37 px reprojection with its origin 1 m out, where the two
   lines lie 0.62 mm apart);
-* a ``mesh`` and an empty sequence raise, and so does a CUDA device on a
-  machine without one.
+* a ``mesh`` that is not a FrameMesh, a chunk that does not split over the
+  mesh, and an empty sequence raise, and so does a CUDA device on a machine
+  without one; over a one-rank gloo mesh the stream equals the unsharded
+  stream.
 
 The frames are ``registration_sequence``'s seed 2.  With seeds 0 and 1 the
 second view of frame 3 picks another grid origin in the port than in JAX:
@@ -31,11 +33,13 @@ differs by one pixel, its patch mean moves by 4.5 grey levels, and it passes
 a rival origin 0.4 levels away (ROADMAP section 3 counts these flips).
 """
 
+import datetime
 import math
 
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 from _torch_port import jax_stereo, port_stereo, to_port
 from cylinder_pose_estimation_tpu.config import CylinderDetectConfig as JDetect
@@ -49,6 +53,7 @@ from cylinder_pose_estimation_tpu_torch.config import (
     from_reference,
 )
 from cylinder_pose_estimation_tpu_torch.models import pipeline
+from cylinder_pose_estimation_tpu_torch.parallel.mesh import FrameMesh, make_mesh
 from cylinder_pose_estimation_tpu_torch.utils.synthetic import (
     TiledFrames,
     registration_angles,
@@ -202,11 +207,39 @@ def test_stream_matches_jax(frames, jax_streams, compact):
 
 
 def test_stream_rejects_mesh_and_empty(frames):
+    """A mesh that is not a FrameMesh, a chunk that does not split over the
+    mesh's ranks, a device other than the mesh's, and an empty sequence
+    raise."""
     stereo, i1, i2 = frames
-    with pytest.raises(NotImplementedError, match="ROADMAP 1.15"):
+    with pytest.raises(TypeError, match="FrameMesh"):
         pipeline.estimate_poses_stream(i1, i2, stereo, CFG, FIT, mesh=object())
+    two = FrameMesh(None, 0, 2, torch.device("cpu"))
+    with pytest.raises(ValueError, match="divisible by the mesh size"):
+        pipeline.estimate_poses_stream(i1, i2, stereo, CFG, FIT, chunk=3, mesh=two)
+    with pytest.raises(ValueError, match="not the mesh's"):
+        pipeline.estimate_poses_stream(i1, i2, stereo, CFG, FIT, chunk=CHUNK, mesh=two, device="cuda")
     with pytest.raises(ValueError, match="at least one frame"):
         pipeline.estimate_poses_stream(i1[:0], i2[:0], stereo, CFG, FIT)
+
+
+@pytest.mark.parametrize("compact", [True, False], ids=["compact", "full"])
+def test_stream_world1_mesh_equals_unsharded(frames, compact):
+    """Over a one-rank gloo mesh the stream (its one all-gather per chunk
+    included) returns exactly the unsharded stream, padded tail and all."""
+    stereo, i1, i2 = frames
+    want = pipeline.estimate_poses_stream(i1, i2, stereo, CFG, FIT, chunk=CHUNK, compact=compact,
+                                          reg_cfg=REG, device="cpu")
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=60))
+    try:
+        got = pipeline.estimate_poses_stream(i1, i2, stereo, CFG, FIT, chunk=CHUNK, compact=compact,
+                                             reg_cfg=REG, mesh=make_mesh(devices=["cpu"]))
+    finally:
+        dist.destroy_process_group()
+    assert type(got) is type(want)
+    for g, w in zip(pipeline._tree_leaves(got), pipeline._tree_leaves(want)):
+        assert g.shape[0] == N and g.dtype == w.dtype
+        assert np.array_equal(g, w, equal_nan=np.issubdtype(w.dtype, np.floating))
 
 
 def test_stream_on_absent_cuda_device_raises(frames):
