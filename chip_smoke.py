@@ -4,7 +4,13 @@
     python3 chip_smoke.py
 
 Needs a CUDA device and ``nvcc``; exits non-zero without them, and when any
-phase fails.  Phases:
+phase fails.  The first line, printed before anything that can fail, gives
+the python, torch and CUDA versions.  Device kernels per call and their
+device ms come from a CUDA graph captured from one call
+(``utils.profiling.graph_kernels``); torch.profiler gives only the split by
+kernel name, and the XLA branch's detect-step count (that branch copies
+host constants to the card in every call, which a capture refuses).
+Phases:
 
 1. Build the CUDA kernels from ``cylinder_pose_estimation_tpu_torch/csrc``
    (first use; the library lands in the package's ``_build/``).
@@ -28,9 +34,9 @@ phase fails.  Phases:
 6. Kernels: each CUDA kernel against its plain PyTorch version on the same
    device, on the intermediates of B=16 runs (production shapes) and on
    seeded random inputs; every output must be ``torch.equal``.  Median times
-   of both, with CUDA events around one call after warm-up; torch.profiler's
-   device kernels per call (at most 3 for 2.1, exactly 1 for the others) and
-   their summed device ms; the byte bound of each site (``frontend.min_bytes``
+   of both, with CUDA events around one call after warm-up; the device
+   kernels per call (at most 3 for 2.1, exactly 1 for the others) and the
+   device ms of a graph replay; the byte bound of each site (``frontend.min_bytes``
    at 3.35 TB/s).  The bridge is timed on the detector's bool masks and, off
    the report, as float32; its in-kernel schedule must equal
    ``bridge_schedule`` on the card for 10^5 angles.  The build's
@@ -81,8 +87,7 @@ phase fails.  Phases:
    ``torch.equal`` to its plain version on the card, with its ms, device
    ms and device ms by kernel name, device kernels per call (at most the
    global route's count, ``frontend.cc_global_launches``, and 1 for the
-   bridge; "not measured" where torch.profiler reads nothing) and byte
-   bound; the card's
+   bridge) and byte bound; the card's
    grids are held to the CPU port's (ids identical, xy within 0.05 px,
    ``ok`` and ``stable`` equal); ms/frame of each config and size.
 13. Variants (run after phase 12): the configurations of
@@ -129,6 +134,16 @@ phase fails.  Phases:
    registration to phase 8's contract.  Prints frames/s at 1 and 2 ranks,
    each rank's device kernels per detect step and its peak memory.  (c)
    With two cards or more, the same on 2 or 4 NCCL ranks, one per card.
+17. Corpus path (run after phase 16): the JAX package's detection corpora
+   (``corpus_phase``): the stability fence's lattices, rendered here, and
+   the frames of ``tests/fixtures/torch_corpus_scenes.npz`` through both
+   branches' entry points, the kernel branch with counters reset just
+   before and read just after and every kernel call ``torch.equal`` to its
+   plain version; card against the CPU port (ids identical, xy within 0.05
+   px, ``ok`` and ``stable`` equal; in the chaotic window ``ok`` and
+   ``stable`` only, the id-set differences printed), ms per view, and the
+   numpy oracle of tests/_oracle_detect.py on the card's post-bridge state
+   of golden scenes 0 and gap0_pallas (0.05 px).
 
 The second-to-last line is the kernel report as JSON: one row per kernel
 (the 480x640 sites; ``large_sites`` and ``variant_sites`` hold phases 12's
@@ -157,6 +172,9 @@ PLANE = os.path.join(HERE, "tests", "fixtures", "torch_plane_scenes.json")
 REGISTRATION = os.path.join(HERE, "tests", "fixtures", "torch_registration.json")
 VARIANTS = os.path.join(HERE, "tests", "fixtures", "torch_variant_scenes.json")
 CLI_RECORD = os.path.join(HERE, "tests", "fixtures", "torch_cli.json")
+CORPUS = os.path.join(HERE, "tests", "fixtures", "torch_corpus_scenes.npz")
+# The numpy oracle of the reference's detection bookkeeping (numpy and scipy).
+ORACLE = os.path.join(HERE, "tests", "_oracle_detect.py")
 KERNELS = ("preprocess_binarize", "connected_components", "bridge_morphology",
            "component_payload_minmax")
 # Kernels each path must launch: None, at least once; a number, exactly
@@ -169,18 +187,19 @@ PATH_KERNELS = {
     "xla": dict.fromkeys(KERNELS, 0),
     "large": dict.fromkeys(KERNELS, None),
 }
-for _path in ("experiment", "preprocess", "stream", "mesh", "mesh_ranks"):
+for _path in ("experiment", "preprocess", "stream", "mesh", "mesh_ranks", "corpus"):
     PATH_KERNELS[_path] = dict(PATH_KERNELS["main"])
 # The variants: the kernel-branch configurations launch all four kernels, the
 # XLA-branch ones and the command-line drivers (the default config) none.
 PATH_KERNELS["variants"] = dict.fromkeys(KERNELS, None)
 PATH_KERNELS["variants_xla"] = dict.fromkeys(KERNELS, 0)
 PATH_KERNELS["cli"] = dict.fromkeys(KERNELS, 0)
+PATH_KERNELS["corpus_xla"] = dict.fromkeys(KERNELS, 0)
 # The bridge's routes (frontend.bridge_plan): the cluster kernel at the
 # 480x640 paths' half-res canvases, the split kernel at the large frames'
 # canvases and the full-resolution variants, and each route once in phase 15.
 BRIDGE_ROUTES = ("bridge_morphology.cluster", "bridge_morphology.split", "bridge_morphology.global")
-for _path in ("main", "endpoint", "plane", "experiment", "preprocess", "stream", "mesh", "mesh_ranks"):
+for _path in ("main", "endpoint", "plane", "experiment", "preprocess", "stream", "mesh", "mesh_ranks", "corpus"):
     PATH_KERNELS[_path]["bridge_morphology.cluster"] = None
 PATH_KERNELS["large"]["bridge_morphology.split"] = None
 PATH_KERNELS["variants"]["bridge_morphology.split"] = None
@@ -220,6 +239,14 @@ MESH_FRAMES, MESH_STREAM_FRAMES, MESH_RANKS_PER_CARD = 16, 512, 2
 # Turns of the mesh stream's timing: all ranks, then rank 0 alone, in
 # alternating order.
 MESH_TIMING_PAIRS = 3
+# The corpus path (phase 17): the stability fence's lattices at 240x320
+# (angle in degrees, noise seed), rendered here; from 26 degrees on the
+# detector's labels are chaotic, and only ok and stable are compared there.
+CORPUS_LATTICES = ((0.0, 0), (14.0, 0), (19.0, 0), (19.0, 1), (19.0, 2), (19.0, 3), (26.0, 0), (32.0, 0))
+CORPUS_CHAOTIC = (26.0, 32.0)
+# The fixture's 240x320 and 480x640 frames of the JAX corpora.
+CORPUS_SMALL = ("gap3_control", "gap3_gapped", "double_gap", "indep2_240x320")
+CORPUS_LARGE = ("indep1_480x640",)
 
 
 def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -251,53 +278,34 @@ def kernel_name(e) -> str:
     return e.name.replace("(anonymous namespace)::", "").split("(")[0].replace("void ", "")
 
 
-def device_launches(fn, attempts: int = 3):
-    """(CUDA kernels that one fn() call launches, their summed device ms,
-    device ms by kernel name), by torch.profiler; (None, None, None) if no
-    session of ``attempts`` records them.  Late in a long process a session
-    may record nothing, or lose the first kernels it sees: each session runs
-    fn() twice with a spin kernel (``torch.cuda._sleep``) between the two
-    and counts the kernels after the spin, the second call's.  Where nothing
-    follows the spin but the session holds two identical calls' kernels (the
-    spin's place in the trace lost), the second of them counts.  After a
-    session that recorded no whole call it waits half a second."""
+def profiler_kernels(fn):
+    """(CUDA kernels of one fn() call, their device ms by kernel name) from
+    a torch.profiler session; (None, None) when it records none.  A session
+    may lose the first kernels it sees, so a spin kernel
+    (``torch.cuda._sleep``) leads the call and only what follows it counts.
+    Late in a long process a session may record nothing at all: the
+    kernels line's counts and device ms come from a captured CUDA graph
+    (``profiling.graph_kernels``), and this gives only the breakdown by
+    name, and the count of a call that cannot be captured."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    def summary(evs):
-        by_name = {}
-        for e in evs:
-            name = kernel_name(e)
-            by_name[name] = by_name.get(name, 0.0) + (e.time_range.end - e.time_range.start) / 1e3
-        return len(evs), sum(by_name.values()), by_name
-
     fn()
     torch.cuda.synchronize()
-    seen = []
-    for _ in range(attempts):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-            torch.cuda._sleep(1000)
-            torch.cuda.synchronize()
-            fn()
-            torch.cuda.synchronize()
-        events = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
-                         and "memcpy" not in e.name.lower() and "memset" not in e.name.lower()),
-                        key=lambda e: e.time_range.start)
-        spins = [i for i, e in enumerate(events) if "spin" in e.name.lower()]
-        tail = events[spins[-1] + 1:] if spins else []
-        if tail:
-            return summary(tail)
-        calls = [e for e in events if "spin" not in e.name.lower()]
-        half = len(calls) // 2
-        if calls and len(calls) % 2 == 0 and [e.name for e in calls[:half]] == [e.name for e in calls[half:]]:
-            return summary(calls[half:])
-        seen.append([kernel_name(e) for e in events])
-        time.sleep(0.5)
-    print(f"device_launches: no profiler session recorded a whole call; kernels seen per session: {seen}",
-          flush=True)
-    return None, None, None
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(1000)
+        fn()
+        torch.cuda.synchronize()
+    events = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+                     and "memcpy" not in e.name.lower() and "memset" not in e.name.lower()),
+                    key=lambda e: e.time_range.start)
+    spins = [i for i, e in enumerate(events) if "spin" in e.name.lower()]
+    events = events[spins[-1] + 1:] if spins else events
+    by_name = {}
+    for e in events:
+        name = kernel_name(e)
+        by_name[name] = by_name.get(name, 0.0) + (e.time_range.end - e.time_range.start) / 1e3
+    return (len(events), by_name) if events else (None, None)
 
 
 def ptxas_report(build_dir) -> list:
@@ -321,17 +329,20 @@ def ptxas_report(build_dir) -> list:
     return out
 
 
+def grid_map(grid, i: int) -> dict:
+    """{(id0, id1): xy} of view i of a GridPoints, on the host."""
+    xy = grid.xy[i].cpu().numpy().astype("float64")
+    idx = grid.idx[i].cpu().numpy()
+    valid = grid.valid[i].cpu().numpy()
+    return {(int(idx[k, 0]), int(idx[k, 1])): xy[k] for k in range(len(valid)) if valid[k]}
+
+
 def points_check(grid, i: int, records: list, label: str):
     """View i of a GridPoints against fixture point records: ids identical,
     xy within 0.05 px.  Returns (number of points, max |dxy|)."""
-    import numpy as np
-
-    xy = grid.xy[i].cpu().numpy().astype(np.float64)
-    idx = grid.idx[i].cpu().numpy()
-    valid = grid.valid[i].cpu().numpy()
-    if not np.all(np.isfinite(xy)):
+    if not bool(grid.xy[i].isfinite().all()):
         raise AssertionError(f"{label}: non-finite grid coordinates")
-    got = {(int(idx[k, 0]), int(idx[k, 1])): xy[k] for k in range(len(valid)) if valid[k]}
+    got = grid_map(grid, i)
     want = {tuple(r["id"]): (r["x"], r["y"]) for r in records}
     if set(got) != set(want):
         raise AssertionError(f"{label} id set differs: +{set(got) - set(want)} -{set(want) - set(got)}")
@@ -530,11 +541,16 @@ def compare(report, name, kernel_fn, plain_fn, label, timed, nbytes=0, site=True
             into=None):
     """Hold a kernel call to its plain version (``torch.equal``) and add its
     largest error to ``report[name]``.  ``timed``: time both and count the
-    kernel's device kernels per call, which must not pass ``max_dev``
-    (default ``DEVICE_LAUNCHES_MAX``); ``site``: add the times to the
+    kernel's device kernels per call from a CUDA graph captured from one
+    call (``profiling.graph_kernels``, whose replay gives the device ms),
+    which must not pass ``max_dev`` (default ``DEVICE_LAUNCHES_MAX``), and
+    break a call of several kernels down by name with torch.profiler
+    ("not measured" where it records none); ``site``: add the times to the
     kernel's 480x640 main-path sites, or with ``into`` to the site list of
     that name (``large_sites``, ``variant_sites``)."""
     import torch
+
+    from cylinder_pose_estimation_tpu_torch.utils import profiling
 
     out_k = kernel_fn()
     out_p = plain_fn()
@@ -557,9 +573,10 @@ def compare(report, name, kernel_fn, plain_fn, label, timed, nbytes=0, site=True
         max_dev = DEVICE_LAUNCHES_MAX[name] if max_dev is None else max_dev
         ms_k = cuda_ms(kernel_fn)
         ms_p = cuda_ms(plain_fn, reps=5, warmup=1)
-        n_dev, dev_ms, by_name = device_launches(kernel_fn)
-        if (n_dev is None and into is None) or (n_dev is not None and n_dev > max_dev):
+        n_dev, dev_ms = profiling.graph_kernels(kernel_fn)
+        if n_dev > max_dev:
             raise AssertionError(f"{name} [{label}]: {n_dev} device kernels in a call (at most {max_dev})")
+        by_name = profiler_kernels(kernel_fn)[1] if n_dev > 1 else None
         if site and into is not None:
             rep[into].append({"site": label, "ms": ms_k, "device_ms": dev_ms, "plain_ms": ms_p,
                               "bytes": nbytes, "bound_ms": bound_ms(nbytes),
@@ -571,11 +588,11 @@ def compare(report, name, kernel_fn, plain_fn, label, timed, nbytes=0, site=True
             rep["bytes"] += nbytes
             rep["sites"].append((label, ms_k, ms_p, nbytes, n_dev))
             rep["device_launches"] = max(rep["device_launches"] or 0, n_dev)
-        dev_txt = "not measured" if dev_ms is None else f"{dev_ms:.4f} ms"
-        line += (f"; kernel {ms_k:.4f} ms (device {dev_txt}), plain {ms_p:.4f} ms, bound "
+        line += (f"; kernel {ms_k:.4f} ms (graph replay {dev_ms:.4f} device ms), plain {ms_p:.4f} ms, bound "
                  f"{bound_ms(nbytes):.4f} ms ({nbytes} B), device kernels per call {n_dev}")
-        if by_name and len(by_name) > 1:
-            line += f", device ms by kernel {({k: round(v, 4) for k, v in by_name.items()})}"
+        if n_dev > 1:
+            by_txt = "not measured" if by_name is None else {k: round(v, 4) for k, v in by_name.items()}
+            line += f", profiler device ms by kernel {by_txt}"
     print(line, flush=True)
 
 
@@ -1477,6 +1494,173 @@ def hold_calls(frontend, calls, label) -> dict:
     return {k: len(v) for k, v in calls.items()}
 
 
+def corpus_hold(card, host, i: int, chaotic: bool, label: str) -> dict:
+    """View i of the card's DetectResult against the CPU port's: ``ok`` and
+    ``stable`` equal; outside the chaotic window also ids identical and xy
+    within 0.05 px.  Returns the points, the largest move and the id-set
+    difference."""
+    for flag in ("ok", "stable"):
+        if bool(getattr(card, flag)[i]) != bool(getattr(host, flag)[i]):
+            raise AssertionError(f"{label}: {flag} {bool(getattr(card, flag)[i])} on the card, "
+                                 f"{bool(getattr(host, flag)[i])} on the CPU")
+    g, h = grid_map(card.grid, i), grid_map(host.grid, i)
+    diff = len(set(g) ^ set(h))
+    if chaotic:
+        return {"points": len(h), "max_dxy": None, "id_diff": diff}
+    if diff:
+        raise AssertionError(f"{label}: id sets differ, card +{sorted(set(g) - set(h))} -{sorted(set(h) - set(g))}")
+    d = max((float(abs(g[k] - h[k]).max()) for k in h), default=0.0)
+    if d >= 0.05:
+        raise AssertionError(f"{label}: a point moves {d} px between the card and the CPU")
+    return {"points": len(h), "max_dxy": d, "id_diff": 0}
+
+
+def oracle_check(views, cfg, names) -> list:
+    """The card's post-bridge state of each view (``front_stage``,
+    ``roi_stage``, ``bridge_stage``) replayed through the numpy oracle of
+    the reference's bookkeeping (tests/_oracle_detect.py); the card's final
+    grid must match it id for id, every coordinate and the centre within
+    0.05 px.  Returns (points, largest move) per view."""
+    import importlib.util
+
+    import numpy as np
+    import torch
+
+    from cylinder_pose_estimation_tpu_torch.models import detector as det
+
+    spec = importlib.util.spec_from_file_location("_oracle_detect", ORACLE)
+    od = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(od)
+    h, w = views.shape[-2:]
+    with torch.inference_mode():
+        gray = det._to_gray(views)
+        front = det.front_stage(gray, cfg)
+        roi = det.roi_stage(front, cfg)
+        br = det.bridge_stage(roi.mh, roi.mv, roi.circle_radius0, cfg)
+        res = det.detect_grid(views, cfg)
+    out = []
+    for i, name in enumerate(names):
+        inside = roi.inside[i].cpu().numpy()
+        js, _ = od.detect_bookkeeping(
+            det._upsample2(br.h_exp[i], h, w).cpu().numpy(), det._upsample2(br.v_exp[i], h, w).cpu().numpy(),
+            front.cents[i].cpu().numpy()[inside], roi.bbox[i].cpu().numpy(), front.gray[i].cpu().numpy(),
+            float(roi.circle_radius0[i]), degree=cfg.poly_degree, prune=cfg.drop_first_row or cfg.drop_last_col)
+        if js is None:
+            raise AssertionError(f"oracle {name}: the oracle found no grid")
+        data = json.loads(js)
+        oracle = {tuple(p["id"]): np.asarray((p["x"], p["y"])) for p in data["points"]}
+        card = grid_map(res.grid, i)
+        if set(card) != set(oracle):
+            raise AssertionError(f"oracle {name}: id sets differ, card +{sorted(set(card) - set(oracle))} "
+                                 f"-{sorted(set(oracle) - set(card))}")
+        d = max(float(abs(card[k] - oracle[k]).max()) for k in card)
+        dc = float(abs(res.grid.center[i].cpu().numpy() - np.asarray(data["center_point"])).max())
+        if d >= 0.05 or dc >= 0.05:
+            raise AssertionError(f"oracle {name}: points {d} px, centre {dc} px from the oracle")
+        out.append((len(card), max(d, dc)))
+    return out
+
+
+def corpus_phase(frontend, device, golden_views, smi) -> dict:
+    """Phase 17: the JAX package's detection corpora on the card.  Inputs:
+    the stability fence's lattices (``CORPUS_LATTICES``, rendered by
+    ``utils.synthetic.tilted_grid_view``) and the frames of
+    ``tests/fixtures/torch_corpus_scenes.npz`` (the gap scenes, one view of
+    the independent family at each size, the k1=-1.2 distortion pair and its
+    control).  Each branch runs every input through its entry points:
+    ``detect_grid`` on the views, ``undistort_image`` then
+    ``estimate_poses_batch`` on the distortion frames; the kernel branch as
+    the path "corpus" (counters reset just before and read just after, every
+    kernel call held ``torch.equal`` to its plain version), the XLA branch
+    as "corpus_xla".  Both are held to the CPU port on the same inputs by
+    ``corpus_hold`` (the distortion frames' fitted axes within 1e-3 rad).
+    Then the numpy oracle on the card's post-bridge state of golden scenes
+    0 and gap0_pallas (``golden_views``).  Prints each scene and the ms per
+    view; returns the launches by path."""
+    import numpy as np
+    import torch
+
+    from cylinder_pose_estimation_tpu_torch.config import CylinderDetectConfig, FitConfig
+    from cylinder_pose_estimation_tpu_torch.models.detector import detect_grid
+    from cylinder_pose_estimation_tpu_torch.models.pipeline import estimate_poses_batch
+    from cylinder_pose_estimation_tpu_torch.ops.remap import undistort_image
+    from cylinder_pose_estimation_tpu_torch.types import stereo_from_numpy
+    from cylinder_pose_estimation_tpu_torch.utils.synthetic import tilted_grid_view
+
+    fx = np.load(CORPUS)
+    small = [(f"lattice {a:g} deg seed {s}", tilted_grid_view(240, 320, a, s), a in CORPUS_CHAOTIC)
+             for a, s in CORPUS_LATTICES]
+    small += [(k, fx[k], False) for k in CORPUS_SMALL]
+    groups = [((240, 320), small), ((480, 640), [(k, fx[k], False) for k in CORPUS_LARGE])]
+    dist = [np.stack([fx[f"dist_distorted_{v}"], fx[f"dist_control_{v}"]]) for v in (1, 2)]
+    st_np = [fx[f"dist_stereo_{i}"] for i in range(7)]
+    fit_cfg = FitConfig(cyl_radius=float(fx["dist_radius"]))
+
+    def run(dev, use_pallas):
+        with torch.inference_mode():
+            dets = []
+            for (h, w), views in groups:
+                x = torch.as_tensor(np.stack([v for _, v, _ in views]), device=dev)
+                dets.append(detect_grid(x, CylinderDetectConfig(height=h, width=w, use_pallas=use_pallas)))
+            st = stereo_from_numpy(*st_np, device=dev)
+            a, b = (torch.as_tensor(x, device=dev) for x in dist)
+            a = torch.cat([undistort_image(a[:1], st.cam1), a[1:]])
+            b = torch.cat([undistort_image(b[:1], st.cam2), b[1:]])
+            pose = estimate_poses_batch(a, b, st, CylinderDetectConfig(height=240, width=320, use_pallas=use_pallas),
+                                        fit_cfg)
+        return dets, pose
+
+    with Capture(frontend) as cap:
+        card_k, launches = run_path("corpus", frontend, lambda: run(device, True))
+    held = hold_calls(frontend, cap.calls, "corpus")
+    print(f"corpus: kernel calls held torch.equal to their plain versions: {held}", flush=True)
+    card_x, launches_x = run_path("corpus_xla", frontend, lambda: run(device, False))
+
+    chaotic_diff = {}
+    for branch, (dets, pose), (hdets, hpose) in (("kernels", card_k, run("cpu", True)),
+                                                  ("xla", card_x, run("cpu", False))):
+        for g, (_, views) in enumerate(groups):
+            for i, (name, _, chaotic) in enumerate(views):
+                r = corpus_hold(dets[g], hdets[g], i, chaotic, f"corpus {branch} {name}")
+                flags = {f: bool(getattr(dets[g], f)[i]) for f in ("ok", "stable", "labels_converged")}
+                d_tilt = abs(float(dets[g].max_line_tilt[i]) - float(hdets[g].max_line_tilt[i]))
+                if chaotic:
+                    chaotic_diff[f"{branch} {name}"] = r["id_diff"]
+                    moved = f"chaotic window, id sets differ by {r['id_diff']}"
+                else:
+                    moved = f"ids identical, max|dxy| {r['max_dxy']:.6f} px"
+                print(f"corpus {branch} {name}: {r['points']} points, {moved}, {flags} equal card vs CPU, "
+                      f"|d max_line_tilt| {d_tilt:.3e} rad", flush=True)
+        for f, tag in enumerate(("k1=-1.2 undistorted", "k1=-1.2 control")):
+            for view in ("detect1", "detect2"):
+                r = corpus_hold(getattr(pose, view), getattr(hpose, view), f, False,
+                                f"corpus {branch} {tag} {view}")
+            axes = [p.fit.params[f, 3:6].cpu().double() for p in (pose, hpose)]
+            cos = abs(float(torch.dot(axes[0], axes[1]) / (axes[0].norm() * axes[1].norm())))
+            ang = math.acos(min(1.0, cos))
+            if ang >= 1e-3:
+                raise AssertionError(f"corpus {branch} {tag}: fitted axes {ang} rad apart, card vs CPU")
+            print(f"corpus {branch} {tag}: both views ids identical card vs CPU (last view max|dxy| "
+                  f"{r['max_dxy']:.6f} px), axis {ang:.3e} rad from the CPU's, reprojection "
+                  f"{float(pose.fit.mean_reproj_error[f]):.4f} px", flush=True)
+    print(f"corpus: ok and stable equal card vs CPU on every view of both branches; chaotic-window id-set "
+          f"differences {chaotic_diff}", flush=True)
+
+    for use_pallas, label in ((True, "kernels"), (False, "xla")):
+        (h, w), views = groups[0]
+        x = torch.as_tensor(np.stack([v for _, v, _ in views]), device=device)
+        c = CylinderDetectConfig(height=h, width=w, use_pallas=use_pallas)
+        with torch.inference_mode():
+            ms = cuda_ms(lambda: detect_grid(x, c).grid.xy, reps=5, warmup=1)
+        print(f"corpus {label} detect V={len(views)} {h}x{w}: {ms / len(views):.4f} ms/view; {smi}", flush=True)
+
+    cfg = CylinderDetectConfig(height=480, width=640, use_pallas=True)
+    for name, (n, d) in zip(("0", "gap0_pallas"), oracle_check(golden_views, cfg, ("0", "gap0_pallas"))):
+        print(f"corpus oracle golden scene {name}: {n} points match the numpy oracle on the card's post-bridge "
+              f"state, max |d| {d:.6f} px", flush=True)
+    return {"corpus": launches, "corpus_xla": launches_x}
+
+
 def mesh_rank(mesh, stream_frames: int, chunk: int) -> dict:
     """Phase 16 on one rank of a mesh (``parallel.dryrun.launch``): the main
     configuration at 480x640 on MESH_FRAMES frames of ``example_pair``
@@ -1499,6 +1683,7 @@ def mesh_rank(mesh, stream_frames: int, chunk: int) -> dict:
     from cylinder_pose_estimation_tpu_torch.parallel.mesh import frame_slice, gather_frames
     from cylinder_pose_estimation_tpu_torch.parallel.sharding import sharded_pipeline
     from cylinder_pose_estimation_tpu_torch.types import stereo_from_numpy
+    from cylinder_pose_estimation_tpu_torch.utils import profiling
     from cylinder_pose_estimation_tpu_torch.utils.synthetic import TiledFrames, example_pair, registration_angles
 
     dev, n = mesh.device, MESH_FRAMES
@@ -1560,7 +1745,7 @@ def mesh_rank(mesh, stream_frames: int, chunk: int) -> dict:
     n_dev = dev_ms = None
     for r in range(mesh.size):
         if r == mesh.rank:
-            n_dev, dev_ms, _ = device_launches(
+            n_dev, dev_ms = profiling.graph_kernels(
                 lambda: pipeline.estimate_poses_batch(a, b, stereo, cfg, fit_cfg, probe="detect").grid.xy)
         sync()
     res = {"rank": mesh.rank, "device": str(dev), "backend": mesh.backend, "launches": launches,
@@ -1599,8 +1784,8 @@ def mesh_ranks(ranks: int, ranks_per_card: int, smi: str) -> dict:
                 raise AssertionError(f"{label}: rank {r['rank']} never launched {k}")
         if r["digest"] != r0["digest"] or not r["t_cam_agv_ranks_equal"]:
             raise AssertionError(f"{label}: rank {r['rank']}'s result differs from rank 0's")
-        dev = ("not measured" if r["detect_step_device_kernels"] is None else
-               f"{r['detect_step_device_kernels']} device kernels, {r['detect_step_device_ms']:.4f} device ms")
+        dev = (f"{r['detect_step_device_kernels']} device kernels, {r['detect_step_device_ms']:.4f} device ms "
+               "(graph replay)")
         print(f"{label}: rank {r['rank']} on {r['device']}: kernel calls held equal to plain "
               f"{r['calls_held']}; detect step of {MESH_FRAMES // ranks} frames: {dev}; peak device memory "
               f"{r['peak_mib']:.1f} MiB; stream {MESH_STREAM_FRAMES} frames in "
@@ -1671,12 +1856,16 @@ def mesh_phase(frontend, device, cfg, fit_cfg, smi, experiment) -> dict:
 
 
 def main() -> int:
-    import numpy as np
     import torch
 
+    # The first line, before anything that can fail: the versions in use.
+    print(f"chip_smoke: python {sys.version.split()[0]}, torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"{torch.cuda.device_count()} CUDA devices", flush=True)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on a GPU", file=sys.stderr)
         return 2
+    import numpy as np
+
     sys.path.insert(0, HERE)
     from cylinder_pose_estimation_tpu_torch.config import (
         CylinderDetectConfig,
@@ -1687,6 +1876,7 @@ def main() -> int:
     from cylinder_pose_estimation_tpu_torch.models.pipeline import estimate_poses_batch
     from cylinder_pose_estimation_tpu_torch.ops import frontend, kernels
     from cylinder_pose_estimation_tpu_torch.types import stereo_from_numpy
+    from cylinder_pose_estimation_tpu_torch.utils import profiling
     from cylinder_pose_estimation_tpu_torch.utils.synthetic import (
         apply_gap,
         example_pair,
@@ -1698,8 +1888,7 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     device = torch.device("cuda:0")
-    print(f"torch {torch.__version__} cuda {torch.version.cuda}; device {torch.cuda.get_device_name(0)}",
-          flush=True)
+    print(f"device {torch.cuda.get_device_name(0)}; {smi}", flush=True)
 
     t0 = time.perf_counter()
     kernels.build()
@@ -1856,8 +2045,15 @@ def main() -> int:
                                   ("xla e2e", e2e_xla, detect_xla)):
         ms_e2e = cuda_ms(fn_e2e, reps=10, warmup=2)
         ms_det = cuda_ms(fn_det, reps=10, warmup=2)
-        n_dev, dev_ms, _ = device_launches(fn_det)
-        dev_txt = "not measured" if n_dev is None else f"{n_dev} device kernels, {dev_ms:.4f} device ms"
+        if fn_det is detect_xla:
+            # The XLA branch copies host constants (filter taps, scalars) to
+            # the card in every call, which a CUDA graph capture refuses.
+            n_dev, by_name = profiler_kernels(fn_det)
+            dev_txt = ("not measured" if n_dev is None else
+                       f"{n_dev} device kernels, {sum(by_name.values()):.4f} device ms (profiler)")
+        else:
+            n_dev, dev_ms = profiling.graph_kernels(fn_det, reps=10, warmup=2)
+            dev_txt = f"{n_dev} device kernels, {dev_ms:.4f} device ms (graph replay)"
         print(f"{label} B={batch} {height}x{width}: {ms_e2e / batch:.4f} ms/frame "
               f"(detect {ms_det / batch:.4f} ms/frame, fit {(ms_e2e - ms_det) / batch:.4f} ms/frame); "
               f"detect step: {dev_txt}; {smi}", flush=True)
@@ -1873,12 +2069,15 @@ def main() -> int:
     # --- the mesh path: one NCCL rank, then ranks over torch.distributed ---
     mesh_launches = mesh_phase(frontend, device, cfg, fit_cfg, smi, experiment)
 
+    # --- the JAX package's detection corpora, card against the CPU port ----
+    corpus_launches = corpus_phase(frontend, device, torch.stack([a[0], a[6]]), smi)
+
     # Launches per kernel: summed over the six path runs (each counted
     # from zero), with the split by path beside it.
     by_path = {"main": main_launches, "endpoint": ep_launches, "plane": plane_launches,
                "experiment": exp_launches, "preprocess": pre_launches, "stream": stream_launches,
                "xla": xla_launches, "large": large_launches, **variant_launches, "cli": cli_launches,
-               "routes": route_launches, **mesh_launches}
+               "routes": route_launches, **mesh_launches, **corpus_launches}
     rows = []
     for k in ROWS:
         r = report.get(k, new_report())
@@ -1891,10 +2090,9 @@ def main() -> int:
                   f"{bound_ms(nbytes):.4f} ms ({nbytes} B, {bound_ms(nbytes) / ms_k:.1%} of it), "
                   f"device kernels per call {n_dev}", flush=True)
         for site in extra:
-            dev = site["device_ms"]
             by_name = {n: round(v, 4) for n, v in (site["device_ms_by_kernel"] or {}).items()}
-            print(f"timing {k} [{site['site']}]: kernel {site['ms']:.4f} ms (device "
-                  f"{'not measured' if dev is None else f'{dev:.4f} ms'}), plain {site['plain_ms']:.4f} ms, "
+            print(f"timing {k} [{site['site']}]: kernel {site['ms']:.4f} ms (graph replay "
+                  f"{site['device_ms']:.4f} device ms), plain {site['plain_ms']:.4f} ms, "
                   f"bound {site['bound_ms']:.4f} ms ({site['bytes']} B), device kernels per call "
                   f"{site['device_kernels_per_call']} {by_name}", flush=True)
         if k in KERNELS:  # the 480x640 sites
@@ -1902,10 +2100,8 @@ def main() -> int:
         else:  # a bridge route: its timed sites of phases 12, 13 and 15
             ms, plain_ms = sum(x["ms"] for x in extra), sum(x["plain_ms"] for x in extra)
             nbytes = sum(x["bytes"] for x in extra)
-            devs = [x["device_ms"] for x in extra]
-            dev_ms = None if None in devs else sum(devs)
-            ns = [x["device_kernels_per_call"] for x in extra if x["device_kernels_per_call"] is not None]
-            n_dev = max(ns) if ns else None  # measured sites only
+            dev_ms = sum(x["device_ms"] for x in extra)
+            n_dev = max(x["device_kernels_per_call"] for x in extra)
         count = "bridge_morphology.cluster" if k == "bridge_morphology" else k
         rows.append({
             "name": k, "route": "cuda", "source": frontend.SOURCES["bridge_morphology" if k in ROWS[4:] else k],

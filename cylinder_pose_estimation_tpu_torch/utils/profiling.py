@@ -4,13 +4,18 @@
   input each, after warm-up, with every output fully materialised; on CUDA
   tensors the time comes from CUDA events around the calls, after a
   synchronisation.
+* ``graph_kernels``: the CUDA kernels one call launches, counted from the
+  kernel nodes of a CUDA graph captured from it, and the device ms of a
+  replay of that graph by CUDA events.
 * ``trace``: a ``torch.profiler`` session that writes a Chrome trace.
 """
 
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import os
+import statistics
 import time
 from typing import Callable, Tuple
 
@@ -71,6 +76,72 @@ def stage_timer(
         total = time.perf_counter() - t0
         device = "cpu"
     return {"total_s": total, "avg_s": total / n_calls, "n_calls": n_calls, "device": device}
+
+
+_CU_STREAM_CAPTURE_ACTIVE = 1
+_CU_GRAPH_NODE_KERNEL = 0
+
+
+def _driver_call(cu, name: str, *args) -> None:
+    rc = getattr(cu, name)(*args)
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA driver error {rc}")
+
+
+def _capture_kernel_nodes(cu) -> int:
+    """Kernel nodes of the graph the current stream is capturing, read
+    through the driver (cuStreamGetCaptureInfo, cuGraphGetNodes,
+    cuGraphNodeGetType) before the capture ends."""
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    status, cid, graph = ctypes.c_int(), ctypes.c_uint64(), ctypes.c_void_p()
+    deps, ndeps, size = ctypes.c_void_p(), ctypes.c_size_t(), ctypes.c_size_t()
+    _driver_call(cu, "cuStreamGetCaptureInfo_v2", stream, ctypes.byref(status), ctypes.byref(cid),
+                 ctypes.byref(graph), ctypes.byref(deps), ctypes.byref(ndeps))
+    if status.value != _CU_STREAM_CAPTURE_ACTIVE:
+        raise RuntimeError("the stream is not capturing")
+    _driver_call(cu, "cuGraphGetNodes", graph, None, ctypes.byref(size))
+    nodes = (ctypes.c_void_p * size.value)()
+    _driver_call(cu, "cuGraphGetNodes", graph, nodes, ctypes.byref(size))
+    kinds = []
+    for node in nodes:
+        kind = ctypes.c_int()
+        _driver_call(cu, "cuGraphNodeGetType", ctypes.c_void_p(node), ctypes.byref(kind))
+        kinds.append(kind.value)
+    return kinds.count(_CU_GRAPH_NODE_KERNEL)
+
+
+def graph_kernels(fn: Callable, reps: int = 20, warmup: int = 3) -> Tuple[int, float]:
+    """(CUDA kernels one ``fn()`` call launches, median device ms of a
+    replay of them) on the current CUDA device.
+
+    ``fn`` runs once, then once more under CUDA graph capture; the count is
+    the captured graph's kernel nodes (memory copies and sets are other
+    node types), and the time comes from CUDA events around ``reps``
+    replays of that graph, one at a time after ``warmup``: the device's
+    time for the call's work with no host launch path.  Unlike a
+    ``torch.profiler`` session, which late in a long process may record
+    nothing, neither number depends on the process's history.  A call that
+    cannot be captured (one that synchronises with the host) raises."""
+    cu = ctypes.CDLL("libcuda.so.1")
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        fn()
+        n_kernels = _capture_kernel_nodes(cu)
+    for _ in range(warmup):
+        graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return n_kernels, statistics.median(times)
 
 
 @contextlib.contextmanager

@@ -226,6 +226,22 @@ def cylinder_view(
     return img if band is None else apply_gap(img, band)
 
 
+def tilted_grid_view(height: int, width: int, angle_deg: float, seed: int = 0) -> np.ndarray:
+    """One (H, W) float32 view of a planar 9x9 lattice of 22 px rotated by
+    ``angle_deg`` in image space about the image centre, with N(0, 2)
+    grey-level noise from ``seed``: the stability fence's scenes (from 26
+    degrees on the detector's labels turn chaotic)."""
+    n = 9
+    t = np.radians(angle_deg)
+    r = np.array([[np.cos(t), -np.sin(t)], [np.sin(t), np.cos(t)]])
+    ij = np.mgrid[0:n, 0:n].astype(np.float64) - (n - 1) / 2.0
+    local = np.stack([ij[1], ij[0]], axis=-1).reshape(-1, 2) * 22.0
+    xy = (local @ r.T + np.array([width / 2.0, height / 2.0])).astype(F32)
+    img = render_grid_image(xy, n, n, height, width).astype(F32)
+    img = img + np.random.default_rng(seed).normal(0, 2.0, (height, width)).astype(F32)
+    return np.clip(img, 0, 255).astype(F32)
+
+
 def render_grid_image(
     xy: np.ndarray,
     n_rows: int,

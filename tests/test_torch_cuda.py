@@ -402,36 +402,13 @@ def _band_masks(n, h, w, band_rows, seed):
 
 def _device_kernels_per_call(fns):
     """CUDA kernels that each call in ``fns`` launches: the kernel nodes of
-    a CUDA graph captured from one call, read through the driver
-    (cuStreamGetCaptureInfo, cuGraphGetNodes, cuGraphNodeGetType) before the
-    capture ends.  Unlike a torch.profiler session, which late in a long
-    process may record nothing (PERF.md), the count does not depend on the
-    process's history."""
-    import ctypes
+    a CUDA graph captured from one call (``utils.profiling.graph_kernels``).
+    Unlike a torch.profiler session, which late in a long process may
+    record nothing (PERF.md), the count does not depend on the process's
+    history."""
+    from cylinder_pose_estimation_tpu_torch.utils.profiling import graph_kernels
 
-    cu = ctypes.CDLL("libcuda.so.1")
-    counts = []
-    for fn in fns:
-        fn()
-        torch.cuda.synchronize()
-        types = []
-        with torch.cuda.graph(torch.cuda.CUDAGraph(), capture_error_mode="relaxed"):
-            fn()
-            stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-            status, cid, graph = ctypes.c_int(), ctypes.c_uint64(), ctypes.c_void_p()
-            deps, ndeps, size = ctypes.c_void_p(), ctypes.c_size_t(), ctypes.c_size_t()
-            assert cu.cuStreamGetCaptureInfo_v2(stream, ctypes.byref(status), ctypes.byref(cid),
-                                                ctypes.byref(graph), ctypes.byref(deps), ctypes.byref(ndeps)) == 0
-            assert status.value == 1  # CU_STREAM_CAPTURE_STATUS_ACTIVE
-            assert cu.cuGraphGetNodes(graph, None, ctypes.byref(size)) == 0
-            nodes = (ctypes.c_void_p * size.value)()
-            assert cu.cuGraphGetNodes(graph, nodes, ctypes.byref(size)) == 0
-            for node in nodes:
-                kind = ctypes.c_int()
-                assert cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)) == 0
-                types.append(kind.value)
-        counts.append(types.count(0))  # CU_GRAPH_NODE_TYPE_KERNEL
-    return counts
+    return [graph_kernels(fn, reps=1, warmup=0)[0] for fn in fns]
 
 
 # (n, h, w): H a multiple of the bands' rows and not, widths where two

@@ -11,7 +11,11 @@ group (equal to the unsharded batch and registration), then imports the package 
 JSON contracts, PNG files, viz, profiling, CLI, examples) and runs the
 full-resolution and refinement variants.  A second subprocess blocks JAX,
 Pillow and matplotlib (a minimal GPU installation) and runs
-``cylpose-torch detect-folder`` and ``undistort-folder`` on two PNGs.
+``cylpose-torch detect-folder`` and ``undistort-folder`` on two PNGs.  A
+third loads tests/_oracle_detect.py, which ``chip_smoke.py`` phase 17 runs
+on the card machine, with JAX blocked; the source check covers it too.
+``chip_smoke.py`` must print its first line before it fails, in the
+repository and alone in a directory.
 """
 
 import ast
@@ -168,9 +172,10 @@ def _imported_modules(path: Path):
 
 @pytest.mark.parametrize(
     "path",
-    # _build/ holds build output, not sources.
+    # _build/ holds build output, not sources.  chip_smoke.py also loads the
+    # numpy oracle of tests/_oracle_detect.py (phase 17).
     sorted(p for p in PORT.rglob("*.py") if "_build" not in p.relative_to(PORT).parts)
-    + [ROOT / "chip_smoke.py"],
+    + [ROOT / "chip_smoke.py", ROOT / "tests" / "_oracle_detect.py"],
     ids=lambda p: str(p.relative_to(ROOT)),
 )
 def test_no_jax_import_in_port_sources(path):
@@ -180,16 +185,52 @@ def test_no_jax_import_in_port_sources(path):
         )
 
 
-def test_chip_smoke_refuses_without_cuda():
+def test_chip_smoke_refuses_without_cuda(tmp_path):
     """On a machine without a CUDA device the chip check must fail and
-    print no result line."""
+    print no result line, both in the repository and alone in a directory
+    without the package; either way its first stdout line, the versions in
+    use, comes before the failure."""
+    import shutil
+
     import torch
 
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; the refusal path is not reachable")
+    alone = tmp_path / "chip_smoke.py"
+    shutil.copy(ROOT / "chip_smoke.py", alone)
+    for script, cwd in ((ROOT / "chip_smoke.py", ROOT), (alone, tmp_path)):
+        proc = subprocess.run(
+            [sys.executable, str(script)],
+            capture_output=True, text=True, timeout=120, cwd=cwd,
+        )
+        assert proc.returncode != 0
+        assert '"ok": true' not in proc.stdout
+        first = proc.stdout.splitlines()[0]
+        assert first.startswith("chip_smoke: python ") and f"torch {torch.__version__}" in first, proc.stdout
+
+
+_ORACLE_SCRIPT = r"""
+import importlib.util, os, sys
+sys.modules["jax"] = None  # any `import jax` now raises ImportError
+import numpy as np
+spec = importlib.util.spec_from_file_location("_oracle_detect", os.path.join(sys.argv[1], "tests", "_oracle_detect.py"))
+od = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(od)
+labels = od.label_masks(np.eye(8, dtype=bool))
+assert labels.max() == 1
+assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules if sys.modules[m] is not None)
+print("ORACLE_OK")
+"""
+
+
+def test_oracle_loads_without_jax():
+    """chip_smoke.py phase 17 loads tests/_oracle_detect.py (numpy and
+    scipy) on a machine without JAX, as this subprocess does."""
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
     proc = subprocess.run(
-        [sys.executable, str(ROOT / "chip_smoke.py")],
-        capture_output=True, text=True, timeout=120,
+        [sys.executable, "-c", _ORACLE_SCRIPT, str(ROOT)],
+        capture_output=True, text=True, env=env, timeout=120,
     )
-    assert proc.returncode != 0
-    assert '"ok": true' not in proc.stdout
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "ORACLE_OK" in proc.stdout

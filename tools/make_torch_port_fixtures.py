@@ -1,8 +1,8 @@
 """Write the PyTorch port's fixtures from the JAX package.
 
-    python tools/make_torch_port_fixtures.py [endpoint] [plane] [registration] [variants] [cli]
+    python tools/make_torch_port_fixtures.py [endpoint] [plane] [registration] [variants] [cli] [corpus]
 
-(all five without arguments).
+(all six without arguments).
 
 * ``tests/fixtures/torch_endpoint_scenes.json``: ``estimate_pose_stereo``
   with ``CylinderDetectConfig(bridge_endpoint_stats=True)`` and
@@ -45,6 +45,17 @@
   240x320 and 480x640, each with the fewest frames (from ``CLI_MIN_FRAMES``
   up) whose registration reads well posed on two or more healthy frames in
   the JAX package and in the port on the CPU (``experiment --no-clahe``).
+
+* ``tests/fixtures/torch_corpus_scenes.npz``: the frames of the JAX
+  package's detection corpora that only JAX renders, as float32 arrays
+  (``chip_smoke.py`` phase 17 runs them on the card and on the CPU port):
+  the rendered gap scene of tests/test_detector_hardening.py (seed 3, the
+  control and the dropout across the middle row, placed from the JAX XLA
+  branch's control grid), the double gap of tests/test_torch_xla_corpus.py,
+  the half-resolution k1=-1.2 stereo pair of tests/test_distortion_e2e.py
+  and its zero-distortion control (with the distorted rig's arrays and the
+  cylinder radius), and two views of tests/_scene_family2.py's
+  ``indep_scene`` (seed 1 at 480x640, seed 2 at 240x320; the first view).
 
 The detection files record their scene specs and configs; ``chip_smoke.py``
 renders the same inputs without JAX and holds the port to the files.  Run on
@@ -578,9 +589,53 @@ def cli_fixture() -> None:
     print(f"wrote {CLI_FIXTURE} ({time.perf_counter() - t0:.0f} s)")
 
 
+CORPUS_FIXTURE = os.path.join(FIXTURES, "torch_corpus_scenes.npz")
+
+
+def corpus_frames() -> dict:
+    """The corpus frames of ``torch_corpus_scenes.npz`` by name."""
+    from cylinder_pose_estimation_tpu.config import CylinderDetectConfig
+    from cylinder_pose_estimation_tpu.models.detector import detect_grid
+    from cylinder_pose_estimation_tpu.utils.synthetic import cylinder_grid_points, default_stereo
+    from tests import _scene_family2 as sf2
+    from tests.test_detector_hardening import _gapped_scene
+    from tests.test_distortion_e2e import _HALF_RES, _distorted_stereo, _render_views
+    from tests.test_torch_xla_corpus import _double_gap
+
+    h, w = 240, 320
+    out = {}
+    img0, _ = _gapped_scene(gap=None, seed=3)
+    ctl = jax.jit(lambda im: detect_grid(im, CylinderDetectConfig(height=h, width=w)))(jnp.asarray(img0))
+    v = np.asarray(ctl.grid.valid)
+    ys = sorted({round(float(y)) for y in np.asarray(ctl.grid.xy)[v, 1]})
+    y_mid = ys[len(ys) // 2]
+    out["gap3_control"] = img0
+    out["gap3_gapped"] = _gapped_scene(gap=(y_mid - 9, y_mid + 9, 150, 168), seed=3)[0]
+    out["double_gap"] = _double_gap()
+    stereo = _distorted_stereo(h, w)
+    scene = cylinder_grid_points(stereo, capacity=256, n_rows=9, n_cols=9, **_HALF_RES)
+    for tag, distorted in (("distorted", True), ("control", False)):
+        views = _render_views(scene, stereo, 9, 9, h, w, 1, distorted)
+        out[f"dist_{tag}_1"], out[f"dist_{tag}_2"] = views
+    leaves = (stereo.cam1.k, stereo.cam1.radial, stereo.cam1.tangential, stereo.cam2.k, stereo.cam2.radial,
+              stereo.cam2.tangential, stereo.t_c2_c1)
+    for i, leaf in enumerate(leaves):
+        out[f"dist_stereo_{i}"] = np.asarray(leaf, np.float32)
+    out["dist_radius"] = np.float32(_HALF_RES["radius"])
+    _, out["indep1_480x640"], _ = sf2.indep_scene(default_stereo(cx=320.0, cy=240.0), 1, profile="lorentz")
+    _, out["indep2_240x320"], _ = sf2.indep_scene(default_stereo(cx=160.0, cy=120.0), 2, h, w, profile="lorentz")
+    return {k: np.asarray(a, np.float32) for k, a in out.items()}
+
+
+def corpus_fixture() -> None:
+    t0 = time.perf_counter()
+    np.savez_compressed(CORPUS_FIXTURE, **corpus_frames())
+    print(f"wrote {CORPUS_FIXTURE} ({os.path.getsize(CORPUS_FIXTURE)} B, {time.perf_counter() - t0:.0f} s)")
+
+
 FIXTURE_WRITERS = {"endpoint": endpoint_fixture, "plane": plane_fixture,
                    "registration": registration_fixture, "variants": variants_fixture,
-                   "cli": cli_fixture}
+                   "cli": cli_fixture, "corpus": corpus_fixture}
 
 
 if __name__ == "__main__":
