@@ -145,11 +145,30 @@ Phases:
    numpy oracle of tests/_oracle_detect.py on the card's post-bridge state
    of golden scenes 0 and gap0_pallas (0.05 px).
 
+18. Knobs (run after phase 17): the configurations of
+   ``tests/fixtures/torch_knob_scenes.json``'s 480x640 record
+   (``smooth_mxu=False``: the preprocess kernel's own smoothing;
+   ``pallas_cc_cross_cap=16``: the final labels' capped scans, on the CC
+   kernel's cluster route and, at ``label_downsample=1``, its band route;
+   ``bright_at_points=False`` on both branches; the three together) through
+   ``estimate_poses_batch`` on B=16 frames of ``example_pair``, each a path
+   with counters reset just before and read just after and the launches of
+   its one step checked (a capped step makes 4 CC calls, 2 of them capped).
+   Every view is held to the JAX record (ids identical, xy within 0.05 px;
+   ``ok``, ``stable`` and bridged counts printed against it), 2 frames card
+   against the CPU port (ids, xy within 0.05 px, ``ok``/``stable`` flips
+   counted).  The kernels' new branches against their plain versions
+   (``torch.equal``), timed: the smoothing at (32, 480, 640) and
+   (4, 720, 1280), the capped scans at the cluster route's (32, 240, 384)
+   and the band route's (32, 480, 640); e2e and detect ms/frame of each.
+
 The second-to-last line is the kernel report as JSON: one row per kernel
 (the 480x640 sites; ``large_sites`` and ``variant_sites`` hold phases 12's
 and 13's), the bridge's cluster route in its own row and its split and
 global routes in rows of their own (``bridge_morphology.split``,
-``bridge_morphology.global``: their timed sites of phases 12, 13 and 15).
+``bridge_morphology.global``: their timed sites of phases 12, 13 and 15),
+and phase 18's kernel branches (``preprocess_binarize.smoothing``,
+``connected_components.capped.cluster``, ``.band``) in rows of their own.
 The last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -173,6 +192,7 @@ REGISTRATION = os.path.join(HERE, "tests", "fixtures", "torch_registration.json"
 VARIANTS = os.path.join(HERE, "tests", "fixtures", "torch_variant_scenes.json")
 CLI_RECORD = os.path.join(HERE, "tests", "fixtures", "torch_cli.json")
 CORPUS = os.path.join(HERE, "tests", "fixtures", "torch_corpus_scenes.npz")
+KNOBS = os.path.join(HERE, "tests", "fixtures", "torch_knob_scenes.json")
 # The numpy oracle of the reference's detection bookkeeping (numpy and scipy).
 ORACLE = os.path.join(HERE, "tests", "_oracle_detect.py")
 KERNELS = ("preprocess_binarize", "connected_components", "bridge_morphology",
@@ -204,9 +224,39 @@ for _path in ("main", "endpoint", "plane", "experiment", "preprocess", "stream",
 PATH_KERNELS["large"]["bridge_morphology.split"] = None
 PATH_KERNELS["variants"]["bridge_morphology.split"] = None
 PATH_KERNELS["routes"] = dict.fromkeys(BRIDGE_ROUTES, None)
+# The knob phase (18): each configuration's path and its launches in one
+# B=16 step (a number: exactly that often; None: at least once; absent: 0).
+_KNOB_MAIN = {"preprocess_binarize": 1, "connected_components": 3, "bridge_morphology": 1,
+              "bridge_morphology.cluster": 1}
+_KNOB_CAPPED = dict(_KNOB_MAIN, connected_components=4)
+KNOB_STEP = {
+    "smoothing_kernel": dict(_KNOB_MAIN, **{"preprocess_binarize.smoothing": 1}),
+    "cross_cap_kernel": dict(_KNOB_CAPPED, **{"connected_components.capped.cluster": 2}),
+    "cross_cap_ds1_kernel": {"preprocess_binarize": 1, "connected_components": 4, "bridge_morphology": 1,
+                             "bridge_morphology.split": None, "connected_components.capped.band": 2},
+    "bright_kernel": _KNOB_MAIN,
+    "bright_xla": {},
+    "all_knobs_kernel": dict(_KNOB_CAPPED, **{"preprocess_binarize.smoothing": 1,
+                                              "connected_components.capped.cluster": 2}),
+}
+# The kernel branches phase 18 adds to the kernels line: the TPU lines of
+# each branch, and the path whose step gives its launches per step.
+KNOB_ROWS = {
+    "preprocess_binarize.smoothing": ("cylinder_pose_estimation_tpu/ops/pallas/frontend.py:183",
+                                      "knobs.smoothing_kernel"),
+    "connected_components.capped.cluster": ("cylinder_pose_estimation_tpu/ops/pallas/frontend.py:524",
+                                            "knobs.cross_cap_kernel"),
+    "connected_components.capped.band": ("cylinder_pose_estimation_tpu/ops/pallas/frontend.py:524",
+                                         "knobs.cross_cap_ds1_kernel"),
+}
+KNOB_COUNTERS = KERNELS + BRIDGE_ROUTES + tuple(KNOB_ROWS)
+for _name, _step in KNOB_STEP.items():
+    PATH_KERNELS[f"knobs.{_name}"] = {k: _step.get(k, 0) for k in KNOB_COUNTERS}
+# Frames of the knob phase, and of its card-versus-CPU checks.
+KNOB_FRAMES, KNOB_CPU_FRAMES = 16, 2
 # Rows of the kernels line: the kernels, the bridge's cluster route in its
-# own row, then the bridge's other routes.
-ROWS = KERNELS + BRIDGE_ROUTES[1:]
+# own row, then the bridge's other routes, then the knobs' branches.
+ROWS = KERNELS + BRIDGE_ROUTES[1:] + tuple(KNOB_ROWS)
 # The shape of each bridge route in phase 15.
 ROUTE_SHAPES = {"bridge_morphology.cluster": (64, 240, 384), "bridge_morphology.split": (2, 720, 1280),
                 "bridge_morphology.global": (2, 2160, 3840)}
@@ -221,7 +271,9 @@ HBM_BYTES_PER_S = 3.35e12
 # Each kernel's design: redesigned for Hopper, or still the first port.
 DESIGN = {"preprocess_binarize": "redesigned", "connected_components": "redesigned",
           "bridge_morphology": "redesigned", "component_payload_minmax": "redesigned",
-          "bridge_morphology.split": "redesigned", "bridge_morphology.global": "first port"}
+          "bridge_morphology.split": "redesigned", "bridge_morphology.global": "first port",
+          "preprocess_binarize.smoothing": "first port", "connected_components.capped.cluster": "first port",
+          "connected_components.capped.band": "first port"}
 # Device kernels one wrapper call may launch at the timed sites (the
 # bridge's global route: frontend.bridge_global_launches).
 DEVICE_LAUNCHES_MAX = {"preprocess_binarize": 3, "connected_components": 1, "bridge_morphology": 1,
@@ -523,7 +575,7 @@ def line_masks(n, h, w, angles, seed, device):
 
 def new_report() -> dict:
     return {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bytes": 0, "device_ms": 0.0, "sites": [],
-            "device_launches": None, "large_sites": [], "variant_sites": [], "route_sites": []}
+            "device_launches": None, "large_sites": [], "variant_sites": [], "route_sites": [], "knob_sites": []}
 
 
 def bridge_route(frontend, shape, kw):
@@ -1661,6 +1713,146 @@ def corpus_phase(frontend, device, golden_views, smi) -> dict:
     return {"corpus": launches, "corpus_xla": launches_x}
 
 
+def knobs_phase(frontend, device, fit_cfg, smi):
+    """Phase 18: the knob configurations of ``torch_knob_scenes.json``'s
+    480x640 record through ``estimate_poses_batch`` on B=KNOB_FRAMES frames
+    of ``example_pair``, each as the path "knobs.<name>" (counters reset
+    just before and read just after; one step's launches as ``KNOB_STEP``
+    says).  Every view is held to the JAX record (ids identical, xy within
+    0.05 px); ``ok``, ``stable`` and the bridged counts are counted against
+    it, and the first KNOB_CPU_FRAMES frames against the CPU port (ids, xy
+    within 0.05 px; ``ok``/``stable`` flips counted).  Then the kernels'
+    new branches against their plain versions (``torch.equal``), each site
+    timed: the in-kernel smoothing on the smoothing path's (32, 480, 640)
+    call and on grey frames at (4, 720, 1280); the capped scans on the
+    cross-cap paths' calls, the cluster route's (32, 240, 384) and the band
+    route's (32, 480, 640), and on random masks at the same shapes.  Prints
+    e2e and detect ms/frame of each configuration.  Returns (launches by
+    path, a report whose ``knob_sites`` hold the timed calls)."""
+    import numpy as np
+    import torch
+
+    from cylinder_pose_estimation_tpu_torch.config import CylinderDetectConfig
+    from cylinder_pose_estimation_tpu_torch.models.pipeline import _tree_map, estimate_poses_batch
+    from cylinder_pose_estimation_tpu_torch.types import stereo_from_numpy
+    from cylinder_pose_estimation_tpu_torch.utils.synthetic import example_pair
+
+    h, w = 480, 640
+    with open(KNOBS) as f:
+        configs = json.load(f)["records"][f"{h}x{w}"]["configs"]
+    if sorted(c["name"] for c in configs) != sorted(KNOB_STEP):
+        raise AssertionError(f"the knob record's configurations are not KNOB_STEP's: {[c['name'] for c in configs]}")
+    st_np, (i1, i2) = example_pair(h, w, n_frames=KNOB_FRAMES)
+    stereo = stereo_from_numpy(*st_np, device=device)
+    host_stereo = stereo_from_numpy(*st_np, device="cpu")
+    a = torch.as_tensor(i1, device=device)
+    b = torch.as_tensor(i2, device=device)
+
+    def cfg_of(c):
+        return CylinderDetectConfig(height=h, width=w, use_pallas=c["use_pallas"], **c["overrides"])
+
+    def run(c, x, y, st):
+        """The configuration's step: both views of every frame as one (2F,)
+        DetectResult."""
+        res = estimate_poses_batch(x, y, st, cfg_of(c), fit_cfg)
+        if not bool(torch.isfinite(res.fit.params).all()):
+            raise AssertionError(f"knob {c['name']}: non-finite fit")
+        return _tree_map(lambda p, q: torch.cat([p, q]), res.detect1, res.detect2)
+
+    launches, calls = {}, {}
+    k = KNOB_CPU_FRAMES
+    for c in configs:
+        name = c["name"]
+        with Capture(frontend) as cap:
+            det, launches[f"knobs.{name}"] = run_path(f"knobs.{name}", frontend, lambda: run(c, a, b, stereo))
+        calls[name] = cap.calls
+        max_d, n_ok, n_stable, n_bridged = 0.0, 0, 0, 0
+        for i, want in enumerate(c["views"]):
+            _, d = points_check(det.grid, i, want["points"], f"knob {name} view {i}")
+            max_d = max(max_d, d)
+            n_ok += bool(det.ok[i]) == want["ok"]
+            n_stable += bool(det.stable[i]) == want["stable"]
+            n_bridged += int(det.bridged_components[i]) == want["bridged_components"]
+        n = len(c["views"])
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            host = run(c, torch.as_tensor(i1[:k]), torch.as_tensor(i2[:k]), host_stereo)
+        t_cpu = time.perf_counter() - t0
+        max_dc, flips = 0.0, 0
+        for ic, ih in [(i, i) for i in range(k)] + [(KNOB_FRAMES + i, k + i) for i in range(k)]:
+            _, d = points_check(det.grid, ic, grid_records(host, ih), f"knob {name} view {ic} vs CPU")
+            max_dc = max(max_dc, d)
+            flips += sum(bool(getattr(det, f)[ic]) != bool(getattr(host, f)[ih]) for f in ("ok", "stable"))
+        print(f"knob {name}: {n} views, ids identical to the JAX record, max |dxy| {max_d:.6f} px; ok {n_ok}/{n}, "
+              f"stable {n_stable}/{n}, bridged {n_bridged}/{n} as recorded; card vs CPU ({2 * k} views, "
+              f"{t_cpu:.1f} s on the CPU): ids identical, max |dxy| {max_dc:.6f} px, {flips} ok/stable flips",
+              flush=True)
+
+    report = {}
+    with torch.inference_mode():
+        # 2.1's smoothing: the smoothing path's call and grey frames at 720x1280.
+        _, (g1, g2) = example_pair(720, 1280, n_frames=2)
+        grey = torch.as_tensor(np.concatenate([g1, g2]), device=device)
+        sites = [(args[0], kw) for args, kw in calls["smoothing_kernel"]["preprocess_binarize"]]
+        sites.append((grey, dict(sites[0][1])))
+        for x, kw in sites:
+            if kw.get("pre_smoothed", False):
+                raise AssertionError("the smoothing path called the preprocess kernel on a smoothed image")
+            compare(report, "preprocess_binarize.smoothing",
+                    functools.partial(frontend.preprocess_binarize, x, **kw),
+                    functools.partial(frontend.preprocess_binarize_plain, x, **kw),
+                    f"knobs {tuple(x.shape)} pre_smoothed=False", True,
+                    nbytes=frontend.min_bytes("preprocess_binarize", *x.shape),
+                    max_dev=DEVICE_LAUNCHES_MAX["preprocess_binarize"], into="knob_sites")
+        # 2.2's capped scans: the cross-cap paths' capped calls, then random
+        # masks at the same shapes (untimed).
+        g = torch.Generator(device="cpu").manual_seed(18)
+        for name, row in (("cross_cap_kernel", "connected_components.capped.cluster"),
+                          ("cross_cap_ds1_kernel", "connected_components.capped.band")):
+            capped = [(args[0], kw) for args, kw in calls[name]["connected_components"] if kw.get("cap", 0) > 0]
+            if len(capped) != 2 or {kw["cap_axis"] for _, kw in capped} != {0, 1}:
+                raise AssertionError(f"knob {name}: capped calls {[kw.get('cap_axis') for _, kw in capped]}")
+            for m, kw in capped:
+                r, p, init = kw["rounds"], kw["pools_per_round"], kw.get("init_labels")
+                cap_kw = {"cap_axis": kw["cap_axis"], "cap": kw["cap"]}
+                plan = frontend.cc_plan(*m.shape, pools_per_round=p, **cap_kw)
+                glob = plan.get("route") == "global"
+                if glob != row.endswith("band"):
+                    raise AssertionError(f"knob {name} {tuple(m.shape)}: plan {plan} is not the {row} route")
+                label = (f"knobs {tuple(m.shape)} {r}x{p} {'warm' if init is not None else 'cold'} cap_axis "
+                         f"{kw['cap_axis']} cap {kw['cap']}")
+                compare(report, row, functools.partial(frontend.connected_components, m, r, p, init, **cap_kw),
+                        functools.partial(frontend.connected_components_plain, m, r, p, init, **cap_kw), label, True,
+                        nbytes=frontend.min_bytes("connected_components", *m.shape, warm=init is not None),
+                        max_dev=frontend.cc_global_launches(r, p, plan["fused"]) if glob else 1, into="knob_sites")
+                rnd = (torch.rand(m.shape, generator=g) < 0.45).to(torch.float32).to(device)
+                rinit = torch.randint(0, 2 * m.shape[1] * m.shape[2], m.shape, generator=g,
+                                      dtype=torch.int32).to(device)
+                for rr, pp, start in ((r, p, None), (r, p, rinit), (1, 2, None), (3, 1, rinit)):
+                    compare(report, row,
+                            functools.partial(frontend.connected_components, rnd, rr, pp, start, **cap_kw),
+                            functools.partial(frontend.connected_components_plain, rnd, rr, pp, start, **cap_kw),
+                            f"knobs random {tuple(m.shape)} {rr}x{pp} cap_axis {kw['cap_axis']}", False)
+
+    rep = itertools.count(1)
+    for c in configs:
+        cfg = cfg_of(c)
+
+        def e2e():
+            eps = 1e-4 * next(rep)
+            return estimate_poses_batch(a + eps, b + eps, stereo, cfg, fit_cfg).fit.params
+
+        def detect():
+            eps = 1e-4 * next(rep)
+            return estimate_poses_batch(a + eps, b + eps, stereo, cfg, fit_cfg, probe="detect").grid.xy
+
+        ms_e2e = cuda_ms(e2e, reps=5, warmup=1)
+        ms_det = cuda_ms(detect, reps=5, warmup=1)
+        print(f"knob {c['name']} B={KNOB_FRAMES} {h}x{w}: {ms_e2e / KNOB_FRAMES:.4f} ms/frame "
+              f"(detect {ms_det / KNOB_FRAMES:.4f} ms/frame); {smi}", flush=True)
+    return launches, report
+
+
 def mesh_rank(mesh, stream_frames: int, chunk: int) -> dict:
     """Phase 16 on one rank of a mesh (``parallel.dryrun.launch``): the main
     configuration at 480x640 on MESH_FRAMES frames of ``example_pair``
@@ -2072,19 +2264,23 @@ def main() -> int:
     # --- the JAX package's detection corpora, card against the CPU port ----
     corpus_launches = corpus_phase(frontend, device, torch.stack([a[0], a[6]]), smi)
 
+    # --- the knobs: the kernels' smoothing and capped-scan branches --------
+    knob_launches, knob_report = knobs_phase(frontend, device, fit_cfg, smi)
+
     # Launches per kernel: summed over the six path runs (each counted
     # from zero), with the split by path beside it.
     by_path = {"main": main_launches, "endpoint": ep_launches, "plane": plane_launches,
                "experiment": exp_launches, "preprocess": pre_launches, "stream": stream_launches,
                "xla": xla_launches, "large": large_launches, **variant_launches, "cli": cli_launches,
-               "routes": route_launches, **mesh_launches, **corpus_launches}
+               "routes": route_launches, **mesh_launches, **corpus_launches, **knob_launches}
     rows = []
     for k in ROWS:
         r = report.get(k, new_report())
         large = large_report.get(k, new_report())
         variant = variant_report.get(k, new_report())
         route = route_report.get(k, new_report())
-        extra = large["large_sites"] + variant["variant_sites"] + route["route_sites"]
+        knob = knob_report.get(k, new_report())
+        extra = large["large_sites"] + variant["variant_sites"] + route["route_sites"] + knob["knob_sites"]
         for label, ms_k, ms_p, nbytes, n_dev in r["sites"]:
             print(f"timing {k} [{label}]: kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms, bound "
                   f"{bound_ms(nbytes):.4f} ms ({nbytes} B, {bound_ms(nbytes) / ms_k:.1%} of it), "
@@ -2097,25 +2293,27 @@ def main() -> int:
                   f"{site['device_kernels_per_call']} {by_name}", flush=True)
         if k in KERNELS:  # the 480x640 sites
             ms, dev_ms, plain_ms, nbytes, n_dev = r["ms"], r["device_ms"], r["plain_ms"], r["bytes"], r["device_launches"]
-        else:  # a bridge route: its timed sites of phases 12, 13 and 15
+        else:  # a bridge route or a knob's branch: its timed sites of phases 12, 13, 15 and 18
             ms, plain_ms = sum(x["ms"] for x in extra), sum(x["plain_ms"] for x in extra)
             nbytes = sum(x["bytes"] for x in extra)
             dev_ms = sum(x["device_ms"] for x in extra)
             n_dev = max(x["device_kernels_per_call"] for x in extra)
         count = "bridge_morphology.cluster" if k == "bridge_morphology" else k
+        base = k.split(".")[0]
+        replaces, step_path = KNOB_ROWS.get(k, (frontend.REPLACES[base], "main"))
         rows.append({
-            "name": k, "route": "cuda", "source": frontend.SOURCES["bridge_morphology" if k in ROWS[4:] else k],
-            "replaces": frontend.REPLACES["bridge_morphology" if k in ROWS[4:] else k],
+            "name": k, "route": "cuda", "source": frontend.SOURCES[base], "replaces": replaces,
             "launches": sum(c[count] for c in by_path.values()),
             "launches_by_path": {p: c[count] for p, c in by_path.items()},
-            "launches_per_step": main_launches[count],
-            "max_abs_err": max(r["max_abs_err"], large["max_abs_err"], variant["max_abs_err"], route["max_abs_err"]),
+            "launches_per_step": by_path[step_path][count],
+            "max_abs_err": max(r["max_abs_err"], large["max_abs_err"], variant["max_abs_err"], route["max_abs_err"],
+                               knob["max_abs_err"]),
             "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms(nbytes), "bound_by": "bytes", "bytes": nbytes,
             "bound_share": bound_ms(nbytes) / ms if ms else None, "library_ms": None,
             "device_kernels_per_call": n_dev, "design": DESIGN[k],
             "large_sites": large["large_sites"], "variant_sites": variant["variant_sites"],
-            "route_sites": route["route_sites"],
+            "route_sites": route["route_sites"], "knob_sites": knob["knob_sites"],
         })
     print(smi)
     print(json.dumps({"kernels": rows}))

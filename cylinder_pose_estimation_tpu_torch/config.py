@@ -14,7 +14,11 @@ CUDA tensor and their plain PyTorch versions on a CPU tensor;
 either device, with ``image_dtype`` and ``cc_iters``; it ignores
 ``bridge_endpoint_stats``, as the JAX package does.  Both branches carry
 the full-resolution variants (``label_downsample`` 1 or 2,
-``bridge_half_res`` either way) and ``subpixel_refine``.
+``bridge_half_res`` either way) and ``subpixel_refine``.  The kernel branch
+also carries ``smooth_mxu=False`` (the preprocess kernel smooths the grey
+image itself) and ``pallas_cc_cross_cap`` (the final labels' scans capped
+across each mask's lines); both branches carry ``bright_at_points=False``
+(the centre seed read from a full-image brightness).
 ``pallas_interpret`` is accepted and ignored.  ``validate`` rejects every branch the port does not
 carry, naming the ROADMAP item that would port it.
 """
@@ -214,12 +218,6 @@ def from_reference(obj):
 
 # Each unported branch: (predicate on the config, ROADMAP item, description).
 _UNPORTED = (
-    (lambda c: c.pallas_cc_cross_cap > 0, "1.17",
-     "pallas_cc_cross_cap > 0 (a TPU-only scan cap, not carried)"),
-    (lambda c: not c.smooth_mxu, "1.17",
-     "smooth_mxu=False (the in-kernel smoothing, not carried)"),
-    (lambda c: not c.bright_at_points, "1.17",
-     "bright_at_points=False (full-image brightness, not carried)"),
     (lambda c: c.stage_probe != "", "1.17",
      "stage_probe (use the port's stage functions instead)"),
     (lambda c: c.label_downsample not in (1, 2), "1.13.1",

@@ -18,6 +18,17 @@
 // In-mask values are never the background (labels and payloads lie in
 // [0, H*W)), so each channel tells the mask from its own values.
 //
+// Capped scans (labels only; the TPU kernel's cap_axis / cap): the scan
+// along the capped axis runs ceil(log2(min(n, cap))) Hillis-Steele steps,
+// which take every in-mask pixel to the minimum of its run within
+// reach = 2^steps - 1 pixels on each side (ops/frontend.cap_reach).  That
+// pass reads one buffer and writes the other: each in-mask pixel walks at
+// most `reach` pixels each way and stops at the run's ends.  Along W it
+// replaces the row run pass; along H the column run pass and its edge
+// join (the walk reads the neighbouring CTAs' rows through distributed
+// shared memory, or on the large-frame route the state plane in device
+// memory).
+//
 // Bound: memory.  The function reads the mask (and the warm start or the
 // payload) once and writes its channels once: 16.8, 47.2 and 70.8 MB at the
 // detector's three CC sites, 94.4 MB for the payload at (64, 240, 384).
@@ -137,15 +148,37 @@ __device__ __forceinline__ void row_runs(int c, int b, int* row, int w, int lane
   }
 }
 
+// The capped scan of one in-mask pixel from its value v: the minimum of v
+// and its run's pixels at most `reach` steps away, at(j) giving the j-th
+// pixel along the axis (j in [lo, hi)); the background ends the run.
+template <typename At>
+__device__ __forceinline__ int capped_min(int v, int j, int lo, int hi, int reach, int big, At at) {
+  int m = v;
+  for (int d = 1; d <= reach && j - d >= lo; ++d) {
+    const int u = at(j - d);
+    if (u == big) break;
+    m = min(m, u);
+  }
+  for (int d = 1; d <= reach && j + d < hi; ++d) {
+    const int u = at(j + d);
+    if (u == big) break;
+    m = min(m, u);
+  }
+  return m;
+}
+
 // Shared ints: per channel two buffers of rows_per x w, then per channel and
 // column the top edge run's extreme and the bottom edge run's extreme, then
 // per column the one-run flag.
 // kCh 1: src is the warm start (may be null), out0 the labels.
 // kCh 2: src is the payload, out0 / out1 its minima / maxima.
+// cap_axis: -1 (no cap), 0 (the scan along H capped) or 1 (along W), with
+// its reach (labels only: kCh 1).
 template <int kCh>
 __global__ void __launch_bounds__(kCCThreads, 1) cc_cluster(
     const float* __restrict__ mask, const int* __restrict__ src, int* __restrict__ out0,
-    int* __restrict__ out1, int h, int w, int rounds, int pools, int rows_per) {
+    int* __restrict__ out1, int h, int w, int rounds, int pools, int rows_per, int cap_axis,
+    int reach) {
   extern __shared__ int smem_cc[];
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
@@ -227,11 +260,47 @@ __global__ void __launch_bounds__(kCCThreads, 1) cc_cluster(
       cluster.sync();
     }
 
-    // Row run pass: one warp per row (row_runs).
+    if (kCh == 1 && cap_axis == 1) {
+      // Capped scan along W: each in-mask pixel walks its row.
+      const int* lab = buf(0, cur);
+      for (int i = tid; i < n_px; i += kCCThreads) {
+        const int v = lab[i];
+        if (v != big) {
+          const int x = i % w;
+          const int* row = lab + (i - x);
+          buf(0, cur ^ 1)[i] = capped_min(v, x, 0, w, reach, big, [&](int j) { return row[j]; });
+        }
+      }
+      cur ^= 1;
+    } else {
+      // Row run pass: one warp per row (row_runs).
 #pragma unroll
-    for (int c = 0; c < kCh; ++c)
-      for (int ly = warp; ly < nr; ly += nwarps) row_runs(c, bg[c], buf(c, cur) + ly * w, w, lane);
+      for (int c = 0; c < kCh; ++c)
+        for (int ly = warp; ly < nr; ly += nwarps) row_runs(c, bg[c], buf(c, cur) + ly * w, w, lane);
+    }
     __syncthreads();
+
+    if (kCh == 1 && cap_axis == 0) {
+      // Capped scan along H: each in-mask pixel walks its column, across
+      // the cluster's CTAs once all their row passes are done.
+      cluster.sync();
+      int* peers[8];
+      for (int r = 0; r < csize; ++r) peers[r] = r == rank ? buf(0, cur) : cluster.map_shared_rank(buf(0, cur), r);
+      const int* lab = buf(0, cur);
+      for (int i = tid; i < n_px; i += kCCThreads) {
+        const int v = lab[i];
+        if (v != big) {
+          const int x = i % w;
+          buf(0, cur ^ 1)[i] = capped_min(v, r0 + i / w, 0, h, reach, big, [&](int y) {
+            const int r = y / rows_per;
+            return peers[r][(y - r * rows_per) * w + x];
+          });
+        }
+      }
+      cur ^= 1;
+      cluster.sync();
+      continue;
+    }
 
     // Column run pass within this CTA's rows, then the edge entries.
     for (int x = tid; x < w; x += kCCThreads) {
@@ -322,16 +391,23 @@ __global__ void __launch_bounds__(kCCThreads, 1) cc_cluster(
   }
 }
 
+// A cap the kernels take: none (-1), or along H (0) or W (1) with a reach of
+// at least 0, for labels only.
+inline bool cap_ok(int kch, int cap_axis, int reach) {
+  return cap_axis == -1 || (kch == 1 && (cap_axis == 0 || cap_axis == 1) && reach >= 0);
+}
+
 template <int kCh>
 int launch_cc(const float* mask, const int* src, int* out0, int* out1, int n, int h, int w, int rounds,
-              int pools, int cluster, int rows_per, int smem_bytes, cudaStream_t stream) {
+              int pools, int cluster, int rows_per, int smem_bytes, int cap_axis, int reach,
+              cudaStream_t stream) {
   if (!cpe::cluster_size_ok(cluster) || rows_per < 1 || (long long)rows_per * cluster < h ||
-      (long long)rows_per * (cluster - 1) >= h ||
+      (long long)rows_per * (cluster - 1) >= h || !cap_ok(kCh, cap_axis, reach) ||
       smem_bytes != (int)((2LL * kCh * rows_per * w + (2LL * kCh + 1) * w) * sizeof(int)))
     return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
   return cpe::launch_clusters(cc_cluster<kCh>, cluster, n, kCCThreads, smem_bytes, stream, mask, src,
-                              out0, out1, h, w, rounds, pools, rows_per);
+                              out0, out1, h, w, rounds, pools, rows_per, cap_axis, reach);
 }
 
 // ---------------------------------------------------------------------------
@@ -352,6 +428,10 @@ int launch_cc(const float* mask, const int* src, int* out0, int* out1, int n, in
 //    (down) over the other bands' edge entries while they stay in the mask
 //    and are one run, and rewrites its band's edge runs in place.  The state
 //    is then exact, and the next round's halos read it.
+// A capped scan along W runs in cc_band in the row run pass's place (from
+// one buffer into the other: the band keeps two buffers even without
+// pools); one along H replaces cc_band's column runs and cc_fix with
+// cc_capped_cols, a pass over the state plane in device memory.
 // Where two buffers per channel and the halo leave fewer than max(pools, 1)
 // rows of a band (masks some thousands of pixels wide), the pools run as one
 // launch each on device-memory planes (cc_global_pool) and the band kernel
@@ -419,13 +499,15 @@ __global__ void __launch_bounds__(kGThreads) cc_global_pool(Planes p, int cur, i
   }
 }
 
-// Shared ints: per channel nbuf buffers (2 with pools, for the Jacobi
-// passes; else 1) of (band_rows + 2 pools) x w.
+// Shared ints: per channel nbuf buffers (band_buffers: 2 with pools, for the
+// Jacobi passes, or a cap along W; else 1) of (band_rows + 2 pools) x w.
+__host__ __device__ inline int band_buffers(int pools, int cap_axis) { return pools > 0 || cap_axis == 1 ? 2 : 1; }
+
 template <int kCh>
 __global__ void __launch_bounds__(kCCThreads, 1) cc_band(const float* __restrict__ mask,
                                                         const int* __restrict__ src, BandIo io, Edges e,
                                                         int h, int w, int bands, int band_rows, int pools,
-                                                        int first) {
+                                                        int first, int cap_axis, int reach) {
   extern __shared__ int smem_band[];
   const int tid = threadIdx.x;
   const int lane = tid % 32;
@@ -440,7 +522,7 @@ __global__ void __launch_bounds__(kCCThreads, 1) cc_band(const float* __restrict
   const int hw = h * w;
   const int big = hw;
   const int bg[2] = {big, -1};
-  const int nbuf = pools > 0 ? 2 : 1;
+  const int nbuf = band_buffers(pools, cap_axis);
   const int buf_len = (band_rows + 2 * pools) * w;
   auto buf = [&](int c, int b) { return smem_band + (nbuf * c + b) * buf_len; };
   const size_t base = (size_t)img * hw + (size_t)ly0 * w;
@@ -521,15 +603,30 @@ __global__ void __launch_bounds__(kCCThreads, 1) cc_band(const float* __restrict
     __syncthreads();
   }
 
-  // Row run pass over the band's rows: one warp per row (row_runs).
+  if (kCh == 1 && cap_axis == 1) {
+    // Capped scan along W over the band's rows.
+    const int* lab = buf(0, cur);
+    for (int i = off + tid; i < off + nr * w; i += kCCThreads) {
+      const int v = lab[i];
+      if (v != big) {
+        const int x = (i - off) % w;
+        const int* row = lab + (i - x);
+        buf(0, cur ^ 1)[i] = capped_min(v, x, 0, w, reach, big, [&](int j) { return row[j]; });
+      }
+    }
+    cur ^= 1;
+  } else {
+    // Row run pass over the band's rows: one warp per row (row_runs).
 #pragma unroll
-  for (int c = 0; c < kCh; ++c)
-    for (int ly = warp; ly < nr; ly += nwarps) row_runs(c, bg[c], buf(c, cur) + off + ly * w, w, lane);
+    for (int c = 0; c < kCh; ++c)
+      for (int ly = warp; ly < nr; ly += nwarps) row_runs(c, bg[c], buf(c, cur) + off + ly * w, w, lane);
+  }
   __syncthreads();
 
-  // Column run pass over the band's rows, then the edge tables.
+  // Column run pass over the band's rows, then the edge tables (none with a
+  // cap along H: cc_capped_cols follows).
   const size_t edge = (size_t)blockIdx.x * 2;  // [mask, band][side 0]
-  for (int x = tid; x < w; x += kCCThreads) {
+  for (int x = tid; x < w && !(kCh == 1 && cap_axis == 0); x += kCCThreads) {
     int top = nr, bot = nr;  // lengths of the runs touching the top and bottom edges
 #pragma unroll
     for (int c = 0; c < kCh; ++c) {
@@ -633,6 +730,23 @@ __global__ void __launch_bounds__(kGThreads) cc_fix(BandIo io, Edges e, int n, i
   }
 }
 
+// The capped scan along H of the (n, h, w) label plane `in` into `out`, one
+// thread per pixel.
+__global__ void __launch_bounds__(kGThreads) cc_capped_cols(const int* __restrict__ in, int* __restrict__ out,
+                                                            int n, int h, int w, int reach) {
+  const long long i = global_tid();
+  if (i >= (long long)n * h * w) return;
+  const int big = h * w;
+  const int v = in[i];
+  if (v == big) {
+    out[i] = big;
+    return;
+  }
+  const int y = (int)(i % big) / w;
+  const int* col = in + (i - (long long)y * w);  // the column's top pixel
+  out[i] = capped_min(v, y, 0, h, reach, big, [&](int j) { return col[(size_t)j * w]; });
+}
+
 inline unsigned blocks_for(long long threads) { return (unsigned)((threads + kGThreads - 1) / kGThreads); }
 
 // outs: kCh output planes; scratch: kCh planes of n * h * w ints, then the
@@ -640,20 +754,24 @@ inline unsigned blocks_for(long long threads) { return (unsigned)((threads + kGT
 // (ops/frontend.cc_plan) passes band_rows, fused and the shared bytes; they
 // must agree with cc_band's layout, or nothing launches.  Launches: fused,
 // 2 per round (1 with no round); else the start, then per round the pools,
-// the band and the fix.
+// the band and the fix (with a cap along H: cc_capped_cols in the fix's
+// place).
 template <int kCh>
 int launch_cc_global(const float* mask, const int* src, int* const* outs, int* scratch, int n, int h,
-                     int w, int rounds, int pools, int band_rows, int fused, int smem_bytes,
-                     cudaStream_t stream) {
-  if (h < 1 || w < 1 || rounds < 0 || pools < 0 || band_rows < 1 || (long long)n * h * w >= (1LL << 31))
+                     int w, int rounds, int pools, int band_rows, int fused, int smem_bytes, int cap_axis,
+                     int reach, cudaStream_t stream) {
+  if (h < 1 || w < 1 || rounds < 0 || pools < 0 || band_rows < 1 || (long long)n * h * w >= (1LL << 31) ||
+      !cap_ok(kCh, cap_axis, reach))
     return (int)cudaErrorInvalidValue;
   const int kp = fused ? pools : 0;  // pools inside the band kernel
-  if ((long long)smem_bytes != 4LL * kCh * (kp > 0 ? 2 : 1) * (band_rows + 2LL * kp) * w)
+  if ((long long)smem_bytes != 4LL * kCh * band_buffers(kp, cap_axis) * (band_rows + 2LL * kp) * w)
     return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
   const long long px = (long long)n * h * w;
   const int bands = (h + band_rows - 1) / band_rows;
-  const int flips = fused ? 1 : pools + 1;  // buffer swaps per round
+  // Buffer swaps per round: the pools unfused, the band kernel, and the
+  // capped column pass.
+  const int flips = (fused ? 0 : pools) + 1 + (cap_axis == 0 ? 1 : 0);
   const int last = (int)(((long long)rounds * flips) & 1);
   Planes p = {};
   for (int c = 0; c < kCh; ++c) {
@@ -681,12 +799,18 @@ int launch_cc_global(const float* mask, const int* src, int* const* outs, int* s
       io.out[c] = p.buf[c][cur ^ 1];
     }
     cc_band<kCh><<<(unsigned)(n * bands), kCCThreads, smem_bytes, stream>>>(
-        mask, src, io, e, h, w, bands, band_rows, kp, fused && r == 0);
-    CPE_CHECK_LAUNCH();
-    cc_fix<kCh><<<blocks_for((long long)n * bands * w), kGThreads, 0, stream>>>(io, e, n, h, w, bands,
-                                                                               band_rows);
+        mask, src, io, e, h, w, bands, band_rows, kp, fused && r == 0, cap_axis, reach);
     CPE_CHECK_LAUNCH();
     cur ^= 1;
+    if (cap_axis == 0) {
+      cc_capped_cols<<<blocks_for(px), kGThreads, 0, stream>>>(p.buf[0][cur], p.buf[0][cur ^ 1], n, h, w,
+                                                               reach);
+      cur ^= 1;
+    } else {
+      cc_fix<kCh><<<blocks_for((long long)n * bands * w), kGThreads, 0, stream>>>(io, e, n, h, w, bands,
+                                                                                 band_rows);
+    }
+    CPE_CHECK_LAUNCH();
   }
   return 0;
 }
@@ -697,11 +821,14 @@ int launch_cc_global(const float* mask, const int* src, int* const* outs, int* s
 // wrapper's plan (ops/frontend.cc_plan) passes the cluster size, the rows
 // per CTA and the shared bytes; they must agree with this kernel's layout,
 // or nothing launches.
+// cap_axis (-1, 0: along H, 1: along W) and reach: the capped scan
+// (ops/frontend.cap_reach; the plan's "cap_axis" / "cap_reach").
 CPE_API int cpe_connected_components(const float* mask, const int* init, int* out, int n, int h,
                                      int w, int rounds, int pools_per_round, int cluster,
-                                     int rows_per, int smem_bytes, cudaStream_t stream) {
+                                     int rows_per, int smem_bytes, int cap_axis, int reach,
+                                     cudaStream_t stream) {
   return launch_cc<1>(mask, init, out, nullptr, n, h, w, rounds, pools_per_round, cluster, rows_per,
-                      smem_bytes, stream);
+                      smem_bytes, cap_axis, reach, stream);
 }
 
 // pmin, pmax (out): (N, H, W) int32 per-component minima and maxima of the
@@ -713,28 +840,31 @@ CPE_API int cpe_component_payload_minmax(const float* mask, const int* payload, 
                                          cudaStream_t stream) {
   if (!payload) return (int)cudaErrorInvalidValue;
   return launch_cc<2>(mask, payload, pmin, pmax, n, h, w, rounds, pools_per_round, cluster, rows_per,
-                      smem_bytes, stream);
+                      smem_bytes, -1, -1, stream);
 }
 
 // The large-frame route of cpe_connected_components (cc_plan's "global"
 // plan): scratch holds one (N, H, W) int32 plane and the edge tables
-// (plan["scratch_ints"]); band_rows, fused and smem_bytes come from the plan.
+// (plan["scratch_ints"]); band_rows, fused and smem_bytes come from the plan,
+// cap_axis and reach as for cpe_connected_components.
 CPE_API int cpe_connected_components_global(const float* mask, const int* init, int* out, int* scratch,
                                             int n, int h, int w, int rounds, int pools_per_round,
-                                            int band_rows, int fused, int smem_bytes, cudaStream_t stream) {
+                                            int band_rows, int fused, int smem_bytes, int cap_axis, int reach,
+                                            cudaStream_t stream) {
   int* outs[1] = {out};
   return launch_cc_global<1>(mask, init, outs, scratch, n, h, w, rounds, pools_per_round, band_rows, fused,
-                             smem_bytes, stream);
+                             smem_bytes, cap_axis, reach, stream);
 }
 
 // The large-frame route of cpe_component_payload_minmax: scratch holds two
-// (N, H, W) int32 planes and the edge tables.
+// (N, H, W) int32 planes and the edge tables.  cap_axis and reach must be -1
+// (the labels' entry's signature: the payload has no capped scan).
 CPE_API int cpe_component_payload_minmax_global(const float* mask, const int* payload, int* pmin,
                                                 int* pmax, int* scratch, int n, int h, int w, int rounds,
                                                 int pools_per_round, int band_rows, int fused,
-                                                int smem_bytes, cudaStream_t stream) {
+                                                int smem_bytes, int cap_axis, int reach, cudaStream_t stream) {
   if (!payload) return (int)cudaErrorInvalidValue;
   int* outs[2] = {pmin, pmax};
   return launch_cc_global<2>(mask, payload, outs, scratch, n, h, w, rounds, pools_per_round, band_rows, fused,
-                             smem_bytes, stream);
+                             smem_bytes, cap_axis, reach, stream);
 }

@@ -1,21 +1,30 @@
-// Preprocess / binarize / line openings / joints / joint count / joint peak
-// for a batch of already smoothed (N, H, W) float32 images.
+// Smoothing / preprocess / binarize / line openings / joints / joint count /
+// joint peak for a batch of (N, H, W) float32 grey images, or of already
+// smoothed ones.
 //
 // Replaces the TPU kernel cylinder_pose_estimation_tpu/ops/pallas/frontend.py
-// preprocess_binarize (_preprocess_kernel, pre_smoothed=True), which kept a
-// whole image in VMEM and shifted it with circular rolls.
+// preprocess_binarize (_preprocess_kernel, both branches of pre_smoothed),
+// which kept a whole image in VMEM and shifted it with circular rolls.
 //
 // Bound: memory.  At (32, 480, 640) the function reads 39.3 MB and writes six
-// float planes, 235.9 MB: 275.3 MB, 0.0822 ms at 3.35 TB/s.  A few dozen
-// operations per pixel stay far below the compute roof.
+// float planes, 235.9 MB: 275.3 MB, 0.0822 ms at 3.35 TB/s, with or without
+// the smoothing (it runs on the tile in shared memory).  A few dozen
+// operations per pixel, about 240 more with the smoothing over its tile and
+// halo (2.35 GFLOP at (32, 480, 640), 0.035 ms at 67 TFLOP/s), stay below
+// the byte bound.
 //
 // Design: two launches over 2-D tiles of kTileH x kTileW output pixels
 // (blockIdx.z = image, 32-bit index math inside an image).  Each tile loads
 // its input once, with its halo, into shared memory and runs its part of
 // the chain there; HBM sees the input, the six outputs and one bit-packed
 // copy of `binary` (1/32 of a plane) between the two launches.
-//   A (binarize_tiles): smoothed -> Hessian minima -> 15x15 Sauvola box
-//     sums -> binary.  Halo 9 (2 for the Hessian, 7 for the box).  Each
+//   A (binarize_tiles): [smoothing] -> Hessian minima -> 15x15 Sauvola box
+//     sums -> binary.  Halo 9 (2 for the Hessian, 7 for the box).  With the
+//     smoothing, the grey tile comes in with r1 + r2 more rows and columns
+//     of halo (14 for the 5-tap and 25-tap Gaussians), indexed modulo H and
+//     W because the TPU kernel's rolls wrap, and four separable passes in
+//     shared memory (the 5-tap one along W, then H, then the 25-tap one
+//     along W, then H) leave the smoothed tile with its halo of 9.  Each
 //     thread keeps a run of kRun outputs of a line in registers and builds
 //     the doubling planes pows[2], pows[4], pows[8] of that run once, so a
 //     box sum costs about 6 adds and 1 shared load instead of 14 and 15.
@@ -26,14 +35,18 @@
 //     joints.  The tile's halo covers the rounds' reach, so no round leaves
 //     the block.
 //
-// Exactness: built with --fmad=false; every float box sum evaluates the
-// addition tree of the TPU kernel's Hillis-Steele doubling (_box_sum_roll:
-// parts largest first, summed left to right, recentred by size / 2); the
-// Sauvola division and square root are the correctly rounded ones.  Masks,
-// counts and keys are integers, exact in any order.  Out-of-image reads
-// return 0 (INT_MIN for keys) where the TPU wrapped around: the margin,
-// which the wrapper requires to cover the stencil reach, zeroes every mask
-// within it, so both conventions give the same whole images.
+// Exactness: built with --fmad=false; each smoothing pass evaluates the TPU
+// kernel's k[r] * x, then + k[r - i] * (x[p - i] + x[p + i]) for i = 1 .. r,
+// in that order (_sep_conv_roll, symmetric taps), its reads wrapped around
+// the image as the rolls do; every float box sum evaluates the addition
+// tree of the TPU kernel's Hillis-Steele doubling (_box_sum_roll: parts
+// largest first, summed left to right, recentred by size / 2); the Sauvola
+// division and square root are the correctly rounded ones.  Masks, counts
+// and keys are integers, exact in any order.  After the smoothing,
+// out-of-image reads return 0 (INT_MIN for keys) where the TPU wrapped
+// around: the margin, which the wrapper requires to cover the stencil
+// reach, zeroes every mask within it, so both conventions give the same
+// whole images.
 
 #include "common.cuh"
 
@@ -49,15 +62,25 @@ static_assert(kThreadsA == 256, "one column-phase task per thread");
 static_assert(kTileH % kRun == 0 && kTileW % 32 == 0, "tile shape");
 
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kMaxTaps = 64;  // both smoothing passes' taps (ops/frontend MAX_SMOOTHING_TAPS)
+
+// The smoothing's taps, by value in the launch's parameters: the blur's
+// 2 r1 + 1, then the ridge Gaussian's 2 r2 + 1.
+struct Taps {
+  float k[kMaxTaps];
+};
 
 // ---------------------------------------------------------------------------
 // Launch A: smoothed -> binary (float plane and packed bits)
 // ---------------------------------------------------------------------------
 
-// Shared-memory layout of launch A for box size `box` (floats).
+// Shared-memory layout of launch A for box size `box` and smoothing radii
+// r1, r2 (0, 0: no smoothing), in floats.  The smoothing's grey tile X
+// (xh x xw) and its first pass (xh x (xw - 2 r1)) alias M, R1 and R2, which
+// come into use after it.
 struct LayoutA {
-  int hs, rb, sh, sw, mh, mw, rw;
-  __host__ __device__ explicit LayoutA(int box) {
+  int hs, rb, sh, sw, mh, mw, rw, r1, r2, xh, xw;
+  __host__ __device__ LayoutA(int box, int r1_, int r2_) {
     rb = box / 2;
     hs = rb + 2;
     sh = kTileH + 2 * hs;
@@ -65,13 +88,40 @@ struct LayoutA {
     mh = kTileH + 2 * rb;
     mw = (kTileW + 2 * rb) | 1;  // odd strides: conflict-free column walks
     rw = kTileW + 1;
+    r1 = r1_;
+    r2 = r2_;
+    xh = sh + 2 * (r1 + r2);
+    xw = sw + 2 * (r1 + r2);
   }
+  __host__ __device__ bool smooth() const { return r1 + r2 > 0; }
   __host__ __device__ int s_off() const { return 0; }
   __host__ __device__ int m_off() const { return sh * sw; }
   __host__ __device__ int r1_off() const { return m_off() + mh * mw; }
   __host__ __device__ int r2_off() const { return r1_off() + mh * rw; }
-  __host__ __device__ int floats() const { return r2_off() + mh * rw; }
+  __host__ __device__ int x_off() const { return m_off(); }
+  __host__ __device__ int a1_off() const { return x_off() + xh * xw; }
+  __host__ __device__ int floats() const {
+    int f = r2_off() + mh * rw;
+    return smooth() ? max(f, a1_off() + xh * (xw - 2 * r1)) : f;
+  }
 };
+
+// One separable smoothing pass over a rows x cols output region of shared
+// memory: out[y][x] = k[r] * in[y + r dy][x + r dx], then
+// + k[r - i] * (in[.. - i] + in[.. + i]) for i = 1 .. r, along x (dx = 1)
+// or y (dx = 0); `in` has stride is, `out` stride os.
+__device__ __forceinline__ void smooth_pass(const float* in, int is, float* out, int os, int rows,
+                                            int cols, const float* k, int r, bool along_x) {
+  const int step = along_x ? 1 : is;
+  for (int i = threadIdx.x; i < rows * cols; i += blockDim.x) {
+    const int y = i / cols;
+    const int x = i % cols;
+    const float* c = in + (along_x ? y * is + x + r : (y + r) * is + x);
+    float acc = k[r] * c[0];
+    for (int t = 1; t <= r; ++t) acc = acc + k[r - t] * (c[-t * step] + c[t * step]);
+    out[y * os + x] = acc;
+  }
+}
 
 // Centred box sums of kRun consecutive outputs from the kRun + BOX - 1
 // values v[] of a line: out[k] sums v[k .. k + BOX).  pows[2m][i] =
@@ -107,9 +157,10 @@ __device__ __forceinline__ void box_run(const float (&v)[kRun + BOX - 1], float 
 template <int BOX>
 __global__ void __launch_bounds__(kThreadsA) binarize_tiles(
     const float* __restrict__ smoothed, float* __restrict__ binary, unsigned* __restrict__ bits,
-    int h, int w, int words, int margin, float k, float r, float min_contrast) {
+    int h, int w, int words, int margin, float k, float r, float min_contrast, int r1, int r2,
+    const Taps taps) {
   extern __shared__ float smem_a[];
-  const LayoutA L(BOX);
+  const LayoutA L(BOX, r1, r2);
   float* S = smem_a + L.s_off();
   float* M = smem_a + L.m_off();
   float* R1 = smem_a + L.r1_off();
@@ -120,12 +171,39 @@ __global__ void __launch_bounds__(kThreadsA) binarize_tiles(
   const size_t plane = (size_t)h * w;
   const float* s = smoothed + blockIdx.z * plane;
 
-  // Input tile with a halo of hs, zero outside the image.
+  if (L.smooth()) {
+    // Grey tile with a halo of hs + r1 + r2, wrapped around the image, then
+    // the four passes; S holds the smoothed tile with its halo of hs
+    // (outside the image: the wrapped pixels' values).
+    float* X = smem_a + L.x_off();
+    float* A1 = smem_a + L.a1_off();
+    const int hz = L.hs + r1 + r2;
+    for (int i = tid; i < L.xh * L.xw; i += kThreadsA) {
+      int gy = (y0 - hz + i / L.xw) % h;
+      int gx = (x0 - hz + i % L.xw) % w;
+      gy += gy < 0 ? h : 0;
+      gx += gx < 0 ? w : 0;
+      X[i] = s[gy * w + gx];
+    }
+    __syncthreads();
+    const float* k5 = taps.k;
+    const float* k25 = taps.k + 2 * r1 + 1;
+    const int w1 = L.xw - 2 * r1;  // columns after the blur's pass along W
+    smooth_pass(X, L.xw, A1, w1, L.xh, w1, k5, r1, true);
+    __syncthreads();
+    smooth_pass(A1, w1, X, w1, L.xh - 2 * r1, w1, k5, r1, false);
+    __syncthreads();
+    smooth_pass(X, w1, A1, L.sw, L.sh + 2 * r2, L.sw, k25, r2, true);
+    __syncthreads();
+    smooth_pass(A1, L.sw, S, L.sw, L.sh, L.sw, k25, r2, false);
+  } else {
+    // Input tile with a halo of hs, zero outside the image.
 #pragma unroll 4
-  for (int i = tid; i < L.sh * L.sw; i += kThreadsA) {
-    int gy = y0 - L.hs + i / L.sw;
-    int gx = x0 - L.hs + i % L.sw;
-    S[i] = (gy >= 0 && gy < h && gx >= 0 && gx < w) ? s[gy * w + gx] : 0.0f;
+    for (int i = tid; i < L.sh * L.sw; i += kThreadsA) {
+      int gy = y0 - L.hs + i / L.sw;
+      int gx = x0 - L.hs + i % L.sw;
+      S[i] = (gy >= 0 && gy < h && gx >= 0 && gx < w) ? s[gy * w + gx] : 0.0f;
+    }
   }
   __syncthreads();
 
@@ -462,13 +540,13 @@ __global__ void __launch_bounds__(kThreadsB) mask_tiles(
 template <int BOX>
 int launch_binarize(dim3 grid, int smem, cudaStream_t stream, const float* smoothed, float* binary,
                     unsigned* bits, int h, int w, int words, int margin, float k, float r,
-                    float min_contrast) {
-  if (smem != (int)(LayoutA(BOX).floats() * sizeof(float))) return (int)cudaErrorInvalidValue;
+                    float min_contrast, int r1, int r2, const Taps& taps) {
+  if (smem != (int)(LayoutA(BOX, r1, r2).floats() * sizeof(float))) return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(binarize_tiles<BOX>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
   binarize_tiles<BOX><<<grid, kThreadsA, smem, stream>>>(smoothed, binary, bits, h, w, words,
-                                                         margin, k, r, min_contrast);
+                                                         margin, k, r, min_contrast, r1, r2, taps);
   CPE_CHECK_LAUNCH();
   return 0;
 }
@@ -479,24 +557,33 @@ int launch_binarize(dim3 grid, int smem, cudaStream_t stream, const float* smoot
 // float32.  Scratch: bits, (N, H, ceil(W / 32)) uint32.  The wrapper's plan
 // (ops/frontend.preprocess_plan) passes the tile shape and each launch's
 // shared bytes; they must equal this file's, or nothing launches.
-CPE_API int cpe_preprocess_binarize(const float* smoothed, float* binary, float* hmask,
+// r1, r2 > 0: `in` is the grey image, smoothed here with the taps at
+// `host_taps` (HOST memory: the 2 r1 + 1 blur taps, then the 2 r2 + 1 ridge
+// taps, copied into the launch); 0, 0: `in` is already smoothed.
+CPE_API int cpe_preprocess_binarize(const float* in, float* binary, float* hmask,
                                     float* vmask, float* joints, float* jcnt, float* jpeak,
-                                    unsigned* bits, int n, int h, int w, int sauvola_window,
-                                    int line_len, int margin, int joint_window,
+                                    unsigned* bits, const float* host_taps, int n, int h, int w,
+                                    int sauvola_window, int line_len, int margin, int joint_window,
                                     int joint_peak_iters, int key_shift, int tile_h, int tile_w,
-                                    int smem_a, int smem_b, float sauvola_k, float sauvola_r,
-                                    float min_contrast, cudaStream_t stream) {
+                                    int smem_a, int smem_b, int r1, int r2, float sauvola_k,
+                                    float sauvola_r, float min_contrast, cudaStream_t stream) {
   if (tile_h != kTileH || tile_w != kTileW || line_len < 1 || line_len > 32 ||
-      joint_peak_iters < 0 || joint_peak_iters + joint_window / 2 > 32)
+      joint_peak_iters < 0 || joint_peak_iters + joint_window / 2 > 32 || r1 < 0 || r2 < 0)
     return (int)cudaErrorInvalidValue;
+  Taps taps = {};
+  if (r1 + r2 > 0) {
+    const int n_taps = 2 * (r1 + r2) + 2;
+    if (n_taps > kMaxTaps || !host_taps) return (int)cudaErrorInvalidValue;
+    for (int i = 0; i < n_taps; ++i) taps.k[i] = host_taps[i];
+  }
   const int words = (w + 31) / 32;
   dim3 grid((w + kTileW - 1) / kTileW, (h + kTileH - 1) / kTileH, n);
   int rc;
   switch (sauvola_window) {
 #define CPE_BOX(B)                                                                          \
   case B:                                                                                   \
-    rc = launch_binarize<B>(grid, smem_a, stream, smoothed, binary, bits, h, w, words,      \
-                            margin, sauvola_k, sauvola_r, min_contrast);                    \
+    rc = launch_binarize<B>(grid, smem_a, stream, in, binary, bits, h, w, words, margin,    \
+                            sauvola_k, sauvola_r, min_contrast, r1, r2, taps);              \
     break;
     CPE_BOX(1) CPE_BOX(3) CPE_BOX(5) CPE_BOX(7) CPE_BOX(9) CPE_BOX(11) CPE_BOX(13) CPE_BOX(15)
 #undef CPE_BOX

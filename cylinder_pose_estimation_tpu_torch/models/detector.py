@@ -14,8 +14,9 @@ into (2V, ...) batches.  Either branch takes any height and width (the
 kernel branch's front end needs multiples of 8, as in the JAX package).
 
 The stages, in order (each a function the tests can drive on its own):
-  ``front_stage``    kernel branch: smoothing (banded matmuls) ->
-                     preprocess kernel -> statistic images -> joint centroids
+  ``front_stage``    kernel branch: smoothing (banded matmuls, or inside
+                     the kernel with ``smooth_mxu=False``) -> preprocess
+                     kernel -> statistic images -> joint centroids
   ``front_stage_xla``  XLA branch: Gaussian blur -> ridge binarisation ->
                      border band -> line openings -> joint count and peaks ->
                      the same statistic images and centroids
@@ -28,7 +29,9 @@ The stages, in order (each a function the tests can drive on its own):
   ``bridge_stage_xla``  XLA branch: CC -> angles / expandability -> ray
                      counts, oriented line dilation, 3x3 closing
   ``grid_stage``     final CC (kernel: warm, or cold after the endpoint
-                     bridge; XLA: cold, with the pre-bridge recount) ->
+                     bridge, one call for the h/v pair or two capped ones
+                     under ``pallas_cc_cross_cap``; XLA: cold, with the
+                     pre-bridge recount) ->
                      assign -> polyfit -> short-column merge (plane) ->
                      sub-pixel refinement (``subpixel_refine``) -> prune ->
                      Newton intersections -> relabel -> index -> DetectResult
@@ -143,8 +146,10 @@ def _smooth(gray: torch.Tensor, cfg: DetectConfig) -> torch.Tensor:
 
 
 def _stats_images(gray, joints_f, cnt, cfg: DetectConfig, joint_window: int = 11):
-    """Saturation mask, index-brightness image and joint box centroids
-    (bf16-operand banded matmuls, as the reference)."""
+    """Saturation mask, centre-seed brightness image (``bright_at_points=
+    False`` only, else None), index-brightness image and joint box
+    centroids (bf16-operand banded matmuls, as the reference; the centre-seed
+    brightness in exact mode: it feeds an argmax over near-ties)."""
     h, w = gray.shape[-2:]
     dev = gray.device
     rr = torch.arange(h, device=dev)[:, None]
@@ -156,6 +161,14 @@ def _stats_images(gray, joints_f, cnt, cfg: DetectConfig, joint_window: int = 11
     sat = mxc.conv_y(mxc.conv_x(gray, mxc.x_mat(gt, w, dev)), mxc.y_mat(gt, h, dev))
     sat_mask = (sat > cfg.sat_threshold) & inside
 
+    bright_center = None
+    if not cfg.bright_at_points:
+        pc = 2 * cfg.center_patch_half + 1
+        bt = mxc.box_taps(pc)
+        bc = mxc.conv_y(mxc.conv_x(gray, mxc.x_mat(bt, w, dev, exact=True), exact=True),
+                        mxc.y_mat(bt, h, dev, exact=True), exact=True)
+        bright_center = bc / float(pc * pc)
+
     gk = mxc.gauss_taps_cv(cfg.index_blur_ksize)
     bright_blur = mxc.conv_y(mxc.conv_x(gray, mxc.x_mat(gk, w, dev)), mxc.y_mat(gk, h, dev))
 
@@ -166,7 +179,7 @@ def _stats_images(gray, joints_f, cnt, cfg: DetectConfig, joint_window: int = 11
     sx = cc.to(torch.float32) * cnt + mxc.conv_y(tx, mxc.y_mat(jb, h, dev))
     sy = rr.to(torch.float32) * cnt + mxc.conv_x(ty, mxc.x_mat(jb, w, dev))
     c = torch.clamp(cnt, min=1.0)
-    return sat_mask, bright_blur, torch.floor(sx / c), torch.floor(sy / c)
+    return sat_mask, bright_center, bright_blur, torch.floor(sx / c), torch.floor(sy / c)
 
 
 def _joint_centroids(peak: torch.Tensor, cx: torch.Tensor, cy: torch.Tensor, k: int):
@@ -196,15 +209,21 @@ class Front(NamedTuple):
     bright_blur: torch.Tensor
     cents: torch.Tensor
     cvalid: torch.Tensor
+    bright_center: torch.Tensor | None = None
 
 
 def front_stage(gray: torch.Tensor, cfg: DetectConfig) -> Front:
-    """Stages 1-2 on (V, H, W) gray images."""
+    """Stages 1-2 on (V, H, W) gray images: the preprocess kernel on the
+    banded-matmul smoothing (``smooth_mxu``) or on the grey image, which it
+    then smooths itself."""
     h, w = gray.shape[-2:]
     if h % 8 or w % 8:
         raise ValueError(f"the front-end needs 8-aligned image shapes, got {(h, w)}")
     b_f, h_f, v_f, j_f, joint_cnt, joint_peak = frontend.preprocess_binarize(
-        _smooth(gray, cfg),
+        _smooth(gray, cfg) if cfg.smooth_mxu else gray,
+        blur_ksize=cfg.blur_ksize,
+        ridge_sigma=cfg.ridge_sigma,
+        pre_smoothed=cfg.smooth_mxu,
         sauvola_window=cfg.sauvola_window,
         sauvola_k=cfg.sauvola_k,
         sauvola_r=cfg.sauvola_r,
@@ -213,9 +232,9 @@ def front_stage(gray: torch.Tensor, cfg: DetectConfig) -> Front:
         margin=_border_margin(cfg),
         joint_peak_iters=cfg.joint_peak_iters,
     )
-    sat_mask, bright_blur, cx, cy = _stats_images(gray, j_f, joint_cnt, cfg)
+    sat_mask, bright_center, bright_blur, cx, cy = _stats_images(gray, j_f, joint_cnt, cfg)
     cents, cvalid = _joint_centroids(joint_peak, cx, cy, cfg.max_points)
-    return Front(gray, b_f > 0.5, h_f > 0.5, v_f > 0.5, sat_mask, bright_blur, cents, cvalid)
+    return Front(gray, b_f > 0.5, h_f > 0.5, v_f > 0.5, sat_mask, bright_blur, cents, cvalid, bright_center)
 
 
 def _joint_peaks(joints: torch.Tensor, cnt: torch.Tensor, peak_iters: int, window: int = 11) -> torch.Tensor:
@@ -257,9 +276,9 @@ def front_stage_xla(gray: torch.Tensor, cfg: DetectConfig) -> Front:
     jf = joints.to(torch.float32)
     joint_cnt = box_filter(jf, 11, mode="constant", normalize=False)
     peak = _joint_peaks(joints, joint_cnt, cfg.joint_peak_iters)
-    sat_mask, bright_blur, cx, cy = _stats_images(gray, jf, joint_cnt, cfg)
+    sat_mask, bright_center, bright_blur, cx, cy = _stats_images(gray, jf, joint_cnt, cfg)
     cents, cvalid = _joint_centroids(peak.to(torch.float32), cx, cy, cfg.max_points)
-    return Front(gray, binary, h_mask, v_mask, sat_mask, bright_blur, cents, cvalid)
+    return Front(gray, binary, h_mask, v_mask, sat_mask, bright_blur, cents, cvalid, bright_center)
 
 
 # ---------------------------------------------------------------------------
@@ -352,8 +371,10 @@ def _bbox_of(mask: torch.Tensor) -> torch.Tensor:
     return torch.stack([x0, y0, x1 - x0 + 1, y1 - y0 + 1], -1).to(torch.int32)
 
 
-def _center_seed(cents, cvalid, gray, bbox, cfg: DetectConfig):
-    """Brightest joint inside the ROI bbox + distance to its 2nd neighbour."""
+def _center_seed(cents, cvalid, gray, bbox, cfg: DetectConfig, bright_img=None):
+    """Brightest joint inside the ROI bbox + distance to its 2nd neighbour;
+    the brightness read from ``bright_img`` (``bright_at_points=False``) or
+    evaluated at the joints."""
     x0, y0, bw, bh = (bbox[:, i:i + 1] for i in range(4))
     inside = (
         cvalid
@@ -363,8 +384,11 @@ def _center_seed(cents, cvalid, gray, bbox, cfg: DetectConfig):
     h, w = gray.shape[-2:]
     xi = torch.clamp(cents[..., 0].to(torch.int32), 0, w - 1)
     yi = torch.clamp(cents[..., 1].to(torch.int32), 0, h - 1)
-    pc = 2 * cfg.center_patch_half + 1
-    vals = mxc.conv_at_points(gray, yi, xi, mxc.box_taps(pc)) / float(pc * pc)
+    if bright_img is None:
+        pc = 2 * cfg.center_patch_half + 1
+        vals = mxc.conv_at_points(gray, yi, xi, mxc.box_taps(pc)) / float(pc * pc)
+    else:
+        vals = bright_img.reshape(bright_img.shape[0], -1).gather(1, (yi * w + xi).to(torch.int64))
     bright = torch.where(inside, vals, float("-inf"))
     ci = torch.argmax(bright, dim=-1)
     center = cents.gather(1, ci[:, None, None].expand(-1, 1, 2))[:, 0]
@@ -452,7 +476,7 @@ def roi_stage(front: Front, cfg: DetectConfig) -> Roi:
     else:
         roi = _roi_cylinder_from_labels(roi_seed4, labels[:, 0], h, w, k=cfg.roi_blob_k)
     bbox = _bbox_of(roi)
-    center, _, inside = _center_seed(front.cents, front.cvalid, front.gray, bbox, cfg)
+    center, _, inside = _center_seed(front.cents, front.cvalid, front.gray, bbox, cfg, front.bright_center)
     mh, mv, r0i, domain = _saturation_carve(front.h_mask, front.v_mask, roi, sat_small, labels[:, 1])
     return Roi(roi, bbox, center, inside, mh, mv, r0i, domain)
 
@@ -920,8 +944,18 @@ def final_labels(st: GridState, cfg: DetectConfig):
     warm = (cfg.cc_warm_start and st.warm_labels is not None
             and st.warm_labels.shape == hv_masks.shape)
     rounds = max(1, int(cfg.pallas_cc_rounds_warm)) if warm else max(1, int(cfg.pallas_cc_rounds))
-    lab_pair = _cc_pairs(hv_masks, rounds=rounds, pools=cfg.pallas_cc_pools,
-                         init=st.warm_labels if warm else None)
+    init = st.warm_labels if warm else None
+    if cfg.pallas_cc_cross_cap > 0:
+        # Two launches, as in the JAX package: the h masks' scan capped
+        # along H, the v masks' along W.
+        lab_pair = torch.stack([
+            frontend.connected_components(
+                hv_masks[:, i].to(torch.float32), rounds=rounds, pools_per_round=cfg.pallas_cc_pools,
+                init_labels=None if init is None else init[:, i].contiguous(), cap_axis=i,
+                cap=cfg.pallas_cc_cross_cap)
+            for i in (0, 1)], 1)
+    else:
+        lab_pair = _cc_pairs(hv_masks, rounds=rounds, pools=cfg.pallas_cc_pools, init=init)
     return hv_masks, lab_pair, st.n_pre
 
 

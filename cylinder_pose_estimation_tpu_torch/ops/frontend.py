@@ -14,8 +14,11 @@ hand-written CUDA kernel from ``csrc/`` (built at first use, see
 ``ops/kernels.py``) and raises if it cannot.  Nothing falls back.
 
 ``launch_counts()`` holds, per kernel, the number of wrapper calls that
-launched the CUDA kernel (plain runs do not count), and the bridge's calls
-per route (``bridge_morphology.cluster``, ``.split``, ``.global``).
+launched the CUDA kernel (plain runs do not count), the bridge's calls
+per route (``bridge_morphology.cluster``, ``.split``, ``.global``), the
+preprocess calls that smoothed in the kernel
+(``preprocess_binarize.smoothing``) and the CC calls with a capped scan
+per route (``connected_components.capped.cluster``, ``.band``).
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ from typing import Dict, Tuple
 
 import torch
 
-from cylinder_pose_estimation_tpu_torch.ops import kernels
+from cylinder_pose_estimation_tpu_torch.ops import kernels, mxu_conv
 from cylinder_pose_estimation_tpu_torch.ops.labeling import peak_key_shift
 from cylinder_pose_estimation_tpu_torch.ops.morphology import shift2d
 
@@ -39,6 +42,12 @@ _LAUNCHES: Dict[str, int] = {
     "bridge_morphology.cluster": 0,
     "bridge_morphology.split": 0,
     "bridge_morphology.global": 0,
+    # The branches inside two of them: the preprocess kernel's own smoothing
+    # (``pre_smoothed=False``), and the CC kernel's capped scans
+    # (``cap_axis``/``cap``) by route.
+    "preprocess_binarize.smoothing": 0,
+    "connected_components.capped.cluster": 0,
+    "connected_components.capped.band": 0,
 }
 
 
@@ -118,8 +127,34 @@ def _line_minmax(x: torch.Tensor, length: int, dim: int, op) -> torch.Tensor:
 # --------------------------------------------------------------------------
 
 
+def smoothing_taps(blur_ksize: int = 5, ridge_sigma: float = 3.0) -> Tuple[Tuple[float, ...], Tuple[float, ...]]:
+    """The in-kernel smoothing's taps, rounded to float32 as the TPU kernel
+    multiplies them: the OpenCV Gaussian of ``blur_ksize`` and the scipy
+    Gaussian of ``ridge_sigma``.  Raises ``ValueError`` for taps that are
+    not symmetric (the passes add the pixel pairs +-i before the multiply)."""
+    taps = []
+    for k in (mxu_conv.gauss_taps_cv(blur_ksize), mxu_conv.gauss_taps_scipy(ridge_sigma)):
+        k = tuple(torch.tensor(k, dtype=torch.float32).tolist())
+        if len(k) % 2 != 1 or k != k[::-1]:
+            raise ValueError(f"smoothing taps must be odd in number and symmetric, got {len(k)}")
+        taps.append(k)
+    return taps[0], taps[1]
+
+
+def _sep_conv_roll(x: torch.Tensor, k: Tuple[float, ...], dim: int) -> torch.Tensor:
+    """1-D correlation along ``dim`` with circular wrap, in the TPU kernel's
+    order: k[r] * x, then + k[r - i] * (x[p - i] + x[p + i]) for i = 1 .. r."""
+    r = len(k) // 2
+    out = k[r] * x
+    for i in range(1, r + 1):
+        out = out + k[r - i] * (_roll(x, i, dim) + _roll(x, -i, dim))
+    return out
+
+
 def preprocess_binarize_plain(
-    smoothed: torch.Tensor,
+    gray: torch.Tensor,
+    blur_ksize: int = 5,
+    ridge_sigma: float = 3.0,
     sauvola_window: int = 15,
     sauvola_k: float = 0.5,
     sauvola_r: float = 128.0,
@@ -128,11 +163,19 @@ def preprocess_binarize_plain(
     margin: int = 20,
     joint_window: int = 11,
     joint_peak_iters: int = 8,
+    pre_smoothed: bool = False,
 ) -> Tuple[torch.Tensor, ...]:
-    """Plain version of the preprocess kernel on an already smoothed (N, H, W)
-    float32 batch.  Returns (binary, h_mask, v_mask, joints, joint_cnt,
+    """Plain version of the preprocess kernel on an (N, H, W) float32 batch.
+    With ``pre_smoothed`` the input is already smoothed; else the kernel's
+    own smoothing runs first: the ``blur_ksize`` Gaussian along W, then H,
+    then the ``ridge_sigma`` Gaussian along W, then H, each wrapping around
+    the image.  Returns (binary, h_mask, v_mask, joints, joint_cnt,
     joint_peak), all float32 (N, H, W)."""
-    s = smoothed.to(torch.float32)
+    s = gray.to(torch.float32)
+    if not pre_smoothed:
+        k5, k25 = smoothing_taps(blur_ksize, ridge_sigma)
+        s = _sep_conv_roll(_sep_conv_roll(s, k5, 2), k5, 1)
+        s = _sep_conv_roll(_sep_conv_roll(s, k25, 2), k25, 1)
     _, h, w = s.shape
     dev = s.device
     rows = torch.arange(h, device=dev)[:, None]
@@ -203,33 +246,49 @@ def preprocess_reach(sauvola_window: int = 15, line_len: int = 20, joint_window:
 PREPROCESS_TILE = (32, 64)
 
 
+# Taps the preprocess kernel's smoothing takes (csrc/preprocess.cu kMaxTaps).
+MAX_SMOOTHING_TAPS = 64
+
+
 @functools.lru_cache(maxsize=64)
 def preprocess_plan(
     n: int, h: int, w: int, sauvola_window: int = 15, line_len: int = 20,
-    joint_window: int = 11, joint_peak_iters: int = 8,
+    joint_window: int = 11, joint_peak_iters: int = 8, smooth: Tuple[int, int] = (0, 0),
 ) -> Dict[str, object]:
     """Launch plan of the preprocess kernel: two launches over the same grid
     of (image, tile row, tile column) blocks.  Launch A (binarize) loads the
     tile with a halo of 2 + window // 2; launch B (masks, count, peak) loads
     the bit-packed binary with the openings' and the peak rounds' halos.
-    The shared bytes mirror the kernel's layouts (it refuses other values).
-    Raises ``ValueError`` for parameters the kernel does not take.  Cached:
-    treat the returned dict as read-only."""
+    ``smooth``: the radii of the two Gaussian passes of the in-kernel
+    smoothing ((0, 0): the input is already smoothed); launch A then loads
+    the grey tile with their sum added to its halo, wrapped around the
+    image, and smooths it in shared memory first.  The shared bytes mirror
+    the kernel's layouts (it refuses other values).  Raises ``ValueError``
+    for parameters the kernel does not take.  Cached: treat the returned
+    dict as read-only."""
     if sauvola_window % 2 != 1 or joint_window % 2 != 1 or sauvola_window > 15 or joint_window > 15:
         raise ValueError("box windows must be odd and at most 15")
     if not 1 <= line_len <= 32:
         raise ValueError(f"line_len must lie in [1, 32], got {line_len}")
     if joint_peak_iters < 0 or joint_peak_iters + joint_window // 2 > 32:
         raise ValueError("joint_peak_iters + joint_window // 2 must lie in [0, 32]")
+    r1, r2 = smooth
+    if r1 < 0 or r2 < 0 or (r1 or r2) and 2 * (r1 + r2) + 2 > MAX_SMOOTHING_TAPS:
+        raise ValueError(f"smoothing radii {smooth}: at most {MAX_SMOOTHING_TAPS} taps in all")
     if n * h * w >= 2**31:
         raise ValueError(f"{n}x{h}x{w} pixels overflow the kernel's 32-bit plane index")
     th, tw = PREPROCESS_TILE
     tile_words = tw // 32
-    # Launch A (floats): input + halo, minima + halo (odd stride), 2 row-sum planes.
+    # Launch A (floats): input + halo, minima + halo (odd stride), 2 row-sum
+    # planes; smoothing: the grey tile and its first pass alias the last three.
     rb = sauvola_window // 2
     hs = rb + 2
     mh, mw, rw = th + 2 * rb, (tw + 2 * rb) | 1, tw + 1
-    floats_a = (th + 2 * hs) * (tw + 2 * hs) + mh * mw + 2 * mh * rw
+    sh, sw = th + 2 * hs, tw + 2 * hs
+    floats_a = sh * sw + mh * mw + 2 * mh * rw
+    if r1 or r2:
+        xh, xw = sh + 2 * (r1 + r2), sw + 2 * (r1 + r2)
+        floats_a = max(floats_a, sh * sw + xh * xw + xh * (xw - 2 * r1))
     # Launch B (32-bit words): binary bits, row erosion, 3 word planes, row
     # counts, counts, two key planes and the joint count.
     a = (line_len - 1) // 2
@@ -243,7 +302,8 @@ def preprocess_plan(
         "launches": 2,
         "tile": (th, tw),
         "grid": (-(-w // tw), -(-h // th), n),
-        "halo_a": hs,
+        "halo_a": hs + r1 + r2,
+        "smooth": (r1, r2),
         "halo_b_rows": (rj + up, rj + down),
         "halo_b_cols": (rj, rj),
         "bit_words": -(-w // 32),
@@ -257,7 +317,9 @@ def preprocess_plan(
 
 
 def preprocess_binarize(
-    smoothed: torch.Tensor,
+    gray: torch.Tensor,
+    blur_ksize: int = 5,
+    ridge_sigma: float = 3.0,
     sauvola_window: int = 15,
     sauvola_k: float = 0.5,
     sauvola_r: float = 128.0,
@@ -266,35 +328,46 @@ def preprocess_binarize(
     margin: int = 20,
     joint_window: int = 11,
     joint_peak_iters: int = 8,
+    pre_smoothed: bool = False,
 ) -> Tuple[torch.Tensor, ...]:
-    """Preprocess kernel on (N, H, W) float32 smoothed images (see
+    """Preprocess kernel on (N, H, W) float32 grey images, smoothed in the
+    kernel, or already smoothed with ``pre_smoothed`` (see
     ``preprocess_binarize_plain`` for the outputs).  ``margin`` must cover
-    ``preprocess_reach``."""
+    ``preprocess_reach``: the smoothing wraps around the image as the plain
+    version does, the stages after it read 0 outside the image."""
     args = dict(
+        blur_ksize=blur_ksize, ridge_sigma=ridge_sigma,
         sauvola_window=sauvola_window, sauvola_k=sauvola_k, sauvola_r=sauvola_r,
         min_contrast=min_contrast, line_len=line_len, margin=margin,
-        joint_window=joint_window, joint_peak_iters=joint_peak_iters,
+        joint_window=joint_window, joint_peak_iters=joint_peak_iters, pre_smoothed=pre_smoothed,
     )
     reach = preprocess_reach(sauvola_window, line_len, joint_window)
     if margin < reach:
         raise ValueError(f"margin {margin} is below the stencil reach {reach}: the kernel's zero "
                          "halo and the plain version's wrap-around would differ")
-    if not _route(smoothed):
-        return preprocess_binarize_plain(smoothed, **args)
-    _check("smoothed", smoothed, torch.float32, 3)
-    n, h, w = smoothed.shape
-    plan = preprocess_plan(n, h, w, sauvola_window, line_len, joint_window, joint_peak_iters)
+    taps = () if pre_smoothed else smoothing_taps(blur_ksize, ridge_sigma)
+    if not _route(gray):
+        return preprocess_binarize_plain(gray, **args)
+    _check("gray", gray, torch.float32, 3)
+    n, h, w = gray.shape
+    smooth = tuple(len(k) // 2 for k in taps) or (0, 0)
+    plan = preprocess_plan(n, h, w, sauvola_window, line_len, joint_window, joint_peak_iters, smooth)
     shift = peak_key_shift(h, w, joint_window)
-    outs = torch.empty((6,) + smoothed.shape, dtype=torch.float32, device=smoothed.device).unbind(0)
-    bits = torch.empty((n, h, plan["bit_words"]), dtype=torch.int32, device=smoothed.device)
+    outs = torch.empty((6,) + gray.shape, dtype=torch.float32, device=gray.device).unbind(0)
+    bits = torch.empty((n, h, plan["bit_words"]), dtype=torch.int32, device=gray.device)
+    # The taps stay on the host: the C entry copies them into the launch's
+    # parameters.
+    host_taps = torch.tensor([t for k in taps for t in k], dtype=torch.float32) if taps else None
     kernels.launch(
         "cpe_preprocess_binarize",
-        [smoothed, *outs, bits],
+        [gray, *outs, bits, host_taps],
         [n, h, w, sauvola_window, line_len, margin, joint_window, joint_peak_iters, shift,
-         *plan["tile"], plan["smem_a"], plan["smem_b"]],
+         *plan["tile"], plan["smem_a"], plan["smem_b"], *smooth],
         [sauvola_k, sauvola_r, min_contrast],
     )
     _LAUNCHES["preprocess_binarize"] += 1
+    if taps:
+        _LAUNCHES["preprocess_binarize.smoothing"] += 1
     return tuple(outs)
 
 
@@ -303,7 +376,12 @@ def preprocess_binarize(
 # --------------------------------------------------------------------------
 
 
-def _seg_min_scan_roll(lab, maskf, dim, n):
+def _seg_min_scan_roll(lab, maskf, dim, n, cap: int = 0):
+    """Every in-mask pixel takes the minimum of its contiguous in-mask run
+    along ``dim`` by Hillis-Steele doubling; ``cap`` > 0 stops the doubling
+    at min(n, cap) (the reach of ``cap_reach``)."""
+    if cap > 0:
+        n = min(n, cap)
     out = lab
     for direction in (1, -1):
         v = lab
@@ -317,6 +395,26 @@ def _seg_min_scan_roll(lab, maskf, dim, n):
             d *= 2
         out = torch.minimum(out, v)
     return out
+
+
+def cap_reach(n: int, cap: int) -> int:
+    """How far (px) the capped scan along an axis of ``n`` pixels carries a
+    label: its ceil(log2(min(n, cap))) doubling steps take every pixel to the
+    minimum of its run within 2^steps - 1 pixels on each side.  -1 where
+    that covers every run (no cap, or a cap of at least the axis)."""
+    if cap <= 0:
+        return -1
+    d = 1
+    while d < min(n, cap):
+        d *= 2
+    return -1 if d - 1 >= n - 1 else d - 1
+
+
+def _check_cap(cap_axis: int, cap: int) -> None:
+    if cap_axis not in (-1, 0, 1):
+        raise ValueError(f"cap_axis must be -1, 0 (rows) or 1 (columns), got {cap_axis}")
+    if cap < 0:
+        raise ValueError(f"cap must be >= 0, got {cap}")
 
 
 # The 8 neighbour offsets of the CC pools, in the Pallas kernels' order.
@@ -334,10 +432,14 @@ def connected_components_plain(
     rounds: int = 10,
     pools_per_round: int = 4,
     init_labels: torch.Tensor | None = None,
+    cap_axis: int = -1,
+    cap: int = 0,
 ) -> torch.Tensor:
     """Plain version of the CC kernel on (N, H, W) masks -> int32 labels (the
     minimum linear index of each component after exactly ``rounds`` rounds;
-    background H*W)."""
+    background H*W).  ``cap_axis`` (0: along H, 1: along W) and ``cap`` > 0
+    cap the scan along that axis (``_seg_min_scan_roll``)."""
+    _check_cap(cap_axis, cap)
     _, h, w = mask.shape
     maskf = mask.to(torch.float32) * _ring(h, w, mask.device)
     m = maskf > 0.5
@@ -358,8 +460,8 @@ def connected_components_plain(
     for _ in range(rounds):
         for _ in range(pools_per_round):
             lab = pool(lab)
-        lab = torch.where(m, _seg_min_scan_roll(lab, maskf, 2, w), big)
-        lab = torch.where(m, _seg_min_scan_roll(lab, maskf, 1, h), big)
+        lab = torch.where(m, _seg_min_scan_roll(lab, maskf, 2, w, cap if cap_axis == 1 else 0), big)
+        lab = torch.where(m, _seg_min_scan_roll(lab, maskf, 1, h, cap if cap_axis == 0 else 0), big)
     return lab.to(torch.int32)
 
 
@@ -367,7 +469,8 @@ CLUSTER_SIZES = (1, 2, 4, 8)
 
 
 @functools.lru_cache(maxsize=64)
-def cc_plan(n: int, h: int, w: int, channels: int = 1, pools_per_round: int = 4) -> Dict[str, object]:
+def cc_plan(n: int, h: int, w: int, channels: int = 1, pools_per_round: int = 4, cap_axis: int = -1,
+            cap: int = 0) -> Dict[str, object]:
     """Launch plan of the CC kernel with 1 (labels) or 2 (payload min and
     max) channels: one thread-block cluster per mask, its rows split over the
     smallest cluster (1, 2, 4 or 8 CTAs) whose two int32 buffers per channel
@@ -375,28 +478,38 @@ def cc_plan(n: int, h: int, w: int, channels: int = 1, pools_per_round: int = 4)
     channel and a one-run flag, fit in one CTA's shared memory.  Where 8 CTAs
     do not hold a mask, the large-frame route (``_band_plan``):
     ``{"route": "global", ...}``, rows in bands.  ``pools_per_round`` only
-    shapes the global plan.  Raises ``ValueError`` where the labels overflow
-    32 bits.  Cached: treat the returned dict as read-only."""
+    shapes the global plan.  A capped scan (``cap_axis``, ``cap``; labels
+    only) that does not cover every run adds its axis and reach
+    (``cap_reach``) to the plan as ``"cap_axis"`` and ``"cap_reach"``.
+    Raises ``ValueError`` where the labels overflow 32 bits.  Cached: treat
+    the returned dict as read-only."""
     if channels not in (1, 2):
         raise ValueError(f"channels must be 1 or 2, got {channels}")
+    _check_cap(cap_axis, cap)
     if n * h * w >= 2**31:
         raise ValueError(f"{n}x{h}x{w} labels overflow the kernel's 32-bit index")
+    reach = cap_reach((h, w)[cap_axis], cap) if cap_axis >= 0 else -1
+    if reach >= 0 and channels != 1:
+        raise ValueError("the capped scan takes labels only (1 channel)")
+    capped = {"cap_axis": cap_axis, "cap_reach": reach} if reach >= 0 else {}
     for c in CLUSTER_SIZES:
         rows = -(-h // c)
         smem = 4 * (2 * channels * rows * w + (2 * channels + 1) * w)
         if smem <= kernels.MAX_DYNAMIC_SMEM and (c - 1) * rows < h:
-            return {"cluster": c, "rows_per_cta": rows, "smem": smem, "ctas": c * n}
-    return _band_plan(n, h, w, channels, pools_per_round)
+            return {"cluster": c, "rows_per_cta": rows, "smem": smem, "ctas": c * n, **capped}
+    return {**_band_plan(n, h, w, channels, pools_per_round, two_buffers=bool(capped) and cap_axis == 1),
+            **capped}
 
 
-def _band_plan(n: int, h: int, w: int, channels: int, pools: int) -> Dict[str, object]:
+def _band_plan(n: int, h: int, w: int, channels: int, pools: int, two_buffers: bool = False) -> Dict[str, object]:
     """The global route's plan (csrc/connected_components.cu ``cc_band``):
     one CTA per (mask, band of ``band_rows`` rows), holding per channel two
     Jacobi buffers of the band plus a halo of ``pools`` rows on each side
-    (one buffer without pools), the bands as tall as shared memory allows
-    and evened out over H.  ``fused``: the pools run inside the band kernel;
+    (one buffer without pools, unless ``two_buffers``: the capped row scan
+    writes the second), the bands as tall as shared memory allows and
+    evened out over H.  ``fused``: the pools run inside the band kernel;
     where that leaves bands of fewer than max(pools, 1) rows, they run as
-    device-memory passes and the band kernel holds one buffer and no halo.
+    device-memory passes and the band kernel holds no halo.
     ``scratch_ints``: a state plane per channel, then the edge tables (per
     mask, band and column: the top and bottom runs' extremes per channel and
     lengths).  Raises ``ValueError`` where not one row of a channel fits."""
@@ -405,7 +518,7 @@ def _band_plan(n: int, h: int, w: int, channels: int, pools: int) -> Dict[str, o
     row = 4 * channels * w
     fused = pools == 0 or kernels.MAX_DYNAMIC_SMEM // (2 * row) - 2 * pools >= pools
     halo = pools if fused else 0
-    nbuf = 2 if halo else 1
+    nbuf = 2 if halo or two_buffers else 1
     rows_max = kernels.MAX_DYNAMIC_SMEM // (nbuf * row) - 2 * halo
     if rows_max < 1:
         raise ValueError(f"a {w}-pixel row of {channels} channel(s) passes the band kernel's shared memory")
@@ -418,20 +531,23 @@ def _band_plan(n: int, h: int, w: int, channels: int, pools: int) -> Dict[str, o
 
 def cc_global_launches(rounds: int, pools_per_round: int, fused: bool = True) -> int:
     """Device kernels of one call on the CC family's global route: per round
-    the band kernel and the fix (with no round, the start alone); unfused,
-    the start and per round the pools, the band kernel and the fix."""
+    the band kernel and the fix, or with a cap along H the capped column
+    pass in the fix's place (with no round, the start alone); unfused, the
+    start and per round the pools, the band kernel and the fix."""
     if fused:
         return 2 * rounds if rounds else 1
     return 1 + rounds * (pools_per_round + 2)
 
 
 def _cc_global(name: str, mask: torch.Tensor, src, outs, rounds: int, pools_per_round: int,
-               plan: Dict[str, object]) -> None:
-    """Launch the global route ``name`` with its scratch (``_band_plan``)."""
+               plan: Dict[str, object], cap=(-1, -1)) -> None:
+    """Launch the global route ``name`` with its scratch (``_band_plan``);
+    ``cap``: the capped scan's (axis, reach), (-1, -1) for none."""
     n, h, w = mask.shape
     scratch = torch.empty(plan["scratch_ints"], dtype=torch.int32, device=mask.device)
     kernels.launch(name, [mask, src, *outs, scratch],
-                   [n, h, w, rounds, pools_per_round, plan["band_rows"], int(plan["fused"]), plan["smem"]], [])
+                   [n, h, w, rounds, pools_per_round, plan["band_rows"], int(plan["fused"]), plan["smem"],
+                    *cap], [])
 
 
 def connected_components(
@@ -439,11 +555,15 @@ def connected_components(
     rounds: int = 10,
     pools_per_round: int = 4,
     init_labels: torch.Tensor | None = None,
+    cap_axis: int = -1,
+    cap: int = 0,
 ) -> torch.Tensor:
     """8-connected labels of (N, H, W) masks on the Pallas kernel's exact
-    round schedule (see ``connected_components_plain``)."""
+    round schedule (see ``connected_components_plain``), the scan along
+    ``cap_axis`` capped by ``cap`` > 0."""
+    _check_cap(cap_axis, cap)
     if not _route(mask):
-        return connected_components_plain(mask, rounds, pools_per_round, init_labels)
+        return connected_components_plain(mask, rounds, pools_per_round, init_labels, cap_axis, cap)
     mask = mask.to(torch.float32).contiguous()
     _check("mask", mask, torch.float32, 3)
     n, h, w = mask.shape
@@ -452,18 +572,23 @@ def connected_components(
         _check("init_labels", init_labels, torch.int32, 3)
         if init_labels.shape != mask.shape:
             raise ValueError("init_labels must have the mask's shape")
-    plan = cc_plan(n, h, w, pools_per_round=pools_per_round)
+    plan = cc_plan(n, h, w, pools_per_round=pools_per_round, cap_axis=cap_axis, cap=cap)
+    capped = (plan.get("cap_axis", -1), plan.get("cap_reach", -1))
     out = torch.empty(mask.shape, dtype=torch.int32, device=mask.device)
-    if plan.get("route") == "global":
-        _cc_global("cpe_connected_components_global", mask, init_labels, [out], rounds, pools_per_round, plan)
+    route = "band" if plan.get("route") == "global" else "cluster"
+    if route == "band":
+        _cc_global("cpe_connected_components_global", mask, init_labels, [out], rounds, pools_per_round, plan,
+                   capped)
     else:
         kernels.launch(
             "cpe_connected_components",
             [mask, init_labels, out],
-            [n, h, w, rounds, pools_per_round, plan["cluster"], plan["rows_per_cta"], plan["smem"]],
+            [n, h, w, rounds, pools_per_round, plan["cluster"], plan["rows_per_cta"], plan["smem"], *capped],
             [],
         )
     _LAUNCHES["connected_components"] += 1
+    if "cap_axis" in plan:
+        _LAUNCHES[f"connected_components.capped.{route}"] += 1
     return out
 
 
@@ -887,7 +1012,8 @@ def min_bytes(name: str, n: int, h: int, w: int, warm: bool = False, itemsize: i
 
 __all__ = [
     "preprocess_binarize", "preprocess_binarize_plain", "preprocess_plan", "preprocess_reach",
-    "connected_components", "connected_components_plain", "cc_plan", "cc_global_launches", "min_bytes",
+    "smoothing_taps", "connected_components", "connected_components_plain", "cc_plan", "cap_reach",
+    "cc_global_launches", "min_bytes",
     "bridge_morphology", "bridge_morphology_plain", "bridge_schedule", "bridge_schedule_size",
     "bridge_plan", "bridge_split_smem", "bridge_global_launches",
     "component_payload_minmax", "component_payload_minmax_plain",

@@ -91,10 +91,17 @@ def test_from_reference_refuses_plane_mode():
         tcfg.CylinderDetectConfig(bridge_half_res=False),
         tcfg.CylinderDetectConfig(use_pallas=True, bridge_endpoint_stats=True, bridge_half_res=False),
         tcfg.PlaneDetectConfig(label_downsample=1, bridge_half_res=False, subpixel_refine=True),
+        # The knobs of the in-kernel smoothing, the capped final scans and
+        # the full-image centre brightness.
+        tcfg.CylinderDetectConfig(use_pallas=True, pallas_cc_cross_cap=16),
+        tcfg.CylinderDetectConfig(use_pallas=True, smooth_mxu=False),
+        tcfg.CylinderDetectConfig(bright_at_points=False),
+        tcfg.CylinderDetectConfig(use_pallas=True, subpixel_refine=True, smooth_mxu=False),
     ],
     ids=["endpoint_stats", "plane", "plane_endpoint_stats", "cylinder_merge_short_cols",
          "subpixel_refine", "plane_subpixel_refine", "full_res_labels", "full_res_bridge",
-         "endpoint_full_res_bridge", "plane_full_res_refine"],
+         "endpoint_full_res_bridge", "plane_full_res_refine", "cross_cap", "in_kernel_smoothing",
+         "full_image_brightness", "refine_in_kernel_smoothing"],
 )
 def test_validate_accepts_ported_branches(cfg):
     tcfg.validate(cfg)
@@ -106,10 +113,6 @@ def test_validate_accepts_ported_branches(cfg):
         # The ported variants beside an unported branch do not hide its
         # refusal.
         ({"bridge_endpoint_stats": True, "label_downsample": 3}, "1.13"),
-        ({"pallas_cc_cross_cap": 16}, "1.17"),
-        ({"smooth_mxu": False}, "1.17"),
-        ({"bright_at_points": False}, "1.17"),
-        ({"subpixel_refine": True, "smooth_mxu": False}, "1.17"),
         ({"merge_short_cols": True, "subpixel_refine": True, "label_downsample": 3}, "1.13"),
         ({"stage_probe": "bridge_state"}, "1.17"),
         ({"label_downsample": 3}, "1.13"),

@@ -52,7 +52,7 @@ def test_preprocess_kernel_equals_plain(dev, shape, iters):
 
     x = _smooth(img.to(dev), CylinderDetectConfig())
     before = tf.launch_counts()["preprocess_binarize"]
-    kw = dict(margin=24, joint_peak_iters=iters)
+    kw = dict(margin=24, joint_peak_iters=iters, pre_smoothed=True)
     _equal(tf.preprocess_binarize(x, **kw), tf.preprocess_binarize_plain(x, **kw))
     assert tf.launch_counts()["preprocess_binarize"] == before + 1
 
@@ -70,15 +70,15 @@ def test_preprocess_kernel_on_grid_lines(dev):
         img[:, 30:h - 30, x:x + 3] += 150.0
     img += torch.randn(img.shape, generator=torch.Generator().manual_seed(3)) * 2.0
     x = _smooth(img.to(dev), CylinderDetectConfig())
-    out = tf.preprocess_binarize(x, margin=24, joint_peak_iters=5)
-    _equal(out, tf.preprocess_binarize_plain(x, margin=24, joint_peak_iters=5))
+    out = tf.preprocess_binarize(x, margin=24, joint_peak_iters=5, pre_smoothed=True)
+    _equal(out, tf.preprocess_binarize_plain(x, margin=24, joint_peak_iters=5, pre_smoothed=True))
     assert float(out[5].sum()) > 0
 
 
 def test_preprocess_margin_under_reach_raises(dev):
     x = torch.zeros((1, 96, 128), device=dev)
     with pytest.raises(ValueError):
-        tf.preprocess_binarize(x, margin=tf.preprocess_reach() - 1)
+        tf.preprocess_binarize(x, margin=tf.preprocess_reach() - 1, pre_smoothed=True)
 
 
 @pytest.mark.parametrize("rounds, pools, warm", [(2, 4, False), (2, 2, False), (2, 2, True), (3, 1, False),
@@ -284,9 +284,9 @@ def test_payload_minmax_kernel_equals_plain(dev, rounds, pools, shape):
 def test_wrappers_check_inputs(dev):
     x = torch.zeros((2, 64, 128), device=dev)
     with pytest.raises(ValueError):
-        tf.preprocess_binarize(x.to(torch.float64))
+        tf.preprocess_binarize(x.to(torch.float64), pre_smoothed=True)
     with pytest.raises(ValueError):
-        tf.preprocess_binarize(x.transpose(1, 2))
+        tf.preprocess_binarize(x.transpose(1, 2), pre_smoothed=True)
     with pytest.raises(ValueError):
         tf.connected_components(x, 2, 2, torch.zeros((2, 64, 64), dtype=torch.int32, device=dev))
     big = torch.zeros((1, 480, 640), device=dev)
@@ -461,8 +461,8 @@ def test_cc_band_route_equals_plain(dev, shape, channels):
 def test_cc_band_rows_equal_plain(dev, band_rows, fused):
     """The band kernel at band heights the plans do not pick (bands shorter
     than the halo, one row, H not a multiple), through the wrappers' launch
-    helper with a plan of that height: labels cold and warm and the payload
-    equal the plain versions."""
+    helper with a plan of that height: labels cold and warm, capped along
+    either axis, and the payload equal the plain versions."""
     n, h, w = 3, 100, 130
     m = _band_masks(n, h, w, band_rows, band_rows).to(dev)
     g = torch.Generator().manual_seed(band_rows)
@@ -480,6 +480,11 @@ def test_cc_band_rows_equal_plain(dev, band_rows, fused):
                 for start in (None, init):
                     tf._cc_global("cpe_connected_components_global", m, start, outs, rounds, pools, plan)
                     _equal(outs[0], tf.connected_components_plain(m, rounds, pools, start))
+                for cap_axis in (0, 1):  # cap 3 reaches 3 px; along W the band keeps two buffers
+                    capped = dict(plan, smem=4 * (2 if kp or cap_axis == 1 else 1) * (band_rows + 2 * kp) * w)
+                    tf._cc_global("cpe_connected_components_global", m, init, outs, rounds, pools, capped,
+                                  (cap_axis, tf.cap_reach((h, w)[cap_axis], 3)))
+                    _equal(outs[0], tf.connected_components_plain(m, rounds, pools, init, cap_axis, 3))
             else:
                 tf._cc_global("cpe_component_payload_minmax_global", m, pay, outs, rounds, pools, plan)
                 _equal(tuple(outs), tf.component_payload_minmax_plain(m, pay, rounds, pools))
@@ -610,7 +615,7 @@ def test_preprocess_kernel_at_large_frames(dev, shape):
     for x in range(40, w - 40, 19):
         img[1, 40:h - 40, x:x + 3] += 150.0
     x = _smooth(img.to(dev), cfg)
-    kw = dict(margin=_border_margin(cfg), joint_peak_iters=cfg.joint_peak_iters)
+    kw = dict(margin=_border_margin(cfg), joint_peak_iters=cfg.joint_peak_iters, pre_smoothed=True)
     out = tf.preprocess_binarize(x, **kw)
     _equal(out, tf.preprocess_binarize_plain(x, **kw))
     assert float(out[5][1].sum()) > 0
@@ -633,3 +638,135 @@ def test_detect_large_frame_on_card_matches_cpu(dev, endpoint):
     np.testing.assert_array_equal(cpu.grid.idx.numpy(), gpu.grid.idx.cpu().numpy())
     np.testing.assert_allclose(cpu.grid.xy.numpy(), gpu.grid.xy.cpu().numpy(), atol=1e-3)
     assert cpu.stable.tolist() == gpu.stable.cpu().tolist()
+
+
+def _grey_grid(n, h, w, seed):
+    """(n, h, w) grey images: noise, then bright line grids on a dark floor."""
+    g = torch.Generator().manual_seed(seed)
+    img = torch.rand((n, h, w), generator=g) * 255.0
+    for i in range(1, n):
+        img[i] = 20.0 + torch.randn((h, w), generator=g) * 2.0
+        img[i, 30:h - 30:17] += 150.0
+        img[i, :, 30:w - 30:19] += 150.0
+    return img
+
+
+@pytest.mark.parametrize("shape", [(2, 96, 256), (3, 240, 320), (2, 488, 648), (2, 40, 64), (1, 720, 1280)])
+def test_preprocess_in_kernel_smoothing_equals_plain(dev, shape):
+    """pre_smoothed=False: the kernel smooths the grey tile itself, its
+    reads wrapped around the image (heights and widths under the halo of
+    23 px included), and equals the plain version's rolls on every plane."""
+    x = _grey_grid(*shape, seed=sum(shape)).to(dev)
+    before = tf.launch_counts()
+    kw = dict(margin=24, joint_peak_iters=8)
+    _equal(tf.preprocess_binarize(x, **kw), tf.preprocess_binarize_plain(x, **kw))
+    after = tf.launch_counts()
+    assert after["preprocess_binarize"] == before["preprocess_binarize"] + 1
+    assert after["preprocess_binarize.smoothing"] == before["preprocess_binarize.smoothing"] + 1
+
+
+@pytest.mark.parametrize("blur_ksize, ridge_sigma", [(3, 1.5), (7, 2.0), (5, 4.0)])
+def test_preprocess_in_kernel_smoothing_other_taps(dev, blur_ksize, ridge_sigma):
+    x = _grey_grid(2, 240, 320, seed=blur_ksize).to(dev)
+    kw = dict(blur_ksize=blur_ksize, ridge_sigma=ridge_sigma, margin=24)
+    _equal(tf.preprocess_binarize(x, **kw), tf.preprocess_binarize_plain(x, **kw))
+
+
+def _cross_cap_masks(n, h, w, seed):
+    """Wavy 2-px lines along W and H, blobs thicker than the caps, random
+    pixels: tests/test_pallas.py's cross-cap mask and its transpose among
+    them."""
+    g = torch.Generator().manual_seed(seed)
+    m = (torch.rand((n, h, w), generator=g) < 0.4).to(torch.float32)
+    xs = torch.arange(10, w - 10)
+    for yc in range(24, h - 24, 20):
+        ys = (yc + 6 * torch.sin(xs / 45.0)).to(torch.int64)
+        m[0, ys, xs] = 1
+        m[0, ys + 1, xs] = 1
+    ys = torch.arange(10, h - 10)
+    for xc in range(24, w - 24, 20):
+        xx = (xc + 6 * torch.sin(ys / 45.0)).to(torch.int64)
+        m[1 % n, ys, xx] = 1
+        m[1 % n, ys, xx + 1] = 1
+    m[0, h // 2:h // 2 + 24, w // 2:w // 2 + 30] = 1
+    m[1 % n, h // 3:h // 3 + 30, w // 3:w // 3 + 24] = 1
+    return m
+
+
+@pytest.mark.parametrize("cap", [1, 2, 3, 10, 16])
+@pytest.mark.parametrize("cap_axis", [0, 1])
+@pytest.mark.parametrize("hw", [(240, 384), (128, 256), (96, 256)])
+def test_cc_capped_cluster_route_equals_plain(dev, hw, cap_axis, cap):
+    """The capped scan on the cluster route (across its CTA splits), cold
+    and warm, at several round schedules; counted per route."""
+    h, w = hw
+    plan = tf.cc_plan(4, h, w, cap_axis=cap_axis, cap=cap)
+    assert "cluster" in plan and plan["cap_reach"] == tf.cap_reach((h, w)[cap_axis], cap)
+    m = torch.cat([_cross_cap_masks(2, h, w, cap), _cluster_masks(h, w, plan["rows_per_cta"])[:2]]).to(dev)
+    g = torch.Generator().manual_seed(h + cap)
+    init = torch.randint(0, 2 * h * w, m.shape, generator=g, dtype=torch.int32).to(dev)
+    for rounds, pools in ((1, 2), (2, 2), (3, 1), (24, 2)):
+        for start in (None, init):
+            before = tf.launch_counts()["connected_components.capped.cluster"]
+            _equal(tf.connected_components(m, rounds, pools, start, cap_axis=cap_axis, cap=cap),
+                   tf.connected_components_plain(m, rounds, pools, start, cap_axis=cap_axis, cap=cap))
+            assert tf.launch_counts()["connected_components.capped.cluster"] == before + 1
+
+
+@pytest.mark.parametrize("cap", [1, 3, 16])
+@pytest.mark.parametrize("cap_axis", [0, 1])
+@pytest.mark.parametrize("shape, pools", [((2, 480, 640), 2), ((2, 360, 640), 0), ((1, 64, 5000), 2)])
+def test_cc_capped_band_route_equals_plain(dev, shape, pools, cap_axis, cap):
+    """The capped scan on the large-frame route: fused bands, no pools (the
+    band keeps two buffers for a cap along W) and unfused pools (a mask
+    5000 px wide); one launch count per call, on the band route."""
+    n, h, w = shape
+    plan = tf.cc_plan(n, h, w, pools_per_round=pools, cap_axis=cap_axis, cap=cap)
+    assert plan["route"] == "global" and plan["fused"] == (w < 5000)
+    m = _cross_cap_masks(n, h, w, cap).to(dev)
+    g = torch.Generator().manual_seed(w + cap)
+    init = torch.randint(0, 2 * h * w, m.shape, generator=g, dtype=torch.int32).to(dev)
+    for rounds in (1, 2, 3):
+        for start in (None, init):
+            before = tf.launch_counts()["connected_components.capped.band"]
+            _equal(tf.connected_components(m, rounds, pools, start, cap_axis=cap_axis, cap=cap),
+                   tf.connected_components_plain(m, rounds, pools, start, cap_axis=cap_axis, cap=cap))
+            assert tf.launch_counts()["connected_components.capped.band"] == before + 1
+
+
+def test_cc_capped_band_route_device_kernels(dev):
+    """A capped call on the band route launches the band route's count of
+    device kernels (the capped column pass takes the fix's place)."""
+    from cylinder_pose_estimation_tpu_torch.utils import profiling
+
+    m = _cross_cap_masks(2, 480, 640, 0).to(dev)
+    for cap_axis in (0, 1):
+        n_dev, _ = profiling.graph_kernels(lambda: tf.connected_components(m, 2, 2, cap_axis=cap_axis, cap=16))
+        assert n_dev == tf.cc_global_launches(2, 2, True)
+
+
+def test_capped_wrapper_refuses(dev):
+    m = torch.zeros((2, 64, 128), device=dev)
+    with pytest.raises(ValueError, match="cap_axis"):
+        tf.connected_components(m, 2, 2, cap_axis=2, cap=4)
+    with pytest.raises(ValueError, match="cap"):
+        tf.connected_components(m, 2, 2, cap_axis=0, cap=-1)
+
+
+@pytest.mark.parametrize("override", [{"smooth_mxu": False}, {"pallas_cc_cross_cap": 16},
+                                      {"bright_at_points": False},
+                                      {"pallas_cc_cross_cap": 16, "label_downsample": 1}])
+def test_knobs_on_card_match_cpu(dev, override):
+    """The knobs through detect_grid: the card's grids equal the CPU port's."""
+    from cylinder_pose_estimation_tpu_torch.config import CylinderDetectConfig
+    from cylinder_pose_estimation_tpu_torch.models.detector import detect_grid
+    from cylinder_pose_estimation_tpu_torch.utils.synthetic import example_pair
+
+    _, (i1, _) = example_pair(480, 640, n_frames=2)
+    cfg = CylinderDetectConfig(use_pallas=True, **override)
+    cpu = detect_grid(torch.as_tensor(i1), cfg)
+    gpu = detect_grid(torch.as_tensor(i1, device=dev), cfg)
+    np.testing.assert_array_equal(cpu.grid.valid.numpy(), gpu.grid.valid.cpu().numpy())
+    np.testing.assert_array_equal(cpu.grid.idx.numpy(), gpu.grid.idx.cpu().numpy())
+    np.testing.assert_allclose(cpu.grid.xy.numpy(), gpu.grid.xy.cpu().numpy(), atol=1e-3)
+    assert cpu.ok.tolist() == gpu.ok.cpu().tolist() and cpu.stable.tolist() == gpu.stable.cpu().tolist()

@@ -1,13 +1,15 @@
 """PyTorch port: the fixtures that ``chip_smoke.py`` holds the card to.
 
-``tests/fixtures/torch_endpoint_scenes.json``, ``torch_plane_scenes.json``
-and ``torch_registration.json`` come from the JAX package
-(``tools/make_torch_port_fixtures.py``).  The fast tests check that the
+``tests/fixtures/torch_endpoint_scenes.json``, ``torch_plane_scenes.json``,
+``torch_registration.json`` and ``torch_knob_scenes.json`` come from the
+JAX package (``tools/make_torch_port_fixtures.py``).  The fast tests check that the
 files record the generator's scenes and that ``chip_smoke.py``'s
 registration contract accepts the JAX result and refuses a moved one; the
 slow tests regenerate one scene of each detection file from JAX and
 compare, and run the port on the CPU against all three files with
-``chip_smoke.py``'s own contract.
+``chip_smoke.py``'s own contract.  The knob record's 240x320 scenes run
+through the port's stages in the fast tests: binary mask, bridged masks and
+final labels bit-equal to JAX's (SHA-256), grids within 1e-3 px.
 """
 
 import importlib.util
@@ -165,3 +167,47 @@ def test_port_meets_registration_fixture_on_cpu():
     res = fit_cylinders_with_angles(pts, valid, angles, frame_valid=frame_valid)
     chk = chip_smoke.registration_check(res, fx["result"], fx["angles"], "CPU")
     assert chk["axis_deg"] < 0.01 and chk["perp_mm"] < 0.01 and chk["fval_rel"] < 1e-3
+
+
+def test_knob_fixture_records_the_generator():
+    """Every knob configuration at both sizes, bench.py's scene family at
+    480x640, chip_smoke.py reading the same file."""
+    rec = _load(gen.KNOB_FIXTURE)
+    assert rec["generator"] == "tools/make_torch_port_fixtures.py knobs"
+    assert chip_smoke.KNOBS == gen.KNOB_FIXTURE
+    for size in ("240x320", "480x640"):
+        configs = rec["records"][size]["configs"]
+        assert [c["name"] for c in configs] == [c["name"] for c in gen.KNOB_CONFIGS]
+        assert [c["overrides"] for c in configs] == [c["overrides"] for c in gen.KNOB_CONFIGS]
+    big = rec["records"]["480x640"]
+    assert big["scenes"]["cylinder_views"].startswith("example_pair(480, 640, n_frames=16")
+    assert all(len(c["views"]) == 32 and sum(v["ok"] for v in c["views"]) >= 28 for c in big["configs"])
+    small = rec["records"]["240x320"]["configs"]
+    assert all({"binary", "labels", "h_exp", "v_exp"} <= set(v) for c in small for v in c["views"])
+
+
+@pytest.mark.parametrize("name", [c["name"] for c in gen.KNOB_CONFIGS])
+def test_port_meets_knob_fixture_at_240x320(name):
+    """The knob's configuration through the port's stages on the record's
+    two scenes: binary mask, bridged masks and final labels equal to the JAX
+    package's (SHA-256 of their bytes), ids identical, xy within 1e-3 px,
+    ok, stable and the bridged count equal."""
+    from tests.test_torch_fullres import _digest, _points_match, _stages
+    from cylinder_pose_estimation_tpu_torch import config as tcfg
+    from cylinder_pose_estimation_tpu_torch.models import detector as td
+    from cylinder_pose_estimation_tpu_torch.utils.synthetic import cylinder_view
+
+    rec = _load(gen.KNOB_FIXTURE)["records"]["240x320"]
+    want = next(c for c in rec["configs"] if c["name"] == name)
+    views = torch.as_tensor(np.stack([cylinder_view(240, 320, **s) for s in rec["scenes"]["cylinder_views"]]))
+    cfg = tcfg.CylinderDetectConfig(height=240, width=320, use_pallas=want["use_pallas"], **want["overrides"])
+    with torch.inference_mode():
+        br, labels, result = _stages(views, cfg)
+        front = (td.front_stage if cfg.use_pallas else td.front_stage_xla)(td._to_gray(views), cfg)
+    for i, v in enumerate(want["views"]):
+        assert _digest(front.binary[i]) == v["binary"], f"view {i}: binary differs"
+        assert _digest(br.h_exp[i]) == v["h_exp"] and _digest(br.v_exp[i]) == v["v_exp"], f"view {i}"
+        assert _digest(labels[i].to(torch.int32)) == v["labels"], f"view {i}: final labels differ"
+        assert _points_match(result.grid, i, v["points"]) <= 1e-3
+        assert (bool(result.ok[i]), bool(result.stable[i]), int(result.bridged_components[i])) == \
+            (v["ok"], v["stable"], v["bridged_components"])

@@ -70,7 +70,8 @@ PLANES = ("binary", "h_mask", "v_mask", "joints", "joint_cnt", "joint_peak")
 )
 def test_preprocess_plain_equals_pallas(maker, h, w):
     smoothed = np.stack([_jax_smooth(maker(h, w, s)) for s in (0, 1)])
-    outs_t = tf.preprocess_binarize(torch.as_tensor(smoothed), margin=MARGIN, joint_peak_iters=5)
+    outs_t = tf.preprocess_binarize(torch.as_tensor(smoothed), margin=MARGIN, joint_peak_iters=5,
+                                    pre_smoothed=True)
     for i in range(2):
         outs_j = jf.preprocess_binarize(jnp.asarray(smoothed[i]), pre_smoothed=True, margin=MARGIN,
                                         joint_peak_iters=5, interpret=True)

@@ -1,7 +1,8 @@
 """PyTorch port, on the CPU: the launch plans of the preprocess, CC (one and
 two channels) and bridge kernels at every shape the detector passes, from
 480x640 (the cluster kernels) to 1080x1920 and 1200x1600 (the CC family's
-and the bridge's large-frame routes), the kernels' byte counts, the
+and the bridge's large-frame routes), the preprocess kernel's smoothing
+halo and the CC kernel's capped scans, the kernels' byte counts, the
 preprocess margin check and the rig's default device.  No JAX here."""
 
 import numpy as np
@@ -61,9 +62,36 @@ def test_preprocess_plan_layouts():
     assert plan["smem_b"] == 4 * ((jh + 38) * 8 + (jh + 19) * 4 + 3 * jh * 4 + jh * kw + 3 * kh * kw + 1)
 
 
+@pytest.mark.parametrize("hw", SIZES + LARGE_SIZES)
+def test_preprocess_plan_with_the_smoothing(hw):
+    """pre_smoothed=False at the default taps (radii 2 and 12): launch A's
+    grey tile comes in with a halo of 9 + 14 px, 78 x 110 floats, and its
+    first pass (78 x 106) aliases the minima and the row sums; launch B and
+    the grid stay as they are."""
+    h, w = hw
+    k5, k25 = tf.smoothing_taps(5, 3.0)
+    assert (len(k5), len(k25)) == (5, 25)
+    smooth = (len(k5) // 2, len(k25) // 2)
+    plan = tf.preprocess_plan(32, h, w, smooth=smooth)
+    pre = tf.preprocess_plan(32, h, w)
+    assert plan["halo_a"] == pre["halo_a"] + 14 == 23 and plan["smooth"] == (2, 12)
+    assert plan["smem_a"] == 4 * (50 * 82 + 78 * 110 + 78 * 106) > pre["smem_a"]
+    assert plan["smem_a"] <= kernels.MAX_DYNAMIC_SMEM
+    assert {k: v for k, v in plan.items() if k not in ("halo_a", "smooth", "smem_a")} == \
+        {k: v for k, v in pre.items() if k not in ("halo_a", "smooth", "smem_a")}
+
+
+def test_smoothing_taps_are_float32_and_symmetric():
+    k5, k25 = tf.smoothing_taps()
+    assert k5 == (0.0625, 0.25, 0.375, 0.25, 0.0625)
+    assert all(float(np.float32(t)) == t for t in k25) and k25 == k25[::-1]
+    assert abs(sum(k25) - 1.0) < 1e-6
+
+
 @pytest.mark.parametrize("kw, match", [
     (dict(sauvola_window=14), "odd"), (dict(joint_window=17), "odd"), (dict(line_len=33), "line_len"),
     (dict(joint_peak_iters=28), "joint_peak_iters"), (dict(joint_peak_iters=-1), "joint_peak_iters"),
+    (dict(smooth=(2, 30)), "taps"), (dict(smooth=(-1, 12)), "taps"),
 ])
 def test_preprocess_plan_refuses(kw, match):
     with pytest.raises(ValueError, match=match):
@@ -323,6 +351,52 @@ def test_band_plan_at_the_variant_sites():
         tf.cc_plan(1, 8, 40_000, channels=2, pools_per_round=2)
 
 
+@pytest.mark.parametrize("cap_axis", [0, 1])
+@pytest.mark.parametrize("cap", [1, 2, 3, 10, 16])
+def test_cc_plan_with_a_cap_on_the_cluster_route(cap, cap_axis):
+    """The detector's capped final labels at 480x640 (the half-res canvas,
+    (32, 240, 384)): the cluster plan of the uncapped call plus the cap's
+    axis and reach."""
+    plan = tf.cc_plan(32, 240, 384, pools_per_round=2, cap_axis=cap_axis, cap=cap)
+    reach = tf.cap_reach((240, 384)[cap_axis], cap)
+    assert reach == {1: 0, 2: 1, 3: 3, 10: 15, 16: 15}[cap]
+    assert plan == {**tf.cc_plan(32, 240, 384, pools_per_round=2), "cap_axis": cap_axis, "cap_reach": reach}
+
+
+@pytest.mark.parametrize("cap_axis", [0, 1])
+def test_cc_plan_with_a_cap_on_the_band_route(cap_axis):
+    """(32, 480, 640), the capped final labels at label_downsample=1: a cap
+    along H keeps the band plan (cc_capped_cols replaces the fix); one along
+    W keeps two buffers even without pools, for the capped row pass."""
+    for pools in (0, 2):
+        plan = tf.cc_plan(32, 480, 640, pools_per_round=pools, cap_axis=cap_axis, cap=16)
+        base = tf.cc_plan(32, 480, 640, pools_per_round=pools)
+        assert plan["route"] == "global" and plan["cap_axis"] == cap_axis and plan["cap_reach"] == 15
+        nbuf = 2 if pools or cap_axis == 1 else 1
+        r = plan["band_rows"]
+        assert plan["smem"] == 4 * nbuf * (r + 2 * pools) * 640 <= kernels.MAX_DYNAMIC_SMEM
+        if nbuf == 2 and not pools:
+            assert r < base["band_rows"]
+        else:
+            assert plan == {**base, "cap_axis": cap_axis, "cap_reach": 15}
+    assert tf.cc_global_launches(2, 2, True) == 4
+
+
+def test_cc_plan_cap_that_covers_every_run_is_no_cap():
+    """A cap of at least the axis (or 0, or an axis of -1) scans whole runs:
+    the plan is the uncapped one."""
+    base = tf.cc_plan(4, 96, 256, pools_per_round=2)
+    for cap_axis, cap in ((0, 96), (0, 200), (1, 256), (0, 0), (-1, 16)):
+        assert tf.cc_plan(4, 96, 256, pools_per_round=2, cap_axis=cap_axis, cap=cap) == base
+
+
+@pytest.mark.parametrize("kw, match", [(dict(cap_axis=2, cap=4), "cap_axis"), (dict(cap_axis=0, cap=-3), "cap"),
+                                       (dict(channels=2, cap_axis=0, cap=4), "labels only")])
+def test_cc_plan_refuses_caps(kw, match):
+    with pytest.raises(ValueError, match=match):
+        tf.cc_plan(4, 96, 256, **kw)
+
+
 def test_min_bytes_at_the_detector_sites():
     assert tf.min_bytes("preprocess_binarize", 32, 480, 640) == 275_251_200
     assert tf.min_bytes("connected_components", 64, 128, 256) == 16_777_216
@@ -341,8 +415,8 @@ def test_preprocess_margin_under_reach_raises():
     assert tf.preprocess_reach() == 20
     x = torch.zeros((1, 64, 96))
     with pytest.raises(ValueError, match="reach"):
-        tf.preprocess_binarize(x, margin=19)
-    assert len(tf.preprocess_binarize(x, margin=20)) == 6
+        tf.preprocess_binarize(x, margin=19, pre_smoothed=True)
+    assert len(tf.preprocess_binarize(x, margin=20, pre_smoothed=True)) == 6
 
 
 @pytest.mark.parametrize("cfg", [CylinderDetectConfig(), PlaneDetectConfig(roi_threshold=30.0)])

@@ -1,8 +1,8 @@
 """Write the PyTorch port's fixtures from the JAX package.
 
-    python tools/make_torch_port_fixtures.py [endpoint] [plane] [registration] [variants] [cli] [corpus]
+    python tools/make_torch_port_fixtures.py [endpoint] [plane] [registration] [variants] [cli] [corpus] [knobs]
 
-(all six without arguments).
+(all seven without arguments).
 
 * ``tests/fixtures/torch_endpoint_scenes.json``: ``estimate_pose_stereo``
   with ``CylinderDetectConfig(bridge_endpoint_stats=True)`` and
@@ -56,6 +56,16 @@
   and its zero-distortion control (with the distorted rig's arrays and the
   cylinder radius), and two views of tests/_scene_family2.py's
   ``indep_scene`` (seed 1 at 480x640, seed 2 at 240x320; the first view).
+
+* ``tests/fixtures/torch_knob_scenes.json``: ``detect_grid`` with the
+  knobs ``smooth_mxu=False`` (the preprocess kernel's own smoothing),
+  ``pallas_cc_cross_cap=16`` (the final labels' capped scans, also at
+  ``label_downsample=1``) and ``bright_at_points=False`` (on both branches),
+  and the three together (``KNOB_CONFIGS``; the kernel branch in interpret
+  mode): at 480x640 the grids, flags and bridged counts of the 16 frames of
+  ``example_pair`` (bench.py's scene family), at 240x320 those of the two
+  ``cylinder_view`` scenes of the variants record with SHA-256 digests of
+  the binary mask and the final labels.
 
 The detection files record their scene specs and configs; ``chip_smoke.py``
 renders the same inputs without JAX and holds the port to the files.  Run on
@@ -378,13 +388,21 @@ def jax_variant_fn(cfg, with_stages: bool):
             hv = jnp.stack([h_exp, v_exp])
         if cfg.use_pallas:
             use_warm = cfg.cc_warm_start and warm is not None and warm.shape == hv.shape
-            rounds = cfg.pallas_cc_rounds_warm if use_warm else cfg.pallas_cc_rounds
-            labels = cc_pallas(hv, rounds=max(1, int(rounds)), pools_per_round=cfg.pallas_cc_pools,
-                               interpret=True, init_labels=warm if use_warm else None)
+            rounds = max(1, int(cfg.pallas_cc_rounds_warm if use_warm else cfg.pallas_cc_rounds))
+            init = warm if use_warm else None
+            cap = int(cfg.pallas_cc_cross_cap)
+            if cap > 0:  # detector.py's two capped launches: h along axis 0, v along axis 1
+                labels = jnp.stack([
+                    cc_pallas(hv[i], rounds=rounds, pools_per_round=cfg.pallas_cc_pools, cap_axis=i, cap=cap,
+                              interpret=True, init_labels=None if init is None else init[i])
+                    for i in (0, 1)])
+            else:
+                labels = cc_pallas(hv, rounds=rounds, pools_per_round=cfg.pallas_cc_pools, interpret=True,
+                                   init_labels=init)
         else:
             labels = jnp.stack([jd._cc(hv[0], cfg.cc_iters, cfg), jd._cc(hv[1], cfg.cc_iters, cfg)])
         same = jnp.array_equal(h_exp, dbg.h_expanded) & jnp.array_equal(v_exp, dbg.v_expanded)
-        return res, (h_exp, v_exp, labels.astype(jnp.int32), same)
+        return res, (h_exp, v_exp, labels.astype(jnp.int32), same, dbg.binary)
 
     return jax.jit(fn)
 
@@ -393,7 +411,7 @@ def variant_view_record(res, stages) -> dict:
     rec = {"points": grid_records(res.grid), "ok": bool(res.ok), "stable": bool(res.stable),
            "bridged_components": int(res.bridged_components)}
     if stages:
-        h_exp, v_exp, labels, same = stages
+        h_exp, v_exp, labels, same = stages[:4]
         if not bool(same):
             raise AssertionError("the JAX bridge stage disagrees with detect_grid's debug masks")
         rec.update(h_exp=digest(h_exp), v_exp=digest(v_exp), labels=digest(labels),
@@ -633,9 +651,57 @@ def corpus_fixture() -> None:
     print(f"wrote {CORPUS_FIXTURE} ({os.path.getsize(CORPUS_FIXTURE)} B, {time.perf_counter() - t0:.0f} s)")
 
 
+KNOB_FIXTURE = os.path.join(FIXTURES, "torch_knob_scenes.json")
+# The knobs: (name, use_pallas, overrides), each at both sizes.
+KNOB_CONFIGS = [
+    {"name": "smoothing_kernel", "use_pallas": True, "overrides": {"smooth_mxu": False}},
+    {"name": "cross_cap_kernel", "use_pallas": True, "overrides": {"pallas_cc_cross_cap": 16}},
+    {"name": "cross_cap_ds1_kernel", "use_pallas": True,
+     "overrides": {"pallas_cc_cross_cap": 16, "label_downsample": 1}},
+    {"name": "bright_kernel", "use_pallas": True, "overrides": {"bright_at_points": False}},
+    {"name": "bright_xla", "use_pallas": False, "overrides": {"bright_at_points": False}},
+    {"name": "all_knobs_kernel", "use_pallas": True,
+     "overrides": {"smooth_mxu": False, "pallas_cc_cross_cap": 16, "bright_at_points": False}},
+]
+
+
+def knobs_fixture() -> None:
+    t0 = time.perf_counter()
+    records = {}
+    for size in ("240x320", "480x640"):
+        h, w = (int(v) for v in size.split("x"))
+        small = size == "240x320"
+        cyl, _, scenes = variant_images(size)
+        rec = {"scenes": {"cylinder_views": scenes["cylinder_views"]}, "configs": []}
+        for spec in KNOB_CONFIGS:
+            t1 = time.perf_counter()
+            fn = jax_variant_fn(variant_cfg(spec, False, h, w), with_stages=small)
+            out = []
+            for v in cyl:
+                res, stages = fn(jnp.asarray(v))
+                out.append(variant_view_record(res, stages))
+                if stages:
+                    out[-1]["binary"] = digest(stages[4])
+            rec["configs"].append({"name": spec["name"], "use_pallas": spec["use_pallas"],
+                                   "overrides": spec["overrides"], "views": out})
+            print(f"knobs {size} {spec['name']}: points {[len(v['points']) for v in out]}, ok "
+                  f"{sum(v['ok'] for v in out)}/{len(out)} ({time.perf_counter() - t1:.0f} s)", flush=True)
+        records[size] = rec
+    with open(KNOB_FIXTURE, "w") as f:
+        json.dump({
+            "generator": "tools/make_torch_port_fixtures.py knobs",
+            "path": "JAX package, CPU, float32: detect_grid with CylinderDetectConfig(height, width, "
+                    "use_pallas, **overrides), the kernel branch in interpret mode; digests: SHA-256 of "
+                    "the bool binary mask (h, w), the bool bridged masks and the int32 final labels "
+                    "(2, h, w) as C-order bytes",
+            "records": records,
+        }, f)
+    print(f"wrote {KNOB_FIXTURE} ({time.perf_counter() - t0:.0f} s)")
+
+
 FIXTURE_WRITERS = {"endpoint": endpoint_fixture, "plane": plane_fixture,
                    "registration": registration_fixture, "variants": variants_fixture,
-                   "cli": cli_fixture, "corpus": corpus_fixture}
+                   "cli": cli_fixture, "corpus": corpus_fixture, "knobs": knobs_fixture}
 
 
 if __name__ == "__main__":

@@ -105,7 +105,7 @@ def main(argv=None) -> int:
     pre = stage("preprocess kernel", lambda s: frontend.preprocess_binarize(
         s, sauvola_window=cfg.sauvola_window, sauvola_k=cfg.sauvola_k, sauvola_r=cfg.sauvola_r,
         min_contrast=0.05, line_len=cfg.line_kernel_len, margin=det._border_margin(cfg),
-        joint_peak_iters=cfg.joint_peak_iters), (smooth,), v)
+        joint_peak_iters=cfg.joint_peak_iters, pre_smoothed=True), (smooth,), v)
     stage("stats matmuls", lambda g, j, c: det._stats_images(g, j, c, cfg), (gray, pre[3], pre[4]), v)
     front = stage("front stage", lambda g: det.front_stage(g, cfg), (gray,), v)
     roi = stage("roi stage", lambda f: det.roi_stage(f, cfg), (front,), v)
