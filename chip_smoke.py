@@ -149,7 +149,8 @@ Phases:
    ``tests/fixtures/torch_knob_scenes.json``'s 480x640 record
    (``smooth_mxu=False``: the preprocess kernel's own smoothing;
    ``pallas_cc_cross_cap=16``: the final labels' capped scans, on the CC
-   kernel's cluster route and, at ``label_downsample=1``, its band route;
+   kernel's band route at the half-res canvas and, at
+   ``label_downsample=1``, at full resolution;
    ``bright_at_points=False`` on both branches; the three together) through
    ``estimate_poses_batch`` on B=16 frames of ``example_pair``, each a path
    with counters reset just before and read just after and the launches of
@@ -157,10 +158,13 @@ Phases:
    Every view is held to the JAX record (ids identical, xy within 0.05 px;
    ``ok``, ``stable`` and bridged counts printed against it), 2 frames card
    against the CPU port (ids, xy within 0.05 px, ``ok``/``stable`` flips
-   counted).  The kernels' new branches against their plain versions
+   counted).  The kernels' branches against their plain versions
    (``torch.equal``), timed: the smoothing at (32, 480, 640) and
-   (4, 720, 1280), the capped scans at the cluster route's (32, 240, 384)
-   and the band route's (32, 480, 640); e2e and detect ms/frame of each.
+   (4, 720, 1280) (three device kernels a call: the smoothing launch, then
+   the pre-smoothed pair on its plane; the smoothing launch alone also
+   against the four rolls), the capped scans at (32, 240, 384) and
+   (32, 480, 640), both on the band route; e2e and detect ms/frame of
+   each.
 
 The second-to-last line is the kernel report as JSON: one row per kernel
 (the 480x640 sites; ``large_sites`` and ``variant_sites`` hold phases 12's
@@ -168,7 +172,7 @@ and 13's), the bridge's cluster route in its own row and its split and
 global routes in rows of their own (``bridge_morphology.split``,
 ``bridge_morphology.global``: their timed sites of phases 12, 13 and 15),
 and phase 18's kernel branches (``preprocess_binarize.smoothing``,
-``connected_components.capped.cluster``, ``.band``) in rows of their own.
+``connected_components.capped.band``) in rows of their own.
 The last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -231,23 +235,22 @@ _KNOB_MAIN = {"preprocess_binarize": 1, "connected_components": 3, "bridge_morph
 _KNOB_CAPPED = dict(_KNOB_MAIN, connected_components=4)
 KNOB_STEP = {
     "smoothing_kernel": dict(_KNOB_MAIN, **{"preprocess_binarize.smoothing": 1}),
-    "cross_cap_kernel": dict(_KNOB_CAPPED, **{"connected_components.capped.cluster": 2}),
+    "cross_cap_kernel": dict(_KNOB_CAPPED, **{"connected_components.capped.band": 2}),
     "cross_cap_ds1_kernel": {"preprocess_binarize": 1, "connected_components": 4, "bridge_morphology": 1,
                              "bridge_morphology.split": None, "connected_components.capped.band": 2},
     "bright_kernel": _KNOB_MAIN,
     "bright_xla": {},
     "all_knobs_kernel": dict(_KNOB_CAPPED, **{"preprocess_binarize.smoothing": 1,
-                                              "connected_components.capped.cluster": 2}),
+                                              "connected_components.capped.band": 2}),
 }
 # The kernel branches phase 18 adds to the kernels line: the TPU lines of
-# each branch, and the path whose step gives its launches per step.
+# each branch, and the path whose step gives its launches per step (the
+# capped scans take the band route at every size).
 KNOB_ROWS = {
     "preprocess_binarize.smoothing": ("cylinder_pose_estimation_tpu/ops/pallas/frontend.py:183",
                                       "knobs.smoothing_kernel"),
-    "connected_components.capped.cluster": ("cylinder_pose_estimation_tpu/ops/pallas/frontend.py:524",
-                                            "knobs.cross_cap_kernel"),
     "connected_components.capped.band": ("cylinder_pose_estimation_tpu/ops/pallas/frontend.py:524",
-                                         "knobs.cross_cap_ds1_kernel"),
+                                         "knobs.cross_cap_kernel"),
 }
 KNOB_COUNTERS = KERNELS + BRIDGE_ROUTES + tuple(KNOB_ROWS)
 for _name, _step in KNOB_STEP.items():
@@ -272,8 +275,10 @@ HBM_BYTES_PER_S = 3.35e12
 DESIGN = {"preprocess_binarize": "redesigned", "connected_components": "redesigned",
           "bridge_morphology": "redesigned", "component_payload_minmax": "redesigned",
           "bridge_morphology.split": "redesigned", "bridge_morphology.global": "first port",
-          "preprocess_binarize.smoothing": "first port", "connected_components.capped.cluster": "first port",
-          "connected_components.capped.band": "first port"}
+          "preprocess_binarize.smoothing": "redesigned", "connected_components.capped.band": "redesigned"}
+# Device kernels of a preprocess call that smooths in the kernel: the
+# smoothing launch, then launches A and B on its plane.
+SMOOTHING_DEVICE_KERNELS = 3
 # Device kernels one wrapper call may launch at the timed sites (the
 # bridge's global route: frontend.bridge_global_launches).
 DEVICE_LAUNCHES_MAX = {"preprocess_binarize": 3, "connected_components": 1, "bridge_morphology": 1,
@@ -1725,8 +1730,8 @@ def knobs_phase(frontend, device, fit_cfg, smi):
     new branches against their plain versions (``torch.equal``), each site
     timed: the in-kernel smoothing on the smoothing path's (32, 480, 640)
     call and on grey frames at (4, 720, 1280); the capped scans on the
-    cross-cap paths' calls, the cluster route's (32, 240, 384) and the band
-    route's (32, 480, 640), and on random masks at the same shapes.  Prints
+    cross-cap paths' calls, (32, 240, 384) and (32, 480, 640), both on the
+    band route, and on random masks at the same shapes.  Prints
     e2e and detect ms/frame of each configuration.  Returns (launches by
     path, a report whose ``knob_sites`` hold the timed calls)."""
     import numpy as np
@@ -1804,11 +1809,21 @@ def knobs_phase(frontend, device, fit_cfg, smi):
                     f"knobs {tuple(x.shape)} pre_smoothed=False", True,
                     nbytes=frontend.min_bytes("preprocess_binarize", *x.shape),
                     max_dev=DEVICE_LAUNCHES_MAX["preprocess_binarize"], into="knob_sites")
+            # The smoothing launch alone: its plane against the four rolls.
+            taps = {k: kw[k] for k in ("blur_ksize", "ridge_sigma") if k in kw}
+            compare(report, "preprocess_binarize.smoothing",
+                    functools.partial(frontend.wrapped_smoothing, x, **taps),
+                    functools.partial(frontend.wrapped_smoothing_plain, x, **taps),
+                    f"knobs {tuple(x.shape)} the smoothing launch alone", False)
+        n_dev = [site["device_kernels_per_call"] for site in report["preprocess_binarize.smoothing"]["knob_sites"]]
+        if any(d != SMOOTHING_DEVICE_KERNELS for d in n_dev):
+            raise AssertionError(f"the smoothing's preprocess calls launched {n_dev} device kernels, not "
+                                 f"{SMOOTHING_DEVICE_KERNELS} each")
         # 2.2's capped scans: the cross-cap paths' capped calls, then random
         # masks at the same shapes (untimed).
         g = torch.Generator(device="cpu").manual_seed(18)
-        for name, row in (("cross_cap_kernel", "connected_components.capped.cluster"),
-                          ("cross_cap_ds1_kernel", "connected_components.capped.band")):
+        row = "connected_components.capped.band"
+        for name in ("cross_cap_kernel", "cross_cap_ds1_kernel"):
             capped = [(args[0], kw) for args, kw in calls[name]["connected_components"] if kw.get("cap", 0) > 0]
             if len(capped) != 2 or {kw["cap_axis"] for _, kw in capped} != {0, 1}:
                 raise AssertionError(f"knob {name}: capped calls {[kw.get('cap_axis') for _, kw in capped]}")
@@ -1816,15 +1831,14 @@ def knobs_phase(frontend, device, fit_cfg, smi):
                 r, p, init = kw["rounds"], kw["pools_per_round"], kw.get("init_labels")
                 cap_kw = {"cap_axis": kw["cap_axis"], "cap": kw["cap"]}
                 plan = frontend.cc_plan(*m.shape, pools_per_round=p, **cap_kw)
-                glob = plan.get("route") == "global"
-                if glob != row.endswith("band"):
-                    raise AssertionError(f"knob {name} {tuple(m.shape)}: plan {plan} is not the {row} route")
+                if plan.get("route") != "global":
+                    raise AssertionError(f"knob {name} {tuple(m.shape)}: plan {plan} is not the band route")
                 label = (f"knobs {tuple(m.shape)} {r}x{p} {'warm' if init is not None else 'cold'} cap_axis "
                          f"{kw['cap_axis']} cap {kw['cap']}")
                 compare(report, row, functools.partial(frontend.connected_components, m, r, p, init, **cap_kw),
                         functools.partial(frontend.connected_components_plain, m, r, p, init, **cap_kw), label, True,
                         nbytes=frontend.min_bytes("connected_components", *m.shape, warm=init is not None),
-                        max_dev=frontend.cc_global_launches(r, p, plan["fused"]) if glob else 1, into="knob_sites")
+                        max_dev=frontend.cc_global_launches(r, p, plan["fused"]), into="knob_sites")
                 rnd = (torch.rand(m.shape, generator=g) < 0.45).to(torch.float32).to(device)
                 rinit = torch.randint(0, 2 * m.shape[1] * m.shape[2], m.shape, generator=g,
                                       dtype=torch.int32).to(device)

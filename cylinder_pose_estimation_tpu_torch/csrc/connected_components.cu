@@ -21,13 +21,19 @@
 // Capped scans (labels only; the TPU kernel's cap_axis / cap): the scan
 // along the capped axis runs ceil(log2(min(n, cap))) Hillis-Steele steps,
 // which take every in-mask pixel to the minimum of its run within
-// reach = 2^steps - 1 pixels on each side (ops/frontend.cap_reach).  That
-// pass reads one buffer and writes the other: each in-mask pixel walks at
-// most `reach` pixels each way and stops at the run's ends.  Along W it
-// replaces the row run pass; along H the column run pass and its edge
-// join (the walk reads the neighbouring CTAs' rows through distributed
-// shared memory, or on the large-frame route the state plane in device
-// memory).
+// reach = 2^steps - 1 pixels on each side (ops/frontend.cap_reach).  The
+// kernels compute that by segmented block minima (below): O(1) a pixel
+// after scans within blocks of reach + 1 pixels, up to the reach one pass
+// takes (31 along W, 15 along H).  Past it every in-mask pixel walks its run
+// (capped_min): on the detector's sparse masks a walk stops at the run's
+// end, so its cost does not grow with the reach, while passes that add up
+// to the reach measured slower (PERF.md section 6).  A capped call takes
+// the large-frame route at every size (on the detector's masks that route
+// measured faster for capped calls than the cluster kernel): along W the
+// band kernel's row pass runs capped, in place, a warp per row
+// (capped_row), or walks into its second buffer; along H a column pass over
+// the state plane replaces the band kernel's column runs and the fix
+// (cc_capped_cols_stream, or cc_capped_cols walking).
 //
 // Bound: memory.  The function reads the mask (and the warm start or the
 // payload) once and writes its channels once: 16.8, 47.2 and 70.8 MB at the
@@ -148,9 +154,157 @@ __device__ __forceinline__ void row_runs(int c, int b, int* row, int w, int lane
   }
 }
 
-// The capped scan of one in-mask pixel from its value v: the minimum of v
-// and its run's pixels at most `reach` steps away, at(j) giving the j-th
-// pixel along the axis (j in [lo, hi)); the background ends the run.
+// ---------------------------------------------------------------------------
+// Capped scans by segmented block minima (labels only).
+//
+// Reach r = 2^k - 1 (ops/frontend.cap_reach): every in-mask pixel j of a line
+// takes the minimum over its run and [j - r, j + r], as min(left, right) of
+// the one-sided windows [j - r, j] and [j, j + r].  The line is cut into
+// blocks of L = r + 1 pixels, aligned on multiples of L.  In each block:
+//   P[i]: the minimum from i back to max(block start, run start), with the
+//         flag "reaches the block start";
+//   S[i]: the minimum from i on to min(block end, run end), with the flag
+//         "reaches the block end"
+// (background: big, no flag; the flag in bit 31, which labels < 2^31 leave
+// free).  A one-sided window of L pixels spans at most two blocks, so
+//   left(j)  = P[j], joined, if P[j] reaches its block start, with S[j - r]
+//              where that reaches its block end (the run covers j - r) and
+//              else with P[block start - 1] (the run's part in the block
+//              before: empty for background);
+//   right(j) = S[j], joined, if S[j] reaches its block end, with P[j + r]
+//              where that reaches its block start and else with
+//              S[block end + 1]
+// with pixels past either end of the line as background.  O(1) per pixel
+// after the scans, and exact: min is exact in any order.
+// tests/test_torch_capped_blocks.py holds a numpy model of these steps, at
+// the kernels' blocks, chunks and strips, to the plain version.
+// ---------------------------------------------------------------------------
+
+constexpr unsigned kReachFlag = 0x80000000u;
+
+__device__ __forceinline__ int bm_val(unsigned e) { return (int)(e & ~kReachFlag); }
+__device__ __forceinline__ bool bm_reaches(unsigned e) { return (e & kReachFlag) != 0u; }
+
+// One step of a P (forward) or S (backward) scan at a pixel of value v; edge:
+// the pixel starts (P) or ends (S) its block.  cur / fl: the running minimum
+// and its flag.
+__device__ __forceinline__ unsigned bm_step(int v, bool edge, int big, int& cur, bool& fl) {
+  if (edge) {
+    cur = big;
+    fl = true;
+  }
+  if (v == big) {
+    cur = big;
+    fl = false;
+    return (unsigned)big;
+  }
+  cur = min(cur, v);
+  return (unsigned)cur | (fl ? kReachFlag : 0u);
+}
+
+// The capped minimum of pixel j from P[j], S[j], S[j - r], P[block start - 1],
+// P[j + r] and S[block end + 1].
+__device__ __forceinline__ int bm_combine(unsigned pj, unsigned sj, unsigned s_back, unsigned p_prev,
+                                          unsigned p_fwd, unsigned s_next) {
+  int left = bm_val(pj);
+  int right = bm_val(sj);
+  if (bm_reaches(pj)) left = min(left, bm_reaches(s_back) ? bm_val(s_back) : bm_val(p_prev));
+  if (bm_reaches(sj)) right = min(right, bm_reaches(p_fwd) ? bm_val(p_fwd) : bm_val(s_next));
+  return min(left, right);
+}
+
+// Bits lo .. hi of m all set (0 <= lo <= hi <= 31).
+__device__ __forceinline__ bool bits_set(unsigned m, int lo, int hi) {
+  const unsigned want = (kFull >> (31 - (hi - lo))) << lo;
+  return (m & want) == want;
+}
+
+// P and S of one 32-pixel chunk of a row from its values v (lane = pixel;
+// past the row: background) and their in-mask ballot m, blocks of
+// L = 2^kLog <= 32 pixels, so a chunk holds whole blocks: segmented warp
+// scans of kLog steps within each block.
+template <int kLog>
+__device__ __forceinline__ void bm_chunk(int v, unsigned m, int big, int lane, unsigned& p, unsigned& s) {
+  constexpr int L = 1 << kLog;
+  const int b0 = lane & ~(L - 1);
+  const int b1 = b0 + L - 1;
+  int fwd = v, bwd = v;
+#pragma unroll
+  for (int d = 1; d < L; d *= 2) {
+    const int up = __shfl_up_sync(kFull, fwd, d, L);
+    const int dn = __shfl_down_sync(kFull, bwd, d, L);
+    if (lane - d >= b0 && bits_set(m, lane - d, lane)) fwd = min(fwd, up);
+    if (lane + d <= b1 && bits_set(m, lane, lane + d)) bwd = min(bwd, dn);
+  }
+  const bool in = v != big;
+  p = (unsigned)fwd | (in && bits_set(m, b0, lane) ? kReachFlag : 0u);
+  s = (unsigned)bwd | (in && bits_set(m, lane, b1) ? kReachFlag : 0u);
+}
+
+// One capped pass of reach 2^kLog - 1 over a row of n pixels in shared
+// memory, in place, by one warp: P and S of the chunks before, at and after
+// the one being finished stay in registers, and the six entries of each
+// pixel come by shuffles.  A chunk's results are written after the next
+// chunk is read, so no pixel is read after it is rewritten.  The masks are
+// sparse (a few percent of a line, in runs of a few pixels), so a chunk
+// with no in-mask pixel costs one load and one ballot: its P and S are the
+// background, and it has nothing to write.  Kept out of line: each reach's
+// pass has its own registers.
+template <int kLog>
+__device__ __noinline__ void capped_row_pass(int* row, int n, int big, int lane) {
+  constexpr int L = 1 << kLog;
+  constexpr int R = L - 1;
+  const int b0 = lane & ~(L - 1);
+  unsigned pp = big, sp = big, pc = big, sc = big, pn, sn;
+  const int v0 = lane < n ? row[lane] : big;
+  unsigned mc = __ballot_sync(kFull, v0 != big);
+  if (mc) bm_chunk<kLog>(v0, mc, big, lane, pc, sc);
+  for (int x0 = 0; x0 < n; x0 += 32) {
+    const int vn = x0 + 32 + lane < n ? row[x0 + 32 + lane] : big;
+    const unsigned mn = __ballot_sync(kFull, vn != big);
+    pn = sn = big;
+    if (mn) bm_chunk<kLog>(vn, mn, big, lane, pn, sn);
+    if (mc) {
+      const unsigned sb_c = __shfl_sync(kFull, sc, (lane - R) & 31);
+      const unsigned sb_p = __shfl_sync(kFull, sp, (lane - R) & 31);
+      const unsigned pv_c = __shfl_sync(kFull, pc, (b0 - 1) & 31);
+      const unsigned pv_p = __shfl_sync(kFull, pp, 31);
+      const unsigned pf_c = __shfl_sync(kFull, pc, (lane + R) & 31);
+      const unsigned pf_n = __shfl_sync(kFull, pn, (lane + R) & 31);
+      const unsigned sn_c = __shfl_sync(kFull, sc, (b0 + L) & 31);
+      const unsigned sn_n = __shfl_sync(kFull, sn, 0);
+      if (bm_val(pc) != big)
+        row[x0 + lane] = bm_combine(pc, sc, lane >= R ? sb_c : sb_p, b0 > 0 ? pv_c : pv_p,
+                                    lane + R < 32 ? pf_c : pf_n, b0 + L < 32 ? sn_c : sn_n);
+    }
+    pp = pc;
+    sp = sc;
+    pc = pn;
+    sc = sn;
+    mc = mn;
+  }
+  __syncwarp();
+}
+
+// The capped scan of reach `reach` (at most kRowPassReach) along a row of n
+// pixels in shared memory, in place, by one warp.
+constexpr int kRowPassReach = 31;
+
+__device__ void capped_row(int* row, int n, int reach, int big, int lane) {
+  switch (reach) {
+    case 0: break;
+    case 1: capped_row_pass<1>(row, n, big, lane); break;
+    case 3: capped_row_pass<2>(row, n, big, lane); break;
+    case 7: capped_row_pass<3>(row, n, big, lane); break;
+    case 15: capped_row_pass<4>(row, n, big, lane); break;
+    default: capped_row_pass<5>(row, n, big, lane); break;
+  }
+}
+
+// The capped scan of one in-mask pixel from its value v by a walk: the
+// minimum of v and its run's pixels at most `reach` steps away, at(j)
+// giving the j-th pixel along the axis (j in [lo, hi)); the background ends
+// the run.
 template <typename At>
 __device__ __forceinline__ int capped_min(int v, int j, int lo, int hi, int reach, int big, At at) {
   int m = v;
@@ -167,18 +321,89 @@ __device__ __forceinline__ int capped_min(int v, int j, int lo, int hi, int reac
   return m;
 }
 
+// The capped scan of reach 2^kLog - 1 along one column of a (h, w) plane in
+// device memory by one thread, streaming: the outputs of rows [y0, y1) from
+// rows [a0, a1) = [y0 - reach, y1 + reach) within the plane, read once each,
+// block by block (L = 2^kLog rows, up to 16 loads in flight); P and S of
+// the blocks before, at and after the one being finished stay in registers
+// (5 L of them), so every entry has a constant index.  A block with no
+// in-mask pixel is not scanned, and only in-mask outputs are written unless
+// `dense` (see cc_capped_cols_stream).
+template <int kLog>
+__device__ __forceinline__ void capped_column_stream(const int* __restrict__ col, int* __restrict__ out, int w, int a0,
+                                                     int y0, int y1, int a1, int big, bool dense) {
+  constexpr int L = 1 << kLog;
+  unsigned s_prev[L], p_cur[L], s_cur[L], p_next[L], s_next[L];
+  unsigned p_prev_end = big;
+  // Load block k's rows (past [a0, a1): background) and scan them.
+  auto scan = [&](int k, unsigned (&p)[L], unsigned (&s)[L]) {
+    int v[L];
+    bool any = false;
+#pragma unroll
+    for (int t = 0; t < L; ++t) {
+      const int y = k * L + t;
+      v[t] = y >= a0 && y < a1 ? col[(size_t)y * w] : big;
+      any = any || v[t] != big;
+    }
+    if (!any) {
+#pragma unroll
+      for (int t = 0; t < L; ++t) p[t] = s[t] = big;
+      return false;
+    }
+    int cur = big;
+    bool fl = true;
+#pragma unroll
+    for (int t = 0; t < L; ++t) p[t] = bm_step(v[t], false, big, cur, fl);
+    cur = big;
+    fl = true;
+#pragma unroll
+    for (int t = L - 1; t >= 0; --t) s[t] = bm_step(v[t], false, big, cur, fl);
+    return true;
+  };
+#pragma unroll
+  for (int t = 0; t < L; ++t) s_prev[t] = big;
+  const int k0 = y0 >> kLog;
+  const int k1 = (y1 - 1) >> kLog;
+  // The block before the first output block: P at its end and its S.
+  if (k0 > 0 && (k0 << kLog) > a0) {
+    unsigned p_tmp[L];
+    scan(k0 - 1, p_tmp, s_prev);
+    p_prev_end = p_tmp[L - 1];
+  }
+  bool any_cur = scan(k0, p_cur, s_cur);
+  for (int k = k0; k <= k1; ++k) {
+    const bool any_next = scan(k + 1, p_next, s_next);
+    if (any_cur || dense) {
+#pragma unroll
+      for (int t = 0; t < L; ++t) {
+        const int j = k * L + t;
+        const bool in = bm_val(p_cur[t]) != big;
+        if (j >= y0 && j < y1 && (in || dense))
+          out[(size_t)j * w] = in ? bm_combine(p_cur[t], s_cur[t], t == L - 1 ? s_cur[0] : s_prev[t + 1], p_prev_end,
+                                               t == 0 ? p_cur[L - 1] : p_next[t - 1], s_next[0])
+                                  : big;
+      }
+    }
+    p_prev_end = p_cur[L - 1];
+#pragma unroll
+    for (int t = 0; t < L; ++t) {
+      s_prev[t] = s_cur[t];
+      p_cur[t] = p_next[t];
+      s_cur[t] = s_next[t];
+    }
+    any_cur = any_next;
+  }
+}
+
 // Shared ints: per channel two buffers of rows_per x w, then per channel and
 // column the top edge run's extreme and the bottom edge run's extreme, then
 // per column the one-run flag.
 // kCh 1: src is the warm start (may be null), out0 the labels.
 // kCh 2: src is the payload, out0 / out1 its minima / maxima.
-// cap_axis: -1 (no cap), 0 (the scan along H capped) or 1 (along W), with
-// its reach (labels only: kCh 1).
 template <int kCh>
 __global__ void __launch_bounds__(kCCThreads, 1) cc_cluster(
     const float* __restrict__ mask, const int* __restrict__ src, int* __restrict__ out0,
-    int* __restrict__ out1, int h, int w, int rounds, int pools, int rows_per, int cap_axis,
-    int reach) {
+    int* __restrict__ out1, int h, int w, int rounds, int pools, int rows_per) {
   extern __shared__ int smem_cc[];
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
@@ -260,47 +485,11 @@ __global__ void __launch_bounds__(kCCThreads, 1) cc_cluster(
       cluster.sync();
     }
 
-    if (kCh == 1 && cap_axis == 1) {
-      // Capped scan along W: each in-mask pixel walks its row.
-      const int* lab = buf(0, cur);
-      for (int i = tid; i < n_px; i += kCCThreads) {
-        const int v = lab[i];
-        if (v != big) {
-          const int x = i % w;
-          const int* row = lab + (i - x);
-          buf(0, cur ^ 1)[i] = capped_min(v, x, 0, w, reach, big, [&](int j) { return row[j]; });
-        }
-      }
-      cur ^= 1;
-    } else {
-      // Row run pass: one warp per row (row_runs).
+    // Row run pass: one warp per row (row_runs).
 #pragma unroll
-      for (int c = 0; c < kCh; ++c)
-        for (int ly = warp; ly < nr; ly += nwarps) row_runs(c, bg[c], buf(c, cur) + ly * w, w, lane);
-    }
+    for (int c = 0; c < kCh; ++c)
+      for (int ly = warp; ly < nr; ly += nwarps) row_runs(c, bg[c], buf(c, cur) + ly * w, w, lane);
     __syncthreads();
-
-    if (kCh == 1 && cap_axis == 0) {
-      // Capped scan along H: each in-mask pixel walks its column, across
-      // the cluster's CTAs once all their row passes are done.
-      cluster.sync();
-      int* peers[8];
-      for (int r = 0; r < csize; ++r) peers[r] = r == rank ? buf(0, cur) : cluster.map_shared_rank(buf(0, cur), r);
-      const int* lab = buf(0, cur);
-      for (int i = tid; i < n_px; i += kCCThreads) {
-        const int v = lab[i];
-        if (v != big) {
-          const int x = i % w;
-          buf(0, cur ^ 1)[i] = capped_min(v, r0 + i / w, 0, h, reach, big, [&](int y) {
-            const int r = y / rows_per;
-            return peers[r][(y - r * rows_per) * w + x];
-          });
-        }
-      }
-      cur ^= 1;
-      cluster.sync();
-      continue;
-    }
 
     // Column run pass within this CTA's rows, then the edge entries.
     for (int x = tid; x < w; x += kCCThreads) {
@@ -392,22 +581,21 @@ __global__ void __launch_bounds__(kCCThreads, 1) cc_cluster(
 }
 
 // A cap the kernels take: none (-1), or along H (0) or W (1) with a reach of
-// at least 0, for labels only.
+// 2^k - 1 (k >= 0), for labels only.
 inline bool cap_ok(int kch, int cap_axis, int reach) {
-  return cap_axis == -1 || (kch == 1 && (cap_axis == 0 || cap_axis == 1) && reach >= 0);
+  return cap_axis == -1 || (kch == 1 && (cap_axis == 0 || cap_axis == 1) && reach >= 0 && (reach & (reach + 1)) == 0);
 }
 
 template <int kCh>
 int launch_cc(const float* mask, const int* src, int* out0, int* out1, int n, int h, int w, int rounds,
-              int pools, int cluster, int rows_per, int smem_bytes, int cap_axis, int reach,
-              cudaStream_t stream) {
+              int pools, int cluster, int rows_per, int smem_bytes, cudaStream_t stream) {
   if (!cpe::cluster_size_ok(cluster) || rows_per < 1 || (long long)rows_per * cluster < h ||
-      (long long)rows_per * (cluster - 1) >= h || !cap_ok(kCh, cap_axis, reach) ||
+      (long long)rows_per * (cluster - 1) >= h ||
       smem_bytes != (int)((2LL * kCh * rows_per * w + (2LL * kCh + 1) * w) * sizeof(int)))
     return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
   return cpe::launch_clusters(cc_cluster<kCh>, cluster, n, kCCThreads, smem_bytes, stream, mask, src,
-                              out0, out1, h, w, rounds, pools, rows_per, cap_axis, reach);
+                              out0, out1, h, w, rounds, pools, rows_per);
 }
 
 // ---------------------------------------------------------------------------
@@ -428,10 +616,9 @@ int launch_cc(const float* mask, const int* src, int* out0, int* out1, int n, in
 //    (down) over the other bands' edge entries while they stay in the mask
 //    and are one run, and rewrites its band's edge runs in place.  The state
 //    is then exact, and the next round's halos read it.
-// A capped scan along W runs in cc_band in the row run pass's place (from
-// one buffer into the other: the band keeps two buffers even without
-// pools); one along H replaces cc_band's column runs and cc_fix with
-// cc_capped_cols, a pass over the state plane in device memory.
+// A capped scan along W runs in cc_band in the row run pass's place, in
+// place (capped_row); one along H replaces cc_band's column runs and cc_fix
+// with cc_capped_cols_stream, passes over the state plane in device memory.
 // Where two buffers per channel and the halo leave fewer than max(pools, 1)
 // rows of a band (masks some thousands of pixels wide), the pools run as one
 // launch each on device-memory planes (cc_global_pool) and the band kernel
@@ -500,14 +687,15 @@ __global__ void __launch_bounds__(kGThreads) cc_global_pool(Planes p, int cur, i
 }
 
 // Shared ints: per channel nbuf buffers (band_buffers: 2 with pools, for the
-// Jacobi passes, or a cap along W; else 1) of (band_rows + 2 pools) x w.
-__host__ __device__ inline int band_buffers(int pools, int cap_axis) { return pools > 0 || cap_axis == 1 ? 2 : 1; }
+// Jacobi passes, or for a walk along W; else 1) of (band_rows + 2 pools) x w.
+__host__ __device__ inline int band_buffers(int pools, bool row_walk) { return pools > 0 || row_walk ? 2 : 1; }
 
-template <int kCh>
+template <int kCh, int kCap>
 __global__ void __launch_bounds__(kCCThreads, 1) cc_band(const float* __restrict__ mask,
                                                         const int* __restrict__ src, BandIo io, Edges e,
                                                         int h, int w, int bands, int band_rows, int pools,
-                                                        int first, int cap_axis, int reach) {
+                                                        int first, int reach) {
+  static_assert(kCap == -1 || (kCh == 1 && (kCap == 0 || kCap == 1)), "capped scans take labels only");
   extern __shared__ int smem_band[];
   const int tid = threadIdx.x;
   const int lane = tid % 32;
@@ -522,7 +710,7 @@ __global__ void __launch_bounds__(kCCThreads, 1) cc_band(const float* __restrict
   const int hw = h * w;
   const int big = hw;
   const int bg[2] = {big, -1};
-  const int nbuf = band_buffers(pools, cap_axis);
+  const int nbuf = band_buffers(pools, kCap == 1 && reach > kRowPassReach);
   const int buf_len = (band_rows + 2 * pools) * w;
   auto buf = [&](int c, int b) { return smem_band + (nbuf * c + b) * buf_len; };
   const size_t base = (size_t)img * hw + (size_t)ly0 * w;
@@ -603,8 +791,13 @@ __global__ void __launch_bounds__(kCCThreads, 1) cc_band(const float* __restrict
     __syncthreads();
   }
 
-  if (kCh == 1 && cap_axis == 1) {
-    // Capped scan along W over the band's rows.
+  if (kCap == 1 && reach <= kRowPassReach) {
+    // Capped scan along W over the band's rows: one warp per row, in place
+    // (capped_row).
+    for (int ly = warp; ly < nr; ly += nwarps) capped_row(buf(0, cur) + off + ly * w, w, reach, big, lane);
+  } else if (kCap == 1) {
+    // Past one pass's reach: each in-mask pixel walks its run into the other
+    // buffer (whose background pixels hold the background from the load).
     const int* lab = buf(0, cur);
     for (int i = off + tid; i < off + nr * w; i += kCCThreads) {
       const int v = lab[i];
@@ -624,9 +817,9 @@ __global__ void __launch_bounds__(kCCThreads, 1) cc_band(const float* __restrict
   __syncthreads();
 
   // Column run pass over the band's rows, then the edge tables (none with a
-  // cap along H: cc_capped_cols follows).
+  // cap along H: cc_capped_cols_stream follows).
   const size_t edge = (size_t)blockIdx.x * 2;  // [mask, band][side 0]
-  for (int x = tid; x < w && !(kCh == 1 && cap_axis == 0); x += kCCThreads) {
+  for (int x = tid; x < w && kCap != 0; x += kCCThreads) {
     int top = nr, bot = nr;  // lengths of the runs touching the top and bottom edges
 #pragma unroll
     for (int c = 0; c < kCh; ++c) {
@@ -730,8 +923,34 @@ __global__ void __launch_bounds__(kGThreads) cc_fix(BandIo io, Edges e, int n, i
   }
 }
 
-// The capped scan along H of the (n, h, w) label plane `in` into `out`, one
-// thread per pixel.
+// The capped scan along H of the (n, h, w) label plane `in` into `out`.
+// Up to kCapStreamReach (cc_capped_cols_stream): one CTA per (strip of
+// `strip` rows, kCapCols columns, mask), one thread per column, over the
+// strip's rows and `reach` rows above and below it within the mask,
+// streamed through registers block by block (capped_column_stream), each
+// label read once for the strip and its halo.  Once both planes hold the
+// background at every background pixel (cc_global_start writes both; the
+// band kernel writes every pixel of its plane and the other passes keep
+// it), only in-mask outputs are written; `dense` (the first round of the
+// fused route, whose output plane nothing has written yet) writes every
+// pixel.  Past it (cc_capped_cols): one thread per pixel walks its column's
+// run (capped_min) and writes every pixel.
+constexpr int kCapCols = 128;
+constexpr int kCapStreamReach = 15;
+
+template <int kLog>
+__global__ void __launch_bounds__(kCapCols) cc_capped_cols_stream(const int* __restrict__ in, int* __restrict__ out,
+                                                                  int h, int w, int strip, int dense) {
+  const int x = blockIdx.x * kCapCols + threadIdx.x;
+  if (x >= w) return;
+  const int reach = (1 << kLog) - 1;
+  const int y0 = blockIdx.y * strip;
+  const int y1 = min(y0 + strip, h);
+  const size_t img = (size_t)blockIdx.z * h * w;
+  capped_column_stream<kLog>(in + img + x, out + img + x, w, max(y0 - reach, 0), y0, y1, min(y1 + reach, h), h * w,
+                             dense != 0);
+}
+
 __global__ void __launch_bounds__(kGThreads) cc_capped_cols(const int* __restrict__ in, int* __restrict__ out,
                                                             int n, int h, int w, int reach) {
   const long long i = global_tid();
@@ -751,21 +970,23 @@ inline unsigned blocks_for(long long threads) { return (unsigned)((threads + kGT
 
 // outs: kCh output planes; scratch: kCh planes of n * h * w ints, then the
 // edge tables, n * bands * w * (2 kCh + 2) ints.  The plan
-// (ops/frontend.cc_plan) passes band_rows, fused and the shared bytes; they
-// must agree with cc_band's layout, or nothing launches.  Launches: fused,
-// 2 per round (1 with no round); else the start, then per round the pools,
-// the band and the fix (with a cap along H: cc_capped_cols in the fix's
-// place).
+// (ops/frontend.cc_plan) passes band_rows, fused and the shared bytes, and
+// with a cap along H the column pass's strip rows; they must agree with
+// cc_band's layout, or nothing launches.  Launches: fused, 2 per round (1
+// with no round); else the start, then per round the pools, the band and
+// the fix (with a cap along H: the column pass in the fix's place).
 template <int kCh>
 int launch_cc_global(const float* mask, const int* src, int* const* outs, int* scratch, int n, int h,
                      int w, int rounds, int pools, int band_rows, int fused, int smem_bytes, int cap_axis,
-                     int reach, cudaStream_t stream) {
+                     int reach, int cap_strip, cudaStream_t stream) {
   if (h < 1 || w < 1 || rounds < 0 || pools < 0 || band_rows < 1 || (long long)n * h * w >= (1LL << 31) ||
       !cap_ok(kCh, cap_axis, reach))
     return (int)cudaErrorInvalidValue;
   const int kp = fused ? pools : 0;  // pools inside the band kernel
-  if ((long long)smem_bytes != 4LL * kCh * band_buffers(kp, cap_axis) * (band_rows + 2LL * kp) * w)
+  const bool row_walk = cap_axis == 1 && reach > kRowPassReach;
+  if ((long long)smem_bytes != 4LL * kCh * band_buffers(kp, row_walk) * (band_rows + 2LL * kp) * w)
     return (int)cudaErrorInvalidValue;
+  if (cap_axis == 0 ? cap_strip < 1 : cap_strip != 0) return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
   const long long px = (long long)n * h * w;
   const int bands = (h + band_rows - 1) / band_rows;
@@ -784,7 +1005,9 @@ int launch_cc_global(const float* mask, const int* src, int* const* outs, int* s
     CPE_CHECK_LAUNCH();
   }
   if (rounds == 0) return 0;
-  cudaError_t err = cudaFuncSetAttribute(cc_band<kCh>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  void (*band)(const float*, const int*, BandIo, Edges, int, int, int, int, int, int, int) =
+      cap_axis == 0 ? cc_band<1, 0> : cap_axis == 1 ? cc_band<1, 1> : cc_band<kCh, -1>;
+  cudaError_t err = cudaFuncSetAttribute(band, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return (int)err;
   int cur = 0;
   for (int r = 0; r < rounds; ++r) {
@@ -798,19 +1021,30 @@ int launch_cc_global(const float* mask, const int* src, int* const* outs, int* s
       io.in[c] = p.buf[c][cur];
       io.out[c] = p.buf[c][cur ^ 1];
     }
-    cc_band<kCh><<<(unsigned)(n * bands), kCCThreads, smem_bytes, stream>>>(
-        mask, src, io, e, h, w, bands, band_rows, kp, fused && r == 0, cap_axis, reach);
+    band<<<(unsigned)(n * bands), kCCThreads, smem_bytes, stream>>>(mask, src, io, e, h, w, bands, band_rows, kp,
+                                                                     fused && r == 0, reach);
     CPE_CHECK_LAUNCH();
     cur ^= 1;
     if (cap_axis == 0) {
-      cc_capped_cols<<<blocks_for(px), kGThreads, 0, stream>>>(p.buf[0][cur], p.buf[0][cur ^ 1], n, h, w,
-                                                               reach);
+      const dim3 grid((w + kCapCols - 1) / kCapCols, (h + cap_strip - 1) / cap_strip, n);
+      const int* src_plane = p.buf[0][cur];
+      int* dst_plane = p.buf[0][cur ^ 1];
+      const int dense = fused && r == 0;
+      switch (reach) {
+        case 0: cc_capped_cols_stream<0><<<grid, kCapCols, 0, stream>>>(src_plane, dst_plane, h, w, cap_strip, dense); break;
+        case 1: cc_capped_cols_stream<1><<<grid, kCapCols, 0, stream>>>(src_plane, dst_plane, h, w, cap_strip, dense); break;
+        case 3: cc_capped_cols_stream<2><<<grid, kCapCols, 0, stream>>>(src_plane, dst_plane, h, w, cap_strip, dense); break;
+        case 7: cc_capped_cols_stream<3><<<grid, kCapCols, 0, stream>>>(src_plane, dst_plane, h, w, cap_strip, dense); break;
+        case 15: cc_capped_cols_stream<4><<<grid, kCapCols, 0, stream>>>(src_plane, dst_plane, h, w, cap_strip, dense); break;
+        default: cc_capped_cols<<<blocks_for(px), kGThreads, 0, stream>>>(src_plane, dst_plane, n, h, w, reach);
+      }
+      CPE_CHECK_LAUNCH();
       cur ^= 1;
     } else {
       cc_fix<kCh><<<blocks_for((long long)n * bands * w), kGThreads, 0, stream>>>(io, e, n, h, w, bands,
                                                                                  band_rows);
+      CPE_CHECK_LAUNCH();
     }
-    CPE_CHECK_LAUNCH();
   }
   return 0;
 }
@@ -820,15 +1054,12 @@ int launch_cc_global(const float* mask, const int* src, int* const* outs, int* s
 // labels (out): (N, H, W) int32; init may be null (cold start).  The
 // wrapper's plan (ops/frontend.cc_plan) passes the cluster size, the rows
 // per CTA and the shared bytes; they must agree with this kernel's layout,
-// or nothing launches.
-// cap_axis (-1, 0: along H, 1: along W) and reach: the capped scan
-// (ops/frontend.cap_reach; the plan's "cap_axis" / "cap_reach").
+// or nothing launches.  A capped scan takes the large-frame route.
 CPE_API int cpe_connected_components(const float* mask, const int* init, int* out, int n, int h,
                                      int w, int rounds, int pools_per_round, int cluster,
-                                     int rows_per, int smem_bytes, int cap_axis, int reach,
-                                     cudaStream_t stream) {
+                                     int rows_per, int smem_bytes, cudaStream_t stream) {
   return launch_cc<1>(mask, init, out, nullptr, n, h, w, rounds, pools_per_round, cluster, rows_per,
-                      smem_bytes, cap_axis, reach, stream);
+                      smem_bytes, stream);
 }
 
 // pmin, pmax (out): (N, H, W) int32 per-component minima and maxima of the
@@ -840,31 +1071,34 @@ CPE_API int cpe_component_payload_minmax(const float* mask, const int* payload, 
                                          cudaStream_t stream) {
   if (!payload) return (int)cudaErrorInvalidValue;
   return launch_cc<2>(mask, payload, pmin, pmax, n, h, w, rounds, pools_per_round, cluster, rows_per,
-                      smem_bytes, -1, -1, stream);
+                      smem_bytes, stream);
 }
 
 // The large-frame route of cpe_connected_components (cc_plan's "global"
 // plan): scratch holds one (N, H, W) int32 plane and the edge tables
 // (plan["scratch_ints"]); band_rows, fused and smem_bytes come from the plan,
-// cap_axis and reach as for cpe_connected_components.
+// cap_axis and reach from the plan's "cap_axis" and "cap_reach" (-1, -1
+// without a cap), cap_strip from its "cap_strip" (0 without a cap along H).
 CPE_API int cpe_connected_components_global(const float* mask, const int* init, int* out, int* scratch,
                                             int n, int h, int w, int rounds, int pools_per_round,
                                             int band_rows, int fused, int smem_bytes, int cap_axis, int reach,
-                                            cudaStream_t stream) {
+                                            int cap_strip, cudaStream_t stream) {
   int* outs[1] = {out};
   return launch_cc_global<1>(mask, init, outs, scratch, n, h, w, rounds, pools_per_round, band_rows, fused,
-                             smem_bytes, cap_axis, reach, stream);
+                             smem_bytes, cap_axis, reach, cap_strip, stream);
 }
 
 // The large-frame route of cpe_component_payload_minmax: scratch holds two
-// (N, H, W) int32 planes and the edge tables.  cap_axis and reach must be -1
-// (the labels' entry's signature: the payload has no capped scan).
+// (N, H, W) int32 planes and the edge tables.  cap_axis and reach must be -1,
+// cap_strip 0 (the labels' entry's signature: the payload has no capped
+// scan).
 CPE_API int cpe_component_payload_minmax_global(const float* mask, const int* payload, int* pmin,
                                                 int* pmax, int* scratch, int n, int h, int w, int rounds,
                                                 int pools_per_round, int band_rows, int fused,
-                                                int smem_bytes, int cap_axis, int reach, cudaStream_t stream) {
+                                                int smem_bytes, int cap_axis, int reach, int cap_strip,
+                                                cudaStream_t stream) {
   if (!payload) return (int)cudaErrorInvalidValue;
   int* outs[2] = {pmin, pmax};
   return launch_cc_global<2>(mask, payload, outs, scratch, n, h, w, rounds, pools_per_round, band_rows, fused,
-                             smem_bytes, cap_axis, reach, stream);
+                             smem_bytes, cap_axis, reach, cap_strip, stream);
 }

@@ -7,27 +7,37 @@
 // which kept a whole image in VMEM and shifted it with circular rolls.
 //
 // Bound: memory.  At (32, 480, 640) the function reads 39.3 MB and writes six
-// float planes, 235.9 MB: 275.3 MB, 0.0822 ms at 3.35 TB/s, with or without
-// the smoothing (it runs on the tile in shared memory).  A few dozen
-// operations per pixel, about 240 more with the smoothing over its tile and
-// halo (2.35 GFLOP at (32, 480, 640), 0.035 ms at 67 TFLOP/s), stay below
-// the byte bound.
+// float planes, 235.9 MB: 275.3 MB, 0.0822 ms at 3.35 TB/s.  A few dozen
+// operations per pixel stay below the byte bound.  The smoothing adds about
+// 110 float operations a pixel over its tile and halo (1.1 GFLOP at
+// (32, 480, 640), 0.033 ms at 33.5 T non-fused operations a second) and a
+// smoothed plane written and read once (2 x 39.3 MB, 0.023 ms).
 //
-// Design: two launches over 2-D tiles of kTileH x kTileW output pixels
-// (blockIdx.z = image, 32-bit index math inside an image).  Each tile loads
-// its input once, with its halo, into shared memory and runs its part of
-// the chain there; HBM sees the input, the six outputs and one bit-packed
-// copy of `binary` (1/32 of a plane) between the two launches.
-//   A (binarize_tiles): [smoothing] -> Hessian minima -> 15x15 Sauvola box
-//     sums -> binary.  Halo 9 (2 for the Hessian, 7 for the box).  With the
-//     smoothing, the grey tile comes in with r1 + r2 more rows and columns
-//     of halo (14 for the 5-tap and 25-tap Gaussians), indexed modulo H and
-//     W because the TPU kernel's rolls wrap, and four separable passes in
-//     shared memory (the 5-tap one along W, then H, then the 25-tap one
-//     along W, then H) leave the smoothed tile with its halo of 9.  Each
-//     thread keeps a run of kRun outputs of a line in registers and builds
-//     the doubling planes pows[2], pows[4], pows[8] of that run once, so a
-//     box sum costs about 6 adds and 1 shared load instead of 14 and 15.
+// Design: three launches, the first only with the smoothing, each over 2-D
+// tiles (blockIdx.z = image, 32-bit index math inside an image).
+//   S (smooth_tiles, pre_smoothed=False only): the grey tile of kSmoothH x
+//     kSmoothW outputs comes in with a halo of r1 + r2 (14 px for the 5-tap
+//     and 25-tap Gaussians), indexed modulo H and W because the TPU kernel's
+//     rolls wrap, by asynchronous copies (all of a tile's loads in flight at
+//     once); four separable passes in shared memory (the blur along W, then
+//     H, then the ridge Gaussian along W, then H) write the smoothed tile to
+//     a scratch plane.  Each thread keeps a run of kSmoothRun outputs of a
+//     line in registers and loads the run's window once (2r + 8 loads for 8
+//     outputs), with the radii as template parameters; other radii take a
+//     generic instantiation, one output a thread, its inputs read tap by tap
+//     from shared memory.  Launches A and B then run on the scratch plane as
+//     on any smoothed image.  A launch of its own because inside launch A
+//     the smoothing would need a 4.2x halo on A's 32 x 64 tiles and leave 2
+//     CTAs an SM.
+// Launches A and B work on tiles of kTileH x kTileW output pixels.  Each
+// tile loads its input once, with its halo, into shared memory and runs its
+// part of the chain there; HBM sees the input, the six outputs and one
+// bit-packed copy of `binary` (1/32 of a plane) between the two launches.
+//   A (binarize_tiles): smoothed -> Hessian minima -> 15x15 Sauvola box sums
+//     -> binary.  Halo 9 (2 for the Hessian, 7 for the box).  Each thread
+//     keeps a run of kRun outputs of a line in registers and builds the
+//     doubling planes pows[2], pows[4], pows[8] of that run once, so a box
+//     sum costs about 6 adds and 1 shared load instead of 14 and 15.
 //   B (mask_tiles): packed binary -> 1x20 / 20x1 openings (shifted word
 //     ANDs / ORs, 32 px per word) -> joints -> 11x11 count (popcounts along
 //     x, sliding sums along y) -> joint_peak_iters masked max rounds on int
@@ -37,16 +47,16 @@
 //
 // Exactness: built with --fmad=false; each smoothing pass evaluates the TPU
 // kernel's k[r] * x, then + k[r - i] * (x[p - i] + x[p + i]) for i = 1 .. r,
-// in that order (_sep_conv_roll, symmetric taps), its reads wrapped around
-// the image as the rolls do; every float box sum evaluates the addition
-// tree of the TPU kernel's Hillis-Steele doubling (_box_sum_roll: parts
-// largest first, summed left to right, recentred by size / 2); the Sauvola
-// division and square root are the correctly rounded ones.  Masks, counts
-// and keys are integers, exact in any order.  After the smoothing,
-// out-of-image reads return 0 (INT_MIN for keys) where the TPU wrapped
-// around: the margin, which the wrapper requires to cover the stencil
-// reach, zeroes every mask within it, so both conventions give the same
-// whole images.
+// in that order (_sep_conv_roll, symmetric taps), each pass rounded to
+// float32, its reads wrapped around the image as the rolls do; every float
+// box sum evaluates the addition tree of the TPU kernel's Hillis-Steele
+// doubling (_box_sum_roll: parts largest first, summed left to right,
+// recentred by size / 2); the Sauvola division and square root are the
+// correctly rounded ones.  Masks, counts and keys are integers, exact in any
+// order.  After the smoothing, out-of-image reads return 0 (INT_MIN for
+// keys) where the TPU wrapped around: the margin, which the wrapper requires
+// to cover the stencil reach, zeroes every mask within it, so both
+// conventions give the same whole images.
 
 #include "common.cuh"
 
@@ -64,6 +74,11 @@ static_assert(kTileH % kRun == 0 && kTileW % 32 == 0, "tile shape");
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaxTaps = 64;  // both smoothing passes' taps (ops/frontend MAX_SMOOTHING_TAPS)
 
+constexpr int kSmoothH = 64;      // smoothed outputs per tile (ops/frontend SMOOTH_TILE)
+constexpr int kSmoothW = 128;
+constexpr int kSmoothThreads = 256;
+constexpr int kSmoothRun = 8;     // outputs of a line per thread in a pass
+
 // The smoothing's taps, by value in the launch's parameters: the blur's
 // 2 r1 + 1, then the ridge Gaussian's 2 r2 + 1.
 struct Taps {
@@ -71,16 +86,215 @@ struct Taps {
 };
 
 // ---------------------------------------------------------------------------
+// Launch S: wrapped separable smoothing -> scratch plane
+// ---------------------------------------------------------------------------
+
+// Shared-memory layout of launch S for smoothing radii r1, r2, in 4-byte
+// words: X, the grey tile with its halo of r1 + r2 (rows xh, pitch xp), A,
+// the first pass's output (the blur along W: xh rows, pitch ap), and the
+// wrapped image row and column of each of X's rows and columns.  The second
+// pass (along H) writes into X, the third (along W) into A; the fourth
+// writes the plane.  Odd pitches: a warp's 32 rows of a row pass fall in 32
+// banks.
+struct LayoutS {
+  int r1, r2, xh, xw, xp, aw, ap, bh, bp;
+  __host__ __device__ LayoutS(int r1_, int r2_) {
+    r1 = r1_;
+    r2 = r2_;
+    xh = kSmoothH + 2 * (r1 + r2);
+    xw = kSmoothW + 2 * (r1 + r2);
+    xp = xw | 1;
+    aw = kSmoothW + 2 * r2;     // pass 1 and 2 outputs: columns
+    ap = aw | 1;
+    bh = kSmoothH + 2 * r2;     // pass 2 and 3 outputs: rows
+    bp = kSmoothW | 1;          // pass 3 output pitch
+  }
+  __host__ __device__ int a_off() const { return xh * xp; }
+  __host__ __device__ int gy_off() const { return a_off() + xh * ap; }
+  __host__ __device__ int gx_off() const { return gy_off() + xh; }
+  __host__ __device__ int words() const { return gx_off() + xw; }
+};
+
+// One smoothing pass over a rows x cols output region of shared memory:
+// out[y][x] = k[r] * c, then + k[r - i] * (c[-i] + c[+i]) for i = 1 .. r,
+// c the input centred on (y, x + r) along W or (y + r, x) along H (`in`
+// pitch ip, `out` pitch op).  R > 0: each task is a run of kSmoothRun
+// outputs of a line, its window of kSmoothRun + 2 R inputs loaded once into
+// registers (cols, for W, or rows, for H, a multiple of kSmoothRun); along W
+// a warp's tasks take consecutive rows, along H consecutive columns, so its
+// loads fall in 32 banks.  R == 0: the generic instantiation, radius r at run
+// time, one output per task read tap by tap from shared memory.
+template <int R, bool kAlongW>
+__device__ __forceinline__ void smooth_pass(const float* __restrict__ in, int ip, float* __restrict__ out, int op,
+                                            int rows, int cols, const float* __restrict__ k, int r) {
+  if constexpr (R > 0) {
+    constexpr int nv = kSmoothRun + 2 * R;
+    float kr[R + 1];
+#pragma unroll
+    for (int i = 0; i <= R; ++i) kr[i] = k[i];
+    const int lines = kAlongW ? rows : cols;
+    const int runs = (kAlongW ? cols : rows) / kSmoothRun;
+    for (int t = threadIdx.x; t < lines * runs; t += kSmoothThreads) {
+      const int line = t % lines;
+      const int p0 = (t / lines) * kSmoothRun;
+      const float* src = kAlongW ? in + line * ip + p0 : in + p0 * ip + line;
+      float* dst = kAlongW ? out + line * op + p0 : out + p0 * op + line;
+      const int step_in = kAlongW ? 1 : ip;
+      const int step_out = kAlongW ? 1 : op;
+      float v[nv];
+#pragma unroll
+      for (int i = 0; i < nv; ++i) v[i] = src[i * step_in];
+#pragma unroll
+      for (int o = 0; o < kSmoothRun; ++o) {
+        float acc = kr[R] * v[o + R];
+#pragma unroll
+        for (int i = 1; i <= R; ++i) acc = acc + kr[R - i] * (v[o + R - i] + v[o + R + i]);
+        dst[o * step_out] = acc;
+      }
+    }
+  } else {
+    // Tasks with the line index fastest (rows along W, columns along H),
+    // their coordinates stepped without a division per output.
+    const int step = kAlongW ? 1 : ip;
+    const int lines = kAlongW ? rows : cols;
+    int line = threadIdx.x % lines;
+    int pos = threadIdx.x / lines;
+    const int d_line = kSmoothThreads % lines;
+    const int d_pos = kSmoothThreads / lines;
+    for (int t = threadIdx.x; t < rows * cols; t += kSmoothThreads) {
+      const int y = kAlongW ? line : pos;
+      const int x = kAlongW ? pos : line;
+      const float* c = kAlongW ? in + y * ip + x + r : in + (y + r) * ip + x;
+      float acc = k[r] * c[0];
+      for (int i = 1; i <= r; ++i) acc = acc + k[r - i] * (c[-i * step] + c[i * step]);
+      out[y * op + x] = acc;
+      line += d_line;
+      pos += d_pos;
+      if (line >= lines) {
+        line -= lines;
+        ++pos;
+      }
+    }
+  }
+}
+
+// Asynchronous 4-byte copies from device to shared memory (cp.async): a
+// thread issues all of its share of a tile's loads before it waits, so a
+// tile's whole input is in flight at once.
+__device__ __forceinline__ void copy_async(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src));
+}
+
+__device__ __forceinline__ void copy_async_wait() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
+
+// The four passes of one tile: the grey tile with its halo, wrapped around
+// the image, then the blur (radius r1) along W and H and the ridge Gaussian
+// (r2) along W and H; the last pass writes the tile's smoothed pixels.
+// R1, R2 > 0: the radii at compile time; 0, 0: the generic instantiation.
+template <int R1, int R2>
+__global__ void __launch_bounds__(kSmoothThreads) smooth_tiles(const float* __restrict__ gray,
+                                                               float* __restrict__ smoothed, int h, int w,
+                                                               int r1, int r2, const __grid_constant__ Taps taps) {
+  static_assert(R1 == 0 || ((kSmoothW + 2 * R2) % kSmoothRun == 0 && (kSmoothH + 2 * R2) % kSmoothRun == 0 &&
+                            kSmoothH % kSmoothRun == 0 && kSmoothW % kSmoothRun == 0),
+                "the passes' regions must be whole runs");
+  extern __shared__ float smem_s[];
+  if constexpr (R1 > 0) {
+    r1 = R1;
+    r2 = R2;
+  }
+  const LayoutS L(r1, r2);
+  float* X = smem_s;
+  float* A = smem_s + L.a_off();
+  int* gys = (int*)(smem_s + L.gy_off());
+  int* gxs = (int*)(smem_s + L.gx_off());
+  const int y0 = blockIdx.y * kSmoothH;
+  const int x0 = blockIdx.x * kSmoothW;
+  const size_t plane = (size_t)h * w;
+  const float* g = gray + blockIdx.z * plane;
+  const int hz = r1 + r2;
+
+  // The halo tile, wrapped: each row's and column's image index once, then
+  // every thread on consecutive pixels of the tile, all copies in flight
+  // before the wait.
+  for (int i = threadIdx.x; i < L.xh; i += kSmoothThreads) gys[i] = ((y0 - hz + i) % h + h) % h * w;
+  for (int i = threadIdx.x; i < L.xw; i += kSmoothThreads) gxs[i] = ((x0 - hz + i) % w + w) % w;
+  __syncthreads();
+  {
+    const int n = L.xh * L.xw;
+    int row = threadIdx.x / L.xw;
+    int col = threadIdx.x % L.xw;
+    const int step_row = kSmoothThreads / L.xw;
+    const int step_col = kSmoothThreads % L.xw;
+#pragma unroll 4
+    for (int i = threadIdx.x; i < n; i += kSmoothThreads) {
+      copy_async(X + row * L.xp + col, g + gys[row] + gxs[col]);
+      row += step_row;
+      col += step_col;
+      if (col >= L.xw) {
+        col -= L.xw;
+        ++row;
+      }
+    }
+  }
+  copy_async_wait();
+  __syncthreads();
+  const float* k1 = taps.k;
+  const float* k2 = taps.k + 2 * r1 + 1;
+  smooth_pass<R1, true>(X, L.xp, A, L.ap, L.xh, L.aw, k1, r1);
+  __syncthreads();
+  smooth_pass<R1, false>(A, L.ap, X, L.ap, L.bh, L.aw, k1, r1);
+  __syncthreads();
+  smooth_pass<R2, true>(X, L.ap, A, L.bp, L.bh, kSmoothW, k2, r2);
+  __syncthreads();
+  // The last pass along H, from registers to the plane (outputs past the
+  // image are computed and dropped).
+  float* o = smoothed + blockIdx.z * plane;
+  if constexpr (R2 > 0) {
+    constexpr int nv = kSmoothRun + 2 * R2;
+    for (int t = threadIdx.x; t < kSmoothW * (kSmoothH / kSmoothRun); t += kSmoothThreads) {
+      const int col = t % kSmoothW;
+      const int row0 = (t / kSmoothW) * kSmoothRun;
+      const float* src = A + row0 * L.bp + col;
+      float v[nv];
+#pragma unroll
+      for (int i = 0; i < nv; ++i) v[i] = src[i * L.bp];
+      const int gx = x0 + col;
+      float kr[R2 + 1];
+#pragma unroll
+      for (int i = 0; i <= R2; ++i) kr[i] = k2[i];
+#pragma unroll
+      for (int q = 0; q < kSmoothRun; ++q) {
+        float acc = kr[R2] * v[q + R2];
+#pragma unroll
+        for (int i = 1; i <= R2; ++i) acc = acc + kr[R2 - i] * (v[q + R2 - i] + v[q + R2 + i]);
+        const int gy = y0 + row0 + q;
+        if (gy < h && gx < w) o[gy * w + gx] = acc;
+      }
+    }
+  } else {
+    static_assert(kSmoothThreads % kSmoothW == 0, "a stride of whole rows");
+    const int col = threadIdx.x % kSmoothW;
+    for (int row = threadIdx.x / kSmoothW; row < kSmoothH; row += kSmoothThreads / kSmoothW) {
+      const float* c = A + (row + r2) * L.bp + col;
+      float acc = k2[r2] * c[0];
+      for (int i = 1; i <= r2; ++i) acc = acc + k2[r2 - i] * (c[-i * L.bp] + c[i * L.bp]);
+      const int gy = y0 + row;
+      const int gx = x0 + col;
+      if (gy < h && gx < w) o[gy * w + gx] = acc;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // Launch A: smoothed -> binary (float plane and packed bits)
 // ---------------------------------------------------------------------------
 
-// Shared-memory layout of launch A for box size `box` and smoothing radii
-// r1, r2 (0, 0: no smoothing), in floats.  The smoothing's grey tile X
-// (xh x xw) and its first pass (xh x (xw - 2 r1)) alias M, R1 and R2, which
-// come into use after it.
+// Shared-memory layout of launch A for box size `box`, in floats.
 struct LayoutA {
-  int hs, rb, sh, sw, mh, mw, rw, r1, r2, xh, xw;
-  __host__ __device__ LayoutA(int box, int r1_, int r2_) {
+  int hs, rb, sh, sw, mh, mw, rw;
+  __host__ __device__ explicit LayoutA(int box) {
     rb = box / 2;
     hs = rb + 2;
     sh = kTileH + 2 * hs;
@@ -88,40 +302,13 @@ struct LayoutA {
     mh = kTileH + 2 * rb;
     mw = (kTileW + 2 * rb) | 1;  // odd strides: conflict-free column walks
     rw = kTileW + 1;
-    r1 = r1_;
-    r2 = r2_;
-    xh = sh + 2 * (r1 + r2);
-    xw = sw + 2 * (r1 + r2);
   }
-  __host__ __device__ bool smooth() const { return r1 + r2 > 0; }
   __host__ __device__ int s_off() const { return 0; }
   __host__ __device__ int m_off() const { return sh * sw; }
   __host__ __device__ int r1_off() const { return m_off() + mh * mw; }
   __host__ __device__ int r2_off() const { return r1_off() + mh * rw; }
-  __host__ __device__ int x_off() const { return m_off(); }
-  __host__ __device__ int a1_off() const { return x_off() + xh * xw; }
-  __host__ __device__ int floats() const {
-    int f = r2_off() + mh * rw;
-    return smooth() ? max(f, a1_off() + xh * (xw - 2 * r1)) : f;
-  }
+  __host__ __device__ int floats() const { return r2_off() + mh * rw; }
 };
-
-// One separable smoothing pass over a rows x cols output region of shared
-// memory: out[y][x] = k[r] * in[y + r dy][x + r dx], then
-// + k[r - i] * (in[.. - i] + in[.. + i]) for i = 1 .. r, along x (dx = 1)
-// or y (dx = 0); `in` has stride is, `out` stride os.
-__device__ __forceinline__ void smooth_pass(const float* in, int is, float* out, int os, int rows,
-                                            int cols, const float* k, int r, bool along_x) {
-  const int step = along_x ? 1 : is;
-  for (int i = threadIdx.x; i < rows * cols; i += blockDim.x) {
-    const int y = i / cols;
-    const int x = i % cols;
-    const float* c = in + (along_x ? y * is + x + r : (y + r) * is + x);
-    float acc = k[r] * c[0];
-    for (int t = 1; t <= r; ++t) acc = acc + k[r - t] * (c[-t * step] + c[t * step]);
-    out[y * os + x] = acc;
-  }
-}
 
 // Centred box sums of kRun consecutive outputs from the kRun + BOX - 1
 // values v[] of a line: out[k] sums v[k .. k + BOX).  pows[2m][i] =
@@ -157,10 +344,9 @@ __device__ __forceinline__ void box_run(const float (&v)[kRun + BOX - 1], float 
 template <int BOX>
 __global__ void __launch_bounds__(kThreadsA) binarize_tiles(
     const float* __restrict__ smoothed, float* __restrict__ binary, unsigned* __restrict__ bits,
-    int h, int w, int words, int margin, float k, float r, float min_contrast, int r1, int r2,
-    const Taps taps) {
+    int h, int w, int words, int margin, float k, float r, float min_contrast) {
   extern __shared__ float smem_a[];
-  const LayoutA L(BOX, r1, r2);
+  const LayoutA L(BOX);
   float* S = smem_a + L.s_off();
   float* M = smem_a + L.m_off();
   float* R1 = smem_a + L.r1_off();
@@ -171,39 +357,12 @@ __global__ void __launch_bounds__(kThreadsA) binarize_tiles(
   const size_t plane = (size_t)h * w;
   const float* s = smoothed + blockIdx.z * plane;
 
-  if (L.smooth()) {
-    // Grey tile with a halo of hs + r1 + r2, wrapped around the image, then
-    // the four passes; S holds the smoothed tile with its halo of hs
-    // (outside the image: the wrapped pixels' values).
-    float* X = smem_a + L.x_off();
-    float* A1 = smem_a + L.a1_off();
-    const int hz = L.hs + r1 + r2;
-    for (int i = tid; i < L.xh * L.xw; i += kThreadsA) {
-      int gy = (y0 - hz + i / L.xw) % h;
-      int gx = (x0 - hz + i % L.xw) % w;
-      gy += gy < 0 ? h : 0;
-      gx += gx < 0 ? w : 0;
-      X[i] = s[gy * w + gx];
-    }
-    __syncthreads();
-    const float* k5 = taps.k;
-    const float* k25 = taps.k + 2 * r1 + 1;
-    const int w1 = L.xw - 2 * r1;  // columns after the blur's pass along W
-    smooth_pass(X, L.xw, A1, w1, L.xh, w1, k5, r1, true);
-    __syncthreads();
-    smooth_pass(A1, w1, X, w1, L.xh - 2 * r1, w1, k5, r1, false);
-    __syncthreads();
-    smooth_pass(X, w1, A1, L.sw, L.sh + 2 * r2, L.sw, k25, r2, true);
-    __syncthreads();
-    smooth_pass(A1, L.sw, S, L.sw, L.sh, L.sw, k25, r2, false);
-  } else {
-    // Input tile with a halo of hs, zero outside the image.
+  // Input tile with a halo of hs, zero outside the image.
 #pragma unroll 4
-    for (int i = tid; i < L.sh * L.sw; i += kThreadsA) {
-      int gy = y0 - L.hs + i / L.sw;
-      int gx = x0 - L.hs + i % L.sw;
-      S[i] = (gy >= 0 && gy < h && gx >= 0 && gx < w) ? s[gy * w + gx] : 0.0f;
-    }
+  for (int i = tid; i < L.sh * L.sw; i += kThreadsA) {
+    int gy = y0 - L.hs + i / L.sw;
+    int gx = x0 - L.hs + i % L.sw;
+    S[i] = (gy >= 0 && gy < h && gx >= 0 && gx < w) ? s[gy * w + gx] : 0.0f;
   }
   __syncthreads();
 
@@ -540,42 +699,67 @@ __global__ void __launch_bounds__(kThreadsB) mask_tiles(
 template <int BOX>
 int launch_binarize(dim3 grid, int smem, cudaStream_t stream, const float* smoothed, float* binary,
                     unsigned* bits, int h, int w, int words, int margin, float k, float r,
-                    float min_contrast, int r1, int r2, const Taps& taps) {
-  if (smem != (int)(LayoutA(BOX, r1, r2).floats() * sizeof(float))) return (int)cudaErrorInvalidValue;
+                    float min_contrast) {
+  if (smem != (int)(LayoutA(BOX).floats() * sizeof(float))) return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(binarize_tiles<BOX>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
   binarize_tiles<BOX><<<grid, kThreadsA, smem, stream>>>(smoothed, binary, bits, h, w, words,
-                                                         margin, k, r, min_contrast, r1, r2, taps);
+                                                         margin, k, r, min_contrast);
+  CPE_CHECK_LAUNCH();
+  return 0;
+}
+
+template <int R1, int R2>
+int launch_smooth(dim3 grid, int smem, cudaStream_t stream, const float* gray, float* out, int h, int w,
+                  int r1, int r2, const Taps& taps) {
+  cudaError_t e = cudaFuncSetAttribute(smooth_tiles<R1, R2>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  smooth_tiles<R1, R2><<<grid, kSmoothThreads, smem, stream>>>(gray, out, h, w, r1, r2, taps);
   CPE_CHECK_LAUNCH();
   return 0;
 }
 
 }  // namespace
 
+// The preprocess kernel's own smoothing (pre_smoothed=False): (N, H, W)
+// float32 grey images in, the four wrapped passes out (same shape).  The
+// taps at `host_taps` (HOST memory: the 2 r1 + 1 blur taps, then the
+// 2 r2 + 1 ridge taps) are copied into the launch.  The wrapper's plan
+// (ops/frontend.smoothing_plan) passes the tile shape and the shared bytes;
+// they must equal this file's, or nothing launches.
+CPE_API int cpe_smooth_wrapped(const float* in, float* out, const float* host_taps, int n, int h, int w,
+                               int r1, int r2, int tile_h, int tile_w, int smem, cudaStream_t stream) {
+  const int n_taps = 2 * (r1 + r2) + 2;
+  if (tile_h != kSmoothH || tile_w != kSmoothW || r1 < 0 || r2 < 0 || n_taps > kMaxTaps || !host_taps ||
+      smem != (int)(LayoutS(r1, r2).words() * sizeof(float)))
+    return (int)cudaErrorInvalidValue;
+  if (n == 0) return 0;
+  Taps taps = {};
+  for (int i = 0; i < n_taps; ++i) taps.k[i] = host_taps[i];
+  dim3 grid((w + kSmoothW - 1) / kSmoothW, (h + kSmoothH - 1) / kSmoothH, n);
+  // The detector's radii (blur_ksize 5, ridge_sigma 3) at compile time;
+  // every other pair through the generic instantiation.
+  if (r1 == 2 && r2 == 12) return launch_smooth<2, 12>(grid, smem, stream, in, out, h, w, r1, r2, taps);
+  return launch_smooth<0, 0>(grid, smem, stream, in, out, h, w, r1, r2, taps);
+}
+
 // Outputs: binary, h_mask, v_mask, joints, joint_cnt, joint_peak (N, H, W)
-// float32.  Scratch: bits, (N, H, ceil(W / 32)) uint32.  The wrapper's plan
-// (ops/frontend.preprocess_plan) passes the tile shape and each launch's
-// shared bytes; they must equal this file's, or nothing launches.
-// r1, r2 > 0: `in` is the grey image, smoothed here with the taps at
-// `host_taps` (HOST memory: the 2 r1 + 1 blur taps, then the 2 r2 + 1 ridge
-// taps, copied into the launch); 0, 0: `in` is already smoothed.
+// float32 of the smoothed images `in` (cpe_smooth_wrapped's output, or the
+// caller's own smoothing).  Scratch: bits, (N, H, ceil(W / 32)) uint32.  The
+// wrapper's plan (ops/frontend.preprocess_plan) passes the tile shape and
+// each launch's shared bytes; they must equal this file's, or nothing
+// launches.
 CPE_API int cpe_preprocess_binarize(const float* in, float* binary, float* hmask,
                                     float* vmask, float* joints, float* jcnt, float* jpeak,
-                                    unsigned* bits, const float* host_taps, int n, int h, int w,
+                                    unsigned* bits, int n, int h, int w,
                                     int sauvola_window, int line_len, int margin, int joint_window,
                                     int joint_peak_iters, int key_shift, int tile_h, int tile_w,
-                                    int smem_a, int smem_b, int r1, int r2, float sauvola_k,
+                                    int smem_a, int smem_b, float sauvola_k,
                                     float sauvola_r, float min_contrast, cudaStream_t stream) {
   if (tile_h != kTileH || tile_w != kTileW || line_len < 1 || line_len > 32 ||
-      joint_peak_iters < 0 || joint_peak_iters + joint_window / 2 > 32 || r1 < 0 || r2 < 0)
+      joint_peak_iters < 0 || joint_peak_iters + joint_window / 2 > 32)
     return (int)cudaErrorInvalidValue;
-  Taps taps = {};
-  if (r1 + r2 > 0) {
-    const int n_taps = 2 * (r1 + r2) + 2;
-    if (n_taps > kMaxTaps || !host_taps) return (int)cudaErrorInvalidValue;
-    for (int i = 0; i < n_taps; ++i) taps.k[i] = host_taps[i];
-  }
   const int words = (w + 31) / 32;
   dim3 grid((w + kTileW - 1) / kTileW, (h + kTileH - 1) / kTileH, n);
   int rc;
@@ -583,7 +767,7 @@ CPE_API int cpe_preprocess_binarize(const float* in, float* binary, float* hmask
 #define CPE_BOX(B)                                                                          \
   case B:                                                                                   \
     rc = launch_binarize<B>(grid, smem_a, stream, in, binary, bits, h, w, words, margin,    \
-                            sauvola_k, sauvola_r, min_contrast, r1, r2, taps);              \
+                            sauvola_k, sauvola_r, min_contrast);                            \
     break;
     CPE_BOX(1) CPE_BOX(3) CPE_BOX(5) CPE_BOX(7) CPE_BOX(9) CPE_BOX(11) CPE_BOX(13) CPE_BOX(15)
 #undef CPE_BOX

@@ -16,9 +16,9 @@ hand-written CUDA kernel from ``csrc/`` (built at first use, see
 ``launch_counts()`` holds, per kernel, the number of wrapper calls that
 launched the CUDA kernel (plain runs do not count), the bridge's calls
 per route (``bridge_morphology.cluster``, ``.split``, ``.global``), the
-preprocess calls that smoothed in the kernel
-(``preprocess_binarize.smoothing``) and the CC calls with a capped scan
-per route (``connected_components.capped.cluster``, ``.band``).
+smoothing launches of the preprocess kernel (``preprocess_binarize.smoothing``)
+and the CC calls with a capped scan, all on the band route
+(``connected_components.capped.band``).
 """
 
 from __future__ import annotations
@@ -44,9 +44,8 @@ _LAUNCHES: Dict[str, int] = {
     "bridge_morphology.global": 0,
     # The branches inside two of them: the preprocess kernel's own smoothing
     # (``pre_smoothed=False``), and the CC kernel's capped scans
-    # (``cap_axis``/``cap``) by route.
+    # (``cap_axis``/``cap``), which take the large-frame (band) route.
     "preprocess_binarize.smoothing": 0,
-    "connected_components.capped.cluster": 0,
     "connected_components.capped.band": 0,
 }
 
@@ -151,6 +150,16 @@ def _sep_conv_roll(x: torch.Tensor, k: Tuple[float, ...], dim: int) -> torch.Ten
     return out
 
 
+def wrapped_smoothing_plain(gray: torch.Tensor, blur_ksize: int = 5, ridge_sigma: float = 3.0) -> torch.Tensor:
+    """Plain version of the preprocess kernel's own smoothing on (N, H, W)
+    float32 grey images: the ``blur_ksize`` Gaussian along W, then H, then
+    the ``ridge_sigma`` Gaussian along W, then H, each wrapping around the
+    image (``_sep_conv_roll``)."""
+    k5, k25 = smoothing_taps(blur_ksize, ridge_sigma)
+    s = _sep_conv_roll(_sep_conv_roll(gray.to(torch.float32), k5, 2), k5, 1)
+    return _sep_conv_roll(_sep_conv_roll(s, k25, 2), k25, 1)
+
+
 def preprocess_binarize_plain(
     gray: torch.Tensor,
     blur_ksize: int = 5,
@@ -171,11 +180,7 @@ def preprocess_binarize_plain(
     then the ``ridge_sigma`` Gaussian along W, then H, each wrapping around
     the image.  Returns (binary, h_mask, v_mask, joints, joint_cnt,
     joint_peak), all float32 (N, H, W)."""
-    s = gray.to(torch.float32)
-    if not pre_smoothed:
-        k5, k25 = smoothing_taps(blur_ksize, ridge_sigma)
-        s = _sep_conv_roll(_sep_conv_roll(s, k5, 2), k5, 1)
-        s = _sep_conv_roll(_sep_conv_roll(s, k25, 2), k25, 1)
+    s = gray.to(torch.float32) if pre_smoothed else wrapped_smoothing_plain(gray, blur_ksize, ridge_sigma)
     _, h, w = s.shape
     dev = s.device
     rows = torch.arange(h, device=dev)[:, None]
@@ -242,8 +247,10 @@ def preprocess_reach(sauvola_window: int = 15, line_len: int = 20, joint_window:
     return max(2 + sauvola_window // 2, 2 * (line_len - 1 - a), joint_window // 2 + 1)
 
 
-# Output tile of both preprocess launches (csrc/preprocess.cu kTileH, kTileW).
+# Output tile of the two preprocess launches (csrc/preprocess.cu kTileH,
+# kTileW) and of the smoothing launch (kSmoothH, kSmoothW).
 PREPROCESS_TILE = (32, 64)
+SMOOTH_TILE = (64, 128)
 
 
 # Taps the preprocess kernel's smoothing takes (csrc/preprocess.cu kMaxTaps).
@@ -251,44 +258,63 @@ MAX_SMOOTHING_TAPS = 64
 
 
 @functools.lru_cache(maxsize=64)
+def smoothing_plan(n: int, h: int, w: int, smooth: Tuple[int, int] = (2, 12)) -> Dict[str, object]:
+    """Launch plan of the preprocess kernel's own smoothing (``smooth``: the
+    blur's and the ridge Gaussian's radii): one launch over (image, tile row,
+    tile column) blocks of ``SMOOTH_TILE`` outputs; each loads its grey tile
+    with a halo of r1 + r2, wrapped around the image, and runs the four
+    passes in shared memory (csrc/preprocess.cu ``LayoutS``: the halo tile,
+    the first pass's output, the wrapped row and column indices).  The shared
+    bytes mirror the kernel's layout (it refuses other values).  Raises
+    ``ValueError`` for radii the kernel does not take.  Cached: treat the
+    returned dict as read-only."""
+    r1, r2 = smooth
+    if r1 < 0 or r2 < 0 or 2 * (r1 + r2) + 2 > MAX_SMOOTHING_TAPS:
+        raise ValueError(f"smoothing radii {smooth}: at most {MAX_SMOOTHING_TAPS} taps in all")
+    if n * h * w >= 2**31:
+        raise ValueError(f"{n}x{h}x{w} pixels overflow the kernel's 32-bit plane index")
+    th, tw = SMOOTH_TILE
+    halo = r1 + r2
+    xh, xw = th + 2 * halo, tw + 2 * halo
+    words = xh * (xw | 1) + xh * ((tw + 2 * r2) | 1) + xh + xw
+    plan = {"tile": (th, tw), "grid": (-(-w // tw), -(-h // th), n), "halo": halo, "smooth": (r1, r2),
+            "smem": 4 * words}
+    if plan["smem"] > kernels.MAX_DYNAMIC_SMEM:
+        raise ValueError(f"smoothing: {plan['smem']} B of shared memory (max {kernels.MAX_DYNAMIC_SMEM})")
+    return plan
+
+
+@functools.lru_cache(maxsize=64)
 def preprocess_plan(
     n: int, h: int, w: int, sauvola_window: int = 15, line_len: int = 20,
-    joint_window: int = 11, joint_peak_iters: int = 8, smooth: Tuple[int, int] = (0, 0),
+    joint_window: int = 11, joint_peak_iters: int = 8,
 ) -> Dict[str, object]:
     """Launch plan of the preprocess kernel: two launches over the same grid
     of (image, tile row, tile column) blocks.  Launch A (binarize) loads the
     tile with a halo of 2 + window // 2; launch B (masks, count, peak) loads
     the bit-packed binary with the openings' and the peak rounds' halos.
-    ``smooth``: the radii of the two Gaussian passes of the in-kernel
-    smoothing ((0, 0): the input is already smoothed); launch A then loads
-    the grey tile with their sum added to its halo, wrapped around the
-    image, and smooths it in shared memory first.  The shared bytes mirror
-    the kernel's layouts (it refuses other values).  Raises ``ValueError``
-    for parameters the kernel does not take.  Cached: treat the returned
-    dict as read-only."""
+    Both run on a smoothed image (the kernel's own smoothing is a launch
+    before them, ``smoothing_plan``).  The shared bytes mirror the kernel's
+    layouts (it refuses other values).  Raises ``ValueError`` for
+    parameters the kernel does not take.  Cached: treat the returned dict
+    as read-only."""
     if sauvola_window % 2 != 1 or joint_window % 2 != 1 or sauvola_window > 15 or joint_window > 15:
         raise ValueError("box windows must be odd and at most 15")
     if not 1 <= line_len <= 32:
         raise ValueError(f"line_len must lie in [1, 32], got {line_len}")
     if joint_peak_iters < 0 or joint_peak_iters + joint_window // 2 > 32:
         raise ValueError("joint_peak_iters + joint_window // 2 must lie in [0, 32]")
-    r1, r2 = smooth
-    if r1 < 0 or r2 < 0 or (r1 or r2) and 2 * (r1 + r2) + 2 > MAX_SMOOTHING_TAPS:
-        raise ValueError(f"smoothing radii {smooth}: at most {MAX_SMOOTHING_TAPS} taps in all")
     if n * h * w >= 2**31:
         raise ValueError(f"{n}x{h}x{w} pixels overflow the kernel's 32-bit plane index")
     th, tw = PREPROCESS_TILE
     tile_words = tw // 32
     # Launch A (floats): input + halo, minima + halo (odd stride), 2 row-sum
-    # planes; smoothing: the grey tile and its first pass alias the last three.
+    # planes.
     rb = sauvola_window // 2
     hs = rb + 2
     mh, mw, rw = th + 2 * rb, (tw + 2 * rb) | 1, tw + 1
     sh, sw = th + 2 * hs, tw + 2 * hs
     floats_a = sh * sw + mh * mw + 2 * mh * rw
-    if r1 or r2:
-        xh, xw = sh + 2 * (r1 + r2), sw + 2 * (r1 + r2)
-        floats_a = max(floats_a, sh * sw + xh * xw + xh * (xw - 2 * r1))
     # Launch B (32-bit words): binary bits, row erosion, 3 word planes, row
     # counts, counts, two key planes and the joint count.
     a = (line_len - 1) // 2
@@ -302,8 +328,7 @@ def preprocess_plan(
         "launches": 2,
         "tile": (th, tw),
         "grid": (-(-w // tw), -(-h // th), n),
-        "halo_a": hs + r1 + r2,
-        "smooth": (r1, r2),
+        "halo_a": hs,
         "halo_b_rows": (rj + up, rj + down),
         "halo_b_cols": (rj, rj),
         "bit_words": -(-w // 32),
@@ -314,6 +339,27 @@ def preprocess_plan(
         if plan[key] > kernels.MAX_DYNAMIC_SMEM:
             raise ValueError(f"{key}: {plan[key]} B of shared memory (max {kernels.MAX_DYNAMIC_SMEM})")
     return plan
+
+
+def wrapped_smoothing(gray: torch.Tensor, blur_ksize: int = 5, ridge_sigma: float = 3.0) -> torch.Tensor:
+    """The preprocess kernel's own smoothing on (N, H, W) float32 grey
+    images (see ``wrapped_smoothing_plain``): on the card one launch
+    (``smoothing_plan``) into a new plane, counted as
+    ``preprocess_binarize.smoothing``."""
+    if not _route(gray):
+        return wrapped_smoothing_plain(gray, blur_ksize, ridge_sigma)
+    _check("gray", gray, torch.float32, 3)
+    taps = smoothing_taps(blur_ksize, ridge_sigma)
+    n, h, w = gray.shape
+    plan = smoothing_plan(n, h, w, tuple(len(k) // 2 for k in taps))
+    out = torch.empty_like(gray)
+    # The taps stay on the host: the C entry copies them into the launch's
+    # parameters.
+    host_taps = torch.tensor([t for k in taps for t in k], dtype=torch.float32)
+    kernels.launch("cpe_smooth_wrapped", [gray, out, host_taps], [n, h, w, *plan["smooth"], *plan["tile"], plan["smem"]],
+                   [])
+    _LAUNCHES["preprocess_binarize.smoothing"] += 1
+    return out
 
 
 def preprocess_binarize(
@@ -345,29 +391,23 @@ def preprocess_binarize(
     if margin < reach:
         raise ValueError(f"margin {margin} is below the stencil reach {reach}: the kernel's zero "
                          "halo and the plain version's wrap-around would differ")
-    taps = () if pre_smoothed else smoothing_taps(blur_ksize, ridge_sigma)
     if not _route(gray):
         return preprocess_binarize_plain(gray, **args)
     _check("gray", gray, torch.float32, 3)
     n, h, w = gray.shape
-    smooth = tuple(len(k) // 2 for k in taps) or (0, 0)
-    plan = preprocess_plan(n, h, w, sauvola_window, line_len, joint_window, joint_peak_iters, smooth)
+    plan = preprocess_plan(n, h, w, sauvola_window, line_len, joint_window, joint_peak_iters)
+    smoothed = gray if pre_smoothed else wrapped_smoothing(gray, blur_ksize, ridge_sigma)
     shift = peak_key_shift(h, w, joint_window)
     outs = torch.empty((6,) + gray.shape, dtype=torch.float32, device=gray.device).unbind(0)
     bits = torch.empty((n, h, plan["bit_words"]), dtype=torch.int32, device=gray.device)
-    # The taps stay on the host: the C entry copies them into the launch's
-    # parameters.
-    host_taps = torch.tensor([t for k in taps for t in k], dtype=torch.float32) if taps else None
     kernels.launch(
         "cpe_preprocess_binarize",
-        [gray, *outs, bits, host_taps],
+        [smoothed, *outs, bits],
         [n, h, w, sauvola_window, line_len, margin, joint_window, joint_peak_iters, shift,
-         *plan["tile"], plan["smem_a"], plan["smem_b"], *smooth],
+         *plan["tile"], plan["smem_a"], plan["smem_b"]],
         [sauvola_k, sauvola_r, min_contrast],
     )
     _LAUNCHES["preprocess_binarize"] += 1
-    if taps:
-        _LAUNCHES["preprocess_binarize.smoothing"] += 1
     return tuple(outs)
 
 
@@ -468,6 +508,16 @@ def connected_components_plain(
 CLUSTER_SIZES = (1, 2, 4, 8)
 
 
+# The capped scans of the large-frame route (csrc/connected_components.cu):
+# along W one in-place pass of the band kernel's rows up to
+# CAPPED_ROW_REACH; along H a streamed column pass (cc_capped_cols_stream,
+# strips of CAPPED_STREAM_ROWS rows) up to CAPPED_STREAM_REACH.  Past them a
+# walk per pixel, along W into a second band buffer.
+CAPPED_ROW_REACH = 31
+CAPPED_STREAM_REACH = 15
+CAPPED_STREAM_ROWS = 64
+
+
 @functools.lru_cache(maxsize=64)
 def cc_plan(n: int, h: int, w: int, channels: int = 1, pools_per_round: int = 4, cap_axis: int = -1,
             cap: int = 0) -> Dict[str, object]:
@@ -479,35 +529,41 @@ def cc_plan(n: int, h: int, w: int, channels: int = 1, pools_per_round: int = 4,
     do not hold a mask, the large-frame route (``_band_plan``):
     ``{"route": "global", ...}``, rows in bands.  ``pools_per_round`` only
     shapes the global plan.  A capped scan (``cap_axis``, ``cap``; labels
-    only) that does not cover every run adds its axis and reach
-    (``cap_reach``) to the plan as ``"cap_axis"`` and ``"cap_reach"``.
-    Raises ``ValueError`` where the labels overflow 32 bits.  Cached: treat
-    the returned dict as read-only."""
+    only) that does not cover every run takes the large-frame route at every
+    size (on the detector's masks it is the faster route for those calls,
+    PERF.md section 6): the plan adds its axis and reach (``cap_reach``) as
+    ``"cap_axis"`` and ``"cap_reach"``, and along H the streamed column
+    pass's ``"cap_strip"`` rows; along W past ``CAPPED_ROW_REACH`` the bands
+    keep a second buffer for the walk.  Raises ``ValueError`` where the
+    labels overflow 32 bits.  Cached: treat the returned dict as
+    read-only."""
     if channels not in (1, 2):
         raise ValueError(f"channels must be 1 or 2, got {channels}")
     _check_cap(cap_axis, cap)
     if n * h * w >= 2**31:
         raise ValueError(f"{n}x{h}x{w} labels overflow the kernel's 32-bit index")
     reach = cap_reach((h, w)[cap_axis], cap) if cap_axis >= 0 else -1
-    if reach >= 0 and channels != 1:
-        raise ValueError("the capped scan takes labels only (1 channel)")
-    capped = {"cap_axis": cap_axis, "cap_reach": reach} if reach >= 0 else {}
+    if reach >= 0:
+        if channels != 1:
+            raise ValueError("the capped scan takes labels only (1 channel)")
+        strip = {"cap_strip": min(CAPPED_STREAM_ROWS, h)} if cap_axis == 0 else {}
+        walk = cap_axis == 1 and reach > CAPPED_ROW_REACH
+        return {**_band_plan(n, h, w, channels, pools_per_round, walk), "cap_axis": cap_axis, "cap_reach": reach,
+                **strip}
     for c in CLUSTER_SIZES:
         rows = -(-h // c)
         smem = 4 * (2 * channels * rows * w + (2 * channels + 1) * w)
         if smem <= kernels.MAX_DYNAMIC_SMEM and (c - 1) * rows < h:
-            return {"cluster": c, "rows_per_cta": rows, "smem": smem, "ctas": c * n, **capped}
-    return {**_band_plan(n, h, w, channels, pools_per_round, two_buffers=bool(capped) and cap_axis == 1),
-            **capped}
+            return {"cluster": c, "rows_per_cta": rows, "smem": smem, "ctas": c * n}
+    return _band_plan(n, h, w, channels, pools_per_round)
 
 
 def _band_plan(n: int, h: int, w: int, channels: int, pools: int, two_buffers: bool = False) -> Dict[str, object]:
     """The global route's plan (csrc/connected_components.cu ``cc_band``):
     one CTA per (mask, band of ``band_rows`` rows), holding per channel two
     Jacobi buffers of the band plus a halo of ``pools`` rows on each side
-    (one buffer without pools, unless ``two_buffers``: the capped row scan
-    writes the second), the bands as tall as shared memory allows and
-    evened out over H.  ``fused``: the pools run inside the band kernel;
+    (one buffer without pools, unless ``two_buffers``: a capped walk along
+    W), the bands as tall as shared memory allows and evened out over H.  ``fused``: the pools run inside the band kernel;
     where that leaves bands of fewer than max(pools, 1) rows, they run as
     device-memory passes and the band kernel holds no halo.
     ``scratch_ints``: a state plane per channel, then the edge tables (per
@@ -540,14 +596,14 @@ def cc_global_launches(rounds: int, pools_per_round: int, fused: bool = True) ->
 
 
 def _cc_global(name: str, mask: torch.Tensor, src, outs, rounds: int, pools_per_round: int,
-               plan: Dict[str, object], cap=(-1, -1)) -> None:
-    """Launch the global route ``name`` with its scratch (``_band_plan``);
-    ``cap``: the capped scan's (axis, reach), (-1, -1) for none."""
+               plan: Dict[str, object]) -> None:
+    """Launch the global route ``name`` with its scratch (``_band_plan``) and
+    the plan's capped scan, if any (``cc_plan``)."""
     n, h, w = mask.shape
     scratch = torch.empty(plan["scratch_ints"], dtype=torch.int32, device=mask.device)
     kernels.launch(name, [mask, src, *outs, scratch],
                    [n, h, w, rounds, pools_per_round, plan["band_rows"], int(plan["fused"]), plan["smem"],
-                    *cap], [])
+                    plan.get("cap_axis", -1), plan.get("cap_reach", -1), plan.get("cap_strip", 0)], [])
 
 
 def connected_components(
@@ -573,22 +629,19 @@ def connected_components(
         if init_labels.shape != mask.shape:
             raise ValueError("init_labels must have the mask's shape")
     plan = cc_plan(n, h, w, pools_per_round=pools_per_round, cap_axis=cap_axis, cap=cap)
-    capped = (plan.get("cap_axis", -1), plan.get("cap_reach", -1))
     out = torch.empty(mask.shape, dtype=torch.int32, device=mask.device)
-    route = "band" if plan.get("route") == "global" else "cluster"
-    if route == "band":
-        _cc_global("cpe_connected_components_global", mask, init_labels, [out], rounds, pools_per_round, plan,
-                   capped)
+    if plan.get("route") == "global":
+        _cc_global("cpe_connected_components_global", mask, init_labels, [out], rounds, pools_per_round, plan)
     else:
         kernels.launch(
             "cpe_connected_components",
             [mask, init_labels, out],
-            [n, h, w, rounds, pools_per_round, plan["cluster"], plan["rows_per_cta"], plan["smem"], *capped],
+            [n, h, w, rounds, pools_per_round, plan["cluster"], plan["rows_per_cta"], plan["smem"]],
             [],
         )
     _LAUNCHES["connected_components"] += 1
     if "cap_axis" in plan:
-        _LAUNCHES[f"connected_components.capped.{route}"] += 1
+        _LAUNCHES["connected_components.capped.band"] += 1
     return out
 
 
@@ -1012,7 +1065,8 @@ def min_bytes(name: str, n: int, h: int, w: int, warm: bool = False, itemsize: i
 
 __all__ = [
     "preprocess_binarize", "preprocess_binarize_plain", "preprocess_plan", "preprocess_reach",
-    "smoothing_taps", "connected_components", "connected_components_plain", "cc_plan", "cap_reach",
+    "smoothing_taps", "smoothing_plan", "wrapped_smoothing", "wrapped_smoothing_plain",
+    "connected_components", "connected_components_plain", "cc_plan", "cap_reach",
     "cc_global_launches", "min_bytes",
     "bridge_morphology", "bridge_morphology_plain", "bridge_schedule", "bridge_schedule_size",
     "bridge_plan", "bridge_split_smem", "bridge_global_launches",

@@ -42,12 +42,13 @@ NVCC_FLAGS = [
 MAX_DYNAMIC_SMEM = 232448
 # C entry points: (tensor pointers, ints, floats), then the CUDA stream.
 SIGNATURES = {
-    "cpe_preprocess_binarize": (9, 15, 3),
-    "cpe_connected_components": (3, 10, 0),
+    "cpe_smooth_wrapped": (3, 8, 0),
+    "cpe_preprocess_binarize": (8, 13, 3),
+    "cpe_connected_components": (3, 8, 0),
     "cpe_bridge_morphology": (6, 10, 0),
     "cpe_component_payload_minmax": (4, 8, 0),
-    "cpe_connected_components_global": (4, 10, 0),
-    "cpe_component_payload_minmax_global": (5, 10, 0),
+    "cpe_connected_components_global": (4, 11, 0),
+    "cpe_component_payload_minmax_global": (5, 11, 0),
     "cpe_bridge_morphology_global": (7, 7, 0),
     "cpe_bridge_morphology_split": (6, 10, 0),
 }

@@ -480,10 +480,11 @@ def test_cc_band_rows_equal_plain(dev, band_rows, fused):
                 for start in (None, init):
                     tf._cc_global("cpe_connected_components_global", m, start, outs, rounds, pools, plan)
                     _equal(outs[0], tf.connected_components_plain(m, rounds, pools, start))
-                for cap_axis in (0, 1):  # cap 3 reaches 3 px; along W the band keeps two buffers
-                    capped = dict(plan, smem=4 * (2 if kp or cap_axis == 1 else 1) * (band_rows + 2 * kp) * w)
-                    tf._cc_global("cpe_connected_components_global", m, init, outs, rounds, pools, capped,
-                                  (cap_axis, tf.cap_reach((h, w)[cap_axis], 3)))
+                for cap_axis in (0, 1):  # cap 3 reaches 3 px
+                    reach = tf.cap_reach((h, w)[cap_axis], 3)
+                    capped = dict(plan, cap_axis=cap_axis, cap_reach=reach,
+                                  **({"cap_strip": min(tf.CAPPED_STREAM_ROWS, h)} if cap_axis == 0 else {}))
+                    tf._cc_global("cpe_connected_components_global", m, init, outs, rounds, pools, capped)
                     _equal(outs[0], tf.connected_components_plain(m, rounds, pools, init, cap_axis, 3))
             else:
                 tf._cc_global("cpe_component_payload_minmax_global", m, pay, outs, rounds, pools, plan)
@@ -672,6 +673,32 @@ def test_preprocess_in_kernel_smoothing_other_taps(dev, blur_ksize, ridge_sigma)
     _equal(tf.preprocess_binarize(x, **kw), tf.preprocess_binarize_plain(x, **kw))
 
 
+@pytest.mark.parametrize("shape", [(2, 40, 64), (1, 65, 129), (3, 130, 200), (2, 488, 648), (1, 720, 1280)])
+@pytest.mark.parametrize("blur_ksize, ridge_sigma", [(5, 3.0), (3, 1.5), (7, 5.0), (3, 5.0), (7, 1.5)])
+def test_smoothing_kernel_equals_four_rolls(dev, shape, blur_ksize, ridge_sigma):
+    """The smoothing launch alone (the detector's radii 2 and 12 compiled in,
+    other radii through the generic instantiation), at shapes that are not
+    multiples of its 64 x 128 tile and smaller than its halo: torch.equal
+    to _sep_conv_roll along W, H, W, H."""
+    x = _grey_grid(*shape, seed=sum(shape) + blur_ksize).to(dev)
+    k5, k25 = tf.smoothing_taps(blur_ksize, ridge_sigma)
+    want = tf._sep_conv_roll(tf._sep_conv_roll(x, k5, 2), k5, 1)
+    want = tf._sep_conv_roll(tf._sep_conv_roll(want, k25, 2), k25, 1)
+    before = tf.launch_counts()
+    _equal(tf.wrapped_smoothing(x, blur_ksize, ridge_sigma), want)
+    after = tf.launch_counts()
+    assert after["preprocess_binarize.smoothing"] == before["preprocess_binarize.smoothing"] + 1
+    assert after["preprocess_binarize"] == before["preprocess_binarize"]
+
+
+def test_preprocess_with_the_smoothing_device_kernels(dev):
+    """pre_smoothed=False launches three device kernels a call (the
+    smoothing, then launches A and B on its plane), pre_smoothed=True two."""
+    x = _grey_grid(4, 240, 320, seed=7).to(dev)
+    calls = [lambda: tf.preprocess_binarize(x, margin=24), lambda: tf.preprocess_binarize(x, margin=24, pre_smoothed=True)]
+    assert _device_kernels_per_call(calls) == [3, 2]
+
+
 def _cross_cap_masks(n, h, w, seed):
     """Wavy 2-px lines along W and H, blobs thicker than the caps, random
     pixels: tests/test_pallas.py's cross-cap mask and its transpose among
@@ -696,21 +723,25 @@ def _cross_cap_masks(n, h, w, seed):
 @pytest.mark.parametrize("cap", [1, 2, 3, 10, 16])
 @pytest.mark.parametrize("cap_axis", [0, 1])
 @pytest.mark.parametrize("hw", [(240, 384), (128, 256), (96, 256)])
-def test_cc_capped_cluster_route_equals_plain(dev, hw, cap_axis, cap):
-    """The capped scan on the cluster route (across its CTA splits), cold
-    and warm, at several round schedules; counted per route."""
+def test_cc_capped_at_cluster_route_shapes_equals_plain(dev, hw, cap_axis, cap):
+    """The capped scan at shapes whose uncapped calls take the cluster route
+    (with masks that cross every CTA split): the capped calls take the band
+    route there, cold and warm, at several round schedules; counted on the
+    band route."""
     h, w = hw
+    assert "cluster" in tf.cc_plan(4, h, w)
     plan = tf.cc_plan(4, h, w, cap_axis=cap_axis, cap=cap)
-    assert "cluster" in plan and plan["cap_reach"] == tf.cap_reach((h, w)[cap_axis], cap)
-    m = torch.cat([_cross_cap_masks(2, h, w, cap), _cluster_masks(h, w, plan["rows_per_cta"])[:2]]).to(dev)
+    assert plan["route"] == "global" and plan["cap_reach"] == tf.cap_reach((h, w)[cap_axis], cap)
+    m = torch.cat([_cross_cap_masks(2, h, w, cap), _cluster_masks(h, w, tf.cc_plan(4, h, w)["rows_per_cta"])[:2]])
+    m = m.to(dev)
     g = torch.Generator().manual_seed(h + cap)
     init = torch.randint(0, 2 * h * w, m.shape, generator=g, dtype=torch.int32).to(dev)
     for rounds, pools in ((1, 2), (2, 2), (3, 1), (24, 2)):
         for start in (None, init):
-            before = tf.launch_counts()["connected_components.capped.cluster"]
+            before = tf.launch_counts()["connected_components.capped.band"]
             _equal(tf.connected_components(m, rounds, pools, start, cap_axis=cap_axis, cap=cap),
                    tf.connected_components_plain(m, rounds, pools, start, cap_axis=cap_axis, cap=cap))
-            assert tf.launch_counts()["connected_components.capped.cluster"] == before + 1
+            assert tf.launch_counts()["connected_components.capped.band"] == before + 1
 
 
 @pytest.mark.parametrize("cap", [1, 3, 16])
@@ -734,15 +765,70 @@ def test_cc_capped_band_route_equals_plain(dev, shape, pools, cap_axis, cap):
             assert tf.launch_counts()["connected_components.capped.band"] == before + 1
 
 
+# Capped calls at shapes a cluster holds, reach past the band rows at cap 64
+# along H ((96, 256): one band of 96 rows) and reaches past a warp along W.
+CLUSTER_SIZE_CAP_CASES = [((h, w), a, c) for h, w in ((504, 200), (120, 700), (96, 256)) for a in (0, 1)
+                          for c in (1, 2, 3, 10, 16, 64)]
+
+
+@pytest.mark.parametrize("hw, cap_axis, cap", CLUSTER_SIZE_CAP_CASES)
+def test_cc_capped_at_cluster_sizes_equals_plain(dev, hw, cap_axis, cap):
+    """Capped calls where an uncapped one takes the cluster route: the band
+    route, cold and warm, torch.equal to plain."""
+    h, w = hw
+    plan = tf.cc_plan(2, h, w, pools_per_round=2, cap_axis=cap_axis, cap=cap)
+    assert plan["route"] == "global"
+    m = torch.cat([_cross_cap_masks(1, h, w, cap), _cluster_masks(h, w, 16)[:1]]).to(dev)
+    g = torch.Generator().manual_seed(h + cap)
+    init = torch.randint(0, 2 * h * w, m.shape, generator=g, dtype=torch.int32).to(dev)
+    for rounds, pools in ((1, 2), (2, 2), (5, 1)):
+        for start in (None, init):
+            _equal(tf.connected_components(m, rounds, pools, start, cap_axis=cap_axis, cap=cap),
+                   tf.connected_components_plain(m, rounds, pools, start, cap_axis=cap_axis, cap=cap))
+
+
+# Band-route calls at caps the other band test leaves out: along H the
+# streamed column pass (strips of 64 rows) up to cap 16 and the walk past
+# it, at cap 256 past the strip and, on the 360-row canvas of 720x1280,
+# past most of the mask; along W one in-place row pass up to cap 32 and the
+# walk into a second band buffer past it.  (2, 240, 384) is a shape of the
+# cluster route.
+BAND_CAP_CASES = ([((2, 480, 640), 2, a, c) for a in (0, 1) for c in (2, 10, 64, 256)]
+                  + [((2, 300, 1200), 0, a, c) for a in (0, 1) for c in (10, 64)] + [((2, 240, 384), 2, 0, 64)]
+                  + [((2, 360, 640), 2, 0, 256)])
+
+
+@pytest.mark.parametrize("shape, pools, cap_axis, cap", BAND_CAP_CASES)
+def test_cc_capped_band_route_reach_past_the_strip(dev, shape, pools, cap_axis, cap):
+    """The band route's capped passes, reach past the strip included; cold
+    and warm, torch.equal to plain."""
+    n, h, w = shape
+    plan = tf.cc_plan(n, h, w, pools_per_round=pools, cap_axis=cap_axis, cap=cap)
+    assert plan["route"] == "global"
+    if cap_axis == 0:  # streamed strips of 64 rows up to reach 15, a walk past it
+        assert plan["cap_strip"] == 64 and (cap > 64) == (plan["cap_reach"] >= plan["cap_strip"])
+    m = _cross_cap_masks(n, h, w, cap).to(dev)
+    g = torch.Generator().manual_seed(w + cap)
+    init = torch.randint(0, 2 * h * w, m.shape, generator=g, dtype=torch.int32).to(dev)
+    for rounds in (1, 2, 3):
+        for start in (None, init):
+            before = tf.launch_counts()["connected_components.capped.band"]
+            _equal(tf.connected_components(m, rounds, pools, start, cap_axis=cap_axis, cap=cap),
+                   tf.connected_components_plain(m, rounds, pools, start, cap_axis=cap_axis, cap=cap))
+            assert tf.launch_counts()["connected_components.capped.band"] == before + 1
+
+
 def test_cc_capped_band_route_device_kernels(dev):
     """A capped call on the band route launches the band route's count of
-    device kernels (the capped column pass takes the fix's place)."""
+    device kernels (along H the capped column pass, streamed or walking,
+    takes the fix's place)."""
     from cylinder_pose_estimation_tpu_torch.utils import profiling
 
     m = _cross_cap_masks(2, 480, 640, 0).to(dev)
     for cap_axis in (0, 1):
-        n_dev, _ = profiling.graph_kernels(lambda: tf.connected_components(m, 2, 2, cap_axis=cap_axis, cap=16))
-        assert n_dev == tf.cc_global_launches(2, 2, True)
+        for cap in (16, 64, 256):
+            n_dev, _ = profiling.graph_kernels(lambda: tf.connected_components(m, 2, 2, cap_axis=cap_axis, cap=cap))
+            assert n_dev == tf.cc_global_launches(2, 2, True)
 
 
 def test_capped_wrapper_refuses(dev):

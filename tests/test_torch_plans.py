@@ -64,21 +64,40 @@ def test_preprocess_plan_layouts():
 
 @pytest.mark.parametrize("hw", SIZES + LARGE_SIZES)
 def test_preprocess_plan_with_the_smoothing(hw):
-    """pre_smoothed=False at the default taps (radii 2 and 12): launch A's
-    grey tile comes in with a halo of 9 + 14 px, 78 x 110 floats, and its
-    first pass (78 x 106) aliases the minima and the row sums; launch B and
-    the grid stay as they are."""
+    """pre_smoothed=False at the default taps (radii 2 and 12): a launch of
+    its own smooths 64 x 128 tiles, each loaded with a halo of 2 + 12 px
+    (92 x 156 floats, odd pitch 157), its first pass (92 x 152, pitch 153)
+    and the wrapped row and column indices; launches A and B then run on the
+    smoothed plane with the plan of any smoothed image."""
     h, w = hw
     k5, k25 = tf.smoothing_taps(5, 3.0)
     assert (len(k5), len(k25)) == (5, 25)
-    smooth = (len(k5) // 2, len(k25) // 2)
-    plan = tf.preprocess_plan(32, h, w, smooth=smooth)
-    pre = tf.preprocess_plan(32, h, w)
-    assert plan["halo_a"] == pre["halo_a"] + 14 == 23 and plan["smooth"] == (2, 12)
-    assert plan["smem_a"] == 4 * (50 * 82 + 78 * 110 + 78 * 106) > pre["smem_a"]
-    assert plan["smem_a"] <= kernels.MAX_DYNAMIC_SMEM
-    assert {k: v for k, v in plan.items() if k not in ("halo_a", "smooth", "smem_a")} == \
-        {k: v for k, v in pre.items() if k not in ("halo_a", "smooth", "smem_a")}
+    plan = tf.smoothing_plan(32, h, w, (len(k5) // 2, len(k25) // 2))
+    assert plan["tile"] == tf.SMOOTH_TILE == (64, 128) and plan["smooth"] == (2, 12)
+    assert plan["halo"] == 14 and tf.preprocess_plan(32, h, w)["halo_a"] == 9
+    assert plan["grid"] == (-(-w // 128), -(-h // 64), 32)
+    assert plan["smem"] == 4 * (92 * 157 + 92 * 153 + 92 + 156) <= kernels.MAX_DYNAMIC_SMEM
+    assert tf.preprocess_plan(32, h, w)["launches"] == 2  # plus the smoothing's one: 3
+
+
+@pytest.mark.parametrize("blur_ksize, ridge_sigma", [(3, 1.5), (7, 5.0), (5, 4.0), (1, 3.0)])
+def test_smoothing_plan_at_other_taps(blur_ksize, ridge_sigma):
+    """Other radii (the generic instantiation): the same tile, the halo and
+    the shared bytes follow the radii."""
+    r1, r2 = (len(k) // 2 for k in tf.smoothing_taps(blur_ksize, ridge_sigma))
+    plan = tf.smoothing_plan(4, 240, 320, (r1, r2))
+    xh, xw = 64 + 2 * (r1 + r2), 128 + 2 * (r1 + r2)
+    assert plan["halo"] == r1 + r2 and plan["tile"] == (64, 128) and plan["grid"] == (3, 4, 4)
+    assert plan["smem"] == 4 * (xh * (xw | 1) + xh * ((128 + 2 * r2) | 1) + xh + xw)
+
+
+def test_smoothing_plan_at_the_most_taps():
+    """64 taps in all (r1 + r2 = 31) still fit one CTA; past them the plan
+    refuses."""
+    assert tf.smoothing_plan(1, 480, 640, (1, 30))["smem"] <= kernels.MAX_DYNAMIC_SMEM
+    assert tf.smoothing_plan(1, 480, 640, (15, 16))["smem"] <= kernels.MAX_DYNAMIC_SMEM
+    with pytest.raises(ValueError, match="taps"):
+        tf.smoothing_plan(1, 480, 640, (16, 16))
 
 
 def test_smoothing_taps_are_float32_and_symmetric():
@@ -94,8 +113,13 @@ def test_smoothing_taps_are_float32_and_symmetric():
     (dict(smooth=(2, 30)), "taps"), (dict(smooth=(-1, 12)), "taps"),
 ])
 def test_preprocess_plan_refuses(kw, match):
+    """Parameters the kernel does not take; the smoothing's radii go to its
+    own launch's plan."""
     with pytest.raises(ValueError, match=match):
-        tf.preprocess_plan(2, 96, 128, **kw)
+        if "smooth" in kw:
+            tf.smoothing_plan(2, 96, 128, kw["smooth"])
+        else:
+            tf.preprocess_plan(2, 96, 128, **kw)
 
 
 @pytest.mark.parametrize("hw", SIZES)
@@ -354,32 +378,81 @@ def test_band_plan_at_the_variant_sites():
 @pytest.mark.parametrize("cap_axis", [0, 1])
 @pytest.mark.parametrize("cap", [1, 2, 3, 10, 16])
 def test_cc_plan_with_a_cap_on_the_cluster_route(cap, cap_axis):
-    """The detector's capped final labels at 480x640 (the half-res canvas,
-    (32, 240, 384)): the cluster plan of the uncapped call plus the cap's
-    axis and reach."""
+    """A cap at a shape of the cluster route: the detector's capped final
+    labels at 480x640 (the half-res canvas, (32, 240, 384)), whose uncapped
+    calls take the cluster route.  A capped call leaves it for the
+    large-frame route: the band plan of the same pools plus the cap's axis
+    and reach (and along H one streamed column pass in strips of 64
+    rows)."""
     plan = tf.cc_plan(32, 240, 384, pools_per_round=2, cap_axis=cap_axis, cap=cap)
     reach = tf.cap_reach((240, 384)[cap_axis], cap)
     assert reach == {1: 0, 2: 1, 3: 3, 10: 15, 16: 15}[cap]
-    assert plan == {**tf.cc_plan(32, 240, 384, pools_per_round=2), "cap_axis": cap_axis, "cap_reach": reach}
+    assert "cluster" in tf.cc_plan(32, 240, 384, pools_per_round=2) and "cluster" not in plan
+    strip = {"cap_strip": 64} if cap_axis == 0 else {}
+    assert plan == {**tf._band_plan(32, 240, 384, 1, 2), "cap_axis": cap_axis, "cap_reach": reach, **strip}
 
 
 @pytest.mark.parametrize("cap_axis", [0, 1])
 def test_cc_plan_with_a_cap_on_the_band_route(cap_axis):
-    """(32, 480, 640), the capped final labels at label_downsample=1: a cap
-    along H keeps the band plan (cc_capped_cols replaces the fix); one along
-    W keeps two buffers even without pools, for the capped row pass."""
+    """(32, 480, 640), the capped final labels at label_downsample=1: the
+    band plan of the uncapped call (the capped row pass runs in place, so a
+    band needs no second buffer for it); along H the capped column pass's
+    strips of 64 rows and 128 columns, streamed through registers."""
     for pools in (0, 2):
         plan = tf.cc_plan(32, 480, 640, pools_per_round=pools, cap_axis=cap_axis, cap=16)
         base = tf.cc_plan(32, 480, 640, pools_per_round=pools)
-        assert plan["route"] == "global" and plan["cap_axis"] == cap_axis and plan["cap_reach"] == 15
-        nbuf = 2 if pools or cap_axis == 1 else 1
-        r = plan["band_rows"]
-        assert plan["smem"] == 4 * nbuf * (r + 2 * pools) * 640 <= kernels.MAX_DYNAMIC_SMEM
-        if nbuf == 2 and not pools:
-            assert r < base["band_rows"]
-        else:
-            assert plan == {**base, "cap_axis": cap_axis, "cap_reach": 15}
+        nbuf = 2 if pools else 1
+        assert plan["smem"] == 4 * nbuf * (plan["band_rows"] + 2 * pools) * 640 <= kernels.MAX_DYNAMIC_SMEM
+        strip = {"cap_strip": 64} if cap_axis == 0 else {}
+        assert plan == {**base, "cap_axis": cap_axis, "cap_reach": 15, **strip}
     assert tf.cc_global_launches(2, 2, True) == 4
+
+
+@pytest.mark.parametrize("cap", [32, 64, 256])
+def test_cc_plan_long_reach_walks(cap):
+    """Past one pass's reach (15 along H, 31 along W) the capped scans walk
+    (reach 31, 63, 255 at (32, 480, 640), and on the 360-row canvas of
+    720x1280 at cap 256): along H the plan is the streamed pass's, strips of
+    64 rows; along W past reach 31 the bands keep a second buffer for the
+    walk's output, also without pools."""
+    for h, w in ((480, 640), (360, 640)):
+        for pools in (0, 2):
+            base = tf.cc_plan(32, h, w, pools_per_round=pools)
+            along_h = tf.cc_plan(32, h, w, pools_per_round=pools, cap_axis=0, cap=cap)
+            assert along_h == {**base, "cap_axis": 0, "cap_reach": cap - 1, "cap_strip": 64}
+            along_w = tf.cc_plan(32, h, w, pools_per_round=pools, cap_axis=1, cap=cap)
+            walk = cap > 32
+            assert along_w == {**tf._band_plan(32, h, w, 1, pools, walk), "cap_axis": 1, "cap_reach": cap - 1}
+            nbuf = 2 if pools or walk else 1
+            assert along_w["smem"] == 4 * nbuf * (along_w["band_rows"] + 2 * pools) * w <= kernels.MAX_DYNAMIC_SMEM
+            assert (along_w == {**base, "cap_axis": 1, "cap_reach": cap - 1}) == (pools > 0 or not walk)
+    assert tf.cc_global_launches(2, 2, True) == 4
+
+
+@pytest.mark.parametrize("hw, cap, band_rows", [((120, 700), 64, 30), ((120, 700), 16, 30), ((504, 200), 64, 126),
+                                               ((96, 256), 64, 96)])
+def test_cc_plan_capped_reach_against_the_bands(hw, cap, band_rows):
+    """Capped calls at shapes a cluster would hold take the band route: its
+    bands as the uncapped band plan sizes them, whatever the reach (63 at
+    (120, 700) passes the bands' 30 rows: the column pass reads across bands
+    from the state plane; the row pass stays within a row)."""
+    h, w = hw
+    for cap_axis in (0, 1):
+        plan = tf.cc_plan(2, h, w, pools_per_round=2, cap_axis=cap_axis, cap=cap)
+        assert plan["route"] == "global" and plan["band_rows"] == band_rows
+        assert plan["smem"] == 4 * 2 * (band_rows + 4) * w <= kernels.MAX_DYNAMIC_SMEM
+        assert plan["cap_reach"] == tf.cap_reach((h, w)[cap_axis], cap)
+
+
+@pytest.mark.parametrize("h, cap, strip", [(480, 1, 64), (480, 16, 64), (20, 16, 20), (480, 32, 64),
+                                           (480, 128, 64), (96, 64, 64), (1080, 512, 64), (600, 256, 64)])
+def test_capped_strip_rows(h, cap, strip):
+    """The band route's capped column pass along H: strips of 64 rows (the
+    mask's height if less) at every reach (the streamed pass up to reach 15
+    uses them, the walk past it does not); no strip along W."""
+    plan = tf.cc_plan(2, h, 640, pools_per_round=2, cap_axis=0, cap=cap)
+    assert plan["cap_strip"] == strip and plan["cap_reach"] == tf.cap_reach(h, cap) >= 0
+    assert "cap_strip" not in tf.cc_plan(2, h, 640, pools_per_round=2, cap_axis=1, cap=cap)
 
 
 def test_cc_plan_cap_that_covers_every_run_is_no_cap():
