@@ -8,9 +8,7 @@ phase fails.  The first line, printed before anything that can fail, gives
 the python, torch and CUDA versions.  Device kernels per call and their
 device ms come from a CUDA graph captured from one call
 (``utils.profiling.graph_kernels``); torch.profiler gives only the split by
-kernel name, and the XLA branch's detect-step count (that branch copies
-host constants to the card in every call, which a capture refuses).
-Phases:
+kernel name.  Phases:
 
 1. Build the CUDA kernels from ``cylinder_pose_estimation_tpu_torch/csrc``
    (first use; the library lands in the package's ``_build/``).
@@ -55,8 +53,9 @@ Phases:
    within rel 1e-2, ``well_posed`` equal (the sequence's default swing is
    well posed).  Prints
    the healthy-frame count, fval0/fval, the minimum eigenvalue and the
-   errors against the ground-truth T_Cam_AGV, and the ms of detect+fit and
-   of the registration.
+   errors against the ground-truth T_Cam_AGV, the ms of detect+fit and of
+   the registration (replayed), and the ms of a one-shot ``full_experiment``
+   (no step cached: both steps eager) against its two steps called eagerly.
 9. Preprocessing path: ``full_experiment(preprocess=True)`` on 16 distorted
    frames, counters reset just before and read just after;
    ``preprocess_stereo_batch`` on the card against the CPU port (max |d| <=
@@ -68,9 +67,10 @@ Phases:
    offsets), counters reset just before and read just after; every chunk's
    summary must equal ``_summarize_batch(estimate_poses_batch(...))`` of
    the same 64 frames on the card, the padded tail included.  Prints
-   frames/s, the ok count, the median reprojection and the peak device
-   memory; then frames/s of the same stream with ``overlap=False``, whose
-   output must equal the overlapped one.
+   frames/s (the chunk step's CUDA graph captured in this run), the ok
+   count, the median reprojection and the peak device memory; then frames/s
+   of the same stream with ``overlap=False``, whose output must equal the
+   overlapped one, and of the overlapped stream again (the step captured).
 11. XLA path (the default ``use_pallas=False``, run after phase 4):
    ``estimate_poses_batch`` with ``CylinderDetectConfig()`` on the seven
    scenes of phase 2 with ``gap0`` (the XLA record) in place of
@@ -166,6 +166,34 @@ Phases:
    (32, 480, 640), both on the band route; e2e and detect ms/frame of
    each.
 
+19. Compiled steps (run after phase 7's timing): ``compiled_batch`` of the
+   main, endpoint and XLA configs at B=16, the registration step of
+   ``register_sequence`` on phase 8's 100 frames and the stream's chunk step
+   (``_stream_step``, compact, 64 frames), each against the eager call it
+   replays: every leaf ``torch.equal`` (else the leaf, the count and the
+   largest difference are printed and the phase fails), 0 host
+   synchronisations per compiled call, the kernel nodes of the step's graph
+   and its replay's device ms, eager and replayed ms/frame (ms per solve for
+   the registration) in alternating pairs, the first call's time (eager)
+   and the second's (warm-up, capture, replay) on their own, with the
+   memory the device keeps reserved for the step after it (the graph's
+   pool).  The experiment, stream, mesh and CLI paths of phases 8-16 run
+   through these steps too.
+
+Launch counts.  Every path run (``run_path``, ``mesh_rank``) empties the
+compiled steps' cache and zeroes the counters just before and reads them
+just after, so it counts what a fresh process would launch.  A path's
+launches are the kernels it ran on the card: each wrapper call outside a
+capture, plus, for each replay of a compiled step, the wrapper calls its
+capture recorded (``pipeline.graph_launch_counts``; a capture runs no
+kernel and a replay calls no wrapper).  A one-shot path (experiment,
+preprocess) is one eager call per step; the stream's first chunk is eager,
+its second the warm-up before the capture and the first replay, every
+later chunk a replay: one launch per chunk, and one more.  The kernels
+line's ``launches`` sums these over the path runs; ``graph_replays`` gives
+each path's replays.
+
+The line before the card's name is phase 19's numbers as JSON.
 The second-to-last line is the kernel report as JSON: one row per kernel
 (the 480x640 sites; ``large_sites`` and ``variant_sites`` hold phases 12's
 and 13's), the bridge's cluster route in its own row and its split and
@@ -201,6 +229,8 @@ KNOBS = os.path.join(HERE, "tests", "fixtures", "torch_knob_scenes.json")
 ORACLE = os.path.join(HERE, "tests", "_oracle_detect.py")
 KERNELS = ("preprocess_binarize", "connected_components", "bridge_morphology",
            "component_payload_minmax")
+# Replays of compiled steps in each path run (``run_path``, ``mesh_rank``).
+GRAPH_REPLAYS = {}
 # Kernels each path must launch: None, at least once; a number, exactly
 # that often (0: never).
 PATH_KERNELS = {
@@ -343,7 +373,7 @@ def profiler_kernels(fn):
     Late in a long process a session may record nothing at all: the
     kernels line's counts and device ms come from a captured CUDA graph
     (``profiling.graph_kernels``), and this gives only the breakdown by
-    name, and the count of a call that cannot be captured."""
+    name."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -467,17 +497,39 @@ def plane_check(det, views) -> dict:
     return out
 
 
+def reset_counts(frontend) -> None:
+    """Empty the compiled steps' cache and zero every launch counter."""
+    from cylinder_pose_estimation_tpu_torch.models import pipeline
+
+    pipeline._STREAM_STEP_CACHE.clear()
+    frontend.reset_launch_counts()
+    pipeline.reset_graph_launch_counts()
+
+
+def card_launches(frontend) -> tuple:
+    """(kernel -> launches on the card, graph replays) since
+    ``reset_counts``: the wrappers' calls, less those a capture recorded
+    (a capture runs no kernel), plus those each replay ran."""
+    from cylinder_pose_estimation_tpu_torch.models import pipeline
+
+    calls, graphs = frontend.launch_counts(), pipeline.graph_launch_counts()
+    return ({k: n - graphs["captured"].get(k, 0) + graphs["replayed"].get(k, 0) for k, n in calls.items()},
+            graphs["replays"])
+
+
 def run_path(name, frontend, fn):
-    """Drive one path with every launch counter reset just before and read
-    just after; fail if it skipped a kernel it must launch."""
+    """Drive one path with the compiled steps' cache emptied and every
+    launch counter reset just before and read just after (``card_launches``);
+    fail if it skipped a kernel it must launch."""
     import torch
 
     torch.cuda.synchronize()
-    frontend.reset_launch_counts()
+    reset_counts(frontend)
     res = fn()
     torch.cuda.synchronize()
-    launches = frontend.launch_counts()
-    print(f"{name} path launches: {launches}", flush=True)
+    launches, replays = card_launches(frontend)
+    GRAPH_REPLAYS[name] = replays
+    print(f"{name} path launches: {launches} ({replays} graph replays)", flush=True)
     for k, want in PATH_KERNELS[name].items():
         if want is None and launches[k] < 1:
             raise AssertionError(f"the {name} path never launched {k}")
@@ -840,7 +892,9 @@ def reg_dict(res) -> dict:
 
 def sync_sites(fn) -> dict:
     """Run fn() once under ``torch.cuda.set_sync_debug_mode("warn")`` and
-    count the host synchronisations by the source line that caused them."""
+    count the host synchronisations by the source line that caused them
+    (PyTorch's "called a synchronizing CUDA operation" warnings; the mode's
+    own one-time notice that it is a prototype is not one)."""
     import warnings
 
     import torch
@@ -855,7 +909,7 @@ def sync_sites(fn) -> dict:
             torch.cuda.set_sync_debug_mode(0)
     sites = {}
     for w in caught:
-        if "synchroniz" in str(w.message):
+        if "called a synchronizing CUDA operation" in str(w.message):
             key = f"{os.path.relpath(w.filename, HERE)}:{w.lineno}"
             sites[key] = sites.get(key, 0) + 1
     return sites
@@ -873,12 +927,15 @@ def registration_phase(device, stereo_fn, cfg, fit_cfg, frontend, smi):
         fit_cylinders_with_angles,
     )
     from cylinder_pose_estimation_tpu_torch.models import pipeline
+    from cylinder_pose_estimation_tpu_torch.utils import profiling
     from cylinder_pose_estimation_tpu_torch.utils.synthetic import registration_sequence
 
     fx, pts, valid, angles, frame_valid = load_registration_fixture(device)
     res = fit_cylinders_with_angles(pts, valid, angles, frame_valid=frame_valid)
     sites = sync_sites(lambda: fit_cylinders_with_angles(pts, valid, angles, frame_valid=frame_valid))
     print(f"registration host syncs per call: {sum(sites.values())} at {sites}", flush=True)
+    if sites:
+        raise AssertionError(f"the registration synchronises with the host: {sites}")
     chk = registration_check(res, fx["result"], fx["angles"], "registration fixture")
     ms_fix = cuda_ms(lambda: fit_cylinders_with_angles(pts, valid, angles, frame_valid=frame_valid),
                      reps=3, warmup=1)
@@ -917,17 +974,36 @@ def registration_phase(device, stereo_fn, cfg, fit_cfg, frontend, smi):
           f"{chk['perp_mm']:.3e} mm, fval rel {chk['fval_rel']:.2e}, min_eig rel "
           f"{chk['jtj_min_eig_rel']:.2e}", flush=True)
 
-    # Timing: detect+fit and the registration, CUDA events.
+    # Timing: detect+fit and the registration as a repeated full_experiment
+    # runs them (two compiled steps, replayed), CUDA events.
     rep = itertools.count(1)
+    step = pipeline.compiled_batch(stereo, cfg, fit_cfg)
 
     def detect_fit():
         eps = 1e-4 * next(rep)
-        return pipeline.estimate_poses_batch(a + eps, b + eps, stereo, cfg, fit_cfg)
+        return step(a + eps, b + eps)
 
     ms_df = cuda_ms(detect_fit, reps=3, warmup=1)
     ms_reg = cuda_ms(lambda: pipeline.register_sequence(batch, ang), reps=3, warmup=1)
-    print(f"experiment F={n_frames}: detect+fit {ms_df:.2f} ms, registration {ms_reg:.2f} ms, "
+    print(f"experiment F={n_frames} (replayed steps): detect+fit {ms_df:.2f} ms, registration {ms_reg:.2f} ms, "
           f"total {ms_df + ms_reg:.2f} ms; {smi}", flush=True)
+
+    # A one-shot full_experiment (a fresh process's, as the CLI's
+    # experiment runs it: no step cached, so both steps are eager calls)
+    # against the same two steps called eagerly, in alternating pairs.
+    def one_shot():
+        pipeline._STREAM_STEP_CACHE.clear()
+        return pipeline.full_experiment(a, b, ang, stereo, cfg, fit_cfg)
+
+    def eager():
+        res = pipeline.estimate_poses_batch(a, b, stereo, cfg, fit_cfg)
+        return fit_cylinders_with_angles(res.fit.points3, res.fit.points_valid, ang,
+                                         frame_valid=pipeline.frame_health(res))
+
+    ms = profiling.alternating_ms({"one_shot": one_shot, "eager": eager}, pairs=2, warmup=1)
+    pipeline._STREAM_STEP_CACHE.clear()
+    print(f"experiment F={n_frames} one-shot: full_experiment {ms['one_shot']:.2f} ms, its steps called eagerly "
+          f"{ms['eager']:.2f} ms (2 alternating pairs); {smi}", flush=True)
     return launches, {"frames": (i1, i2, ang_np), "stereo": stereo, "batch": batch, "reg": reg}
 
 
@@ -1000,12 +1076,18 @@ def stream_phase(device, stereo, cfg, fit_cfg, frontend, smi) -> dict:
         f1, f2, stereo, cfg, fit_cfg, chunk=chunk, compact=True, overlap=True, device=device))
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated(device)
-    # The same stream without the overlap: one chunk at a time.
+    # The same stream without the overlap: one chunk at a time; then the
+    # overlapped stream again, its chunk step already captured.
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     serial = pipeline.estimate_poses_stream(f1, f2, stereo, cfg, fit_cfg, chunk=chunk, compact=True,
                                             overlap=False, device=device)
     wall_serial = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pipeline.estimate_poses_stream(f1, f2, stereo, cfg, fit_cfg, chunk=chunk, compact=True, overlap=True,
+                                   device=device)
+    wall_again = time.perf_counter() - t0
     got = pipeline._tree_leaves(out)
     for s in range(0, n, chunk):
         live = min(chunk, n - s)
@@ -1023,12 +1105,13 @@ def stream_phase(device, stereo, cfg, fit_cfg, frontend, smi) -> dict:
             raise AssertionError(f"stream: leaf {leaf} differs between overlap and serial")
     ok = int(out.ok.sum())
     reproj = float(np.median(out.mean_reproj_error[out.ok]))
-    print(f"stream N={n} chunk={chunk} compact overlap: {n / wall:.2f} frames/s ({wall:.2f} s wall), "
-          f"ok {ok}/{n}, healthy {int(out.healthy.sum())}, median reprojection {reproj:.4f} px, peak "
-          f"device memory {peak / 2**20:.1f} MiB; every chunk equal to the batch call "
-          f"({(n + chunk - 1) // chunk} chunks, tail {n % chunk or chunk} live); {smi}", flush=True)
+    print(f"stream N={n} chunk={chunk} compact overlap: {n / wall:.2f} frames/s ({wall:.2f} s wall, the "
+          f"chunk step's capture included), ok {ok}/{n}, healthy {int(out.healthy.sum())}, median "
+          f"reprojection {reproj:.4f} px, peak device memory {peak / 2**20:.1f} MiB; every chunk equal to the "
+          f"batch call ({(n + chunk - 1) // chunk} chunks, tail {n % chunk or chunk} live); {smi}", flush=True)
     print(f"stream N={n} chunk={chunk} compact serial (overlap=False): {n / wall_serial:.2f} frames/s "
-          f"({wall_serial:.2f} s wall), equal to the overlapped run", flush=True)
+          f"({wall_serial:.2f} s wall), equal to the overlapped run; overlapped again (step captured): "
+          f"{n / wall_again:.2f} frames/s ({wall_again:.2f} s wall); {smi}", flush=True)
     return launches
 
 
@@ -1919,16 +2002,18 @@ def mesh_rank(mesh, stream_frames: int, chunk: int) -> dict:
     del cap
     torch.cuda.empty_cache()
 
-    # The main path: counters reset just before and read just after.
+    # The main path: counters reset just before and read just after (the
+    # compiled steps captured above are dropped, so this run captures its
+    # own and launches through the wrappers).
     sync()
     torch.cuda.reset_peak_memory_stats(dev)
-    frontend.reset_launch_counts()
+    reset_counts(frontend)
     batch, reg = pipe(i1, i2, angles)
     sync()
     t0 = time.perf_counter()
     out = stream(stream_frames, True)
     walls = [time.perf_counter() - t0]
-    launches = frontend.launch_counts()
+    launches, replays = card_launches(frontend)
     peak = torch.cuda.max_memory_allocated(dev)
     regs = gather_frames(reg.t_cam_agv[None], mesh)
 
@@ -1955,6 +2040,7 @@ def mesh_rank(mesh, stream_frames: int, chunk: int) -> dict:
                 lambda: pipeline.estimate_poses_batch(a, b, stereo, cfg, fit_cfg, probe="detect").grid.xy)
         sync()
     res = {"rank": mesh.rank, "device": str(dev), "backend": mesh.backend, "launches": launches,
+           "graph_replays": replays,
            "calls_held": calls, "stream_s": walls, "peak_mib": peak / 2**20,
            "detect_step_device_kernels": n_dev, "detect_step_device_ms": dev_ms,
            "digest": [digest(batch), digest(reg), digest(out)],
@@ -1996,7 +2082,7 @@ def mesh_ranks(ranks: int, ranks_per_card: int, smi: str) -> dict:
               f"{r['calls_held']}; detect step of {MESH_FRAMES // ranks} frames: {dev}; peak device memory "
               f"{r['peak_mib']:.1f} MiB; stream {MESH_STREAM_FRAMES} frames in "
               f"{[round(x, 3) for x in r['stream_s']]} s; launches "
-              f"{ {k: v for k, v in r['launches'].items() if v} }", flush=True)
+              f"{ {k: v for k, v in r['launches'].items() if v} } ({r['graph_replays']} graph replays)", flush=True)
     for name in ("batch", "stream"):
         if not r0[name]["ok"]:
             raise AssertionError(f"{label}: the sharded {name} breaks its contract against the unsharded one: "
@@ -2013,6 +2099,7 @@ def mesh_ranks(ranks: int, ranks_per_card: int, smi: str) -> dict:
           f"{[round(x, 2) for x in fps_n]} (the first: the main path's run), 1 rank {[round(x, 2) for x in fps_1]}; "
           f"median ratio {statistics.median(fps_n[1:]) / statistics.median(fps_1):.3f}; ok "
           f"{r0['stream_ok_frames']}/{MESH_STREAM_FRAMES}; vs unsharded {r0['stream']}; {smi}", flush=True)
+    GRAPH_REPLAYS[f"mesh {ranks} ranks, {ranks_per_card} a card"] = sum(r["graph_replays"] for r in results)
     return {k: sum(r["launches"][k] for r in results) for k in r0["launches"]}
 
 
@@ -2058,6 +2145,154 @@ def mesh_phase(frontend, device, cfg, fit_cfg, smi, experiment) -> dict:
     out = {"mesh": launches, "mesh_ranks": mesh_ranks(MESH_RANKS_PER_CARD, MESH_RANKS_PER_CARD, smi)}
     if torch.cuda.device_count() >= 2:
         out["mesh_cards"] = mesh_ranks(4 if torch.cuda.device_count() >= 4 else 2, 1, smi)
+    return out
+
+
+def leaf_diffs(got, want, prefix="") -> list:
+    """(leaf name, differing elements, largest |difference|) of every leaf
+    of two equal NamedTuple trees that is not ``torch.equal`` (NaN equal to
+    NaN); [] when every leaf is."""
+    import torch
+
+    if isinstance(got, tuple):
+        names = getattr(got, "_fields", range(len(got)))
+        return [d for name, g, w in zip(names, got, want) for d in leaf_diffs(g, w, f"{prefix}.{name}")]
+    g, w = got.detach().cpu(), want.detach().cpu()
+    if g.shape != w.shape or g.dtype != w.dtype:
+        return [(prefix, -1, float("inf"))]
+    differ = g != w
+    if g.is_floating_point():
+        differ &= ~(torch.isnan(g) & torch.isnan(w))
+    n = int(differ.sum())
+    if n == 0:
+        return []
+    d = (g.double() - w.double()).abs()[differ]
+    return [(prefix, n, float(d[torch.isfinite(d)].max()) if torch.isfinite(d).any() else float("inf"))]
+
+
+def compiled_phase(device, stereo, frames, cfgs, fit_cfg, experiment, smi) -> dict:
+    """Phase 19: the compiled steps (``pipeline.compiled_batch``, the
+    registration step of ``register_sequence``, ``pipeline._stream_step``)
+    against the eager calls they replay.  For each step: the first call
+    (eager) and the second (eager warm-up, capture, replay) timed on their
+    own; every leaf of the second's replay against the eager call on the
+    same inputs (``torch.equal``, else
+    the count and the largest difference: a fault); the host
+    synchronisations of one compiled call (``sync_sites``, must be 0); the
+    kernel nodes of the graph captured from one call and the device ms of
+    its replay (``profiling.graph_kernels``); eager against replayed ms in
+    alternating pairs (CUDA events, medians, fresh inputs each call)."""
+    import torch
+
+    from cylinder_pose_estimation_tpu_torch.config import RegistrationConfig
+    from cylinder_pose_estimation_tpu_torch.geometry.registration import fit_cylinders_with_angles
+    from cylinder_pose_estimation_tpu_torch.models import pipeline
+    from cylinder_pose_estimation_tpu_torch.utils import profiling
+
+    out = {}
+    rep = itertools.count(1)
+
+    def first_calls(label, fn):
+        """The second call's result, and the MiB the device reserves for the
+        step after it, of a step's first call (eager) and second (warm-up,
+        capture, replay), each timed on its own and printed."""
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_reserved(device)
+        seconds = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            res = fn()
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+        torch.cuda.empty_cache()
+        pool = (torch.cuda.memory_reserved(device) - before) / 2**20
+        print(f"compiled {label}: first call (eager) {seconds[0]:.3f} s, second (warm-up, capture, replay) "
+              f"{seconds[1]:.3f} s; the graph's memory pool {pool:.1f} MiB; {smi}", flush=True)
+        return res, {"first_call_s": seconds[0], "second_call_s": seconds[1], "pool_mib": pool}
+
+    def check(label, got, want, n_frames, eager_fn, compiled_fn, capture_fn, pairs, unit_frames=True):
+        diffs = leaf_diffs(got, want)
+        for leaf, n, d in diffs:
+            print(f"compiled {label}: leaf {leaf} differs from the eager call in {n} elements, "
+                  f"largest |d| {d:.3e}", flush=True)
+        if diffs:
+            raise AssertionError(f"compiled {label}: replay differs from the eager call ({len(diffs)} leaves)")
+        sites = sync_sites(compiled_fn)
+        if sites:
+            raise AssertionError(f"compiled {label}: one compiled call synchronises with the host: {sites}")
+        n_kernels, dev_ms = profiling.graph_kernels(capture_fn, reps=5, warmup=1)
+        ms = profiling.alternating_ms({"eager": eager_fn, "replay": compiled_fn}, pairs)
+        per = n_frames if unit_frames else 1
+        unit = "ms/frame" if unit_frames else "ms per solve"
+        print(f"compiled {label}: replay equal to eager on every leaf; host syncs per compiled call 0; "
+              f"{n_kernels} kernel nodes per step, replay {dev_ms:.4f} device ms; eager "
+              f"{ms['eager'] / per:.4f} {unit}, replayed {ms['replay'] / per:.4f} {unit} "
+              f"({ms['eager'] / ms['replay']:.2f}x, {pairs} alternating pairs); {smi}", flush=True)
+        return {"kernel_nodes": n_kernels, "replay_device_ms": dev_ms, "eager_ms": ms["eager"],
+                "replay_ms": ms["replay"], "frames": n_frames}
+
+    d1, d2 = frames
+    n = d1.shape[0]
+    for label, cfg in cfgs.items():
+        step = pipeline.compiled_batch(stereo, cfg, fit_cfg)
+        got, first = first_calls(f"{label} B={n}", lambda: step(d1, d2))
+        want = pipeline.estimate_poses_batch(d1, d2, stereo, cfg, fit_cfg)
+
+        def fresh(fn):
+            def call():
+                eps = 1e-4 * next(rep)
+                return fn(d1 + eps, d2 + eps)
+            return call
+
+        out[label] = check(
+            f"{label} B={n}", got, want, n,
+            fresh(lambda a, b, cfg=cfg: pipeline.estimate_poses_batch(a, b, stereo, cfg, fit_cfg)),
+            fresh(step), lambda cfg=cfg: pipeline.estimate_poses_batch(d1, d2, stereo, cfg, fit_cfg), pairs=5)
+        out[label].update(first)
+        del step, got, want
+        pipeline._STREAM_STEP_CACHE.clear()
+
+    # The experiment's registration step (phase 8's 100 frames and batch).
+    batch, ang = experiment["batch"], torch.as_tensor(experiment["frames"][2], device=device)
+    reg_cfg = RegistrationConfig()
+    health = pipeline.frame_health(batch, reg_cfg)
+
+    def eager_reg():
+        return fit_cylinders_with_angles(batch.fit.points3, batch.fit.points_valid, ang, reg_cfg,
+                                         frame_valid=health)
+
+    f_reg = batch.fit.points3.shape[0]
+    got, first = first_calls(f"registration F={f_reg}", lambda: pipeline.register_sequence(batch, ang, reg_cfg))
+    out["registration"] = check(f"registration F={f_reg}", got, eager_reg(), f_reg, eager_reg,
+                                lambda: pipeline.register_sequence(batch, ang, reg_cfg), eager_reg,
+                                pairs=3, unit_frames=False)
+    out["registration"].update(first)
+    pipeline._STREAM_STEP_CACHE.clear()
+
+    # The stream's chunk step at STREAM_CHUNK frames (compact), on the
+    # phase-2 frames tiled to the chunk.
+    idx = [i % n for i in range(STREAM_CHUNK)]
+    c1, c2 = d1[idx].round().clamp(0, 255).to(torch.uint8), d2[idx].round().clamp(0, 255).to(torch.uint8)
+    cfg = cfgs["main"]
+    step = pipeline._stream_step(stereo, cfg, fit_cfg, reg_cfg, True)
+
+    def eager_chunk(a, b):
+        return pipeline._summarize_batch(pipeline.estimate_poses_batch(a, b, stereo, cfg, fit_cfg), reg_cfg)
+
+    got, first = first_calls(f"stream chunk {STREAM_CHUNK}",
+                             lambda: pipeline._tree_map(torch.clone, step(c1, c2)))
+    variants = itertools.cycle([(c1, c2), (c1.flip(0).contiguous(), c2.flip(0).contiguous())])
+
+    def chunk_fn(fn):
+        def call():
+            return fn(*next(variants))
+        return call
+
+    out["stream"] = check(f"stream chunk {STREAM_CHUNK}", got, eager_chunk(c1, c2), STREAM_CHUNK,
+                          chunk_fn(eager_chunk), chunk_fn(step), lambda: eager_chunk(c1, c2), pairs=3)
+    out["stream"].update(first)
+    pipeline._STREAM_STEP_CACHE.clear()
     return out
 
 
@@ -2251,15 +2486,8 @@ def main() -> int:
                                   ("xla e2e", e2e_xla, detect_xla)):
         ms_e2e = cuda_ms(fn_e2e, reps=10, warmup=2)
         ms_det = cuda_ms(fn_det, reps=10, warmup=2)
-        if fn_det is detect_xla:
-            # The XLA branch copies host constants (filter taps, scalars) to
-            # the card in every call, which a CUDA graph capture refuses.
-            n_dev, by_name = profiler_kernels(fn_det)
-            dev_txt = ("not measured" if n_dev is None else
-                       f"{n_dev} device kernels, {sum(by_name.values()):.4f} device ms (profiler)")
-        else:
-            n_dev, dev_ms = profiling.graph_kernels(fn_det, reps=10, warmup=2)
-            dev_txt = f"{n_dev} device kernels, {dev_ms:.4f} device ms (graph replay)"
+        n_dev, dev_ms = profiling.graph_kernels(fn_det, reps=10, warmup=2)
+        dev_txt = f"{n_dev} device kernels, {dev_ms:.4f} device ms (graph replay)"
         print(f"{label} B={batch} {height}x{width}: {ms_e2e / batch:.4f} ms/frame "
               f"(detect {ms_det / batch:.4f} ms/frame, fit {(ms_e2e - ms_det) / batch:.4f} ms/frame); "
               f"detect step: {dev_txt}; {smi}", flush=True)
@@ -2268,6 +2496,10 @@ def main() -> int:
     ms_plane = cuda_ms(detect_plane, reps=10, warmup=2)
     print(f"plane detect V={n_views} {height}x{width}: {ms_plane / n_views:.4f} ms/view; {smi}",
           flush=True)
+
+    # --- the compiled steps: replay against eager ------------------------
+    compiled = compiled_phase(device, stereo, (d1, d2), {"main": cfg, "endpoint": cfg_ep, "xla": cfg_xla},
+                              fit_cfg, experiment, smi)
 
     # --- the command-line drivers on the card ------------------------------
     cli_launches = cli_phase(frontend, smi)
@@ -2319,6 +2551,7 @@ def main() -> int:
             "name": k, "route": "cuda", "source": frontend.SOURCES[base], "replaces": replaces,
             "launches": sum(c[count] for c in by_path.values()),
             "launches_by_path": {p: c[count] for p, c in by_path.items()},
+            "graph_replays": GRAPH_REPLAYS,
             "launches_per_step": by_path[step_path][count],
             "max_abs_err": max(r["max_abs_err"], large["max_abs_err"], variant["max_abs_err"], route["max_abs_err"],
                                knob["max_abs_err"]),
@@ -2329,6 +2562,7 @@ def main() -> int:
             "large_sites": large["large_sites"], "variant_sites": variant["variant_sites"],
             "route_sites": route["route_sites"], "knob_sites": knob["knob_sites"],
         })
+    print(json.dumps({"compiled_steps": compiled, "card": smi}))
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -89,18 +89,29 @@ def _image_files(folder: str) -> List[str]:
 
 
 def _batched_detect_runner(stereo, cfg):
-    """One chunk: undistort each frame by its camera, then detect the chunk
-    as one batch.  Module-level so tests can count the calls."""
+    """One chunk program: undistort each frame by its camera, then detect
+    the chunk as one batch.  On a CUDA device it is one compiled step (the
+    JAX CLI's ``@jax.jit run``): the first chunk runs eagerly, the second
+    captures a CUDA graph, replayed for every later chunk of the same shape
+    (the tail chunk is padded to it), its outputs cloned.  Module-level so tests can count the
+    calls."""
     import torch
 
+    from cylinder_pose_estimation_tpu_torch.models import pipeline
     from cylinder_pose_estimation_tpu_torch.models.detector import detect_grid
     from cylinder_pose_estimation_tpu_torch.ops.remap import undistort_image
 
-    def run(imgs, is_left):
+    stereo = pipeline._stereo_copy(stereo)
+    key = ("detect-folder", cfg, pipeline._stereo_key(stereo))
+
+    def body(imgs, is_left):
         with torch.inference_mode():
             und = torch.where(is_left[:, None, None], undistort_image(imgs, stereo.cam1),
                               undistort_image(imgs, stereo.cam2))
             return detect_grid(und, cfg), und
+
+    def run(imgs, is_left):
+        return pipeline._compiled(key, body, (imgs, is_left), fresh=True)
 
     return run
 
@@ -175,7 +186,7 @@ def cmd_experiment(args) -> None:
         RegistrationConfig,
     )
     from cylinder_pose_estimation_tpu_torch.models.pipeline import (
-        estimate_poses_batch,
+        compiled_batch,
         frame_health,
         preprocess_stereo_batch,
         register_sequence,
@@ -213,7 +224,9 @@ def cmd_experiment(args) -> None:
         # Undistortion + adaptive histogram equalisation of both views
         # (ref utils/preProcessing.m:4-21).
         a, b = preprocess_stereo_batch(a, b, stereo)
-    batch = estimate_poses_batch(a, b, stereo, cfg, fit_cfg)
+    # Poses and registration: two compiled steps on a CUDA device (the
+    # preprocessing above runs eagerly).
+    batch = compiled_batch(stereo, cfg, fit_cfg)(a, b)
     reg = register_sequence(batch, torch.as_tensor(np.asarray(angles, np.float32), device=device), reg_cfg)
     fvals = batch.fit.fvals.cpu().numpy()
     for i, n in enumerate(used_names):

@@ -12,7 +12,7 @@ from typing import NamedTuple
 
 import torch
 
-from cylinder_pose_estimation_tpu_torch.ops.linalg import eigh2x2, mm, solve_normal_equations
+from cylinder_pose_estimation_tpu_torch.ops.linalg import eigh, eigh2x2, mm, solve_normal_equations
 
 
 class CurvatureResult(NamedTuple):
@@ -41,7 +41,7 @@ def _curvature_from_neighborhood(nbr: torch.Tensor, nbr_valid: torch.Tensor) -> 
     mean = torch.sum(nbr * w, dim=-2, keepdim=True) / cnt
     cd = (nbr - mean) * w
     cov = mm(cd.transpose(-1, -2), cd) / torch.clamp(cnt[..., 0, :, None] - 1.0, min=1.0)
-    _, vecs = torch.linalg.eigh(cov)
+    _, vecs = eigh(cov)
     normal = vecs[..., :, 0]
     frame = _local_frame(normal)
     local = mm(nbr - mean, frame)

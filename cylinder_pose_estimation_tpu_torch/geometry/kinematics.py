@@ -5,7 +5,8 @@ The chain, as the reference composes it: pan rotation about z, the fixed
 offset [-l2, 0, 0] to the tilt joint, the tilt-motor z translation
 -tan(tilt) * |l2|, the rotation about y by -tilt, and the fixed tool
 transform [0 -1 0 l1; -1 0 0 0; 0 0 -1 h].  Vectorised over the broadcast
-leading axes of (pan, tilt).
+leading axes of (pan, tilt).  The lengths are device constants made once
+(``ops.constants``), so a CUDA graph captures the chain.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from __future__ import annotations
 import torch
 
 from cylinder_pose_estimation_tpu_torch.config import KinematicsConfig
+from cylinder_pose_estimation_tpu_torch.ops.constants import device_constant
 from cylinder_pose_estimation_tpu_torch.ops.linalg import mm
 
 
@@ -41,7 +43,7 @@ def t_agv_cyl(
         [zero, zero, one, zero],
         [zero, zero, zero, one],
     ])
-    l2 = torch.tensor(config.l2, dtype=dtype, device=pan.device)
+    l2 = device_constant(config.l2, dtype, pan.device)
     t_p_t0 = _mat([
         [one, zero, zero, -l2 * one],
         [zero, one, zero, zero],
@@ -62,8 +64,8 @@ def t_agv_cyl(
         [-st, zero, ct, zero],
         [zero, zero, zero, one],
     ])
-    l1 = torch.tensor(config.l1, dtype=dtype, device=pan.device)
-    h = torch.tensor(config.h, dtype=dtype, device=pan.device)
+    l1 = device_constant(config.l1, dtype, pan.device)
+    h = device_constant(config.h, dtype, pan.device)
     t_t2_cyl = _mat([
         [zero, -one, zero, l1 * one],
         [-one, zero, zero, zero],

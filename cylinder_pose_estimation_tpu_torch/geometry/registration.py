@@ -15,12 +15,18 @@ package takes ``jax.jacfwd``.  At the identity candidate (rotvec 0) the
 Rodrigues ``sqrt(0)`` has a non-finite tangent only on the branch that
 ``torch.where`` does not select, so the Jacobian stays finite.
 
-Host synchronisation on a CUDA device: ``torch.linalg.inv`` of the 3x3 triad
-basis and ``torch.linalg.eigvalsh`` of the 6x6 JtJ check their results on the
-host (one each per call); the per-frame init fits' ``eigh`` adds its own.
+Nothing here waits for the host on a CUDA device, so a CUDA graph captures
+the whole solve (``models/pipeline.py``'s registration step): the triad
+basis is inverted in closed form (``inv3x3``), the JtJ's eigenvalues and the
+init fits' PCA and curvature come from ``ops.linalg.eigh`` (Jacobi sweeps
+there), the best candidate is gathered on the device, and the constants
+(the triad signs, the cube group, the kinematic lengths) are made once per
+dtype and device.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -33,7 +39,8 @@ from cylinder_pose_estimation_tpu_torch.geometry.cylinder import (
     fit_cylinder,
 )
 from cylinder_pose_estimation_tpu_torch.geometry.kinematics import t_agv_cyl
-from cylinder_pose_estimation_tpu_torch.ops.linalg import mm
+from cylinder_pose_estimation_tpu_torch.ops.constants import device_constant
+from cylinder_pose_estimation_tpu_torch.ops.linalg import eigh, mm
 from cylinder_pose_estimation_tpu_torch.ops.lm import levenberg_marquardt
 from cylinder_pose_estimation_tpu_torch.types import RegistrationResult
 
@@ -42,6 +49,18 @@ _EPS = 1e-12
 
 def _normalize(v: torch.Tensor) -> torch.Tensor:
     return v / (torch.linalg.vector_norm(v, dim=-1, keepdim=True) + _EPS)
+
+
+def inv3x3(m: torch.Tensor) -> torch.Tensor:
+    """Inverse of (..., 3, 3) matrices by the adjugate over the determinant,
+    with no check on the host (``torch.linalg.inv`` reads its status back):
+    a singular matrix gives inf or nan, as the solve would."""
+    c0 = torch.linalg.cross(m[..., 1, :], m[..., 2, :])
+    c1 = torch.linalg.cross(m[..., 2, :], m[..., 0, :])
+    c2 = torch.linalg.cross(m[..., 0, :], m[..., 1, :])
+    det = torch.sum(m[..., 0, :] * c0, dim=-1)
+    # The adjugate's columns are the cross products of the rows.
+    return torch.stack([c0, c1, c2], dim=-1) / det[..., None, None]
 
 
 def _triad_init(t_agv_cyls: torch.Tensor, cyl_params_f0: torch.Tensor) -> torch.Tensor:
@@ -69,7 +88,7 @@ def _triad_init(t_agv_cyls: torch.Tensor, cyl_params_f0: torch.Tensor) -> torch.
     basis_cam = torch.stack([dir_cam, end, torch.linalg.cross(dir_cam, end)], dim=-1)
     basis_agv = torch.stack([y_agv, nd, torch.linalg.cross(y_agv, nd)], dim=-1)
     # MATLAB: R = basis_cam / basis_agv == basis_cam @ inv(basis_agv)
-    r = mm(basis_cam, torch.linalg.inv(basis_agv))
+    r = mm(basis_cam, inv3x3(basis_agv))
     t = ep1 - mm(r, p1[..., None])[..., 0]
     top = torch.cat([r, t[..., None]], dim=-1)
     bottom = torch.eye(4, dtype=r.dtype, device=r.device)[3].expand(top.shape[:-2] + (1, 4))
@@ -145,9 +164,7 @@ def fit_cylinders_with_angles(
 
     # Multi-start: both triad axis signs, then the 24-element cube rotation
     # group with the translation aligned through the frame-0 origins.
-    signs = torch.tensor([1.0, -1.0], dtype=pts3s.dtype, device=dev)
-    flip = torch.ones((2, 1, 6), dtype=pts3s.dtype, device=dev)
-    flip[:, :, 3:6] = signs[:, None, None]
+    flip = device_constant([[[1.0] * 6], [[1.0] * 3 + [-1.0] * 3]], pts3s.dtype, dev)   # (2, 1, 6)
     triad_poses = transforms.transform_to_vec(_triad_init(init_kin, cyl_params * flip))
 
     cube = _cube_group_rotvecs(pts3s.dtype, dev)            # (24, 3)
@@ -163,8 +180,8 @@ def fit_cylinders_with_angles(
         residual_fn, candidates, jac_fn=torch.func.vmap(jac_one),
         iters=config.lm_iters, lambda0=config.lm_lambda0,
     )
-    best = torch.argmin(res.cost)
-    pose = res.params[best]
+    best = torch.argmin(res.cost)[None]
+    pose = res.params.index_select(0, best)[0]
 
     r0 = residual_fn(triad_poses[0])
 
@@ -179,20 +196,22 @@ def fit_cylinders_with_angles(
     jac = torch.cat([jac[:, :3] / torch.clamp(lever, min=1e-6), jac[:, 3:]], dim=-1)
     jtj = mm(jac.T, jac)
     f_used = torch.clamp(torch.sum(torch.any(valid, dim=-1)).to(jtj.dtype), min=1.0)
-    min_eig = torch.linalg.eigvalsh(jtj)[0] / f_used
+    min_eig = eigh(jtj)[0][0] / f_used
 
     return RegistrationResult(
         t_cam_agv=transforms.vec_to_transform(pose),
         fval0=torch.sum(r0 * r0),
-        fval=res.cost[best],
+        fval=res.cost.index_select(0, best)[0],
         jtj_min_eig=min_eig,
         well_posed=min_eig >= config.min_observability,
     )
 
 
+@functools.lru_cache(maxsize=None)
 def _cube_group_rotvecs(dtype, device) -> torch.Tensor:
     """Rotation vectors of the 24 rotational symmetries of the cube, a fixed
-    covering of SO(3) used as multi-start seeds."""
+    covering of SO(3) used as multi-start seeds; made once per dtype and
+    device (the caller must not write to it)."""
     mats = []
     # All signed permutation matrices with determinant +1.
     for perm in ((0, 1, 2), (0, 2, 1), (1, 0, 2), (1, 2, 0), (2, 0, 1), (2, 1, 0)):
@@ -205,8 +224,9 @@ def _cube_group_rotvecs(dtype, device) -> torch.Tensor:
                     m[2, perm[2]] = sz
                     if np.linalg.det(m) > 0.5:
                         mats.append(m)
-    mats = torch.as_tensor(np.stack(mats), dtype=dtype, device=device)
-    return transforms.matrix_to_rotvec(mats)
+    with torch.inference_mode(False):
+        mats = torch.as_tensor(np.stack(mats), dtype=dtype, device=device)
+        return transforms.matrix_to_rotvec(mats)
 
 
 def predicted_cylinder_poses(

@@ -544,7 +544,7 @@ def _bridge_angle_exp_pair(outs: torch.Tensor, labels: torch.Tensor, cfg: Detect
     hw = hgt * wdt
     table = torch.zeros((v, n, hw + 1), dtype=torch.bool, device=dev)
     table = table.scatter(-1, stats.root.to(torch.int64).clamp(0, hw), expandable)
-    table[..., hw] = False
+    table[..., hw].fill_(False)
     flat = labels.reshape(v, n, hw).to(torch.int64).clamp(0, hw)
     return angle, table.gather(-1, flat).reshape(v, n, hgt, wdt)
 

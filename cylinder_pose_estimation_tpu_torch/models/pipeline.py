@@ -9,10 +9,22 @@
 * ``estimate_poses_stream``: a long sequence through fixed-size chunks in
   bounded device memory, with the upload of chunk k+1 and the readback of
   chunk k-1 overlapped with the compute of chunk k.
+* ``compiled_batch`` / ``_stream_step`` / the registration step: the JAX
+  package's compile-once, dispatch-once steps.  On a CUDA device each is one
+  ``torch.cuda.CUDAGraph`` per input shape, dtype and device.  The first
+  call with a key is the eager call, so a one-shot caller (the CLI's
+  ``experiment``, one ``full_experiment``) pays no capture; the second is an
+  eager warm-up on a side stream, a capture into static buffers and a
+  replay; every later call copies into the static inputs and replays (no
+  host round trip, none of the ~10^4 per-op launches of the eager call).
+  On the CPU the step is the eager call.  A failed capture or replay
+  raises; nothing falls back to eager on the card.  ``estimate_poses_batch``
+  itself stays eager: it is what each replay is held to.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 from concurrent.futures import ThreadPoolExecutor
 from typing import NamedTuple, Tuple
@@ -24,6 +36,7 @@ from cylinder_pose_estimation_tpu_torch.config import DetectConfig, FitConfig, R
 from cylinder_pose_estimation_tpu_torch.geometry.registration import fit_cylinders_with_angles
 from cylinder_pose_estimation_tpu_torch.models.detector import detect_grid
 from cylinder_pose_estimation_tpu_torch.models.pose import fit_single_cylinder
+from cylinder_pose_estimation_tpu_torch.ops import frontend
 from cylinder_pose_estimation_tpu_torch.ops.clahe import preprocess_stereo
 from cylinder_pose_estimation_tpu_torch.ops.linalg import exact_float32
 from cylinder_pose_estimation_tpu_torch.types import (
@@ -117,7 +130,8 @@ def _tree_map(fn, *trees):
     """Apply fn leaf-wise over equal NamedTuple trees of tensors / arrays."""
     first = trees[0]
     if isinstance(first, tuple):
-        return type(first)(*[_tree_map(fn, *leaves) for leaves in zip(*trees)])
+        leaves = [_tree_map(fn, *leaves) for leaves in zip(*trees)]
+        return type(first)(*leaves) if hasattr(first, "_fields") else tuple(leaves)
     return fn(*trees)
 
 
@@ -174,6 +188,176 @@ def _stereo_to(stereo: StereoParams, device: torch.device) -> StereoParams:
 
     return StereoParams(cam(stereo.cam1), cam(stereo.cam2),
                         *[to(x) for x in stereo[2:]])
+
+
+def _stereo_key(stereo: StereoParams) -> tuple:
+    """The rig's content as a hashable key (the JAX ``_stream_step``'s
+    fingerprint): bytes, shape and dtype of every leaf.  Reads the rig back
+    to the host once."""
+    return tuple((x.detach().cpu().numpy().tobytes(), tuple(x.shape), str(x.dtype))
+                 for x in _tree_leaves(stereo) if x is not None)
+
+
+def _stereo_copy(stereo: StereoParams) -> StereoParams:
+    """A private copy of the rig: a captured graph reads its tensors in
+    every replay, so a caller's later in-place change must not reach it."""
+    return _tree_map(lambda x: None if x is None else x.detach().clone(), stereo)
+
+
+class _GraphStep:
+    """``fn(*inputs)`` as one captured CUDA graph.
+
+    The inputs are copied into static input buffers; one eager call runs on
+    a side stream (kernel plans, ``cudaFuncSetAttribute``, the constant
+    caches and cuBLAS's workspace are settled there); then the same call is
+    captured into ``self.graph`` with its own memory pool, and its outputs
+    are the static outputs.  A call copies its inputs into the static
+    inputs, replays, and returns the static outputs, which the next replay
+    overwrites: callers that hand results out clone them.  The capture is
+    ``thread_local``: the stream's uploader thread may allocate pinned
+    memory meanwhile.  A capture that meets a host synchronisation raises.
+
+    ``self.launches``: the kernel wrappers' calls the capture recorded
+    (``ops.frontend.launch_counts``); each replay runs those kernels again
+    without the wrappers, so it adds them to ``_GRAPH_LAUNCHES``."""
+
+    def __init__(self, fn, inputs):
+        dev = inputs[0].device
+        self.fn = fn  # keeps the tensors the graph reads (the rig) alive
+        self.inputs = [torch.empty_like(x) for x in inputs]
+        for dst, x in zip(self.inputs, inputs):
+            dst.copy_(x)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            fn(*self.inputs)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        before = frontend.launch_counts()
+        with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
+            self.outputs = fn(*self.inputs)
+        after = frontend.launch_counts()
+        self.launches = collections.Counter({k: after[k] - before[k] for k in after if after[k] > before[k]})
+        _GRAPH_LAUNCHES["captured"].update(self.launches)
+
+    def __call__(self, *inputs):
+        for dst, x in zip(self.inputs, inputs):
+            dst.copy_(x)
+        self.graph.replay()
+        _GRAPH_LAUNCHES["replayed"].update(self.launches)
+        _GRAPH_LAUNCHES["replays"][()] += 1
+        return self.outputs
+
+
+# Kernel launches seen by the compiled steps, per kernel counter of
+# ops.frontend: the wrapper calls their captures recorded (a capture runs
+# no kernel) and those their replays ran (no wrapper is called), with the
+# count of replays under the key ().  The kernels a process ran on the card
+# are then frontend.launch_counts() - captured + replayed.
+_GRAPH_LAUNCHES = {"captured": collections.Counter(), "replayed": collections.Counter(),
+                   "replays": collections.Counter()}
+
+
+def graph_launch_counts() -> dict:
+    """{"captured": {kernel: n}, "replayed": {kernel: n}, "replays": n}
+    since the last ``reset_graph_launch_counts``."""
+    return {"captured": dict(_GRAPH_LAUNCHES["captured"]), "replayed": dict(_GRAPH_LAUNCHES["replayed"]),
+            "replays": _GRAPH_LAUNCHES["replays"][()]}
+
+
+def reset_graph_launch_counts() -> None:
+    for c in _GRAPH_LAUNCHES.values():
+        c.clear()
+
+
+# One captured graph per (step, rig, configs, input shapes, dtypes, device),
+# None until its key's second call, the oldest evicted first, as the JAX
+# package's cache of compiled steps.
+# JAX's holds 16 programs; each entry here also holds its graph's memory
+# pool, the step's whole working set, which no other step can use
+# (chip_smoke phase 19 prints each pool's size), so this one holds 8.
+_STREAM_STEP_CACHE: collections.OrderedDict = collections.OrderedDict()
+_STREAM_STEP_CACHE_SIZE = 8
+
+
+def _graphs(t: torch.Tensor) -> bool:
+    """Whether a step on ``t`` replays a CUDA graph: on a CUDA device."""
+    return t.device.type == "cuda"
+
+
+def _compiled(key: tuple, fn, inputs, fresh: bool = False):
+    """``fn(*inputs)`` as a compiled step.  On CPU tensors the eager call.
+    On a CUDA device, per key and these inputs' shapes, dtypes and device:
+    the first call is the eager call (its entry holds no graph yet); the
+    second captures the step's ``_GraphStep``; it and every later call
+    return the graph's static outputs, or clones of them when ``fresh``."""
+    if not _graphs(inputs[0]):
+        return fn(*inputs)
+    full = key + tuple((tuple(x.shape), x.dtype, x.device) for x in inputs)
+    if full not in _STREAM_STEP_CACHE:
+        while len(_STREAM_STEP_CACHE) >= _STREAM_STEP_CACHE_SIZE:
+            _STREAM_STEP_CACHE.popitem(last=False)
+        _STREAM_STEP_CACHE[full] = None
+        return fn(*inputs)
+    step = _STREAM_STEP_CACHE[full]
+    if step is None:
+        step = _STREAM_STEP_CACHE[full] = _GraphStep(fn, inputs)
+    out = step(*inputs)
+    return _tree_map(torch.clone, out) if fresh else out
+
+
+def compiled_batch(
+    stereo: StereoParams,
+    detect_cfg: DetectConfig,
+    fit_cfg: FitConfig = FitConfig(),
+    probe: str | None = None,
+):
+    """``estimate_poses_batch`` with the rig and configs fixed, as one
+    compiled step: the counterpart of ``jax.jit(partial(estimate_poses_batch,
+    stereo=..., detect_cfg=..., fit_cfg=...))``.  Returns ``fn(images1,
+    images2)``; on CUDA tensors it replays the step's CUDA graph (captured
+    at the second call of each input shape; the first is eager) and returns
+    fresh tensors, on CPU tensors it is the eager call."""
+    stereo = _stereo_copy(stereo)
+    key = ("batch", detect_cfg, fit_cfg, probe, _stereo_key(stereo))
+
+    def body(a, b):
+        return estimate_poses_batch(a, b, stereo, detect_cfg, fit_cfg, probe)
+
+    def run(images1: torch.Tensor, images2: torch.Tensor):
+        return _compiled(key, body, (images1, images2), fresh=True)
+
+    return run
+
+
+def _stream_step(stereo, detect_cfg, fit_cfg, reg_cfg, compact, mesh=None):
+    """One compiled chunk step, cached across ``estimate_poses_stream``
+    calls: ``fn(a, b)`` -> the chunk's StereoPoseResult, or its
+    StreamPoseSummary when ``compact``.  On a CUDA device the step replays
+    its CUDA graph (from its second chunk on) and returns the graph's static
+    outputs (valid until the next replay of the same step; the stream reads
+    them back first).  The
+    rig is fixed at the call, keyed by content as in the JAX package.
+    With a ``mesh`` each rank's block is its own graph and the all-gather
+    (NCCL) runs after the replay, outside the graph."""
+    stereo = _stereo_copy(stereo)
+    # reg_cfg reaches the step only through _summarize_batch's frame_health,
+    # so compact=False steps share one entry across reg_cfg values.
+    key = ("stream", detect_cfg, fit_cfg, reg_cfg if compact else None, compact, _stereo_key(stereo))
+
+    def body(a, b):
+        batch = estimate_poses_batch(a, b, stereo, detect_cfg, fit_cfg)
+        return _summarize_batch(batch, reg_cfg) if compact else batch
+
+    def step(a, b):
+        r = _compiled(key, body, (a, b))
+        if mesh is None:
+            return r
+        from cylinder_pose_estimation_tpu_torch.parallel.mesh import gather_frames
+
+        return gather_frames(r, mesh)
+
+    return step
 
 
 class _Uploader:
@@ -249,7 +433,9 @@ def estimate_poses_stream(
     readback of chunk k into pinned host memory is started, and chunk k-1 is
     materialised.  Device memory holds about three chunks.
     ``overlap=False`` runs one chunk at a time.  Either way each chunk's
-    result is that of ``estimate_poses_batch`` on the same frames.
+    result is that of ``estimate_poses_batch`` on the same frames: on a CUDA
+    device every chunk after the first replays the compiled step
+    (``_stream_step``).
 
     ``mesh`` (a ``parallel.mesh.FrameMesh``): multi-device serving, the
     stream running on every rank of the mesh with the same arguments.  Each
@@ -263,7 +449,7 @@ def estimate_poses_stream(
         raise ValueError("estimate_poses_stream needs at least one frame")
     lo, hi = 0, chunk
     if mesh is not None:
-        from cylinder_pose_estimation_tpu_torch.parallel.mesh import FrameMesh, frame_slice, gather_frames
+        from cylinder_pose_estimation_tpu_torch.parallel.mesh import FrameMesh, frame_slice
 
         if not isinstance(mesh, FrameMesh):
             raise TypeError(f"estimate_poses_stream: mesh must be a FrameMesh (parallel.mesh.make_mesh), "
@@ -294,15 +480,15 @@ def estimate_poses_stream(
         a, b, live = first if s == 0 else load(s)
         return (*uploader.upload(a, b), live)
 
+    compiled = _stream_step(stereo, detect_cfg, fit_cfg, reg_cfg, compact, mesh)
+
     def step(da, db, ready):
         if ready is not None:
             compute = torch.cuda.current_stream(device)
             compute.wait_event(ready)
             da.record_stream(compute)
             db.record_stream(compute)
-        batch = estimate_poses_batch(da, db, stereo, detect_cfg, fit_cfg)
-        r = _summarize_batch(batch, reg_cfg) if compact else batch
-        return r if mesh is None else gather_frames(r, mesh)
+        return compiled(da, db)
 
     def start_readback(r):
         if device.type != "cuda":
@@ -375,14 +561,16 @@ def register_sequence(
     """Multi-frame camera<->AGV registration of a batched pose result (ref
     exp_gridDetection.m:87 fitCylinderWPts3sAngs) with unhealthy frames
     masked out (all frames if fewer than 2 are healthy).  ``angles`` (F, 2)
-    [pan, tilt] in radians, on the device of the batch."""
-    return fit_cylinders_with_angles(
-        batch.fit.points3,
-        batch.fit.points_valid,
-        angles,
-        reg_cfg,
-        frame_valid=frame_health(batch, reg_cfg),
-    )
+    [pan, tilt] in radians, on the device of the batch.  On a CUDA device
+    the solve is a compiled step (one CUDA graph per F, N, dtype, device and
+    ``reg_cfg``, replayed from the second call with them on; the first is
+    eager) and returns fresh tensors."""
+    inputs = (batch.fit.points3, batch.fit.points_valid, angles, frame_health(batch, reg_cfg))
+
+    def body(pts3s, valid, ang, frame_valid):
+        return fit_cylinders_with_angles(pts3s, valid, ang, reg_cfg, frame_valid=frame_valid)
+
+    return _compiled(("registration", reg_cfg), body, inputs, fresh=True)
 
 
 def full_experiment(
@@ -398,9 +586,12 @@ def full_experiment(
     """The whole exp_gridDetection.m: F stereo pairs + pan/tilt angles ->
     per-frame poses + T_Cam_AGV, on the device of the inputs.
     ``preprocess=True`` first undistorts and equalises raw frames (ref
-    utils/preProcessing.m:4-21)."""
+    utils/preProcessing.m:4-21; eager).  On a CUDA device the poses and the
+    registration are two compiled steps: ``compiled_batch``'s, then
+    ``register_sequence``'s, eager at the first call with these shapes and
+    configs and replayed from the second on."""
     if preprocess:
         images1, images2 = preprocess_stereo_batch(images1, images2, stereo)
-    batch = estimate_poses_batch(images1, images2, stereo, detect_cfg, fit_cfg)
+    batch = compiled_batch(stereo, detect_cfg, fit_cfg)(images1, images2)
     reg = register_sequence(batch, angles, reg_cfg)
     return batch, reg

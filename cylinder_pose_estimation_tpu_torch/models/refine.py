@@ -16,8 +16,10 @@ from __future__ import annotations
 
 from typing import Tuple
 
+import numpy as np
 import torch
 
+from cylinder_pose_estimation_tpu_torch.ops.constants import device_constant
 from cylinder_pose_estimation_tpu_torch.ops.image import fma32
 from cylinder_pose_estimation_tpu_torch.ops.polyfit import masked_polyfit, polyval
 
@@ -28,8 +30,8 @@ def _unit_linspace(n: int, device) -> torch.Tensor:
     end point exactly 1."""
     if n == 1:
         return torch.zeros(1, dtype=torch.float32, device=device)
-    step = torch.tensor(1.0, dtype=torch.float32) / float(n - 1)
-    t = torch.arange(n - 1, dtype=torch.float32, device=device) * step.to(device)
+    step = device_constant(float(np.float32(1.0) / np.float32(n - 1)), torch.float32, device)
+    t = torch.arange(n - 1, dtype=torch.float32, device=device) * step
     return torch.cat([t, torch.ones(1, dtype=torch.float32, device=device)])
 
 

@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from cylinder_pose_estimation_tpu_torch.ops.constants import device_constant
 from cylinder_pose_estimation_tpu_torch.ops.mxu_conv import gauss_taps_cv, gauss_taps_scipy
 
 _PAD_MODES = {"reflect101": "reflect", "edge": "replicate", "constant": "constant"}
@@ -24,8 +25,9 @@ _PAD_MODES = {"reflect101": "reflect", "edge": "replicate", "constant": "constan
 def div_exact(x: torch.Tensor, d: float) -> torch.Tensor:
     """x / d, correctly rounded on every device: PyTorch's CUDA division by
     a Python number multiplies by the float32 reciprocal instead, which
-    differs from the CPU (and the JAX package) in the last bit."""
-    return x / torch.tensor(d, dtype=x.dtype, device=x.device)
+    differs from the CPU (and the JAX package) in the last bit.  The divisor
+    tensor is made once per (d, dtype, device)."""
+    return x / device_constant(d, x.dtype, x.device)
 
 
 def _cumsum_seq(x: torch.Tensor) -> torch.Tensor:
@@ -72,8 +74,8 @@ def pad2d(img: torch.Tensor, ry: int, rx: int, mode: str) -> torch.Tensor:
 
 def _taps(k, dtype, device) -> torch.Tensor:
     """Filter taps as a float32 vector, then in the image's type (as the JAX
-    code casts them)."""
-    return torch.as_tensor(k, dtype=torch.float32, device=device).to(dtype)
+    code casts them); made once per (taps, dtype, device)."""
+    return device_constant(k, torch.float32, device).to(dtype)
 
 
 def fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
@@ -161,7 +163,7 @@ def box_filter(img: torch.Tensor, ksize: int, mode: str = "edge", normalize: boo
     out = box_last(p, w)
     out = box_last(out.transpose(-1, -2), h).transpose(-1, -2)
     if normalize:
-        out = out * torch.tensor(1.0 / (ksize * ksize), dtype=torch.float32, device=out.device)
+        out = out * device_constant(1.0 / (ksize * ksize), torch.float32, out.device)
     return out.to(img.dtype)
 
 
@@ -260,4 +262,4 @@ def patch_mean_at(img_boxmean: torch.Tensor, xy: torch.Tensor, valid: torch.Tens
         return torch.nan_to_num(torch.round(v), nan=0.0).clamp(0, n - 1).to(torch.int64)
 
     vals = img_boxmean[index(xy[..., 1], h), index(xy[..., 0], w)]
-    return torch.where(valid, vals, torch.tensor(-torch.inf, dtype=vals.dtype, device=vals.device))
+    return torch.where(valid, vals, device_constant(-torch.inf, vals.dtype, vals.device))

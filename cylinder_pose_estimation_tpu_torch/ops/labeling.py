@@ -121,7 +121,7 @@ def _slot_image(flat: torch.Tensor, root_k: torch.Tensor, vhw: int) -> torch.Ten
     slots = torch.arange(k, device=flat.device).expand(root_k.shape)
     table = table.scatter_reduce(-1, torch.clamp(root_k, max=vhw), slots,
                                  reduce="amin", include_self=True)
-    table[..., vhw] = k
+    table[..., vhw].fill_(k)
     return table.gather(-1, torch.clamp(flat.to(torch.int64), 0, vhw))
 
 

@@ -5,15 +5,29 @@
 for.  ``solve_spd`` keeps the equilibrated, unrolled Cholesky with one step
 of iterative refinement exactly as written there: both guards are needed in
 float32 on the worst-conditioned LM systems.
+
+Nothing here waits for the host on a CUDA device: ``eigh`` takes the place
+of ``torch.linalg.eigh`` / ``eigvalsh`` (which read their solver's status
+back to the host there) on every path a compiled step captures.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import torch
 
+from cylinder_pose_estimation_tpu_torch.ops.constants import device_constant
+
 _EPS = 1e-12
+# Cyclic Jacobi sweeps of ``eigh_jacobi`` by matrix order: the fewest that
+# meet tests/test_torch_sync_free.py's bounds on all of its batches (random,
+# graded 1e-6..1, repeated eigenvalues, diagonal, zero), which pin them.
+JACOBI_SWEEPS = {3: 4, 6: 6}
+# A rotation is skipped where 100 |a_pq| does not change |a_pp| or |a_qq| in
+# float64 (Numerical Recipes' test): |a_pq| * 100 / (eps / 2) <= both.
+_JACOBI_SKIP = 100.0 / 2.0 ** -53
 
 
 def exact_float32() -> None:
@@ -45,8 +59,89 @@ def masked_cov(pts: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
 def pca_components(pts: torch.Tensor, valid: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Principal axes (columns, descending variance) and variances."""
     cov = masked_cov(pts, valid)
-    evals, evecs = torch.linalg.eigh(cov)  # ascending
+    evals, evecs = eigh(cov)  # ascending
     return torch.flip(evecs, dims=(-1,)), torch.flip(evals, dims=(-1,))
+
+
+def _lapack(a: torch.Tensor) -> bool:
+    """Whether ``eigh`` solves ``a`` with LAPACK: on CPU tensors."""
+    return a.device.type == "cpu"
+
+
+def eigh(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``torch.linalg.eigh``'s (ascending eigenvalues, column eigenvectors)
+    of symmetric (..., n, n) matrices, with no host synchronisation on a
+    CUDA device: there ``eigh_jacobi``; on a CPU tensor LAPACK
+    (``torch.linalg.eigh``), which the CPU has no reason to avoid.
+
+    LAPACK on the CPU is the JAX package's own solver there, and the CPU
+    tests hold the port to that package at tolerances only its rounding
+    meets: the curvature-seeded fits of ill-conditioned frames are chaotic
+    in their start, and a start 1e-7 away (any other solver's eigenvector)
+    moves a frame's axis by up to 1.7e-3 rad or the registration's
+    diagnostic by 0.2%; see ROADMAP section 3.  ``eigh_jacobi`` agrees with
+    float64 LAPACK to the rounding of its input (tests/test_torch_sync_free.py)."""
+    if _lapack(a):
+        return torch.linalg.eigh(a)
+    return eigh_jacobi(a)
+
+
+@functools.lru_cache(maxsize=None)
+def _rotation_planes(n: int, dtype, device) -> tuple:
+    """(p, q, I, P, S) of every rotation of one sweep, pairs p < q in row
+    order: J = I + (c - 1) P + s S is the Jacobi rotation in the (p, q)
+    plane with cosine c and sine s."""
+    eye = [[float(i == j) for j in range(n)] for i in range(n)]
+    planes = []
+    for p in range(n - 1):
+        for q in range(p + 1, n):
+            plane = [[float(i == j and i in (p, q)) for j in range(n)] for i in range(n)]
+            sine = [[float((i, j) == (p, q)) - float((i, j) == (q, p)) for j in range(n)] for i in range(n)]
+            planes.append((p, q, *(device_constant(m, dtype, device) for m in (eye, plane, sine))))
+    return tuple(planes)
+
+
+def eigh_jacobi(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Eigenvalues (..., n), ascending, and column eigenvectors (..., n, n)
+    of symmetric (..., n, n) matrices, as ``torch.linalg.eigh`` returns them
+    (the upper triangle is read).
+
+    Cyclic Jacobi: ``JACOBI_SWEEPS[n]`` passes over the
+    pairs p < q in row order, each a rotation J = [[c, s], [-s, c]] in the
+    (p, q) plane with t = s / c the smaller root of t^2 + 2 theta t - 1 = 0,
+    theta = (a_qq - a_pp) / (2 a_pq), so that a <- J^T a J zeroes a_pq, and
+    the vectors v <- v J.  The count is fixed, with no test of convergence,
+    so no value goes back to the host and a CUDA graph can capture it.
+    A zero a_pq gives J = I (no rotation).  Eigenvectors carry the sign the
+    rotations give them, which may differ from LAPACK's.
+
+    The sweeps run in float64 and the results are rounded once to ``a``'s
+    type: the eigenpairs of the given matrix to its own rounding, whatever
+    order the device sums in."""
+    out_dtype = a.dtype
+    a = a.to(torch.float64)
+    n = a.shape[-1]
+    v = None
+    for _ in range(JACOBI_SWEEPS[n]):
+        for p, q, eye, plane, sine in _rotation_planes(n, a.dtype, a.device):
+            app, aqq, apq = a[..., p, p], a[..., q, q], a[..., p, q]
+            theta = (aqq - app) / (2.0 * apq)
+            # t = sign(theta) / (|theta| + sqrt(theta^2 + 1)), written
+            # so that theta = +-inf gives 0.
+            t = 1.0 / (theta + torch.copysign(torch.sqrt(theta * theta + 1.0), theta))
+            # No rotation where a_pq is below the rounding of both
+            # diagonal entries (a_pq == 0 included, whose theta may be
+            # nan): rotating rounding noise only loses orthogonality.
+            negligible = torch.abs(apq) * _JACOBI_SKIP <= torch.minimum(torch.abs(app), torch.abs(aqq))
+            t = torch.where(negligible, 0.0, t)
+            c = torch.rsqrt(t * t + 1.0)
+            s = t * c
+            j = eye + (c - 1.0)[..., None, None] * plane + s[..., None, None] * sine
+            a = mm(mm(j.transpose(-1, -2), a), j)
+            v = j if v is None else mm(v, j)
+    evals, order = torch.sort(torch.diagonal(a, dim1=-2, dim2=-1), dim=-1, stable=True)
+    evecs = v.gather(-1, order[..., None, :].expand(v.shape))
+    return evals.to(out_dtype), evecs.to(out_dtype)
 
 
 def eigh2x2(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor):

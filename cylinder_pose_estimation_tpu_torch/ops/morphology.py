@@ -15,6 +15,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from cylinder_pose_estimation_tpu_torch.ops.constants import device_constant
+
 
 def _window_reduce(mask: torch.Tensor, wy: int, wx: int, op: str) -> torch.Tensor:
     fill = 0.0 if op == "max" else 1.0
@@ -58,7 +60,7 @@ def shift2d(mask: torch.Tensor, dy: torch.Tensor, dx: torch.Tensor, fill: float 
     ok = (rows >= 0) & (rows < h) & (cols >= 0) & (cols < w)
     src = (rows.clamp(0, h - 1) * w + cols.clamp(0, w - 1)).reshape(b, -1)
     out = mask.reshape(b, -1).gather(1, src).reshape(b, h, w)
-    return torch.where(ok, out, torch.tensor(fill, dtype=mask.dtype, device=mask.device))
+    return torch.where(ok, out, device_constant(fill, mask.dtype, mask.device))
 
 
 def dilate_line(mask: torch.Tensor, angle: torch.Tensor, max_length: int,

@@ -10,6 +10,11 @@ parallel/sharding.py).
   returns its own frames only, frame-sharded as the JAX ``shard_map``.
 
 Every rank passes the same whole host arrays; each uploads only its block.
+On a CUDA device each rank's block is its own compiled step
+(``models.pipeline.compiled_batch``, the counterpart of the JAX package's
+jitted program: eager at its first call, replayed from the second), and the
+all-gather (NCCL) runs after it, outside the graph; the replicated
+registration is the registration step.
 """
 
 from __future__ import annotations
@@ -23,7 +28,7 @@ from cylinder_pose_estimation_tpu_torch.config import DetectConfig, FitConfig, R
 from cylinder_pose_estimation_tpu_torch.models.pipeline import (
     StereoPoseResult,
     _stereo_to,
-    estimate_poses_batch,
+    compiled_batch,
     register_sequence,
 )
 from cylinder_pose_estimation_tpu_torch.parallel.mesh import (
@@ -43,11 +48,12 @@ def _upload(x, sl: slice, device: torch.device) -> torch.Tensor:
 
 
 def _local_poses(mesh: FrameMesh, stereo: StereoParams, detect_cfg, fit_cfg):
+    step = compiled_batch(stereo, detect_cfg, fit_cfg)
+
     def run(images1, images2) -> StereoPoseResult:
         start, stop = frame_slice(mesh, images1.shape[0])
         sl = slice(start, stop)
-        return estimate_poses_batch(_upload(images1, sl, mesh.device), _upload(images2, sl, mesh.device),
-                                    stereo, detect_cfg, fit_cfg)
+        return step(_upload(images1, sl, mesh.device), _upload(images2, sl, mesh.device))
 
     return run
 

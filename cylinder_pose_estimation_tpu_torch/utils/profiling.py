@@ -7,6 +7,8 @@
 * ``graph_kernels``: the CUDA kernels one call launches, counted from the
   kernel nodes of a CUDA graph captured from it, and the device ms of a
   replay of that graph by CUDA events.
+* ``alternating_ms``: two or more callables timed in alternating turns by
+  CUDA events (eager against replayed steps).
 * ``trace``: a ``torch.profiler`` session that writes a Chrome trace.
 """
 
@@ -142,6 +144,29 @@ def graph_kernels(fn: Callable, reps: int = 20, warmup: int = 3) -> Tuple[int, f
         end.synchronize()
         times.append(start.elapsed_time(end))
     return n_kernels, statistics.median(times)
+
+
+def alternating_ms(fns: dict, pairs: int, warmup: int = 2) -> dict:
+    """Median CUDA-event ms of each ``fn()`` of ``fns``, called in turns
+    (a, b, b, a, ...) ``pairs`` times each after ``warmup`` calls each (two
+    by default: a compiled step's first call is eager and its second
+    captures its graph, so the timed calls are replays)."""
+    names = list(fns)
+    for _ in range(warmup):
+        for n in names:
+            fns[n]()
+    torch.cuda.synchronize()
+    times = {n: [] for n in names}
+    for i in range(pairs):
+        for n in (names if i % 2 == 0 else names[::-1]):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fns[n]()
+            end.record()
+            end.synchronize()
+            times[n].append(start.elapsed_time(end))
+    return {n: statistics.median(t) for n, t in times.items()}
 
 
 @contextlib.contextmanager

@@ -856,3 +856,97 @@ def test_knobs_on_card_match_cpu(dev, override):
     np.testing.assert_array_equal(cpu.grid.idx.numpy(), gpu.grid.idx.cpu().numpy())
     np.testing.assert_allclose(cpu.grid.xy.numpy(), gpu.grid.xy.cpu().numpy(), atol=1e-3)
     assert cpu.ok.tolist() == gpu.ok.cpu().tolist() and cpu.stable.tolist() == gpu.stable.cpu().tolist()
+
+
+# --- the compiled steps (CUDA graphs of the batch, stream and registration
+# steps) against the eager calls they replay -------------------------------
+
+def _leaves_equal(got, want):
+    from cylinder_pose_estimation_tpu_torch.models.pipeline import _tree_leaves
+
+    torch.cuda.synchronize()
+    for i, (g, w) in enumerate(zip(_tree_leaves(got), _tree_leaves(want))):
+        assert g.shape == w.shape and g.dtype == w.dtype, i
+        assert torch.equal(g, w) or (g.is_floating_point() and bool(((g == w) | (g.isnan() & w.isnan())).all())), i
+
+
+@pytest.mark.parametrize("use_pallas", [True, False], ids=["kernels", "xla"])
+def test_compiled_batch_equals_eager(dev, use_pallas):
+    """``compiled_batch`` (eager at the first call, a CUDA graph replayed
+    from the second) is equal, leaf for leaf, to ``estimate_poses_batch`` on
+    every call, and returns fresh tensors."""
+    from cylinder_pose_estimation_tpu_torch.config import CylinderDetectConfig, FitConfig
+    from cylinder_pose_estimation_tpu_torch.models import pipeline
+    from cylinder_pose_estimation_tpu_torch.types import stereo_from_numpy
+    from cylinder_pose_estimation_tpu_torch.utils.synthetic import example_pair
+
+    st, (i1, i2) = example_pair(240, 320, n_frames=4)
+    stereo = stereo_from_numpy(*st, device=dev)
+    cfg = CylinderDetectConfig(height=240, width=320, use_pallas=use_pallas)
+    a, b = torch.as_tensor(i1, device=dev), torch.as_tensor(i2, device=dev)
+    step = pipeline.compiled_batch(stereo, cfg, FitConfig())
+    first = step(a, b)
+    for eps in (0.0, 0.5):
+        got = step(a + eps, b + eps)
+        _leaves_equal(got, pipeline.estimate_poses_batch(a + eps, b + eps, stereo, cfg, FitConfig()))
+    assert first.fit.params.data_ptr() != got.fit.params.data_ptr()
+    _leaves_equal(first, pipeline.estimate_poses_batch(a, b, stereo, cfg, FitConfig()))
+
+
+def test_stream_chunks_equal_the_batch_call(dev):
+    """Every chunk of ``estimate_poses_stream`` (the compiled stream step,
+    the padded tail included) equals ``_summarize_batch`` of the eager batch
+    call on the same frames."""
+    from cylinder_pose_estimation_tpu_torch.config import CylinderDetectConfig, FitConfig, RegistrationConfig
+    from cylinder_pose_estimation_tpu_torch.models import pipeline
+    from cylinder_pose_estimation_tpu_torch.types import stereo_from_numpy
+    from cylinder_pose_estimation_tpu_torch.utils.synthetic import example_pair
+
+    st, (i1, i2) = example_pair(240, 320, n_frames=5)
+    u1, u2 = (np.clip(x, 0, 255).astype(np.uint8) for x in (i1, i2))
+    stereo = stereo_from_numpy(*st, device=dev)
+    cfg = CylinderDetectConfig(height=240, width=320, use_pallas=True)
+    out = pipeline.estimate_poses_stream(u1, u2, stereo, cfg, FitConfig(), chunk=2, compact=True, device=dev)
+    for s in range(0, 5, 2):
+        idx = np.minimum(np.arange(s, s + 2), 4)
+        want = pipeline._summarize_batch(pipeline.estimate_poses_batch(
+            torch.as_tensor(u1[idx], device=dev), torch.as_tensor(u2[idx], device=dev), stereo, cfg, FitConfig()),
+            RegistrationConfig())
+        live = min(2, 5 - s)
+        for g, w in zip(pipeline._tree_leaves(out), pipeline._tree_leaves(want)):
+            np.testing.assert_array_equal(g[s:s + live], w[:live].cpu().numpy())
+
+
+def test_compiled_registration_equals_eager(dev):
+    """``register_sequence`` on the card replays the registration step, equal
+    leaf for leaf to ``fit_cylinders_with_angles`` on the same inputs, with
+    no host synchronisation in a replayed call."""
+    import warnings
+
+    from cylinder_pose_estimation_tpu_torch.config import CylinderDetectConfig, FitConfig, RegistrationConfig
+    from cylinder_pose_estimation_tpu_torch.geometry.registration import fit_cylinders_with_angles
+    from cylinder_pose_estimation_tpu_torch.models import pipeline
+    from cylinder_pose_estimation_tpu_torch.types import stereo_from_numpy
+    from cylinder_pose_estimation_tpu_torch.utils.synthetic import registration_sequence
+
+    st, ang, (i1, i2), _ = registration_sequence(6, 240, 320)
+    stereo = stereo_from_numpy(*st, device=dev)
+    cfg = CylinderDetectConfig(height=240, width=320, use_pallas=True)
+    batch = pipeline.estimate_poses_batch(torch.as_tensor(i1, device=dev), torch.as_tensor(i2, device=dev),
+                                          stereo, cfg, FitConfig())
+    angles = torch.as_tensor(ang, device=dev)
+    pipeline.register_sequence(batch, angles)  # eager
+    pipeline.register_sequence(batch, angles)  # warm-up, capture, replay
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            got = pipeline.register_sequence(batch, angles)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    assert not [w for w in caught if "called a synchronizing CUDA operation" in str(w.message)]
+    reg_cfg = RegistrationConfig()
+    want = fit_cylinders_with_angles(batch.fit.points3, batch.fit.points_valid, angles, reg_cfg,
+                                     frame_valid=pipeline.frame_health(batch, reg_cfg))
+    _leaves_equal(got, want)

@@ -377,7 +377,7 @@ def test_band_plan_at_the_variant_sites():
 
 @pytest.mark.parametrize("cap_axis", [0, 1])
 @pytest.mark.parametrize("cap", [1, 2, 3, 10, 16])
-def test_cc_plan_with_a_cap_on_the_cluster_route(cap, cap_axis):
+def test_cc_plan_with_a_cap_at_a_cluster_shape_takes_the_band_route(cap, cap_axis):
     """A cap at a shape of the cluster route: the detector's capped final
     labels at 480x640 (the half-res canvas, (32, 240, 384)), whose uncapped
     calls take the cluster route.  A capped call leaves it for the

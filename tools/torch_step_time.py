@@ -6,8 +6,10 @@
 Prints, for ``estimate_poses_batch`` on 16 frames of the bench scene family
 (480x640, ``CylinderDetectConfig(use_pallas=True)`` or, with ``--branch
 xla``, ``CylinderDetectConfig()``, and ``FitConfig()``):
-e2e and detect-only (``probe="detect"``) ms/frame (CUDA events, medians,
-each call on freshly perturbed frames), the preprocess and CC kernels' device
+e2e and detect-only (``probe="detect"``) ms/frame, eager and replayed (the
+compiled step, ``pipeline.compiled_batch``: one CUDA graph a step), called
+in alternating pairs (CUDA events, medians, each call on freshly perturbed
+frames), the kernel nodes of each step's graph, the preprocess and CC kernels' device
 ms per detect call, and the detect stage's device busy share: the union of
 its CUDA kernels' intervals in a torch.profiler window over the host wall
 time of that window (the profiler's own host cost is inside the wall).
@@ -140,7 +142,8 @@ def main() -> int:
     sys.path.insert(0, os.path.abspath(args.root))
     from cylinder_pose_estimation_tpu_torch.config import CylinderDetectConfig, FitConfig
     from cylinder_pose_estimation_tpu_torch.models import detector as det
-    from cylinder_pose_estimation_tpu_torch.models.pipeline import estimate_poses_batch
+    from cylinder_pose_estimation_tpu_torch.models.pipeline import compiled_batch, estimate_poses_batch
+    from cylinder_pose_estimation_tpu_torch.utils import profiling
     from cylinder_pose_estimation_tpu_torch.ops import kernels
     from cylinder_pose_estimation_tpu_torch.types import stereo_from_numpy
     from cylinder_pose_estimation_tpu_torch.utils.synthetic import example_pair
@@ -166,9 +169,25 @@ def main() -> int:
         eps = 1e-4 * next(rep)
         return estimate_poses_batch(d1 + eps, d2 + eps, stereo, cfg, fit_cfg, probe="detect").grid.xy
 
+    step_e2e = compiled_batch(stereo, cfg, fit_cfg)
+    step_det = compiled_batch(stereo, cfg, fit_cfg, probe="detect")
+
+    def e2e_replay():
+        eps = 1e-4 * next(rep)
+        return step_e2e(d1 + eps, d2 + eps).fit.params
+
+    def detect_replay():
+        eps = 1e-4 * next(rep)
+        return step_det(d1 + eps, d2 + eps).grid.xy
+
     with torch.inference_mode():
-        ms_e2e = cuda_ms(e2e, args.reps)
-        ms_det = cuda_ms(detect, args.reps)
+        e2e_pair = profiling.alternating_ms({"eager": e2e, "replay": e2e_replay}, args.reps)
+        det_pair = profiling.alternating_ms({"eager": detect, "replay": detect_replay}, args.reps)
+        ms_e2e, ms_det = e2e_pair["eager"], det_pair["eager"]
+        nodes = {"e2e": profiling.graph_kernels(lambda: estimate_poses_batch(d1, d2, stereo, cfg, fit_cfg),
+                                                reps=5, warmup=1),
+                 "detect": profiling.graph_kernels(
+                     lambda: estimate_poses_batch(d1, d2, stereo, cfg, fit_cfg, probe="detect"), reps=5, warmup=1)}
         busy = busy_share(detect)
         views = torch.cat([d1, d2])
         stages = stage_ms(det, views, cfg, args.reps)
@@ -181,8 +200,16 @@ def main() -> int:
                                            args.reps)
     out = {"root": os.path.abspath(args.root), "card": smi, "batch": batch, "branch": args.branch,
            "e2e_ms_per_frame": ms_e2e / batch, "detect_ms_per_frame": ms_det / batch,
+           "e2e_replayed_ms_per_frame": e2e_pair["replay"] / batch,
+           "detect_replayed_ms_per_frame": det_pair["replay"] / batch,
+           "graph_kernel_nodes": {k: v[0] for k, v in nodes.items()},
+           "graph_replay_device_ms": {k: v[1] for k, v in nodes.items()},
            "detect_ms_per_step": ms_det, "detect_profile": busy, "stage_ms": stages,
            "bridge_stage_ms": bridge_ms}
+    print(f"{args.root}: e2e eager {ms_e2e / batch:.4f}, replayed {e2e_pair['replay'] / batch:.4f} ms/frame "
+          f"({nodes['e2e'][0]} kernel nodes, {nodes['e2e'][1]:.4f} device ms a step); detect eager "
+          f"{ms_det / batch:.4f}, replayed {det_pair['replay'] / batch:.4f} ms/frame ({nodes['detect'][0]} "
+          f"kernel nodes, {nodes['detect'][1]:.4f} device ms); {args.reps} alternating pairs; {smi}", flush=True)
     print(f"{args.root}: e2e {ms_e2e / batch:.4f} ms/frame, detect {ms_det / batch:.4f} ms/frame "
           f"({ms_det:.3f} ms/step); detect busy share {busy['busy_share']:.3f}, device "
           f"{busy['device_ms_per_call']:.3f} ms of {busy['wall_ms_per_call']:.3f} ms wall per step "
