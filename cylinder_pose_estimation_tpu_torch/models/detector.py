@@ -63,6 +63,7 @@ from cylinder_pose_estimation_tpu_torch.ops.polyfit import (
     polyval,
 )
 from cylinder_pose_estimation_tpu_torch.types import DetectResult, GridPoints
+from cylinder_pose_estimation_tpu_torch.utils import profiling
 
 _SHIFT4 = 1  # quarter-res content offset inside the padded canvas
 _I32_MAX = torch.iinfo(torch.int32).max
@@ -1116,21 +1117,29 @@ def detect_grid(images: torch.Tensor, cfg: DetectConfig, return_debug: bool = Fa
     """Grid detection on a (V, H, W) or (V, H, W, 3) batch of views ->
     DetectResult with a leading V axis (+ DetectDebug).  ``cfg.use_pallas``
     picks the branch: the kernel branch (True) or the XLA branch (False,
-    the default), as in the JAX package."""
+    the default), as in the JAX package.
+
+    Spans (``utils.profiling``), each timed on the device on a card:
+    ``detect.front`` (grey conversion and the front stage),
+    ``detect.roi``, ``detect.bridge``, ``detect.grid``."""
     validate(cfg)
-    gray = _to_gray(images)
     kernels = cfg.use_pallas
-    front = front_stage(gray, cfg) if kernels else front_stage_xla(gray, cfg)
-    roi = roi_stage(front, cfg)
-    bridge = bridge_stage if kernels else bridge_stage_xla
-    br = bridge(roi.mh, roi.mv, roi.circle_radius0, cfg)
-    st = GridState(
-        cents=front.cents, inside=roi.inside, bbox=roi.bbox, h_exp=br.h_exp, v_exp=br.v_exp,
-        circle_radius0=roi.circle_radius0, gray=front.gray, bright_blur=front.bright_blur,
-        warm_labels=br.warm_labels, bridge_angles=br.angles, n_pre=br.n_pre,
-        binary=front.binary, mh=roi.mh, mv=roi.mv, carve_domain=roi.carve_domain,
-    )
-    result, (row_coeffs, col_coeffs, row_valid, col_valid) = grid_stage(st, cfg)
+    with profiling.span("detect.front", like=images):
+        gray = _to_gray(images)
+        front = front_stage(gray, cfg) if kernels else front_stage_xla(gray, cfg)
+    with profiling.span("detect.roi", like=images):
+        roi = roi_stage(front, cfg)
+    with profiling.span("detect.bridge", like=images):
+        bridge = bridge_stage if kernels else bridge_stage_xla
+        br = bridge(roi.mh, roi.mv, roi.circle_radius0, cfg)
+    with profiling.span("detect.grid", like=images):
+        st = GridState(
+            cents=front.cents, inside=roi.inside, bbox=roi.bbox, h_exp=br.h_exp, v_exp=br.v_exp,
+            circle_radius0=roi.circle_radius0, gray=front.gray, bright_blur=front.bright_blur,
+            warm_labels=br.warm_labels, bridge_angles=br.angles, n_pre=br.n_pre,
+            binary=front.binary, mh=roi.mh, mv=roi.mv, carve_domain=roi.carve_domain,
+        )
+        result, (row_coeffs, col_coeffs, row_valid, col_valid) = grid_stage(st, cfg)
     if not return_debug:
         return result
     debug = DetectDebug(

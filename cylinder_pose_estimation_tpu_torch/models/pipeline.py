@@ -47,6 +47,7 @@ from cylinder_pose_estimation_tpu_torch.types import (
     RegistrationResult,
     StereoParams,
 )
+from cylinder_pose_estimation_tpu_torch.utils import profiling
 
 
 class StereoPoseResult(NamedTuple):
@@ -193,9 +194,11 @@ def _stereo_to(stereo: StereoParams, device: torch.device) -> StereoParams:
 def _stereo_key(stereo: StereoParams) -> tuple:
     """The rig's content as a hashable key (the JAX ``_stream_step``'s
     fingerprint): bytes, shape and dtype of every leaf.  Reads the rig back
-    to the host once."""
-    return tuple((x.detach().cpu().numpy().tobytes(), tuple(x.shape), str(x.dtype))
-                 for x in _tree_leaves(stereo) if x is not None)
+    to the host once: on a card one wait per leaf (counter
+    ``sync.stereo_key``)."""
+    leaves = [x for x in _tree_leaves(stereo) if x is not None]
+    profiling.count("sync.stereo_key", sum(x.is_cuda for x in leaves))
+    return tuple((x.detach().cpu().numpy().tobytes(), tuple(x.shape), str(x.dtype)) for x in leaves)
 
 
 def _stereo_copy(stereo: StereoParams) -> StereoParams:
@@ -219,7 +222,15 @@ class _GraphStep:
 
     ``self.launches``: the kernel wrappers' calls the capture recorded
     (``ops.frontend.launch_counts``); each replay runs those kernels again
-    without the wrappers, so it adds them to ``_GRAPH_LAUNCHES``."""
+    without the wrappers, so it adds them to the counters
+    ``graph.replayed.<kernel>``.
+
+    With tracing on (``utils.profiling``) the capture also puts timing
+    events into the graph: one as its first node and one as its last
+    (``self.window``), which time each replay's device ms from the graph's
+    start on the card to its end, and two around each timed span inside the
+    step (the detect and fit stages, ``self.stages``).  With tracing off the
+    graph is the step's kernels alone."""
 
     def __init__(self, fn, inputs):
         dev = inputs[0].device
@@ -234,40 +245,53 @@ class _GraphStep:
         torch.cuda.current_stream(dev).wait_stream(side)
         self.graph = torch.cuda.CUDAGraph()
         before = frontend.launch_counts()
-        with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
-            self.outputs = fn(*self.inputs)
+        with profiling.graph_stages() as self.stages:
+            with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
+                first = profiling.device_event(self.inputs[0])
+                self.outputs = fn(*self.inputs)
+                self.window = (first, profiling.device_event(self.inputs[0]))
         after = frontend.launch_counts()
-        self.launches = collections.Counter({k: after[k] - before[k] for k in after if after[k] > before[k]})
-        _GRAPH_LAUNCHES["captured"].update(self.launches)
+        self.launches = {k: after[k] - before[k] for k in after if after[k] > before[k]}
+        for k, n in self.launches.items():
+            profiling.count(f"graph.captured.{k}", n)
 
     def __call__(self, *inputs):
+        profiling.poll(owner=self)
         for dst, x in zip(self.inputs, inputs):
             dst.copy_(x)
-        self.graph.replay()
-        _GRAPH_LAUNCHES["replayed"].update(self.launches)
-        _GRAPH_LAUNCHES["replays"][()] += 1
+        with profiling.span("step.launch"):
+            self.graph.replay()
+        if self.window[0] is not None:
+            profiling.time_device(profiling.current(), *self.window, owner=self)
+            profiling.replayed(self.stages, owner=self)
+        for k, n in self.launches.items():
+            profiling.count(f"graph.replayed.{k}", n)
+        profiling.count("step.replay")
         return self.outputs
 
 
 # Kernel launches seen by the compiled steps, per kernel counter of
-# ops.frontend: the wrapper calls their captures recorded (a capture runs
-# no kernel) and those their replays ran (no wrapper is called), with the
-# count of replays under the key ().  The kernels a process ran on the card
-# are then frontend.launch_counts() - captured + replayed.
-_GRAPH_LAUNCHES = {"captured": collections.Counter(), "replayed": collections.Counter(),
-                   "replays": collections.Counter()}
+# ops.frontend, in the registry of utils/profiling: the wrapper calls their
+# captures recorded (``graph.captured.<kernel>``; a capture runs no kernel)
+# and those their replays ran (``graph.replayed.<kernel>``; no wrapper is
+# called), and the replays (``step.replay``).  The kernels a process ran on
+# the card are then frontend.launch_counts() - captured + replayed.
 
 
 def graph_launch_counts() -> dict:
     """{"captured": {kernel: n}, "replayed": {kernel: n}, "replays": n}
     since the last ``reset_graph_launch_counts``."""
-    return {"captured": dict(_GRAPH_LAUNCHES["captured"]), "replayed": dict(_GRAPH_LAUNCHES["replayed"]),
-            "replays": _GRAPH_LAUNCHES["replays"][()]}
+    out = {}
+    for kind in ("captured", "replayed"):
+        prefix = f"graph.{kind}."
+        out[kind] = {k[len(prefix):]: n for k, n in profiling.counters(prefix).items()}
+    out["replays"] = profiling.counters("step.replay").get("step.replay", 0)
+    return out
 
 
 def reset_graph_launch_counts() -> None:
-    for c in _GRAPH_LAUNCHES.values():
-        c.clear()
+    profiling.reset_counters("graph.")
+    profiling.reset_counters("step.replay")
 
 
 # One captured graph per (step, rig, configs, input shapes, dtypes, device),
@@ -285,24 +309,32 @@ def _graphs(t: torch.Tensor) -> bool:
     return t.device.type == "cuda"
 
 
-def _compiled(key: tuple, fn, inputs, fresh: bool = False):
+def _compiled(key: tuple, fn, inputs, fresh: bool = False, kind: str | None = None):
     """``fn(*inputs)`` as a compiled step.  On CPU tensors the eager call.
-    On a CUDA device, per key and these inputs' shapes, dtypes and device:
-    the first call is the eager call (its entry holds no graph yet); the
-    second captures the step's ``_GraphStep``; it and every later call
-    return the graph's static outputs, or clones of them when ``fresh``."""
+    On a CUDA device, per key, tracing flag (``utils.profiling.enabled``, so
+    a graph with timing events replays only while tracing is on, and one
+    without only while it is off) and these inputs' shapes, dtypes and
+    device: the first call is the eager call (its entry holds no graph
+    yet); the second captures the step's ``_GraphStep``; it and every later
+    call return the graph's static outputs, or clones of them when
+    ``fresh``.  Each call is a span ``step.<kind>`` (``kind`` defaults to
+    ``key[0]``) with its ``phase`` (eager, capture or replay)."""
+    name = f"step.{key[0] if kind is None else kind}"
     if not _graphs(inputs[0]):
-        return fn(*inputs)
-    full = key + tuple((tuple(x.shape), x.dtype, x.device) for x in inputs)
+        with profiling.span(name, phase="eager"):
+            return fn(*inputs)
+    full = key + (profiling.enabled(),) + tuple((tuple(x.shape), x.dtype, x.device) for x in inputs)
     if full not in _STREAM_STEP_CACHE:
         while len(_STREAM_STEP_CACHE) >= _STREAM_STEP_CACHE_SIZE:
             _STREAM_STEP_CACHE.popitem(last=False)
         _STREAM_STEP_CACHE[full] = None
-        return fn(*inputs)
+        with profiling.span(name, phase="eager"):
+            return fn(*inputs)
     step = _STREAM_STEP_CACHE[full]
-    if step is None:
-        step = _STREAM_STEP_CACHE[full] = _GraphStep(fn, inputs)
-    out = step(*inputs)
+    with profiling.span(name, phase="replay" if step is not None else "capture"):
+        if step is None:
+            step = _STREAM_STEP_CACHE[full] = _GraphStep(fn, inputs)
+        out = step(*inputs)
     return _tree_map(torch.clone, out) if fresh else out
 
 
@@ -320,12 +352,13 @@ def compiled_batch(
     fresh tensors, on CPU tensors it is the eager call."""
     stereo = _stereo_copy(stereo)
     key = ("batch", detect_cfg, fit_cfg, probe, _stereo_key(stereo))
+    kind = "batch" if probe is None else f"batch.{probe}"
 
     def body(a, b):
         return estimate_poses_batch(a, b, stereo, detect_cfg, fit_cfg, probe)
 
     def run(images1: torch.Tensor, images2: torch.Tensor):
-        return _compiled(key, body, (images1, images2), fresh=True)
+        return _compiled(key, body, (images1, images2), fresh=True, kind=kind)
 
     return run
 
@@ -443,7 +476,13 @@ def estimate_poses_stream(
     rank loads, uploads and computes only its block on ``mesh.device``,
     then all-gathers the chunk's result (the summary when ``compact``), so
     every rank returns the whole sequence.  ``chunk`` must be divisible by
-    the mesh size."""
+    the mesh size.
+
+    Spans (``utils.profiling``) inside the loop's ``stream.call``, each
+    with its ``chunk`` index: ``stream.wait_upload`` (waiting for the uploader thread's chunk),
+    ``stream.step``, ``stream.wait_readback`` (waiting for the chunk's
+    results on the host) and ``stream.chunk``, from the start of the
+    chunk's load to the end of its materialisation."""
     n = images1.shape[0]
     if n == 0:
         raise ValueError("estimate_poses_stream needs at least one frame")
@@ -461,9 +500,12 @@ def estimate_poses_stream(
     device = torch.device(stereo.t_c2_c1.device if device is None else device)
     stereo = _stereo_to(stereo, device)
 
-    def load(s):
-        """Frames [s + lo, s + hi) of the chunk at s, past the sequence's end
-        repeating its last frame."""
+    def load(i):
+        """(a, b, live, i, t0): frames [s + lo, s + hi) of chunk i at s, past
+        the sequence's end repeating its last frame, and when its load
+        began."""
+        t0 = profiling.now()
+        s = starts[i]
         a0, a1 = min(s + lo, n), min(s + hi, n)
         src = slice(a0, a1) if a1 > a0 else slice(n - 1, n)
         a = np.ascontiguousarray(images1[src])
@@ -474,21 +516,22 @@ def estimate_poses_stream(
         if pad:
             a = np.concatenate([a, np.repeat(a[-1:], pad, axis=0)])
             b = np.concatenate([b, np.repeat(b[-1:], pad, axis=0)])
-        return a, b, min(chunk, n - s)
+        return a, b, min(chunk, n - s), i, t0
 
-    def stage(s):
-        a, b, live = first if s == 0 else load(s)
-        return (*uploader.upload(a, b), live)
+    def stage(i):
+        a, b, *rest = first if i == 0 else load(i)
+        return (*uploader.upload(a, b), *rest)
 
     compiled = _stream_step(stereo, detect_cfg, fit_cfg, reg_cfg, compact, mesh)
 
-    def step(da, db, ready):
-        if ready is not None:
-            compute = torch.cuda.current_stream(device)
-            compute.wait_event(ready)
-            da.record_stream(compute)
-            db.record_stream(compute)
-        return compiled(da, db)
+    def step(da, db, ready, i):
+        with profiling.span("stream.step", chunk=i):
+            if ready is not None:
+                compute = torch.cuda.current_stream(device)
+                compute.wait_event(ready)
+                da.record_stream(compute)
+                db.record_stream(compute)
+            return compiled(da, db)
 
     def start_readback(r):
         if device.type != "cuda":
@@ -500,37 +543,42 @@ def estimate_poses_stream(
         return host, done
 
     def materialise(pending):
-        host, done, live = pending
+        host, done, live, i, t0 = pending
         if done is not None:
-            done.synchronize()
-        return _tree_map(lambda x: x[:live].numpy(), host)
+            with profiling.span("stream.wait_readback", chunk=i):
+                done.synchronize()
+        out = _tree_map(lambda x: x[:live].numpy(), host)
+        profiling.add("stream.chunk", t0, profiling.now(), parent=call, chunk=i)
+        return out
 
     starts = list(range(0, n, chunk))
     outs = []
-    with torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext():
+    with profiling.span("stream.call") as call, \
+            torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext():
         # The pinned buffers and the side stream belong to this device.
         first = load(0)
         uploader = _Uploader(device, first[0].shape, first[0].dtype)
         if overlap:
             pending = None
             with ThreadPoolExecutor(max_workers=1) as ex:
-                fut = ex.submit(stage, starts[0])
+                fut = ex.submit(stage, 0)
                 for i in range(len(starts)):
-                    da, db, ready, live = fut.result()
+                    with profiling.span("stream.wait_upload", chunk=i):
+                        da, db, ready, live, _, t0 = fut.result()
                     if i + 1 < len(starts):
-                        fut = ex.submit(stage, starts[i + 1])
-                    r = step(da, db, ready)
+                        fut = ex.submit(stage, i + 1)
+                    r = step(da, db, ready, i)
                     # Start chunk k's readback, then materialise chunk k-1
                     # while chunk k computes and chunk k+1 uploads.
                     host, done = start_readback(r)
                     if pending is not None:
                         outs.append(materialise(pending))
-                    pending = (host, done, live)
+                    pending = (host, done, live, i, t0)
             outs.append(materialise(pending))
         else:
-            for s in starts:
-                da, db, ready, live = stage(s)
-                outs.append(materialise((*start_readback(step(da, db, ready)), live)))
+            for i in range(len(starts)):
+                da, db, ready, live, _, t0 = stage(i)
+                outs.append(materialise((*start_readback(step(da, db, ready, i)), live, i, t0)))
     return _tree_map(lambda *xs: np.concatenate(xs, axis=0), *outs)
 
 
@@ -589,9 +637,11 @@ def full_experiment(
     utils/preProcessing.m:4-21; eager).  On a CUDA device the poses and the
     registration are two compiled steps: ``compiled_batch``'s, then
     ``register_sequence``'s, eager at the first call with these shapes and
-    configs and replayed from the second on."""
-    if preprocess:
-        images1, images2 = preprocess_stereo_batch(images1, images2, stereo)
-    batch = compiled_batch(stereo, detect_cfg, fit_cfg)(images1, images2)
-    reg = register_sequence(batch, angles, reg_cfg)
+    configs and replayed from the second on.  A span ``experiment`` holds
+    both steps' spans (``utils.profiling``)."""
+    with profiling.span("experiment"):
+        if preprocess:
+            images1, images2 = preprocess_stereo_batch(images1, images2, stereo)
+        batch = compiled_batch(stereo, detect_cfg, fit_cfg)(images1, images2)
+        reg = register_sequence(batch, angles, reg_cfg)
     return batch, reg

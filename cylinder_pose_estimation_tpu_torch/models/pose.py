@@ -15,6 +15,7 @@ from cylinder_pose_estimation_tpu_torch.geometry.correspond import (
 from cylinder_pose_estimation_tpu_torch.geometry.cylinder import apply_prior, fit_cylinder
 from cylinder_pose_estimation_tpu_torch.geometry.triangulate import triangulate
 from cylinder_pose_estimation_tpu_torch.types import CylinderFitResult, GridPoints, StereoParams
+from cylinder_pose_estimation_tpu_torch.utils import profiling
 
 
 def fit_single_cylinder(
@@ -23,29 +24,38 @@ def fit_single_cylinder(
     stereo: StereoParams,
     config: FitConfig = FitConfig(),
 ) -> CylinderFitResult:
-    """Cylinder pose of each frame of (F, P) stereo grid-point pairs."""
-    corr = choose_idx(
-        gp1, gp2, stereo,
-        patch_size=config.patch_size,
-        error_threshold=config.error_threshold,
-        extent=config.grid_extent,
-    )
-    tri = triangulate(corr.xy1, corr.xy2, stereo, valid=corr.valid)
-    w = tri.valid
-    mean_error = torch.sum(torch.where(w, tri.reproj_error, 0.0), dim=-1) / torch.clamp(
-        torch.sum(w.to(tri.reproj_error.dtype), dim=-1), min=1.0
-    )
-    fit = fit_cylinder(
-        tri.points3, w, config.cyl_radius,
-        knn_k=config.knn_k, lm_iters=config.lm_iters, lm_lambda0=config.lm_lambda0,
-    )
-    params0 = apply_prior(fit.params0, tri.points3, w)
-    params = apply_prior(fit.params, tri.points3, w)
+    """Cylinder pose of each frame of (F, P) stereo grid-point pairs.
+
+    Spans (``utils.profiling``), each timed on the device on a card:
+    ``fit.correspond`` (correspondences, triangulation, mean reprojection
+    error) and ``fit.lm`` (the curvature start and LM fit, the axis prior,
+    the transform)."""
+    like = gp1.xy
+    with profiling.span("fit.correspond", like=like):
+        corr = choose_idx(
+            gp1, gp2, stereo,
+            patch_size=config.patch_size,
+            error_threshold=config.error_threshold,
+            extent=config.grid_extent,
+        )
+        tri = triangulate(corr.xy1, corr.xy2, stereo, valid=corr.valid)
+        w = tri.valid
+        mean_error = torch.sum(torch.where(w, tri.reproj_error, 0.0), dim=-1) / torch.clamp(
+            torch.sum(w.to(tri.reproj_error.dtype), dim=-1), min=1.0
+        )
+    with profiling.span("fit.lm", like=like):
+        fit = fit_cylinder(
+            tri.points3, w, config.cyl_radius,
+            knn_k=config.knn_k, lm_iters=config.lm_iters, lm_lambda0=config.lm_lambda0,
+        )
+        params0 = apply_prior(fit.params0, tri.points3, w)
+        params = apply_prior(fit.params, tri.points3, w)
+        t_cam_cyl = transforms.cyl_params_to_transform(params)
     return CylinderFitResult(
         params0=params0,
         params=params,
         fvals=fit.fvals,
-        t_cam_cyl=transforms.cyl_params_to_transform(params),
+        t_cam_cyl=t_cam_cyl,
         mean_reproj_error=mean_error,
         points3=tri.points3,
         points_valid=w,

@@ -18,7 +18,8 @@ launched the CUDA kernel (plain runs do not count), the bridge's calls
 per route (``bridge_morphology.cluster``, ``.split``, ``.global``), the
 smoothing launches of the preprocess kernel (``preprocess_binarize.smoothing``)
 and the CC calls with a capped scan, all on the band route
-(``connected_components.capped.band``).
+(``connected_components.capped.band``): a view of the counters
+``kernel.<name>`` of ``utils/profiling``'s registry.
 """
 
 from __future__ import annotations
@@ -31,32 +32,35 @@ import torch
 from cylinder_pose_estimation_tpu_torch.ops import kernels, mxu_conv
 from cylinder_pose_estimation_tpu_torch.ops.labeling import peak_key_shift
 from cylinder_pose_estimation_tpu_torch.ops.morphology import shift2d
+from cylinder_pose_estimation_tpu_torch.utils import profiling
 
-_LAUNCHES: Dict[str, int] = {
-    "preprocess_binarize": 0,
-    "connected_components": 0,
-    "bridge_morphology": 0,
-    "component_payload_minmax": 0,
+# The kernel wrappers' launch counters, ``kernel.<name>`` in the registry
+# of ``utils/profiling``.
+KERNEL_COUNTERS = (
+    "preprocess_binarize",
+    "connected_components",
+    "bridge_morphology",
+    "component_payload_minmax",
     # The bridge's calls by route (``bridge_plan``); they add up to
     # "bridge_morphology".
-    "bridge_morphology.cluster": 0,
-    "bridge_morphology.split": 0,
-    "bridge_morphology.global": 0,
+    "bridge_morphology.cluster",
+    "bridge_morphology.split",
+    "bridge_morphology.global",
     # The branches inside two of them: the preprocess kernel's own smoothing
     # (``pre_smoothed=False``), and the CC kernel's capped scans
     # (``cap_axis``/``cap``), which take the large-frame (band) route.
-    "preprocess_binarize.smoothing": 0,
-    "connected_components.capped.band": 0,
-}
+    "preprocess_binarize.smoothing",
+    "connected_components.capped.band",
+)
 
 
 def launch_counts() -> Dict[str, int]:
-    return dict(_LAUNCHES)
+    counts = profiling.counters("kernel.")
+    return {k: counts.get(f"kernel.{k}", 0) for k in KERNEL_COUNTERS}
 
 
 def reset_launch_counts() -> None:
-    for k in _LAUNCHES:
-        _LAUNCHES[k] = 0
+    profiling.reset_counters("kernel.")
 
 
 def _route(x: torch.Tensor) -> bool:
@@ -358,7 +362,7 @@ def wrapped_smoothing(gray: torch.Tensor, blur_ksize: int = 5, ridge_sigma: floa
     host_taps = torch.tensor([t for k in taps for t in k], dtype=torch.float32)
     kernels.launch("cpe_smooth_wrapped", [gray, out, host_taps], [n, h, w, *plan["smooth"], *plan["tile"], plan["smem"]],
                    [])
-    _LAUNCHES["preprocess_binarize.smoothing"] += 1
+    profiling.count("kernel.preprocess_binarize.smoothing")
     return out
 
 
@@ -407,7 +411,7 @@ def preprocess_binarize(
          *plan["tile"], plan["smem_a"], plan["smem_b"]],
         [sauvola_k, sauvola_r, min_contrast],
     )
-    _LAUNCHES["preprocess_binarize"] += 1
+    profiling.count("kernel.preprocess_binarize")
     return tuple(outs)
 
 
@@ -639,9 +643,9 @@ def connected_components(
             [n, h, w, rounds, pools_per_round, plan["cluster"], plan["rows_per_cta"], plan["smem"]],
             [],
         )
-    _LAUNCHES["connected_components"] += 1
+    profiling.count("kernel.connected_components")
     if "cap_axis" in plan:
-        _LAUNCHES["connected_components.capped.band"] += 1
+        profiling.count("kernel.connected_components.capped.band")
     return out
 
 
@@ -738,7 +742,7 @@ def component_payload_minmax(
             [n, h, w, rounds, pools_per_round, plan["cluster"], plan["rows_per_cta"], plan["smem"]],
             [],
         )
-    _LAUNCHES["component_payload_minmax"] += 1
+    profiling.count("kernel.component_payload_minmax")
     return pmin, pmax
 
 
@@ -1027,8 +1031,8 @@ def bridge_morphology(
              plan["rows_per_cta"], plan["smem"]],
             [],
         )
-    _LAUNCHES["bridge_morphology"] += 1
-    _LAUNCHES[f"bridge_morphology.{route}"] += 1
+    profiling.count("kernel.bridge_morphology")
+    profiling.count(f"kernel.bridge_morphology.{route}")
     return out
 
 

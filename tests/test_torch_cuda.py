@@ -950,3 +950,152 @@ def test_compiled_registration_equals_eager(dev):
     want = fit_cylinders_with_angles(batch.fit.points3, batch.fit.points_valid, angles, reg_cfg,
                                      frame_valid=pipeline.frame_health(batch, reg_cfg))
     _leaves_equal(got, want)
+
+
+# --- the program's spans and counters on the card (utils/profiling) -------
+
+_CU_GRAPH_NODE_EVENT_RECORD = 7
+_TIMED_SPANS = ("detect.front", "detect.roi", "detect.bridge", "detect.grid", "fit.correspond", "fit.lm")
+
+
+def _batch_scene(dev, frames=2):
+    from cylinder_pose_estimation_tpu_torch.config import CylinderDetectConfig
+    from cylinder_pose_estimation_tpu_torch.types import stereo_from_numpy
+    from cylinder_pose_estimation_tpu_torch.utils.synthetic import example_pair
+
+    st, (i1, i2) = example_pair(240, 320, n_frames=frames)
+    return (stereo_from_numpy(*st, device=dev), CylinderDetectConfig(height=240, width=320, use_pallas=True),
+            torch.as_tensor(i1, device=dev), torch.as_tensor(i2, device=dev))
+
+
+def _node_kinds(fn):
+    """Node types of one ``fn()`` captured as a CUDA graph (warmed up first)
+    as a compiled step captures it (its timed spans collected)."""
+    import ctypes
+
+    from cylinder_pose_estimation_tpu_torch.utils import profiling
+
+    cu = ctypes.CDLL("libcuda.so.1")
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with profiling.graph_stages() as stages:
+        with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+            fn()
+            kinds = profiling._capture_node_kinds(cu)
+    del graph, stages
+    torch.cuda.synchronize()
+    return sorted(kinds)
+
+
+def test_untraced_capture_is_the_step_alone(dev, monkeypatch):
+    """With tracing off, the captured B=2 step has the node types and count
+    of the same step with every span taken out; with tracing on, the same
+    kernels and two event-record nodes per timed span."""
+    import contextlib
+
+    from cylinder_pose_estimation_tpu_torch.config import FitConfig
+    from cylinder_pose_estimation_tpu_torch.models import pipeline
+    from cylinder_pose_estimation_tpu_torch.utils import profiling
+
+    stereo, cfg, a, b = _batch_scene(dev)
+
+    def step():
+        return pipeline.estimate_poses_batch(a, b, stereo, cfg, FitConfig())
+
+    assert not profiling.enabled()
+    off = _node_kinds(step)
+    profiling.enable()
+    try:
+        on = _node_kinds(step)
+    finally:
+        profiling.disable()
+        profiling.reset()
+    with monkeypatch.context() as m:
+        m.setattr(profiling, "span", lambda *args, **kwargs: contextlib.nullcontext())
+        bare = _node_kinds(step)
+    assert off == bare and off.count(0) > 1000
+    assert on.count(0) == off.count(0)
+    assert on.count(_CU_GRAPH_NODE_EVENT_RECORD) - off.count(_CU_GRAPH_NODE_EVENT_RECORD) == 2 * len(_TIMED_SPANS)
+    # A capture that does not collect timed spans (not a compiled step's) gets no event from them.
+    profiling.enable()
+    try:
+        kernels = profiling.graph_kernels(step, reps=1, warmup=0)[0]
+    finally:
+        profiling.disable()
+        profiling.reset()
+    assert kernels == off.count(0)
+
+
+def test_traced_stage_times_add_up_to_the_replay(dev):
+    """With tracing on, each replay of the B=2 step gives each stage's device
+    ms from its events in the graph; the stages add up within 5% to the
+    replay's own device ms, timed by the graph's first and last nodes (so
+    from the graph's start on the card, after its launch).  Each call is
+    waited for, as a caller reading its answers does (the events of a
+    replay still running when the next one starts are dropped: that replay
+    records them again)."""
+    from cylinder_pose_estimation_tpu_torch.config import FitConfig
+    from cylinder_pose_estimation_tpu_torch.models import pipeline
+    from cylinder_pose_estimation_tpu_torch.utils import profiling
+
+    stereo, cfg, a, b = _batch_scene(dev)
+    profiling.reset()
+    profiling.enable()
+    try:
+        step = pipeline.compiled_batch(stereo, cfg, FitConfig())
+        for eps in (0.0, 0.5):  # eager, capture
+            step(a + eps, b + eps)
+        torch.cuda.synchronize()
+        profiling.reset()
+        for k in range(4):
+            step(a + k, b + k)
+            torch.cuda.synchronize()
+        profiling.flush()
+        recs = profiling.records()
+    finally:
+        profiling.disable()
+        profiling.reset()
+    steps = [r for r in recs if r["name"] == "step.batch"]
+    assert [r["attrs"]["phase"] for r in steps] == ["replay"] * 4
+    for s in steps:
+        stages = {r["name"]: r["attrs"]["device_ms"] for r in recs if r["call"] == s["id"] and r["attrs"].get("replay")}
+        assert set(stages) == set(_TIMED_SPANS)
+        assert all(v > 0 for v in stages.values())
+        total = sum(stages.values())
+        assert total <= s["attrs"]["device_ms"] * 1.001
+        assert total == pytest.approx(s["attrs"]["device_ms"], rel=0.05), (stages, s["attrs"])
+
+
+def test_sync_counters_match_the_sync_debug_mode(dev):
+    """The ``sync.*`` counters of a replayed ``full_experiment`` call equal
+    the synchronising operations ``torch.cuda.set_sync_debug_mode`` reports
+    for it: the rig read back to key the batch step, one per leaf."""
+    import warnings
+
+    from cylinder_pose_estimation_tpu_torch.config import CylinderDetectConfig, FitConfig
+    from cylinder_pose_estimation_tpu_torch.models import pipeline
+    from cylinder_pose_estimation_tpu_torch.types import stereo_from_numpy
+    from cylinder_pose_estimation_tpu_torch.utils import profiling
+    from cylinder_pose_estimation_tpu_torch.utils.synthetic import registration_sequence
+
+    st, ang, (i1, i2), _ = registration_sequence(6, 240, 320)
+    stereo = stereo_from_numpy(*st, device=dev)
+    cfg = CylinderDetectConfig(height=240, width=320, use_pallas=True)
+    a, b, angles = (torch.as_tensor(x, device=dev) for x in (i1, i2, ang))
+    for _ in range(2):  # eager, capture
+        pipeline.full_experiment(a, b, angles, stereo, cfg, FitConfig())
+    torch.cuda.synchronize()
+    before = profiling.counters("sync.")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            pipeline.full_experiment(a, b, angles, stereo, cfg, FitConfig())
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    after = profiling.counters("sync.")
+    counted = sum(after.values()) - sum(before.values())
+    reported = [w for w in caught if "called a synchronizing CUDA operation" in str(w.message)]
+    assert counted == len(reported) >= 7
+    assert after.get("sync.stereo_key", 0) - before.get("sync.stereo_key", 0) == counted
