@@ -37,7 +37,10 @@ kernel name.  Phases:
    device ms of a graph replay; the byte bound of each site (``frontend.min_bytes``
    at 3.35 TB/s).  The bridge is timed on the detector's bool masks and, off
    the report, as float32; its in-kernel schedule must equal
-   ``bridge_schedule`` on the card for 10^5 angles.  The build's
+   ``bridge_schedule`` on the card for 10^5 angles.  The fit tail's SPD
+   solve (``ops/linalg.solve_spd``, ``csrc/linalg.cu``) is held and timed
+   the same way against ``solve_spd_plain`` at the three shapes of the
+   solves a B=16 main-path call makes (``solve_phase``).  The build's
    ``-Xptxas -v`` lines and the launch plans are printed first.
 7. End to end: ms/frame of B=16 frames and the detect-only split, for the
    main and the endpoint path; their bridge and grid stage ms; plane detect
@@ -177,8 +180,11 @@ kernel name.  Phases:
    the registration) in alternating pairs, the first call's time (eager)
    and the second's (warm-up, capture, replay) on their own, with the
    memory the device keeps reserved for the step after it (the graph's
-   pool).  The experiment, stream, mesh and CLI paths of phases 8-16 run
-   through these steps too.
+   pool).  Each step's capture must record ``SOLVES_PER_CAPTURE`` kernel
+   solves (``solve_spd``: 22 in a batch or chunk step, 141 in the
+   registration), printed with the step's kernel nodes with every solve
+   the plain version and with the kernel.  The experiment, stream, mesh
+   and CLI paths of phases 8-16 run through these steps too.
 
 Launch counts.  Every path run (``run_path``, ``mesh_rank``) empties the
 compiled steps' cache and zeroes the counters just before and reads them
@@ -199,13 +205,15 @@ The second-to-last line is the kernel report as JSON: one row per kernel
 and 13's), the bridge's cluster route in its own row and its split and
 global routes in rows of their own (``bridge_morphology.split``,
 ``bridge_morphology.global``: their timed sites of phases 12, 13 and 15),
-and phase 18's kernel branches (``preprocess_binarize.smoothing``,
-``connected_components.capped.band``) in rows of their own.
+phase 18's kernel branches (``preprocess_binarize.smoothing``,
+``connected_components.capped.band``) in rows of their own, and the fit
+tail's SPD solve (``solve_spd``, phase 6's sites).
 The last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import itertools
 import json
@@ -288,8 +296,15 @@ for _name, _step in KNOB_STEP.items():
 # Frames of the knob phase, and of its card-versus-CPU checks.
 KNOB_FRAMES, KNOB_CPU_FRAMES = 16, 2
 # Rows of the kernels line: the kernels, the bridge's cluster route in its
-# own row, then the bridge's other routes, then the knobs' branches.
-ROWS = KERNELS + BRIDGE_ROUTES[1:] + tuple(KNOB_ROWS)
+# own row, then the bridge's other routes, then the knobs' branches, then
+# the fit tail's SPD solve.
+ROWS = KERNELS + BRIDGE_ROUTES[1:] + tuple(KNOB_ROWS) + ("solve_spd",)
+# Rows timed at their 480x640 main-path sites (phase 6).
+SITE_ROWS = KERNELS + ("solve_spd",)
+# Kernel solves (``solve_spd``) one capture of each compiled step records:
+# a batch or chunk step's 20 LM steps, its curvature and its grid stage's
+# polyfit; the registration's 60 + 80 LM steps and its curvature.
+SOLVES_PER_CAPTURE = {"batch": 22, "registration": 141}
 # The shape of each bridge route in phase 15.
 ROUTE_SHAPES = {"bridge_morphology.cluster": (64, 240, 384), "bridge_morphology.split": (2, 720, 1280),
                 "bridge_morphology.global": (2, 2160, 3840)}
@@ -305,14 +320,16 @@ HBM_BYTES_PER_S = 3.35e12
 DESIGN = {"preprocess_binarize": "redesigned", "connected_components": "redesigned",
           "bridge_morphology": "redesigned", "component_payload_minmax": "redesigned",
           "bridge_morphology.split": "redesigned", "bridge_morphology.global": "first port",
-          "preprocess_binarize.smoothing": "redesigned", "connected_components.capped.band": "redesigned"}
+          "preprocess_binarize.smoothing": "redesigned", "connected_components.capped.band": "redesigned",
+          "solve_spd": "first port"}
 # Device kernels of a preprocess call that smooths in the kernel: the
 # smoothing launch, then launches A and B on its plane.
 SMOOTHING_DEVICE_KERNELS = 3
 # Device kernels one wrapper call may launch at the timed sites (the
 # bridge's global route: frontend.bridge_global_launches).
 DEVICE_LAUNCHES_MAX = {"preprocess_binarize": 3, "connected_components": 1, "bridge_morphology": 1,
-                       "component_payload_minmax": 1, "bridge_morphology.split": 1}
+                       "component_payload_minmax": 1, "bridge_morphology.split": 1,
+                       "solve_spd": 5}  # the two launches and the plain residual's three kernels
 # Angles of the bridge's in-kernel schedule check.
 SCHEDULE_ANGLES = 100_000
 # Sizes of the experiment, preprocessing and stream paths.
@@ -703,6 +720,51 @@ def compare(report, name, kernel_fn, plain_fn, label, timed, nbytes=0, site=True
             by_txt = "not measured" if by_name is None else {k: round(v, 4) for k, v in by_name.items()}
             line += f", profiler device ms by kernel {by_txt}"
     print(line, flush=True)
+
+
+@contextlib.contextmanager
+def solve_spd_as(fn):
+    """Every caller of ``ops/linalg.solve_spd`` (the LM, the polyfit, the
+    normal equations) calls ``fn`` in its place."""
+    from cylinder_pose_estimation_tpu_torch.ops import linalg, lm, polyfit
+
+    mods = (linalg, lm, polyfit)
+    saved = [m.solve_spd for m in mods]
+    for m in mods:
+        m.solve_spd = fn
+    try:
+        yield
+    finally:
+        for m, f in zip(mods, saved):
+            m.solve_spd = f
+
+
+def solve_phase(report, fn) -> None:
+    """The kernels line's ``solve_spd`` row: the kernel against
+    ``solve_spd_plain`` on the card, held and timed as phase 6 holds the
+    others, on the first solve of each shape that ``fn()`` makes (a B=16
+    main-path call: the LM's (16, 6, 6), the curvature's (16, 5, 5), the
+    grid stage's polyfit (32, 48, 3, 3)).  Those hold NaN and infinite
+    solutions (empty rows), so the two are compared as bit patterns.  Bytes:
+    a, b and x once."""
+    import torch
+
+    from cylinder_pose_estimation_tpu_torch.ops import linalg
+
+    solve, sites = linalg.solve_spd, {}
+
+    def bits(x):
+        return x.view(torch.int32 if x.dtype == torch.float32 else torch.int64)
+
+    def record(a, b):
+        sites.setdefault(tuple(a.shape), (a.clone(), b.clone()))
+        return solve(a, b)
+
+    with solve_spd_as(record):
+        fn()
+    for shape, (a, b) in sites.items():
+        compare(report, "solve_spd", lambda: bits(linalg.solve_spd(a, b)), lambda: bits(linalg.solve_spd_plain(a, b)),
+                f"captured {shape} {a.dtype}", timed=True, nbytes=(a.numel() + 2 * b.numel()) * a.element_size())
 
 
 def kernel_phase(frontend, calls, device, seed: int = 0) -> dict:
@@ -2187,17 +2249,20 @@ def compiled_phase(device, stereo, frames, cfgs, fit_cfg, experiment, smi) -> di
     from cylinder_pose_estimation_tpu_torch.config import RegistrationConfig
     from cylinder_pose_estimation_tpu_torch.geometry.registration import fit_cylinders_with_angles
     from cylinder_pose_estimation_tpu_torch.models import pipeline
+    from cylinder_pose_estimation_tpu_torch.ops import linalg
     from cylinder_pose_estimation_tpu_torch.utils import profiling
 
     out = {}
     rep = itertools.count(1)
 
-    def first_calls(label, fn):
+    def first_calls(label, fn, kind="batch"):
         """The second call's result, and the MiB the device reserves for the
         step after it, of a step's first call (eager) and second (warm-up,
-        capture, replay), each timed on its own and printed."""
+        capture, replay), each timed on its own and printed; the capture
+        must record ``SOLVES_PER_CAPTURE[kind]`` kernel solves."""
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
+        pipeline.reset_graph_launch_counts()
         before = torch.cuda.memory_reserved(device)
         seconds = []
         for _ in range(2):
@@ -2207,9 +2272,15 @@ def compiled_phase(device, stereo, frames, cfgs, fit_cfg, experiment, smi) -> di
             seconds.append(time.perf_counter() - t0)
         torch.cuda.empty_cache()
         pool = (torch.cuda.memory_reserved(device) - before) / 2**20
+        solves = pipeline.graph_launch_counts()["captured"].get("solve_spd", 0)
         print(f"compiled {label}: first call (eager) {seconds[0]:.3f} s, second (warm-up, capture, replay) "
-              f"{seconds[1]:.3f} s; the graph's memory pool {pool:.1f} MiB; {smi}", flush=True)
-        return res, {"first_call_s": seconds[0], "second_call_s": seconds[1], "pool_mib": pool}
+              f"{seconds[1]:.3f} s; the graph's memory pool {pool:.1f} MiB; solve_spd launches per capture "
+              f"{solves}; {smi}", flush=True)
+        if solves != SOLVES_PER_CAPTURE[kind]:
+            raise AssertionError(f"compiled {label}: the capture recorded {solves} kernel solves, "
+                                 f"not {SOLVES_PER_CAPTURE[kind]}")
+        return res, {"first_call_s": seconds[0], "second_call_s": seconds[1], "pool_mib": pool,
+                     "solve_spd_per_capture": solves}
 
     def check(label, got, want, n_frames, eager_fn, compiled_fn, capture_fn, pairs, unit_frames=True):
         diffs = leaf_diffs(got, want)
@@ -2222,6 +2293,12 @@ def compiled_phase(device, stereo, frames, cfgs, fit_cfg, experiment, smi) -> di
         if sites:
             raise AssertionError(f"compiled {label}: one compiled call synchronises with the host: {sites}")
         n_kernels, dev_ms = profiling.graph_kernels(capture_fn, reps=5, warmup=1)
+        with solve_spd_as(linalg.solve_spd_plain):
+            n_plain, _ = profiling.graph_kernels(capture_fn, reps=1, warmup=0)
+        print(f"compiled {label}: kernel nodes per step {n_plain} with every solve plain, {n_kernels} with the "
+              f"solve kernel", flush=True)
+        if n_kernels >= n_plain:
+            raise AssertionError(f"compiled {label}: the solve kernel leaves {n_kernels} of {n_plain} nodes")
         ms = profiling.alternating_ms({"eager": eager_fn, "replay": compiled_fn}, pairs)
         per = n_frames if unit_frames else 1
         unit = "ms/frame" if unit_frames else "ms per solve"
@@ -2229,8 +2306,8 @@ def compiled_phase(device, stereo, frames, cfgs, fit_cfg, experiment, smi) -> di
               f"{n_kernels} kernel nodes per step, replay {dev_ms:.4f} device ms; eager "
               f"{ms['eager'] / per:.4f} {unit}, replayed {ms['replay'] / per:.4f} {unit} "
               f"({ms['eager'] / ms['replay']:.2f}x, {pairs} alternating pairs); {smi}", flush=True)
-        return {"kernel_nodes": n_kernels, "replay_device_ms": dev_ms, "eager_ms": ms["eager"],
-                "replay_ms": ms["replay"], "frames": n_frames}
+        return {"kernel_nodes": n_kernels, "kernel_nodes_plain_solve": n_plain, "replay_device_ms": dev_ms,
+                "eager_ms": ms["eager"], "replay_ms": ms["replay"], "frames": n_frames}
 
     d1, d2 = frames
     n = d1.shape[0]
@@ -2263,7 +2340,8 @@ def compiled_phase(device, stereo, frames, cfgs, fit_cfg, experiment, smi) -> di
                                          frame_valid=health)
 
     f_reg = batch.fit.points3.shape[0]
-    got, first = first_calls(f"registration F={f_reg}", lambda: pipeline.register_sequence(batch, ang, reg_cfg))
+    got, first = first_calls(f"registration F={f_reg}", lambda: pipeline.register_sequence(batch, ang, reg_cfg),
+                             kind="registration")
     out["registration"] = check(f"registration F={f_reg}", got, eager_reg(), f_reg, eager_reg,
                                 lambda: pipeline.register_sequence(batch, ang, reg_cfg), eager_reg,
                                 pairs=3, unit_frames=False)
@@ -2435,6 +2513,7 @@ def main() -> int:
     cap.calls["component_payload_minmax"] = cap_ep.calls["component_payload_minmax"]
     with torch.inference_mode():
         report = kernel_phase(frontend, cap.calls, device)
+        solve_phase(report, lambda: estimate_poses_batch(d1, d2, stereo, cfg, fit_cfg))
 
     # --- large frames: the CC family's global route, the bridge's split ---
     # (after the kernel phase: torch.profiler read no device activity in its
@@ -2537,7 +2616,7 @@ def main() -> int:
                   f"{site['device_ms']:.4f} device ms), plain {site['plain_ms']:.4f} ms, "
                   f"bound {site['bound_ms']:.4f} ms ({site['bytes']} B), device kernels per call "
                   f"{site['device_kernels_per_call']} {by_name}", flush=True)
-        if k in KERNELS:  # the 480x640 sites
+        if k in SITE_ROWS:  # the 480x640 sites
             ms, dev_ms, plain_ms, nbytes, n_dev = r["ms"], r["device_ms"], r["plain_ms"], r["bytes"], r["device_launches"]
         else:  # a bridge route or a knob's branch: its timed sites of phases 12, 13, 15 and 18
             ms, plain_ms = sum(x["ms"] for x in extra), sum(x["plain_ms"] for x in extra)
@@ -2549,8 +2628,8 @@ def main() -> int:
         replaces, step_path = KNOB_ROWS.get(k, (frontend.REPLACES[base], "main"))
         rows.append({
             "name": k, "route": "cuda", "source": frontend.SOURCES[base], "replaces": replaces,
-            "launches": sum(c[count] for c in by_path.values()),
-            "launches_by_path": {p: c[count] for p, c in by_path.items()},
+            "launches": sum(c.get(count, 0) for c in by_path.values()),
+            "launches_by_path": {p: c.get(count, 0) for p, c in by_path.items()},
             "graph_replays": GRAPH_REPLAYS,
             "launches_per_step": by_path[step_path][count],
             "max_abs_err": max(r["max_abs_err"], large["max_abs_err"], variant["max_abs_err"], route["max_abs_err"],

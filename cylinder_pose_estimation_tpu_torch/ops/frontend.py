@@ -16,9 +16,10 @@ hand-written CUDA kernel from ``csrc/`` (built at first use, see
 ``launch_counts()`` holds, per kernel, the number of wrapper calls that
 launched the CUDA kernel (plain runs do not count), the bridge's calls
 per route (``bridge_morphology.cluster``, ``.split``, ``.global``), the
-smoothing launches of the preprocess kernel (``preprocess_binarize.smoothing``)
-and the CC calls with a capped scan, all on the band route
-(``connected_components.capped.band``): a view of the counters
+smoothing launches of the preprocess kernel (``preprocess_binarize.smoothing``),
+the CC calls with a capped scan, all on the band route
+(``connected_components.capped.band``), and the fit tail's CUDA SPD solves
+(``solve_spd``, ``ops/linalg.solve_spd``): a view of the counters
 ``kernel.<name>`` of ``utils/profiling``'s registry.
 """
 
@@ -51,6 +52,8 @@ KERNEL_COUNTERS = (
     # (``cap_axis``/``cap``), which take the large-frame (band) route.
     "preprocess_binarize.smoothing",
     "connected_components.capped.band",
+    # The fit tail's small SPD solves (``ops/linalg.solve_spd``).
+    "solve_spd",
 )
 
 
@@ -1037,18 +1040,21 @@ def bridge_morphology(
 
 
 # Where each kernel's TPU original lives (file:line of its pallas_call's
-# function), for reports.
+# function; for the SPD solve, which replaces no Pallas kernel, the JAX
+# function it computes), for reports.
 REPLACES = {
     "preprocess_binarize": "cylinder_pose_estimation_tpu/ops/pallas/frontend.py:286",
     "connected_components": "cylinder_pose_estimation_tpu/ops/pallas/frontend.py:761",
     "bridge_morphology": "cylinder_pose_estimation_tpu/ops/pallas/frontend.py:475",
     "component_payload_minmax": "cylinder_pose_estimation_tpu/ops/pallas/frontend.py:711",
+    "solve_spd": "cylinder_pose_estimation_tpu/ops/linalg.py:113",
 }
 SOURCES = {
     "preprocess_binarize": "cylinder_pose_estimation_tpu_torch/csrc/preprocess.cu",
     "connected_components": "cylinder_pose_estimation_tpu_torch/csrc/connected_components.cu",
     "bridge_morphology": "cylinder_pose_estimation_tpu_torch/csrc/bridge.cu",
     "component_payload_minmax": "cylinder_pose_estimation_tpu_torch/csrc/connected_components.cu",
+    "solve_spd": "cylinder_pose_estimation_tpu_torch/csrc/linalg.cu",
 }
 
 

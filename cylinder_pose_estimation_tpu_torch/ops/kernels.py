@@ -51,6 +51,8 @@ SIGNATURES = {
     "cpe_component_payload_minmax_global": (5, 11, 0),
     "cpe_bridge_morphology_global": (7, 7, 0),
     "cpe_bridge_morphology_split": (6, 10, 0),
+    "cpe_solve_spd_factor": (4, 3, 0),
+    "cpe_solve_spd_refine": (4, 3, 0),
 }
 
 _LIB: Optional[ctypes.CDLL] = None

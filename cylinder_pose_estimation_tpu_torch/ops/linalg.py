@@ -2,9 +2,11 @@
 
 ``mm`` is a plain float32 matmul: the port's entry points switch TF32 off
 (``exact_float32``), which is what the JAX code's ``Precision.HIGHEST`` asks
-for.  ``solve_spd`` keeps the equilibrated, unrolled Cholesky with one step
-of iterative refinement exactly as written there: both guards are needed in
-float32 on the worst-conditioned LM systems.
+for.  ``solve_spd_plain`` keeps the equilibrated, unrolled Cholesky with one
+step of iterative refinement exactly as written there: both guards are
+needed in float32 on the worst-conditioned LM systems.  ``solve_spd`` runs
+it on CPU tensors and launches its hand-written CUDA kernel
+(``csrc/linalg.cu``) on CUDA tensors, bit for bit the plain version there.
 
 Nothing here waits for the host on a CUDA device: ``eigh`` takes the place
 of ``torch.linalg.eigh`` / ``eigvalsh`` (which read their solver's status
@@ -18,9 +20,13 @@ from typing import Tuple
 
 import torch
 
+from cylinder_pose_estimation_tpu_torch.ops import frontend, kernels
 from cylinder_pose_estimation_tpu_torch.ops.constants import device_constant
+from cylinder_pose_estimation_tpu_torch.utils import profiling
 
 _EPS = 1e-12
+# The largest order of system the CUDA solve (``csrc/linalg.cu``) takes.
+SPD_MAX_ORDER = 8
 # Cyclic Jacobi sweeps of ``eigh_jacobi`` by matrix order: the fewest that
 # meet tests/test_torch_sync_free.py's bounds on all of its batches (random,
 # graded 1e-6..1, repeated eigenvalues, diagonal, zero), which pin them.
@@ -180,7 +186,7 @@ def _chol_solve(l, b):
     return torch.stack(x, dim=-1)
 
 
-def solve_spd(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def solve_spd_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Batched SPD solve a @ x = b: Jacobi-equilibrated unrolled Cholesky
     plus one refinement step against the original ``a``."""
     p = a.shape[-1]
@@ -207,6 +213,44 @@ def solve_spd(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     x = solve_eq(b)
     r = b - torch.sum(a * x[..., None, :], dim=-1)
     return x + solve_eq(r)
+
+
+def _check_spd(a: torch.Tensor, b: torch.Tensor) -> int:
+    """The order p of (..., p, p) systems ``a`` with right-hand sides
+    (..., p) ``b``; raises ValueError for what the CUDA solve does not take."""
+    if a.device != b.device:
+        raise ValueError(f"solve_spd: a on {a.device}, b on {b.device}")
+    if a.dtype not in (torch.float32, torch.float64) or b.dtype != a.dtype:
+        raise ValueError(f"solve_spd: expected float32 or float64 for both, got {a.dtype} and {b.dtype}")
+    if a.dim() < 2 or a.shape[-1] != a.shape[-2]:
+        raise ValueError(f"solve_spd: a must be (..., p, p), got shape {tuple(a.shape)}")
+    p = a.shape[-1]
+    if not 1 <= p <= SPD_MAX_ORDER:
+        raise ValueError(f"solve_spd: order {p} outside 1..{SPD_MAX_ORDER}")
+    if b.shape != a.shape[:-1]:
+        raise ValueError(f"solve_spd: b must be {tuple(a.shape[:-1])}, got {tuple(b.shape)}")
+    return p
+
+
+def solve_spd(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``solve_spd_plain`` of (..., p, p) ``a`` and (..., p) ``b`` (the same
+    lead shape, p <= ``SPD_MAX_ORDER``, float32 or float64).  A CPU tensor
+    runs the plain version; a CUDA tensor launches ``csrc/linalg.cu`` twice
+    (the factor and the first solve; the refinement) around the plain
+    version's residual in PyTorch, and raises if it cannot."""
+    if not frontend._route(a):
+        return solve_spd_plain(a, b)
+    p = _check_spd(a, b)
+    n = a.numel() // (p * p)
+    ac, bc = a.contiguous(), b.contiguous()
+    x = torch.empty(b.shape, dtype=b.dtype, device=b.device)
+    fac = torch.empty((p * (p + 1) // 2 + p, n), dtype=b.dtype, device=b.device)
+    kernels.launch("cpe_solve_spd_factor", [ac, bc, x, fac], [n, p, a.element_size()], [])
+    r = (b - torch.sum(a * x[..., None, :], dim=-1)).contiguous()
+    out = torch.empty_like(x)
+    kernels.launch("cpe_solve_spd_refine", [r, fac, x, out], [n, p, a.element_size()], [])
+    profiling.count("kernel.solve_spd")
+    return out
 
 
 def solve_normal_equations(

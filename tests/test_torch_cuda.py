@@ -15,7 +15,9 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_spd import KINDS, bits, spd_systems
 from cylinder_pose_estimation_tpu_torch.ops import frontend as tf
+from cylinder_pose_estimation_tpu_torch.ops import linalg
 
 # One intra-op thread per test worker: the suite runs several workers on
 # the same cores, and oversubscribed torch thread pools spin.
@@ -1099,3 +1101,151 @@ def test_sync_counters_match_the_sync_debug_mode(dev):
     reported = [w for w in caught if "called a synchronizing CUDA operation" in str(w.message)]
     assert counted == len(reported) >= 7
     assert after.get("sync.stereo_key", 0) - before.get("sync.stereo_key", 0) == counted
+
+
+# --- the fit tail's SPD solve (ops/linalg.solve_spd, csrc/linalg.cu) -----
+
+SPD_LEADS = [(0,), (2,), (16,), (26,), (64,), (100,), (32, 48)]
+_DTYPES = {"f32": torch.float32, "f64": torch.float64}
+
+
+def _solve_equal(a, b):
+    """solve_spd on CUDA tensors launches the kernel once and equals
+    solve_spd_plain on the same tensors bit for bit (NaN and inf rows too)."""
+    before = tf.launch_counts()["solve_spd"]
+    got = linalg.solve_spd(a, b)
+    assert tf.launch_counts()["solve_spd"] == before + 1
+    want = linalg.solve_spd_plain(a, b)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == b.shape and got.dtype == want.dtype
+    assert torch.equal(bits(got), bits(want)), int((bits(got) != bits(want)).sum())
+
+
+@pytest.mark.parametrize("lead", SPD_LEADS, ids=str)
+@pytest.mark.parametrize("dtype", sorted(_DTYPES))
+@pytest.mark.parametrize("p", [3, 5, 6])
+def test_solve_spd_kernel_equals_plain(dev, p, dtype, lead):
+    """Graded (1e-6 .. 1e6), the LM's damped, zero, singular, NaN and inf
+    systems at the call sites' orders and batch shapes."""
+    for i, kind in enumerate(KINDS):
+        _solve_equal(*spd_systems(p, lead, _DTYPES[dtype], kind, seed=i, device=dev))
+
+
+@pytest.mark.parametrize("dtype", sorted(_DTYPES))
+@pytest.mark.parametrize("p", range(1, linalg.SPD_MAX_ORDER + 1))
+def test_solve_spd_kernel_every_order(dev, p, dtype):
+    for i, kind in enumerate(("graded", "damped")):
+        _solve_equal(*spd_systems(p, (130,), _DTYPES[dtype], kind, seed=i, device=dev))
+
+
+def test_solve_spd_kernel_strided_rhs(dev):
+    """The LM's right-hand side is a slice of a matmul: a strided b."""
+    a, b = spd_systems(6, (16,), torch.float32, "damped", device=dev)
+    bt = b.t().contiguous().t()
+    assert not bt.is_contiguous()
+    _solve_equal(a, bt)
+
+
+@pytest.mark.parametrize("p, dtype, lead", [(6, "f32", (16,)), (6, "f32", (26,)), (5, "f32", (16,)),
+                                            (3, "f64", (32, 48)), (6, "f64", (2,))])
+def test_solve_spd_kernel_in_a_captured_graph(dev, p, dtype, lead):
+    """Captured in a CUDA graph, as the compiled steps capture it, and
+    replayed on new systems: equal to the plain solve of each, at most 5
+    kernel nodes a solve (the two launches and the residual's three)."""
+    from cylinder_pose_estimation_tpu_torch.utils import profiling
+
+    a, b = spd_systems(p, lead, _DTYPES[dtype], "damped", device=dev)
+    n_kernels, _ = profiling.graph_kernels(lambda: linalg.solve_spd(a, b), reps=1, warmup=0)
+    assert n_kernels <= 5
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        linalg.solve_spd(a, b)
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = linalg.solve_spd(a, b)
+    for i, kind in enumerate(KINDS):
+        a2, b2 = spd_systems(p, lead, _DTYPES[dtype], kind, seed=10 + i, device=dev)
+        a.copy_(a2)
+        b.copy_(b2)
+        graph.replay()
+        want = linalg.solve_spd_plain(a2, b2)
+        torch.cuda.synchronize()
+        assert torch.equal(bits(out), bits(want)), kind
+
+
+@pytest.mark.parametrize("case", ["order_9", "float16", "host_rhs", "lead_shapes_differ", "mixed_dtypes"])
+def test_solve_spd_wrapper_refuses(dev, case):
+    a = torch.eye(6, device=dev).expand(2, 6, 6).contiguous()
+    b = torch.ones(2, 6, device=dev)
+    a, b = {
+        "order_9": (torch.eye(9, device=dev).expand(2, 9, 9), torch.ones(2, 9, device=dev)),
+        "float16": (a.half(), b.half()),
+        "host_rhs": (a, b.cpu()),
+        "lead_shapes_differ": (a, torch.ones(3, 6, device=dev)),
+        "mixed_dtypes": (a, b.double()),
+    }[case]
+    before = tf.launch_counts()["solve_spd"]
+    with pytest.raises(ValueError, match="solve_spd"):
+        linalg.solve_spd(a, b)
+    assert tf.launch_counts()["solve_spd"] == before
+
+
+def _plain_solves(monkeypatch):
+    """Every caller of solve_spd (the LM, the polyfit, the normal
+    equations) takes the plain version."""
+    from cylinder_pose_estimation_tpu_torch.ops import lm, polyfit
+
+    for mod in (linalg, lm, polyfit):
+        monkeypatch.setattr(mod, "solve_spd", linalg.solve_spd_plain)
+
+
+def test_solve_spd_kernel_in_the_batch_step(dev, monkeypatch):
+    """An eager B=16 480x640 ``estimate_poses_batch`` (kernel branch) makes
+    22 kernel solves, and its result equals, leaf for leaf, the same call
+    with every solve the plain version on the card."""
+    from cylinder_pose_estimation_tpu_torch.config import CylinderDetectConfig, FitConfig
+    from cylinder_pose_estimation_tpu_torch.models import pipeline
+    from cylinder_pose_estimation_tpu_torch.types import stereo_from_numpy
+    from cylinder_pose_estimation_tpu_torch.utils.synthetic import example_pair
+
+    st, (i1, i2) = example_pair(480, 640, n_frames=16)
+    stereo = stereo_from_numpy(*st, device=dev)
+    cfg = CylinderDetectConfig(height=480, width=640, use_pallas=True)
+    a, b = torch.as_tensor(i1, device=dev), torch.as_tensor(i2, device=dev)
+    before = tf.launch_counts()["solve_spd"]
+    got = pipeline.estimate_poses_batch(a, b, stereo, cfg, FitConfig())
+    assert tf.launch_counts()["solve_spd"] == before + 22
+    _plain_solves(monkeypatch)
+    _leaves_equal(got, pipeline.estimate_poses_batch(a, b, stereo, cfg, FitConfig()))
+    assert tf.launch_counts()["solve_spd"] == before + 22
+
+
+def test_solve_spd_kernel_in_the_registration(dev, monkeypatch):
+    """One eager ``fit_cylinders_with_angles`` makes 141 kernel solves (the
+    init fit's 60, the registration LM's 80 over 26 candidates, the
+    curvature's one) and equals the same call with plain solves."""
+    from cylinder_pose_estimation_tpu_torch.config import CylinderDetectConfig, FitConfig, RegistrationConfig
+    from cylinder_pose_estimation_tpu_torch.geometry.registration import fit_cylinders_with_angles
+    from cylinder_pose_estimation_tpu_torch.models import pipeline
+    from cylinder_pose_estimation_tpu_torch.types import stereo_from_numpy
+    from cylinder_pose_estimation_tpu_torch.utils.synthetic import registration_sequence
+
+    st, ang, (i1, i2), _ = registration_sequence(6, 240, 320)
+    stereo = stereo_from_numpy(*st, device=dev)
+    cfg = CylinderDetectConfig(height=240, width=320, use_pallas=True)
+    batch = pipeline.estimate_poses_batch(torch.as_tensor(i1, device=dev), torch.as_tensor(i2, device=dev),
+                                          stereo, cfg, FitConfig())
+    angles, reg_cfg = torch.as_tensor(ang, device=dev), RegistrationConfig()
+    health = pipeline.frame_health(batch, reg_cfg)
+
+    def register():
+        return fit_cylinders_with_angles(batch.fit.points3, batch.fit.points_valid, angles, reg_cfg,
+                                         frame_valid=health)
+
+    before = tf.launch_counts()["solve_spd"]
+    got = register()
+    assert tf.launch_counts()["solve_spd"] == before + 141
+    _plain_solves(monkeypatch)
+    _leaves_equal(got, register())

@@ -234,6 +234,7 @@ def test_launch_views_read_as_before():
     counts = frontend.launch_counts()
     assert list(counts) == list(frontend.KERNEL_COUNTERS) and set(counts.values()) == {0}
     assert "bridge_morphology.split" in counts and "connected_components.capped.band" in counts
+    assert "solve_spd" in counts
     profiling.count("kernel.bridge_morphology")
     profiling.count("kernel.bridge_morphology.cluster", 2)
     counts = frontend.launch_counts()
