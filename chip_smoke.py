@@ -170,8 +170,10 @@ kernel name.  Phases:
    each.
 
 19. Compiled steps (run after phase 7's timing): ``compiled_batch`` of the
-   main, endpoint and XLA configs at B=16, the registration step of
-   ``register_sequence`` on phase 8's 100 frames and the stream's chunk step
+   main, endpoint and XLA configs at B=16, of the main config at B=16 on
+   1080x1920 pairs (``FULL_HD``: the CC family's band route, 8-CTA CC
+   clusters and the bridge's split route inside the step), the registration
+   step of ``register_sequence`` on phase 8's 100 frames and the stream's chunk step
    (``_stream_step``, compact, 64 frames), each against the eager call it
    replays: every leaf ``torch.equal`` (else the leaf, the count and the
    largest difference are printed and the phase fails), 0 host
@@ -183,7 +185,11 @@ kernel name.  Phases:
    pool).  Each step's capture must record ``SOLVES_PER_CAPTURE`` kernel
    solves (``solve_spd``: 22 in a batch or chunk step, 141 in the
    registration), printed with the step's kernel nodes with every solve
-   the plain version and with the kernel.  The experiment, stream, mesh
+   the plain version and with the kernel; one line then gives every
+   batch step's kernel nodes side by side.  Every kernel-wrapper call of
+   the full-HD step's eager call is recorded and held ``torch.equal`` to
+   its plain version on the same tensors, timed, with its byte bound (its
+   sites join phase 12's in ``large_sites``).  The experiment, stream, mesh
    and CLI paths of phases 8-16 run through these steps too.
 
 Launch counts.  Every path run (``run_path``, ``mesh_rank``) empties the
@@ -201,8 +207,8 @@ each path's replays.
 
 The line before the card's name is phase 19's numbers as JSON.
 The second-to-last line is the kernel report as JSON: one row per kernel
-(the 480x640 sites; ``large_sites`` and ``variant_sites`` hold phases 12's
-and 13's), the bridge's cluster route in its own row and its split and
+(the 480x640 sites; ``large_sites`` holds phase 12's and phase 19's
+full-HD step's, ``variant_sites`` phase 13's), the bridge's cluster route in its own row and its split and
 global routes in rows of their own (``bridge_morphology.split``,
 ``bridge_morphology.global``: their timed sites of phases 12, 13 and 15),
 phase 18's kernel branches (``preprocess_binarize.smoothing``,
@@ -311,6 +317,8 @@ ROUTE_SHAPES = {"bridge_morphology.cluster": (64, 240, 384), "bridge_morphology.
 # Frames of the variants phase (the fixture's 480x640 record) and of its
 # card-versus-CPU checks.
 VARIANT_FRAMES, VARIANT_CPU_FRAMES = 16, 2
+# The full-HD batch step of phase 19: frame size and frames per call.
+FULL_HD, FULL_HD_BATCH = (1080, 1920), 16
 # The large path: frame sizes past the cluster kernels, frames per batch.
 LARGE_SIZES = ((720, 1280), (1080, 1920))
 LARGE_BATCH = 2
@@ -1206,6 +1214,57 @@ def xla_phase(frontend, a, b, stereo, pviews, golden, plane_views, fit_cfg) -> d
     return launches
 
 
+def hold_sites(report, frontend, calls, tag, timed) -> None:
+    """Hold every kernel-wrapper call ``Capture`` recorded to its plain
+    version on the same inputs (``compare``: ``torch.equal``); with
+    ``timed`` also time each call and add it, with its byte bound, to the
+    kernel's ``large_sites``.  A bridge call is held as recorded (bool) and
+    as float32; only the recorded call is timed."""
+    import torch
+
+    with torch.inference_mode():
+        for args, kw in calls["preprocess_binarize"]:
+            x = args[0]
+            compare(report, "preprocess_binarize", lambda: frontend.preprocess_binarize(x, **kw),
+                    lambda: frontend.preprocess_binarize_plain(x, **kw), f"{tag} {tuple(x.shape)}", timed,
+                    nbytes=frontend.min_bytes("preprocess_binarize", *x.shape), into="large_sites")
+        for args, kw in calls["connected_components"]:
+            m, init = args[0], kw.get("init_labels")
+            r, p = kw["rounds"], kw["pools_per_round"]
+            plan = frontend.cc_plan(*m.shape, pools_per_round=p)
+            glob = plan.get("route") == "global"
+            compare(report, "connected_components",
+                    lambda: frontend.connected_components(m, r, p, init),
+                    lambda: frontend.connected_components_plain(m, r, p, init),
+                    f"{tag} {tuple(m.shape)} {r}x{p} {'warm' if init is not None else 'cold'}"
+                    f"{' global' if glob else ''}", timed,
+                    nbytes=frontend.min_bytes("connected_components", *m.shape, warm=init is not None),
+                    max_dev=frontend.cc_global_launches(r, p, plan["fused"]) if glob else None,
+                    into="large_sites")
+        for args, kw in calls["component_payload_minmax"]:
+            m, pay = args
+            r, p = kw["rounds"], kw["pools_per_round"]
+            plan = frontend.cc_plan(*m.shape, channels=2, pools_per_round=p)
+            glob = plan.get("route") == "global"
+            compare(report, "component_payload_minmax",
+                    lambda: frontend.component_payload_minmax(m, pay, r, p),
+                    lambda: frontend.component_payload_minmax_plain(m, pay, r, p),
+                    f"{tag} {tuple(m.shape)} {r}x{p}{' global' if glob else ''}", True,
+                    nbytes=frontend.min_bytes("component_payload_minmax", *m.shape),
+                    max_dev=frontend.cc_global_launches(r, p, plan["fused"]) if glob else None,
+                    into="large_sites")
+        for args, kw in calls["bridge_morphology"]:
+            masks, exps, angles, klen = args
+            row, max_dev = bridge_route(frontend, masks.shape, kw)
+            for mk, ek, site in ((masks, exps, True), (masks.float(), exps.float(), False)):
+                compare(report, row,
+                        lambda: frontend.bridge_morphology(mk, ek, angles, klen, **kw),
+                        lambda: frontend.bridge_morphology_plain(mk, ek, angles, klen, **kw),
+                        f"{tag} {tuple(mk.shape)} {mk.dtype} {row}", timed and site,
+                        nbytes=frontend.min_bytes("bridge_morphology", *mk.shape, itemsize=mk.element_size()),
+                        max_dev=max_dev, into="large_sites")
+
+
 def large_phase(frontend, device, fit_cfg, smi):
     """Phase 12: the main and endpoint configs at LARGE_SIZES; returns (the
     launches, a kernel report whose ``large_sites`` hold the timed calls)."""
@@ -1256,50 +1315,8 @@ def large_phase(frontend, device, fit_cfg, smi):
               f"{res.detect1.stable.tolist()}/{res.detect2.stable.tolist()}", flush=True)
 
     report = {}
-    with torch.inference_mode():
-        for (h, w, label), cap in calls.items():
-            timed = label == "main"
-            tag = f"{h}x{w} {label}"
-            for args, kw in cap["preprocess_binarize"]:
-                x = args[0]
-                compare(report, "preprocess_binarize", lambda: frontend.preprocess_binarize(x, **kw),
-                        lambda: frontend.preprocess_binarize_plain(x, **kw), f"{tag} {tuple(x.shape)}", timed,
-                        nbytes=frontend.min_bytes("preprocess_binarize", *x.shape), into="large_sites")
-            for args, kw in cap["connected_components"]:
-                m, init = args[0], kw.get("init_labels")
-                r, p = kw["rounds"], kw["pools_per_round"]
-                plan = frontend.cc_plan(*m.shape, pools_per_round=p)
-                glob = plan.get("route") == "global"
-                compare(report, "connected_components",
-                        lambda: frontend.connected_components(m, r, p, init),
-                        lambda: frontend.connected_components_plain(m, r, p, init),
-                        f"{tag} {tuple(m.shape)} {r}x{p} {'warm' if init is not None else 'cold'}"
-                        f"{' global' if glob else ''}", timed,
-                        nbytes=frontend.min_bytes("connected_components", *m.shape, warm=init is not None),
-                        max_dev=frontend.cc_global_launches(r, p, plan["fused"]) if glob else None,
-                        into="large_sites")
-            for args, kw in cap["component_payload_minmax"]:
-                m, pay = args
-                r, p = kw["rounds"], kw["pools_per_round"]
-                plan = frontend.cc_plan(*m.shape, channels=2, pools_per_round=p)
-                glob = plan.get("route") == "global"
-                compare(report, "component_payload_minmax",
-                        lambda: frontend.component_payload_minmax(m, pay, r, p),
-                        lambda: frontend.component_payload_minmax_plain(m, pay, r, p),
-                        f"{tag} {tuple(m.shape)} {r}x{p}{' global' if glob else ''}", True,
-                        nbytes=frontend.min_bytes("component_payload_minmax", *m.shape),
-                        max_dev=frontend.cc_global_launches(r, p, plan["fused"]) if glob else None,
-                        into="large_sites")
-            for args, kw in cap["bridge_morphology"]:
-                masks, exps, angles, klen = args
-                row, max_dev = bridge_route(frontend, masks.shape, kw)
-                for mk, ek, site in ((masks, exps, True), (masks.float(), exps.float(), False)):
-                    compare(report, row,
-                            lambda: frontend.bridge_morphology(mk, ek, angles, klen, **kw),
-                            lambda: frontend.bridge_morphology_plain(mk, ek, angles, klen, **kw),
-                            f"{tag} {tuple(mk.shape)} {mk.dtype} {row}", timed and site,
-                            nbytes=frontend.min_bytes("bridge_morphology", *mk.shape, itemsize=mk.element_size()),
-                            max_dev=max_dev, into="large_sites")
+    for (h, w, label), cap in calls.items():
+        hold_sites(report, frontend, cap, f"{h}x{w} {label}", label == "main")
 
     rep = itertools.count(1)
     for (h, w), (st_np, (i1, i2)) in inputs.items():
@@ -2232,7 +2249,7 @@ def leaf_diffs(got, want, prefix="") -> list:
     return [(prefix, n, float(d[torch.isfinite(d)].max()) if torch.isfinite(d).any() else float("inf"))]
 
 
-def compiled_phase(device, stereo, frames, cfgs, fit_cfg, experiment, smi) -> dict:
+def compiled_phase(device, stereo, frames, cfgs, fit_cfg, experiment, smi, full_hd, sites) -> dict:
     """Phase 19: the compiled steps (``pipeline.compiled_batch``, the
     registration step of ``register_sequence``, ``pipeline._stream_step``)
     against the eager calls they replay.  For each step: the first call
@@ -2243,13 +2260,17 @@ def compiled_phase(device, stereo, frames, cfgs, fit_cfg, experiment, smi) -> di
     synchronisations of one compiled call (``sync_sites``, must be 0); the
     kernel nodes of the graph captured from one call and the device ms of
     its replay (``profiling.graph_kernels``); eager against replayed ms in
-    alternating pairs (CUDA events, medians, fresh inputs each call)."""
+    alternating pairs (CUDA events, medians, fresh inputs each call).
+    ``full_hd``: (label, rig, frames, config) of the full-HD batch step,
+    run as the 480x640 ones; every kernel-wrapper call of its eager call is
+    recorded and held to its plain version on the same inputs, timed, into
+    the ``large_sites`` of the kernel report ``sites`` (``hold_sites``)."""
     import torch
 
     from cylinder_pose_estimation_tpu_torch.config import RegistrationConfig
     from cylinder_pose_estimation_tpu_torch.geometry.registration import fit_cylinders_with_angles
     from cylinder_pose_estimation_tpu_torch.models import pipeline
-    from cylinder_pose_estimation_tpu_torch.ops import linalg
+    from cylinder_pose_estimation_tpu_torch.ops import frontend, linalg
     from cylinder_pose_estimation_tpu_torch.utils import profiling
 
     out = {}
@@ -2309,12 +2330,13 @@ def compiled_phase(device, stereo, frames, cfgs, fit_cfg, experiment, smi) -> di
         return {"kernel_nodes": n_kernels, "kernel_nodes_plain_solve": n_plain, "replay_device_ms": dev_ms,
                 "eager_ms": ms["eager"], "replay_ms": ms["replay"], "frames": n_frames}
 
-    d1, d2 = frames
-    n = d1.shape[0]
-    for label, cfg in cfgs.items():
-        step = pipeline.compiled_batch(stereo, cfg, fit_cfg)
+    steps = [(label, stereo, frames, cfg) for label, cfg in cfgs.items()] + [full_hd]
+    for label, rig, (d1, d2), cfg in steps:
+        n = d1.shape[0]
+        step = pipeline.compiled_batch(rig, cfg, fit_cfg)
         got, first = first_calls(f"{label} B={n}", lambda: step(d1, d2))
-        want = pipeline.estimate_poses_batch(d1, d2, stereo, cfg, fit_cfg)
+        with Capture(frontend) if label == full_hd[0] else contextlib.nullcontext() as cap:
+            want = pipeline.estimate_poses_batch(d1, d2, rig, cfg, fit_cfg)
 
         def fresh(fn):
             def call():
@@ -2324,11 +2346,19 @@ def compiled_phase(device, stereo, frames, cfgs, fit_cfg, experiment, smi) -> di
 
         out[label] = check(
             f"{label} B={n}", got, want, n,
-            fresh(lambda a, b, cfg=cfg: pipeline.estimate_poses_batch(a, b, stereo, cfg, fit_cfg)),
-            fresh(step), lambda cfg=cfg: pipeline.estimate_poses_batch(d1, d2, stereo, cfg, fit_cfg), pairs=5)
+            fresh(lambda a, b, cfg=cfg: pipeline.estimate_poses_batch(a, b, rig, cfg, fit_cfg)),
+            fresh(step), lambda cfg=cfg: pipeline.estimate_poses_batch(d1, d2, rig, cfg, fit_cfg), pairs=5)
         out[label].update(first)
         del step, got, want
+        if cap is not None:
+            hold_sites(sites, frontend, cap.calls, f"compiled {label} B={n}", True)
+            del cap
         pipeline._STREAM_STEP_CACHE.clear()
+    print("compiled batch steps, kernel nodes per step: " + ", ".join(
+        f"{label} {out[label]['kernel_nodes']} ({out[label]['frames']} frames)" for label, *_ in steps)
+        + f"; {smi}", flush=True)
+    d1, d2 = frames
+    n = d1.shape[0]
 
     # The experiment's registration step (phase 8's 100 frames and batch).
     batch, ang = experiment["batch"], torch.as_tensor(experiment["frames"][2], device=device)
@@ -2577,8 +2607,13 @@ def main() -> int:
           flush=True)
 
     # --- the compiled steps: replay against eager ------------------------
+    hd_np, (h1, h2) = example_pair(*FULL_HD, n_frames=FULL_HD_BATCH,
+                                   pans=[float(i % 13) for i in range(FULL_HD_BATCH)])
+    full_hd = (f"main {FULL_HD[0]}x{FULL_HD[1]}", stereo_from_numpy(*hd_np, device=device),
+               (torch.as_tensor(h1, device=device), torch.as_tensor(h2, device=device)),
+               CylinderDetectConfig(height=FULL_HD[0], width=FULL_HD[1], use_pallas=True))
     compiled = compiled_phase(device, stereo, (d1, d2), {"main": cfg, "endpoint": cfg_ep, "xla": cfg_xla},
-                              fit_cfg, experiment, smi)
+                              fit_cfg, experiment, smi, full_hd, large_report)
 
     # --- the command-line drivers on the card ------------------------------
     cli_launches = cli_phase(frontend, smi)

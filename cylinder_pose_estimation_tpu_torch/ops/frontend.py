@@ -17,7 +17,9 @@ hand-written CUDA kernel from ``csrc/`` (built at first use, see
 launched the CUDA kernel (plain runs do not count), the bridge's calls
 per route (``bridge_morphology.cluster``, ``.split``, ``.global``), the
 smoothing launches of the preprocess kernel (``preprocess_binarize.smoothing``),
-the CC calls with a capped scan, all on the band route
+the CC family's calls on its large-frame (band) route
+(``connected_components.band``, ``component_payload_minmax.band``), the
+CC calls with a capped scan, all on the band route
 (``connected_components.capped.band``), and the fit tail's CUDA SPD solves
 (``solve_spd``, ``ops/linalg.solve_spd``): a view of the counters
 ``kernel.<name>`` of ``utils/profiling``'s registry.
@@ -54,6 +56,10 @@ KERNEL_COUNTERS = (
     "connected_components.capped.band",
     # The fit tail's small SPD solves (``ops/linalg.solve_spd``).
     "solve_spd",
+    # The CC family's calls on the large-frame (band) route of ``cc_plan``,
+    # capped or not; the rest of their calls take the cluster route.
+    "connected_components.band",
+    "component_payload_minmax.band",
 )
 
 
@@ -639,6 +645,7 @@ def connected_components(
     out = torch.empty(mask.shape, dtype=torch.int32, device=mask.device)
     if plan.get("route") == "global":
         _cc_global("cpe_connected_components_global", mask, init_labels, [out], rounds, pools_per_round, plan)
+        profiling.count("kernel.connected_components.band")
     else:
         kernels.launch(
             "cpe_connected_components",
@@ -738,6 +745,7 @@ def component_payload_minmax(
     if plan.get("route") == "global":
         _cc_global("cpe_component_payload_minmax_global", mask, payload, [pmin, pmax], rounds, pools_per_round,
                    plan)
+        profiling.count("kernel.component_payload_minmax.band")
     else:
         kernels.launch(
             "cpe_component_payload_minmax",

@@ -1249,3 +1249,91 @@ def test_solve_spd_kernel_in_the_registration(dev, monkeypatch):
     assert tf.launch_counts()["solve_spd"] == before + 141
     _plain_solves(monkeypatch)
     _leaves_equal(got, register())
+
+
+# --- full HD: the CC family's band route, 8-CTA CC clusters and the
+# bridge's split route inside the captured B=16 batch step -----------------
+
+@pytest.mark.parametrize("channels", [1, 2])
+def test_band_route_calls_count_once_on_band(dev, channels):
+    """One call on the band route (the half-res canvas of a 1080x1920
+    frame) counts once on ``<kernel>.band`` and equals its plain version; a
+    call on the cluster route (the 480x640 frame's canvas) and a capped
+    call, which takes the band route at every size, count as the plan
+    says."""
+    key = "connected_components" if channels == 1 else "component_payload_minmax"
+    for (h, w), band in (((544, 1024), True), ((240, 384), False)):
+        assert (tf.cc_plan(2, h, w, channels=channels).get("route") == "global") == band
+        g = torch.Generator().manual_seed(h + channels)
+        m = _band_masks(2, h, w, 20, h).to(dev)
+        before = tf.launch_counts()
+        if channels == 1:
+            init = torch.randint(0, 2 * h * w, m.shape, generator=g, dtype=torch.int32).to(dev)
+            _equal(tf.connected_components(m, 2, 2, init), tf.connected_components_plain(m, 2, 2, init))
+        else:
+            pay = torch.stack([torch.randperm(h * w, generator=g) for _ in range(2)]).reshape(2, h, w)
+            pay = pay.to(torch.int32).to(dev)
+            _equal(tf.component_payload_minmax(m, pay, 2, 4), tf.component_payload_minmax_plain(m, pay, 2, 4))
+        after = tf.launch_counts()
+        assert after[key] == before[key] + 1
+        assert after[f"{key}.band"] == before[f"{key}.band"] + int(band)
+    if channels == 1:
+        m = _cross_cap_masks(2, 240, 384, 16).to(dev)
+        before = tf.launch_counts()["connected_components.band"]
+        _equal(tf.connected_components(m, 2, 2, cap_axis=0, cap=16),
+               tf.connected_components_plain(m, 2, 2, cap_axis=0, cap=16))
+        assert tf.launch_counts()["connected_components.band"] == before + 1
+
+
+def test_compiled_batch_full_hd_equals_eager(dev, monkeypatch):
+    """``compiled_batch`` of the kernel branch at B=16 on 1080x1920 pairs:
+    the capture (the half-res CCs on the band route, the quarter-res CC in
+    8-CTA clusters, the bridge on its split route) replays equal, leaf for
+    leaf, to ``estimate_poses_batch`` on the same inputs.  The capture
+    records two band-route CC calls, one split-route bridge and no payload
+    kernel; each replay adds them to ``graph_launch_counts()``.  Every
+    kernel call of the eager call equals its plain version on the same
+    tensors."""
+    from cylinder_pose_estimation_tpu_torch.config import CylinderDetectConfig, FitConfig
+    from cylinder_pose_estimation_tpu_torch.models import pipeline
+    from cylinder_pose_estimation_tpu_torch.types import stereo_from_numpy
+    from cylinder_pose_estimation_tpu_torch.utils.synthetic import example_pair
+
+    h, w, n = 1080, 1920, 16
+    assert tf.cc_plan(4 * n, 544, 1024).get("route") == "global"
+    assert tf.cc_plan(4 * n, 272, 512)["cluster"] == 8
+    assert tf.bridge_plan(4 * n, 544, 1024)["route"] == "split"
+    st, (i1, i2) = example_pair(h, w, n_frames=n, pans=[float(i % 13) for i in range(n)])
+    stereo = stereo_from_numpy(*st, device=dev)
+    cfg = CylinderDetectConfig(height=h, width=w, use_pallas=True)
+    a, b = torch.as_tensor(i1, device=dev), torch.as_tensor(i2, device=dev)
+    pipeline._STREAM_STEP_CACHE.clear()
+    pipeline.reset_graph_launch_counts()
+    step = pipeline.compiled_batch(stereo, cfg, FitConfig())
+    step(a, b)  # eager
+    got = step(a, b)  # capture and replay
+    captured = pipeline.graph_launch_counts()["captured"]
+    assert captured["connected_components.band"] == 2 and captured["connected_components"] == 3
+    assert captured["bridge_morphology.split"] == 1 and "component_payload_minmax.band" not in captured
+    calls = []
+    for name in ("preprocess_binarize", "connected_components", "bridge_morphology"):
+        def record(*args, _kernel=getattr(tf, name), _name=name, **kw):
+            calls.append((_name, args, kw))
+            return _kernel(*args, **kw)
+        monkeypatch.setattr(tf, name, record)
+    _leaves_equal(got, pipeline.estimate_poses_batch(a, b, stereo, cfg, FitConfig()))
+    monkeypatch.undo()
+    assert [c[0] for c in calls].count("connected_components") == 3 and len(calls) == 5
+    with torch.inference_mode():
+        for name, args, kw in calls:
+            _equal(getattr(tf, name)(*args, **kw), getattr(tf, f"{name}_plain")(*args, **kw))
+    del calls
+    for eps in (0.5, 1.0):
+        got = step(a + eps, b + eps)
+        _leaves_equal(got, pipeline.estimate_poses_batch(a + eps, b + eps, stereo, cfg, FitConfig()))
+    counts = pipeline.graph_launch_counts()
+    assert counts["replays"] == 3
+    assert counts["replayed"]["connected_components.band"] == 3 * 2
+    assert counts["replayed"]["bridge_morphology.split"] == 3
+    assert bool(got.detect1.ok.any()) and bool(got.detect2.ok.any())
+    pipeline._STREAM_STEP_CACHE.clear()
