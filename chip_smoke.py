@@ -192,6 +192,30 @@ kernel name.  Phases:
    sites join phase 12's in ``large_sites``).  The experiment, stream, mesh
    and CLI paths of phases 8-16 run through these steps too.
 
+20. Stencils (run after phase 18): the front stage's banded correlations
+   (``ops/stencils``: the smoothing ``stencil_smooth`` and the statistic
+   images ``stencil_stats``) at the sites of the cells that run them
+   (``STENCIL_SITES``: the views of a B=16 batch step, a 64-frame stream
+   chunk and the F=100 experiment step at 480x640, a full-HD B=16 step, and
+   the knob phase's centre-seed B=16 step), on the scene pools' frames and
+   their preprocess intermediates, each held to the former banded matmuls
+   or the phase fails: the smoothed plane within two float32 passes'
+   rounding of sum |k| |k| |x|; the centroid images ``torch.equal``; the
+   saturation blur before its threshold and the index blur within their
+   bf16 pair's bound; the saturation mask equal but at ties (the matmuls'
+   blur within that bound of the threshold); the centre box
+   (``bright_at_points=False``) within two float32 passes' bound over its
+   area.  Then ms per call, graph-replay device ms and device kernels per
+   call, the byte bound (``stencils.min_bytes``), and the former matmul
+   route's (the plain version's) ms and kernels on the card as the
+   yardstick; the kernels line's ``stencil_smooth`` and ``stencil_stats``
+   rows give the B=16 480x640 site's and list the others.  Then, on the
+   480x640 and full-HD pools, the front stage and ``detect_grid`` by the
+   kernel route and by the matmul route: the binary pixels, joint peaks,
+   saturation-mask pixels, centroids, grid validity, ids and points and ok
+   flags that differ, each of which must be 0.  One JSON line
+   ``{"stencils": ...}``.
+
 Launch counts.  Every path run (``run_path``, ``mesh_rank``) empties the
 compiled steps' cache and zeroes the counters just before and reads them
 just after, so it counts what a fresh process would launch.  A path's
@@ -212,8 +236,10 @@ full-HD step's, ``variant_sites`` phase 13's), the bridge's cluster route in its
 global routes in rows of their own (``bridge_morphology.split``,
 ``bridge_morphology.global``: their timed sites of phases 12, 13 and 15),
 phase 18's kernel branches (``preprocess_binarize.smoothing``,
-``connected_components.capped.band``) in rows of their own, and the fit
-tail's SPD solve (``solve_spd``, phase 6's sites).
+``connected_components.capped.band``) in rows of their own, the fit
+tail's SPD solve (``solve_spd``, phase 6's sites), and the front stage's
+stencils (``stencil_smooth``, ``stencil_stats``: phase 20's B=16 480x640
+site, its other sites in ``stencil_sites``).
 The last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -255,14 +281,20 @@ PATH_KERNELS = {
     "xla": dict.fromkeys(KERNELS, 0),
     "large": dict.fromkeys(KERNELS, None),
 }
+# The front stage's stencils (ops/stencils) on every kernel-branch path with
+# the default smoothing, never on the XLA branch.
+STENCILS = ("stencil_smooth", "stencil_stats")
+for _path in ("main", "endpoint", "plane", "large"):
+    PATH_KERNELS[_path].update(dict.fromkeys(STENCILS, None))
+PATH_KERNELS["xla"].update(dict.fromkeys(STENCILS, 0))
 for _path in ("experiment", "preprocess", "stream", "mesh", "mesh_ranks", "corpus"):
     PATH_KERNELS[_path] = dict(PATH_KERNELS["main"])
 # The variants: the kernel-branch configurations launch all four kernels, the
 # XLA-branch ones and the command-line drivers (the default config) none.
-PATH_KERNELS["variants"] = dict.fromkeys(KERNELS, None)
-PATH_KERNELS["variants_xla"] = dict.fromkeys(KERNELS, 0)
-PATH_KERNELS["cli"] = dict.fromkeys(KERNELS, 0)
-PATH_KERNELS["corpus_xla"] = dict.fromkeys(KERNELS, 0)
+PATH_KERNELS["variants"] = dict.fromkeys(KERNELS + STENCILS, None)
+PATH_KERNELS["variants_xla"] = dict.fromkeys(KERNELS + STENCILS, 0)
+PATH_KERNELS["cli"] = dict.fromkeys(KERNELS + STENCILS, 0)
+PATH_KERNELS["corpus_xla"] = dict.fromkeys(KERNELS + STENCILS, 0)
 # The bridge's routes (frontend.bridge_plan): the cluster kernel at the
 # 480x640 paths' half-res canvases, the split kernel at the large frames'
 # canvases and the full-resolution variants, and each route once in phase 15.
@@ -275,17 +307,18 @@ PATH_KERNELS["routes"] = dict.fromkeys(BRIDGE_ROUTES, None)
 # The knob phase (18): each configuration's path and its launches in one
 # B=16 step (a number: exactly that often; None: at least once; absent: 0).
 _KNOB_MAIN = {"preprocess_binarize": 1, "connected_components": 3, "bridge_morphology": 1,
-              "bridge_morphology.cluster": 1}
+              "bridge_morphology.cluster": 1, "stencil_smooth": 1, "stencil_stats": 1}
 _KNOB_CAPPED = dict(_KNOB_MAIN, connected_components=4)
 KNOB_STEP = {
-    "smoothing_kernel": dict(_KNOB_MAIN, **{"preprocess_binarize.smoothing": 1}),
+    "smoothing_kernel": dict(_KNOB_MAIN, **{"preprocess_binarize.smoothing": 1, "stencil_smooth": 0}),
     "cross_cap_kernel": dict(_KNOB_CAPPED, **{"connected_components.capped.band": 2}),
     "cross_cap_ds1_kernel": {"preprocess_binarize": 1, "connected_components": 4, "bridge_morphology": 1,
-                             "bridge_morphology.split": None, "connected_components.capped.band": 2},
+                             "bridge_morphology.split": None, "connected_components.capped.band": 2,
+                             "stencil_smooth": 1, "stencil_stats": 1},
     "bright_kernel": _KNOB_MAIN,
     "bright_xla": {},
     "all_knobs_kernel": dict(_KNOB_CAPPED, **{"preprocess_binarize.smoothing": 1,
-                                              "connected_components.capped.band": 2}),
+                                              "connected_components.capped.band": 2, "stencil_smooth": 0}),
 }
 # The kernel branches phase 18 adds to the kernels line: the TPU lines of
 # each branch, and the path whose step gives its launches per step (the
@@ -296,15 +329,16 @@ KNOB_ROWS = {
     "connected_components.capped.band": ("cylinder_pose_estimation_tpu/ops/pallas/frontend.py:524",
                                          "knobs.cross_cap_kernel"),
 }
-KNOB_COUNTERS = KERNELS + BRIDGE_ROUTES + tuple(KNOB_ROWS)
+KNOB_COUNTERS = KERNELS + BRIDGE_ROUTES + tuple(KNOB_ROWS) + STENCILS
 for _name, _step in KNOB_STEP.items():
     PATH_KERNELS[f"knobs.{_name}"] = {k: _step.get(k, 0) for k in KNOB_COUNTERS}
 # Frames of the knob phase, and of its card-versus-CPU checks.
 KNOB_FRAMES, KNOB_CPU_FRAMES = 16, 2
 # Rows of the kernels line: the kernels, the bridge's cluster route in its
 # own row, then the bridge's other routes, then the knobs' branches, then
-# the fit tail's SPD solve.
-ROWS = KERNELS + BRIDGE_ROUTES[1:] + tuple(KNOB_ROWS) + ("solve_spd",)
+# the fit tail's SPD solve, then the front stage's stencils (timed at
+# STENCIL_ROW_SITE in phase 20).
+ROWS = KERNELS + BRIDGE_ROUTES[1:] + tuple(KNOB_ROWS) + ("solve_spd",) + STENCILS
 # Rows timed at their 480x640 main-path sites (phase 6).
 SITE_ROWS = KERNELS + ("solve_spd",)
 # Kernel solves (``solve_spd``) one capture of each compiled step records:
@@ -329,7 +363,7 @@ DESIGN = {"preprocess_binarize": "redesigned", "connected_components": "redesign
           "bridge_morphology": "redesigned", "component_payload_minmax": "redesigned",
           "bridge_morphology.split": "redesigned", "bridge_morphology.global": "first port",
           "preprocess_binarize.smoothing": "redesigned", "connected_components.capped.band": "redesigned",
-          "solve_spd": "first port"}
+          "solve_spd": "first port", "stencil_smooth": "redesigned", "stencil_stats": "redesigned"}
 # Device kernels of a preprocess call that smooths in the kernel: the
 # smoothing launch, then launches A and B on its plane.
 SMOOTHING_DEVICE_KERNELS = 3
@@ -356,6 +390,16 @@ MESH_TIMING_PAIRS = 3
 # detector's labels are chaotic, and only ok and stable are compared there.
 CORPUS_LATTICES = ((0.0, 0), (14.0, 0), (19.0, 0), (19.0, 1), (19.0, 2), (19.0, 3), (26.0, 0), (32.0, 0))
 CORPUS_CHAOTIC = (26.0, 32.0)
+# The front stage's stencils (phase 20): (cell or path, views, frame size,
+# the configuration's knobs) of each site in the cells that run them, and
+# of the knob phase's centre-seed path (the centre box); the site whose
+# times the kernels line's stencil rows give; the pairs of each frame
+# size's pool.
+STENCIL_SITES = (("kernels.batch16", 32, (480, 640), {}), ("kernels.stream64", 128, (480, 640), {}),
+                 ("kernels.experiment100", 200, (480, 640), {}), ("cyl1080-kernels.batch16", 32, (1080, 1920), {}),
+                 ("knobs.bright_kernel", 2 * KNOB_FRAMES, (480, 640), {"bright_at_points": False}))
+STENCIL_ROW_SITE = "kernels.batch16"
+STENCIL_POOL = 16
 # The fixture's 240x320 and 480x640 frames of the JAX corpora.
 CORPUS_SMALL = ("gap3_control", "gap3_gapped", "double_gap", "indep2_240x320")
 CORPUS_LARGE = ("indep1_480x640",)
@@ -2029,6 +2073,228 @@ def knobs_phase(frontend, device, fit_cfg, smi):
     return launches, report
 
 
+def corr64(x, taps, dim):
+    """Zero-padded correlation out[i] = sum_t taps[t] * x[i + t - r] along
+    ``dim``, in float64."""
+    import torch
+
+    x = x.double()
+    r = len(taps) // 2
+    n = x.shape[dim]
+    out = torch.zeros_like(x)
+    for t, v in enumerate(taps):
+        sh = t - r
+        if abs(sh) < n:
+            out.narrow(dim, max(0, -sh), n - abs(sh)).add_(x.narrow(dim, max(0, sh), n - abs(sh)), alpha=float(v))
+    return out
+
+
+def bf16_pass_bound(inter, taps):
+    """What the second pass of a bf16-operand band pair (``taps`` as the
+    band holds them) may differ by between two summation orders, in
+    float64: the pass's own 2 gamma_n, plus one bfloat16 step (2^-7
+    relative) of every intermediate whose last bits the first pass may
+    have rounded the other way."""
+    k = [abs(v) for v in taps]
+    g = len(taps) * 2.0**-24 * 1.01
+    return 2 * g * corr64(inter.bfloat16().to(inter.dtype).abs(), k, 1) + corr64(inter.abs() * 2.0**-7, k, 1)
+
+
+def bf16_taps(taps):
+    """Taps as a default-mode band matrix holds them: float32, then bfloat16."""
+    import torch
+
+    return torch.tensor(taps, dtype=torch.float32).bfloat16().float().tolist()
+
+
+def two_pass_bound(x, taps):
+    """What two float32 summation orders of the same two passes of ``taps``
+    (float32 operands and intermediate) may differ by: 2 gamma_n of the
+    terms' magnitudes in each pass, the first's carried through the second."""
+    k = [abs(v) for v in taps]
+    return 4 * 1.01 * len(taps) * 2.0**-24 * corr64(corr64(x.abs(), k, 2), k, 1)
+
+
+@contextlib.contextmanager
+def matmul_route(stencils):
+    """The front stage's former route: the stencil wrappers replaced by their
+    plain versions, the banded matmuls (the detector looks them up on the
+    module at call time)."""
+    saved = stencils.smooth, stencils.stats_images
+    stencils.smooth, stencils.stats_images = stencils.smooth_plain, stencils.stats_images_plain
+    try:
+        yield
+    finally:
+        stencils.smooth, stencils.stats_images = saved
+
+
+def hold_stats(cell, gray, args, sargs, got, want, sat) -> dict:
+    """Phase 20's hold of the statistic-image stencil (``got``, with the
+    saturation blur ``sat`` before its threshold) against the banded
+    matmuls (``want``) on the same inputs; raises where they part.  The
+    centroid images torch.equal (sums of integers); the saturation blur and
+    the index blur within their bf16 pair's bound of the matmuls' (the
+    operands are bf16, only the summation order differs); the saturation
+    mask equal but where the matmuls' blur lies within that bound of the
+    threshold (a tie of the two orders); the centre box within two float32
+    passes' bound over its area.  Returns the differing pixels and the
+    largest differences."""
+    import torch
+
+    from cylinder_pose_estimation_tpu_torch.ops import mxu_conv as mxc
+
+    h, w = gray.shape[-2:]
+    dev = gray.device
+    if not (torch.equal(got[3], want[3]) and torch.equal(got[4], want[4])):
+        raise AssertionError(f"stencil_stats at {cell}: the centroid images differ")
+    gt = mxc.gauss_taps_cv(sargs["sat_blur_ksize"])
+    inter = mxc.conv_x(gray, mxc.x_mat(gt, w, dev))
+    sat_plain = mxc.conv_y(inter, mxc.y_mat(gt, h, dev))
+    bound = bf16_pass_bound(inter, bf16_taps(gt))
+    d_sat = (sat.double() - sat_plain.double()).abs()
+    if not bool((d_sat <= bound).all()):
+        raise AssertionError(f"stencil_stats at {cell}: {int((d_sat > bound).sum())} saturation-blur pixels "
+                             f"past the bound")
+    flips = got[0] != want[0]
+    ties = (sat_plain.double() - sargs["sat_threshold"]).abs() <= bound
+    if not bool((flips <= ties).all()):
+        raise AssertionError(f"stencil_stats at {cell}: {int((flips & ~ties).sum())} saturation-mask pixels "
+                             f"differ away from a tie")
+    gk = mxc.gauss_taps_cv(sargs["index_blur_ksize"])
+    inter = mxc.conv_x(gray, mxc.x_mat(gk, w, dev))
+    d_blur = (got[2].double() - want[2].double()).abs()
+    if not bool((d_blur <= bf16_pass_bound(inter, bf16_taps(gk))).all()):
+        raise AssertionError(f"stencil_stats at {cell}: bright_blur past its bound")
+    row = {"sat_max_abs_diff": float(d_sat.max()), "sat_mask_differ": int(flips.sum()),
+           "sat_mask_ties": int(ties.sum()), "bright_blur_differ": int((d_blur > 0).sum()),
+           "bright_blur_max_abs_diff": float(d_blur.max()), "bright_center_max_abs_diff": None}
+    if sargs["center_patch_half"] is not None:
+        pc = 2 * sargs["center_patch_half"] + 1
+        d_c = (got[1].double() - want[1].double()).abs()
+        cb = two_pass_bound(gray, [1.0] * pc) / pc**2 + want[1].double().abs() * 2.0**-23
+        if not bool((d_c <= cb).all()):
+            raise AssertionError(f"stencil_stats at {cell}: bright_center past its bound")
+        row["bright_center_max_abs_diff"] = float(d_c.max())
+    elif got[1] is not None or want[1] is not None:
+        raise AssertionError(f"stencil_stats at {cell}: a centre image without a centre box")
+    return row
+
+
+def stencil_phase(device, smi) -> dict:
+    """Phase 20: the front stage's stencils held, timed and counted against
+    the banded matmuls they replace (see the module docstring).  Returns
+    the sites' rows (each stencil's timing under its name) and the routes'
+    differing counts."""
+    import numpy as np
+    import torch
+
+    from cylinder_pose_estimation_tpu_torch.config import CylinderDetectConfig
+    from cylinder_pose_estimation_tpu_torch.models import detector
+    from cylinder_pose_estimation_tpu_torch.ops import frontend, stencils
+    from cylinder_pose_estimation_tpu_torch.utils import profiling
+    from cylinder_pose_estimation_tpu_torch.utils.synthetic import example_pair
+
+    pools = {}
+    for hw in sorted({site[2] for site in STENCIL_SITES}):
+        _, (p1, p2) = example_pair(*hw, n_frames=STENCIL_POOL, pans=[float(i % 13) for i in range(STENCIL_POOL)])
+        pools[hw] = torch.as_tensor(np.concatenate([p1, p2]), device=device)
+    out = {"card": smi, "sites": [], "routes": []}
+    for cell, n, hw, knobs in STENCIL_SITES:
+        cfg = CylinderDetectConfig(height=hw[0], width=hw[1], use_pallas=True, **knobs)
+        pool = pools[hw]
+        gray = pool[torch.arange(n, device=device) % pool.shape[0]].contiguous()
+        gray += torch.arange(n, device=device, dtype=torch.float32)[:, None, None] % 5  # distinct views
+        kw = dict(blur_ksize=cfg.blur_ksize, ridge_sigma=cfg.ridge_sigma)
+        smoothed = stencils.smooth(gray, **kw)
+        former = stencils.smooth_plain(gray, **kw)
+        bound = two_pass_bound(gray, stencils.smooth_taps(**kw))
+        diff = (smoothed.double() - former.double()).abs()
+        if not bool((diff <= bound).all()):
+            raise AssertionError(f"stencil_smooth at {cell}: {int((diff > bound).sum())} pixels past the bound")
+        pre = frontend.preprocess_binarize(former, margin=detector._border_margin(cfg),
+                                           joint_peak_iters=cfg.joint_peak_iters, pre_smoothed=True)
+        args = (gray, pre[3], pre[4])
+        sargs = detector._stats_args(cfg)
+        sat = torch.empty_like(gray)
+        got = stencils.stats_images(*args, sat_out=sat, **sargs)
+        want = stencils.stats_images_plain(*args, **sargs)
+        torch.cuda.synchronize()
+        held = hold_stats(cell, gray, args, sargs, got, want, sat)
+        center = sargs["center_patch_half"] is not None
+        row = {"cell": cell, "shape": [n, *hw], "knobs": knobs, "smooth_max_abs_diff": float(diff.max()),
+               "smooth_max_diff_over_bound": float((diff / bound.clamp(min=1e-30)).max()), **held}
+        errs = {"stencil_smooth": row["smooth_max_abs_diff"],
+                "stencil_stats": max(held["sat_max_abs_diff"], held["bright_blur_max_abs_diff"],
+                                     held["bright_center_max_abs_diff"] or 0.0)}
+        for name, fn, plain, nbytes in (
+                ("stencil_smooth", lambda: stencils.smooth(gray, **kw), lambda: stencils.smooth_plain(gray, **kw),
+                 stencils.min_bytes("stencil_smooth", n, *hw)),
+                ("stencil_stats", lambda: stencils.stats_images(*args, **sargs),
+                 lambda: stencils.stats_images_plain(*args, **sargs),
+                 stencils.min_bytes("stencil_stats", n, *hw, center=center))):
+            ms = cuda_ms(fn)
+            n_dev, dev_ms = profiling.graph_kernels(fn)
+            plain_ms = cuda_ms(plain, reps=10)
+            n_plain, plain_dev_ms = profiling.graph_kernels(plain, reps=10)
+            row[name] = {"ms": ms, "device_ms": dev_ms, "device_kernels_per_call": n_dev, "bytes": nbytes,
+                         "bound_ms": bound_ms(nbytes), "bound_share": bound_ms(nbytes) / dev_ms,
+                         "plain_ms": plain_ms, "plain_device_ms": plain_dev_ms, "plain_device_kernels": n_plain,
+                         "max_abs_err": errs[name]}
+            print(f"stencils {name} [{cell} ({n}, {hw[0]}, {hw[1]})]: kernel {ms:.4f} ms (graph replay "
+                  f"{dev_ms:.4f} device ms, {n_dev} device kernels), bound {bound_ms(nbytes):.4f} ms "
+                  f"({nbytes} B, {bound_ms(nbytes) / dev_ms:.1%} of it), former matmul route (plain) "
+                  f"{plain_ms:.4f} ms ({plain_dev_ms:.4f} device ms, {n_plain} device kernels); {smi}", flush=True)
+        centre_txt = (f", bright_center max |d| {row['bright_center_max_abs_diff']:.3e}" if center else "")
+        print(f"stencils held [{cell}]: smoothed max |d| {row['smooth_max_abs_diff']:.3e} "
+              f"({row['smooth_max_diff_over_bound']:.3f} of the bound), centroids equal, sat max |d| "
+              f"{row['sat_max_abs_diff']:.3e}, sat_mask {row['sat_mask_differ']} pixels differ "
+              f"({row['sat_mask_ties']} ties), bright_blur {row['bright_blur_differ']} pixels differ "
+              f"(max |d| {row['bright_blur_max_abs_diff']:.3e}){centre_txt}", flush=True)
+        out["sites"].append(row)
+        del gray, smoothed, former, diff, bound, pre, args, got, want, sat
+        torch.cuda.empty_cache()
+    # The kernel route against the former matmul route through the front
+    # stage and the whole detector, on each pool's frames: the stencils
+    # equal the matmuls bit for bit there, so nothing may differ.
+    for hw, views in pools.items():
+        cfg = CylinderDetectConfig(height=hw[0], width=hw[1], use_pallas=True)
+        margin = detector._border_margin(cfg)
+
+        def preprocess(smoothed):
+            return frontend.preprocess_binarize(smoothed, margin=margin, joint_peak_iters=cfg.joint_peak_iters,
+                                                pre_smoothed=True)
+
+        pre_k = preprocess(stencils.smooth(views))
+        pre_m = preprocess(stencils.smooth_plain(views))
+        det_k = detector.detect_grid(views, cfg)
+        front_k = detector.front_stage(views, cfg)
+        with matmul_route(stencils):
+            det_m = detector.detect_grid(views, cfg)
+            front_m = detector.front_stage(views, cfg)
+        torch.cuda.synchronize()
+        both = det_k.grid.valid & det_m.grid.valid
+        dxy = (det_k.grid.xy - det_m.grid.xy).abs().amax(-1)
+        row = {"frames": list(views.shape), "binary_differ": int((pre_k[0] != pre_m[0]).sum()),
+               "joint_peaks_differ": int((pre_k[5] != pre_m[5]).sum()),
+               "sat_mask_differ": int((front_k.sat_mask != front_m.sat_mask).sum()),
+               "centroids_differ": int((front_k.cents != front_m.cents).any(-1).sum()),
+               "grid_valid_differ": int((det_k.grid.valid != det_m.grid.valid).sum()),
+               "grid_ids_differ": int(((det_k.grid.idx != det_m.grid.idx).any(-1) & both).sum()),
+               "grid_max_dxy_px": float(torch.where(both, dxy, 0.0).max()),
+               "ok_differ": int((det_k.ok != det_m.ok).sum())}
+        print(f"stencils vs matmul route, {views.shape[0]} views {hw[0]}x{hw[1]}: {row['binary_differ']} binary "
+              f"pixels, {row['joint_peaks_differ']} joint peaks, {row['sat_mask_differ']} sat_mask pixels, "
+              f"{row['centroids_differ']} centroids, {row['grid_valid_differ']} grid points' validity and "
+              f"{row['grid_ids_differ']} ids differ, max |dxy| {row['grid_max_dxy_px']:.3e} px, "
+              f"{row['ok_differ']} ok flags", flush=True)
+        differ = {k: v for k, v in row.items() if k != "frames" and v}
+        if differ:
+            raise AssertionError(f"stencils vs matmul route at {hw[0]}x{hw[1]}: {differ}")
+        out["routes"].append(row)
+    print(json.dumps({"stencils": out}), flush=True)
+    return out
+
+
 def mesh_rank(mesh, stream_frames: int, chunk: int) -> dict:
     """Phase 16 on one rank of a mesh (``parallel.dryrun.launch``): the main
     configuration at 480x640 on MESH_FRAMES frames of ``example_pair``
@@ -2627,6 +2893,9 @@ def main() -> int:
     # --- the knobs: the kernels' smoothing and capped-scan branches --------
     knob_launches, knob_report = knobs_phase(frontend, device, fit_cfg, smi)
 
+    # --- the front stage's stencils against the banded matmuls -------------
+    stencil_report = stencil_phase(device, smi)
+
     # Launches per kernel: summed over the six path runs (each counted
     # from zero), with the split by path beside it.
     by_path = {"main": main_launches, "endpoint": ep_launches, "plane": plane_launches,
@@ -2651,8 +2920,18 @@ def main() -> int:
                   f"{site['device_ms']:.4f} device ms), plain {site['plain_ms']:.4f} ms, "
                   f"bound {site['bound_ms']:.4f} ms ({site['bytes']} B), device kernels per call "
                   f"{site['device_kernels_per_call']} {by_name}", flush=True)
+        stencil_sites = []
         if k in SITE_ROWS:  # the 480x640 sites
             ms, dev_ms, plain_ms, nbytes, n_dev = r["ms"], r["device_ms"], r["plain_ms"], r["bytes"], r["device_launches"]
+        elif k in STENCILS:  # phase 20's sites: the row's times at STENCIL_ROW_SITE, the others listed
+            for x in stencil_report["sites"]:
+                r["max_abs_err"] = max(r["max_abs_err"], x[k]["max_abs_err"])
+                if x["cell"] == STENCIL_ROW_SITE:
+                    t = x[k]
+                else:
+                    stencil_sites.append({"site": f"{x['cell']} {tuple(x['shape'])}", **x[k]})
+            ms, dev_ms, plain_ms, nbytes, n_dev = (t["ms"], t["device_ms"], t["plain_ms"], t["bytes"],
+                                                   t["device_kernels_per_call"])
         else:  # a bridge route or a knob's branch: its timed sites of phases 12, 13, 15 and 18
             ms, plain_ms = sum(x["ms"] for x in extra), sum(x["plain_ms"] for x in extra)
             nbytes = sum(x["bytes"] for x in extra)
@@ -2674,7 +2953,7 @@ def main() -> int:
             "bound_share": bound_ms(nbytes) / ms if ms else None, "library_ms": None,
             "device_kernels_per_call": n_dev, "design": DESIGN[k],
             "large_sites": large["large_sites"], "variant_sites": variant["variant_sites"],
-            "route_sites": route["route_sites"], "knob_sites": knob["knob_sites"],
+            "route_sites": route["route_sites"], "knob_sites": knob["knob_sites"], "stencil_sites": stencil_sites,
         })
     print(json.dumps({"compiled_steps": compiled, "card": smi}))
     print(smi)

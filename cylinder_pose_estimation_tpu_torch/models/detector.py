@@ -14,12 +14,13 @@ into (2V, ...) batches.  Either branch takes any height and width (the
 kernel branch's front end needs multiples of 8, as in the JAX package).
 
 The stages, in order (each a function the tests can drive on its own):
-  ``front_stage``    kernel branch: smoothing (banded matmuls, or inside
-                     the kernel with ``smooth_mxu=False``) -> preprocess
-                     kernel -> statistic images -> joint centroids
+  ``front_stage``    kernel branch: smoothing (the stencil kernel of
+                     ``ops/stencils``, or inside the preprocess kernel with
+                     ``smooth_mxu=False``) -> preprocess kernel ->
+                     statistic images (a stencil kernel) -> joint centroids
   ``front_stage_xla``  XLA branch: Gaussian blur -> ridge binarisation ->
                      border band -> line openings -> joint count and peaks ->
-                     the same statistic images and centroids
+                     the statistic images (banded matmuls) and centroids
   ``roi_stage``      quarter-res ROI / saturation CC (kernel, or the XLA
                      CC) -> ROI mask (cylinder: line-density blob; plane:
                      threshold hull), bbox, centre seed -> saturation carve
@@ -52,7 +53,7 @@ import torch.nn.functional as F
 
 from cylinder_pose_estimation_tpu_torch.config import DetectConfig, validate
 from cylinder_pose_estimation_tpu_torch.models.refine import refine_curves_cog
-from cylinder_pose_estimation_tpu_torch.ops import frontend, labeling, morphology, ridge
+from cylinder_pose_estimation_tpu_torch.ops import frontend, labeling, morphology, ridge, stencils
 from cylinder_pose_estimation_tpu_torch.ops import mxu_conv as mxc
 from cylinder_pose_estimation_tpu_torch.ops.image import bgr_to_gray, box_filter, gaussian_blur_cv
 from cylinder_pose_estimation_tpu_torch.ops.polyfit import (
@@ -138,49 +139,25 @@ def nanmedian(x: torch.Tensor) -> torch.Tensor:
 
 
 def _smooth(gray: torch.Tensor, cfg: DetectConfig) -> torch.Tensor:
-    """Composed Gaussian(blur_ksize) o Gaussian(ridge_sigma), exact mode."""
-    h, w = gray.shape[-2:]
-    ct = mxc.compose_taps(mxc.gauss_taps_cv(cfg.blur_ksize), mxc.gauss_taps_scipy(cfg.ridge_sigma))
-    kin = mxc.conv_x(gray, mxc.x_mat(ct, w, gray.device, exact=True), exact=True)
-    kin = mxc.conv_x(kin.transpose(-1, -2), mxc.x_mat(ct, h, gray.device, exact=True), exact=True)
-    return kin.transpose(-1, -2).contiguous()
+    """Composed Gaussian(blur_ksize) o Gaussian(ridge_sigma), exact mode
+    (``stencils.smooth``: the banded matmuls on the CPU, a stencil on the
+    card)."""
+    return stencils.smooth(gray, cfg.blur_ksize, cfg.ridge_sigma)
+
+
+def _stats_args(cfg: DetectConfig) -> dict:
+    return dict(sat_blur_ksize=cfg.sat_blur_ksize, sat_threshold=cfg.sat_threshold, margin=_border_margin(cfg),
+                index_blur_ksize=cfg.index_blur_ksize,
+                center_patch_half=None if cfg.bright_at_points else cfg.center_patch_half)
 
 
 def _stats_images(gray, joints_f, cnt, cfg: DetectConfig, joint_window: int = 11):
     """Saturation mask, centre-seed brightness image (``bright_at_points=
     False`` only, else None), index-brightness image and joint box
-    centroids (bf16-operand banded matmuls, as the reference; the centre-seed
-    brightness in exact mode: it feeds an argmax over near-ties)."""
-    h, w = gray.shape[-2:]
-    dev = gray.device
-    rr = torch.arange(h, device=dev)[:, None]
-    cc = torch.arange(w, device=dev)[None, :]
-    mrg = _border_margin(cfg)
-    inside = (rr >= mrg) & (rr < h - mrg) & (cc >= mrg) & (cc < w - mrg)
-
-    gt = mxc.gauss_taps_cv(cfg.sat_blur_ksize)
-    sat = mxc.conv_y(mxc.conv_x(gray, mxc.x_mat(gt, w, dev)), mxc.y_mat(gt, h, dev))
-    sat_mask = (sat > cfg.sat_threshold) & inside
-
-    bright_center = None
-    if not cfg.bright_at_points:
-        pc = 2 * cfg.center_patch_half + 1
-        bt = mxc.box_taps(pc)
-        bc = mxc.conv_y(mxc.conv_x(gray, mxc.x_mat(bt, w, dev, exact=True), exact=True),
-                        mxc.y_mat(bt, h, dev, exact=True), exact=True)
-        bright_center = bc / float(pc * pc)
-
-    gk = mxc.gauss_taps_cv(cfg.index_blur_ksize)
-    bright_blur = mxc.conv_y(mxc.conv_x(gray, mxc.x_mat(gk, w, dev)), mxc.y_mat(gk, h, dev))
-
-    jb = mxc.box_taps(joint_window)
-    jr = mxc.ramp_taps(joint_window)
-    tx = mxc.conv_x(joints_f, mxc.x_mat(jr, w, dev))
-    ty = mxc.conv_y(joints_f, mxc.y_mat(jr, h, dev))
-    sx = cc.to(torch.float32) * cnt + mxc.conv_y(tx, mxc.y_mat(jb, h, dev))
-    sy = rr.to(torch.float32) * cnt + mxc.conv_x(ty, mxc.x_mat(jb, w, dev))
-    c = torch.clamp(cnt, min=1.0)
-    return sat_mask, bright_center, bright_blur, torch.floor(sx / c), torch.floor(sy / c)
+    centroids by banded matmuls on either device (``stencils.
+    stats_images_plain``: the XLA branch's route; the kernel branch calls
+    ``stencils.stats_images``)."""
+    return stencils.stats_images_plain(gray, joints_f, cnt, joint_window=joint_window, **_stats_args(cfg))
 
 
 def _joint_centroids(peak: torch.Tensor, cx: torch.Tensor, cy: torch.Tensor, k: int):
@@ -215,8 +192,9 @@ class Front(NamedTuple):
 
 def front_stage(gray: torch.Tensor, cfg: DetectConfig) -> Front:
     """Stages 1-2 on (V, H, W) gray images: the preprocess kernel on the
-    banded-matmul smoothing (``smooth_mxu``) or on the grey image, which it
-    then smooths itself."""
+    composed-Gaussian smoothing (``smooth_mxu``) or on the grey image, which
+    it then smooths itself; then the statistic images (``stencils.
+    stats_images``) and the joint centroids."""
     h, w = gray.shape[-2:]
     if h % 8 or w % 8:
         raise ValueError(f"the front-end needs 8-aligned image shapes, got {(h, w)}")
@@ -233,7 +211,7 @@ def front_stage(gray: torch.Tensor, cfg: DetectConfig) -> Front:
         margin=_border_margin(cfg),
         joint_peak_iters=cfg.joint_peak_iters,
     )
-    sat_mask, bright_center, bright_blur, cx, cy = _stats_images(gray, j_f, joint_cnt, cfg)
+    sat_mask, bright_center, bright_blur, cx, cy = stencils.stats_images(gray, j_f, joint_cnt, **_stats_args(cfg))
     cents, cvalid = _joint_centroids(joint_peak, cx, cy, cfg.max_points)
     return Front(gray, b_f > 0.5, h_f > 0.5, v_f > 0.5, sat_mask, bright_blur, cents, cvalid, bright_center)
 
@@ -260,8 +238,8 @@ def front_stage_xla(gray: torch.Tensor, cfg: DetectConfig) -> Front:
     """Stages 1-2 of the XLA branch on (V, H, W) gray images: Gaussian blur
     (in ``cfg.image_dtype``), ridge minima and Sauvola binarisation, the
     border band, the 1xL and Lx1 line openings, their joints, the 11x11
-    joint count and the joint peaks; the statistic images and centroids are
-    the kernel branch's."""
+    joint count and the joint peaks; then the statistic images by banded
+    matmuls (``_stats_images``) and the joint centroids."""
     h, w = gray.shape[-2:]
     dtype = torch.float32 if cfg.image_dtype == "float32" else torch.bfloat16
     blurred = gaussian_blur_cv(gray.to(dtype), cfg.blur_ksize)

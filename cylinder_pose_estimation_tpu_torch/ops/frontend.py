@@ -20,8 +20,10 @@ smoothing launches of the preprocess kernel (``preprocess_binarize.smoothing``),
 the CC family's calls on its large-frame (band) route
 (``connected_components.band``, ``component_payload_minmax.band``), the
 CC calls with a capped scan, all on the band route
-(``connected_components.capped.band``), and the fit tail's CUDA SPD solves
-(``solve_spd``, ``ops/linalg.solve_spd``): a view of the counters
+(``connected_components.capped.band``), the fit tail's CUDA SPD solves
+(``solve_spd``, ``ops/linalg.solve_spd``) and the front stage's banded
+correlations (``stencil_smooth``, ``stencil_stats``, ``ops/stencils``): a
+view of the counters
 ``kernel.<name>`` of ``utils/profiling``'s registry.
 """
 
@@ -60,6 +62,11 @@ KERNEL_COUNTERS = (
     # capped or not; the rest of their calls take the cluster route.
     "connected_components.band",
     "component_payload_minmax.band",
+    # The kernel branch's banded correlations around the preprocess kernel
+    # (``ops/stencils``): the smoothing before it, the statistic images
+    # after it.
+    "stencil_smooth",
+    "stencil_stats",
 )
 
 
@@ -1048,14 +1055,17 @@ def bridge_morphology(
 
 
 # Where each kernel's TPU original lives (file:line of its pallas_call's
-# function; for the SPD solve, which replaces no Pallas kernel, the JAX
-# function it computes), for reports.
+# function; for the SPD solve and the stencils, which replace no Pallas
+# kernel, the JAX code they compute: the solve, the banded MXU matmuls of
+# the smoothing and of the statistic images), for reports.
 REPLACES = {
     "preprocess_binarize": "cylinder_pose_estimation_tpu/ops/pallas/frontend.py:286",
     "connected_components": "cylinder_pose_estimation_tpu/ops/pallas/frontend.py:761",
     "bridge_morphology": "cylinder_pose_estimation_tpu/ops/pallas/frontend.py:475",
     "component_payload_minmax": "cylinder_pose_estimation_tpu/ops/pallas/frontend.py:711",
     "solve_spd": "cylinder_pose_estimation_tpu/ops/linalg.py:113",
+    "stencil_smooth": "cylinder_pose_estimation_tpu/models/detector.py:1293",
+    "stencil_stats": "cylinder_pose_estimation_tpu/models/detector.py:252",
 }
 SOURCES = {
     "preprocess_binarize": "cylinder_pose_estimation_tpu_torch/csrc/preprocess.cu",
@@ -1063,6 +1073,8 @@ SOURCES = {
     "bridge_morphology": "cylinder_pose_estimation_tpu_torch/csrc/bridge.cu",
     "component_payload_minmax": "cylinder_pose_estimation_tpu_torch/csrc/connected_components.cu",
     "solve_spd": "cylinder_pose_estimation_tpu_torch/csrc/linalg.cu",
+    "stencil_smooth": "cylinder_pose_estimation_tpu_torch/csrc/stencils.cu",
+    "stencil_stats": "cylinder_pose_estimation_tpu_torch/csrc/stencils.cu",
 }
 
 

@@ -53,6 +53,8 @@ SIGNATURES = {
     "cpe_bridge_morphology_split": (6, 10, 0),
     "cpe_solve_spd_factor": (4, 3, 0),
     "cpe_solve_spd_refine": (4, 3, 0),
+    "cpe_stencil_smooth": (3, 7, 0),
+    "cpe_stencil_stats": (10, 10, 1),
 }
 
 _LIB: Optional[ctypes.CDLL] = None

@@ -1,12 +1,15 @@
 """Banded-matrix separable correlations (port of the JAX package's
 ops/mxu_conv.py).
 
-These are plain matrix products outside any kernel, so they stay
-``torch.matmul``.  The numerics are kept: the default mode rounds BOTH
-operands to bfloat16 and multiplies them in float32 (a product of two bf16
-values is exact in f32, so only the summation order can differ from the
-reference); ``exact=True`` keeps float32 operands (TF32 is off, see
-``linalg.exact_float32``).  Zero padding at the borders, as in the reference.
+Plain matrix products: the CPU route and the XLA branch's.  On the card
+the kernel branch computes the same correlations over the bands' taps
+alone (``ops/stencils``: ``csrc/stencils.cu``), with the operand precision
+below and another summation order.  The numerics are kept: the default
+mode rounds BOTH operands to bfloat16 and multiplies them in float32 (a
+product of two bf16 values is exact in f32, so only the summation order can
+differ from the reference); ``exact=True`` keeps float32 operands (TF32 is
+off, see ``linalg.exact_float32``).  Zero padding at the borders, as in the
+reference.
 """
 
 from __future__ import annotations

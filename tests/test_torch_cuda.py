@@ -701,6 +701,222 @@ def test_preprocess_with_the_smoothing_device_kernels(dev):
     assert _device_kernels_per_call(calls) == [3, 2]
 
 
+# --- the front stage's banded correlations as stencils (ops/stencils) -----
+
+STENCIL_SHAPES = [(32, 480, 640), (32, 1080, 1920), (4, 200, 328)]
+
+
+def _corr64(x, taps, dim):
+    """Zero-padded correlation out[i] = sum_t taps[t] * x[i + t - r] along
+    ``dim``, in float64."""
+    x = x.double()
+    r = len(taps) // 2
+    n = x.shape[dim]
+    out = torch.zeros_like(x)
+    for t, v in enumerate(taps):
+        s = t - r
+        if abs(s) < n:
+            out.narrow(dim, max(0, -s), n - abs(s)).add_(x.narrow(dim, max(0, s), n - abs(s)), alpha=float(v))
+    return out
+
+
+def _two_pass_bound(x, taps):
+    """What two float32 summation orders of the same two passes of
+    ``taps`` (float32 operands, the intermediate kept in float32) may differ
+    by: 2 gamma_n of the terms' magnitudes in each pass, the first pass's
+    carried through the second, n the tap count."""
+    k = [abs(v) for v in taps]
+    g = len(taps) * 2.0**-24 * 1.01
+    return 4 * g * _corr64(_corr64(x.abs(), k, 2), k, 1)
+
+
+def _bf16(x):
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def _bf16_pass_bound(inter, taps):
+    """Bound on the difference of the second pass of a bf16-operand band
+    pair between two summation orders: the second pass's own 2 gamma_n, plus
+    one bfloat16 step (at most 2^-7 relative) of every intermediate that
+    the first pass's last bits may have rounded the other way."""
+    k = [abs(v) for v in taps]
+    g = len(taps) * 2.0**-24 * 1.01
+    return 2 * g * _corr64(_bf16(inter).abs(), k, 1) + _corr64(inter.abs() * 2.0**-7, k, 1)
+
+
+def _stencil_inputs(shape, seed, dev):
+    """Grey images with saturated blocks and line grids, their integer
+    rounding, sparse 0/1 joints and the joints' 11 x 11 count, on ``dev``."""
+    n, h, w = shape
+    gray = _grey_grid(n, h, w, seed)
+    gray[0, h // 4:h // 2, w // 4:w // 2] = 255.0
+    gray[-1, h // 3:h // 3 + 40, w // 3:w // 3 + 60] = 250.0
+    gray = gray.to(dev)
+    joints = (torch.rand(shape, generator=torch.Generator().manual_seed(seed + 1)) < 0.02).to(torch.float32).to(dev)
+    cnt = _corr64(_corr64(joints, [1.0] * 11, 2), [1.0] * 11, 1).to(torch.float32)
+    return gray, gray.round(), joints, cnt
+
+
+@pytest.mark.parametrize("kw", [{}, dict(blur_ksize=3, ridge_sigma=2.0)], ids=["r14", "r9"])
+@pytest.mark.parametrize("shape", STENCIL_SHAPES)
+def test_stencil_smooth_equals_plain_within_bound(dev, shape, kw):
+    """The smoothing stencil (the detector's radius 14 compiled in, radius 9
+    through the generic instantiation) against the exact-mode banded
+    matmuls on the card: the same float32 correlation in another summation
+    order, so within two passes' rounding of sum |k| |k| |x|; one device
+    kernel and one ``stencil_smooth`` count a call."""
+    from cylinder_pose_estimation_tpu_torch.ops import stencils
+
+    x = _grey_grid(*shape, seed=sum(shape)).to(dev)
+    before = tf.launch_counts()["stencil_smooth"]
+    got = stencils.smooth(x, **kw)
+    assert tf.launch_counts()["stencil_smooth"] == before + 1
+    want = stencils.smooth_plain(x, **kw)
+    torch.cuda.synchronize()
+    bound = _two_pass_bound(x, stencils.smooth_taps(**kw))
+    assert bool(((got.double() - want.double()).abs() <= bound).all()), float((got - want).abs().max())
+    ref = _corr64(_corr64(x, stencils.smooth_taps(**kw), 2), stencils.smooth_taps(**kw), 1)
+    assert bool(((got.double() - ref).abs() <= bound).all())
+    assert _device_kernels_per_call([lambda: stencils.smooth(x, **kw)]) == [1]
+
+
+STATS_CASES = {
+    "defaults": {},
+    "center": dict(center_patch_half=5),
+    "radii": dict(sat_blur_ksize=15, index_blur_ksize=5, center_patch_half=3, joint_window=9),
+}
+
+
+@pytest.mark.parametrize("case", list(STATS_CASES))
+@pytest.mark.parametrize("shape", STENCIL_SHAPES)
+def test_stencil_stats_equals_plain(dev, shape, case):
+    """The statistic-image stencil (the detector's radii compiled in; the
+    centre box of ``bright_at_points=False``; other radii through the
+    generic instantiation) against the banded matmuls on the card: the
+    centroid images torch.equal (integer sums); the saturation blur within
+    the bf16 pair's bound, and the saturation mask equal except at pixels
+    within that bound of the threshold (ties of the two summation orders);
+    the index blur equal on integer grey and within its bound otherwise;
+    the centre box within two float32 passes' bound over its area."""
+    from cylinder_pose_estimation_tpu_torch.ops import mxu_conv as mxc
+    from cylinder_pose_estimation_tpu_torch.ops import stencils
+
+    kw = dict(STATS_CASES[case], margin=20)
+    n, h, w = shape
+    gray_f, gray_i, joints, cnt = _stencil_inputs(shape, h + w, dev)
+    for gray, integer in ((gray_f, False), (gray_i, True)):
+        sat = torch.empty_like(gray)
+        before = tf.launch_counts()["stencil_stats"]
+        got = stencils.stats_images(gray, joints, cnt, sat_out=sat, **kw)
+        assert tf.launch_counts()["stencil_stats"] == before + 1
+        want = stencils.stats_images_plain(gray, joints, cnt, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got[3], want[3]) and torch.equal(got[4], want[4])
+        gt = mxc.gauss_taps_cv(kw.get("sat_blur_ksize", 19))
+        inter = mxc.conv_x(gray, mxc.x_mat(gt, w, dev))
+        sat_plain = mxc.conv_y(inter, mxc.y_mat(gt, h, dev))
+        bound = _bf16_pass_bound(inter, stencils.stats_taps(kw.get("sat_blur_ksize", 19))[1][:len(gt)])
+        assert bool(((sat.double() - sat_plain.double()).abs() <= bound).all())
+        flips = got[0] != want[0]
+        ties = (sat_plain.double() - 240.0).abs() <= bound
+        assert bool((flips <= ties).all()), int(flips.sum())
+        assert int(got[0].sum()) > 0
+        gk = mxc.gauss_taps_cv(kw.get("index_blur_ksize", 7))
+        if integer:
+            assert torch.equal(got[2], want[2])
+        else:
+            inter = mxc.conv_x(gray, mxc.x_mat(gk, w, dev))
+            bk = _bf16(torch.tensor(gk, dtype=torch.float32)).tolist()
+            assert bool(((got[2].double() - want[2].double()).abs() <= _bf16_pass_bound(inter, bk)).all())
+        if "center_patch_half" in kw:
+            pc = 2 * kw["center_patch_half"] + 1
+            cb = _two_pass_bound(gray, [1.0] * pc) / pc**2 + want[1].double().abs() * 2.0**-23
+            assert bool(((got[1].double() - want[1].double()).abs() <= cb).all())
+        else:
+            assert got[1] is None and want[1] is None
+
+
+def test_stencils_one_device_kernel_and_no_gemm_in_the_front_stage(dev):
+    """Each stencil wrapper is one device kernel, and the kernel branch's
+    front stage on the card dispatches no matrix product and makes no
+    bfloat16 tensor on the device (the banded matmuls' traces)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from cylinder_pose_estimation_tpu_torch.config import CylinderDetectConfig
+    from cylinder_pose_estimation_tpu_torch.models import detector
+    from cylinder_pose_estimation_tpu_torch.ops import stencils
+
+    gray, _, joints, cnt = _stencil_inputs((4, 240, 320), 5, dev)
+    calls = [lambda: stencils.smooth(gray), lambda: stencils.stats_images(gray, joints, cnt, margin=20),
+             lambda: stencils.stats_images(gray, joints, cnt, margin=20, center_patch_half=5)]
+    assert _device_kernels_per_call(calls) == [1, 1, 1]
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.seen = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if isinstance(out, torch.Tensor) and out.device.type == "cuda":
+                self.seen.append((str(func), out.dtype))
+            return out
+
+    for bright_at_points in (True, False):
+        cfg = CylinderDetectConfig(height=240, width=320, use_pallas=True, bright_at_points=bright_at_points)
+        with Ops() as rec:
+            detector.front_stage(gray, cfg)
+        names = [f for f, _ in rec.seen]
+        assert not [f for f in names if any(m in f for m in ("aten.mm", "aten.bmm", "aten.addmm", "aten.matmul"))]
+        assert torch.bfloat16 not in [d for _, d in rec.seen]
+
+
+@pytest.mark.parametrize("case", ["dtype", "device", "shape", "contiguous", "radius"])
+def test_stencil_wrappers_refuse(dev, case):
+    from cylinder_pose_estimation_tpu_torch.ops import stencils
+
+    x = torch.rand((2, 64, 128), device=dev)
+    bad = {"dtype": x.double(), "device": x, "shape": x[0], "contiguous": x.transpose(1, 2), "radius": x}[case]
+    if case == "device":
+        with pytest.raises(ValueError):
+            stencils.stats_images(x, x.cpu(), x, margin=4)
+        return
+    if case == "radius":
+        with pytest.raises(ValueError):
+            stencils.smooth(x, blur_ksize=5, ridge_sigma=8.0)
+        with pytest.raises(ValueError):
+            stencils.stats_images(x, x, x, sat_blur_ksize=65)
+        return
+    with pytest.raises(ValueError):
+        stencils.smooth(bad)
+    with pytest.raises(ValueError):
+        stencils.stats_images(bad, x, x, margin=4)
+
+
+def test_compiled_batch_captures_one_stencil_each(dev):
+    """A captured kernel-branch B=4 step records one smoothing and one
+    statistic-image stencil a call (``graph.captured.*``), and every replay
+    runs them (``graph.replayed.*``)."""
+    from cylinder_pose_estimation_tpu_torch.config import CylinderDetectConfig, FitConfig
+    from cylinder_pose_estimation_tpu_torch.models import pipeline
+    from cylinder_pose_estimation_tpu_torch.types import stereo_from_numpy
+    from cylinder_pose_estimation_tpu_torch.utils.synthetic import example_pair
+
+    st, (i1, i2) = example_pair(240, 320, n_frames=4)
+    stereo = stereo_from_numpy(*st, device=dev)
+    cfg = CylinderDetectConfig(height=240, width=320, use_pallas=True)
+    a, b = torch.as_tensor(i1, device=dev), torch.as_tensor(i2, device=dev)
+    pipeline._STREAM_STEP_CACHE.clear()
+    step = pipeline.compiled_batch(stereo, cfg, FitConfig())
+    pipeline.reset_graph_launch_counts()
+    for _ in range(3):
+        step(a, b)
+    counts = pipeline.graph_launch_counts()
+    for name in ("stencil_smooth", "stencil_stats"):
+        assert counts["captured"].get(name) == 1, counts
+        assert counts["replayed"].get(name) == 2, counts
+
+
 def _cross_cap_masks(n, h, w, seed):
     """Wavy 2-px lines along W and H, blobs thicker than the caps, random
     pixels: tests/test_pallas.py's cross-cap mask and its transpose among

@@ -8,9 +8,10 @@ family (480x640, ``CylinderDetectConfig(use_pallas=True)``, ``FitConfig()``)
 each stage runs once on the inputs of all the views (two per frame) and once
 on each of ``--parts`` equal blocks of them, as the ranks of a frame mesh
 run it.  Every stage gets the whole run's inputs of that stage, so a stage
-answers only for its own arithmetic.  Stages: the smoothing matmuls
-(``detector._smooth``), the preprocess kernel on their output, the
-statistic matmuls (``_stats_images``), the front stage as a whole, the ROI,
+answers only for its own arithmetic.  Stages: the smoothing
+(``detector._smooth``: a stencil on the card), the preprocess kernel on its
+output, the statistic images (``stencils.stats_images``: a stencil on the
+card), the front stage as a whole, the ROI,
 bridge and grid stages, and the fit (``fit_single_cylinder`` on the grid
 points, blocks of frames).  Per stage it prints each output leaf whose
 blocks differ from the whole run's slice: the views (or frames) that differ
@@ -44,7 +45,7 @@ def main(argv=None) -> int:
     from cylinder_pose_estimation_tpu_torch.models import detector as det
     from cylinder_pose_estimation_tpu_torch.models.pipeline import _split
     from cylinder_pose_estimation_tpu_torch.models.pose import fit_single_cylinder
-    from cylinder_pose_estimation_tpu_torch.ops import frontend
+    from cylinder_pose_estimation_tpu_torch.ops import frontend, stencils
     from cylinder_pose_estimation_tpu_torch.ops.linalg import exact_float32
     from cylinder_pose_estimation_tpu_torch.parallel.dryrun import _leaves
     from cylinder_pose_estimation_tpu_torch.types import stereo_from_numpy
@@ -106,7 +107,8 @@ def main(argv=None) -> int:
         s, sauvola_window=cfg.sauvola_window, sauvola_k=cfg.sauvola_k, sauvola_r=cfg.sauvola_r,
         min_contrast=0.05, line_len=cfg.line_kernel_len, margin=det._border_margin(cfg),
         joint_peak_iters=cfg.joint_peak_iters, pre_smoothed=True), (smooth,), v)
-    stage("stats matmuls", lambda g, j, c: det._stats_images(g, j, c, cfg), (gray, pre[3], pre[4]), v)
+    stage("statistic images", lambda g, j, c: stencils.stats_images(g, j, c, **det._stats_args(cfg)),
+          (gray, pre[3], pre[4]), v)
     front = stage("front stage", lambda g: det.front_stage(g, cfg), (gray,), v)
     roi = stage("roi stage", lambda f: det.roi_stage(f, cfg), (front,), v)
     br = stage("bridge stage", lambda mh, mv, r0: det.bridge_stage(mh, mv, r0, cfg),
