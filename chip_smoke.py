@@ -34,17 +34,19 @@ kernel name.  Phases:
    seeded random inputs; every output must be ``torch.equal``.  Median times
    of both, with CUDA events around one call after warm-up; the device
    kernels per call (at most 3 for 2.1, exactly 1 for the others) and the
-   device ms of a graph replay; the byte bound of each site (``frontend.min_bytes``
-   at 3.35 TB/s).  The bridge is timed on the detector's bool masks and, off
-   the report, as float32; its in-kernel schedule must equal
-   ``bridge_schedule`` on the card for 10^5 angles.  The fit tail's SPD
+   device ms of a graph replay; the byte bound of each site
+   (``kernels.min_bytes`` at 3.35 TB/s).  The bridge is timed on the
+   detector's bool masks and, off the report, as float32; its in-kernel
+   schedule must equal ``bridge_schedule`` on the card for 10^5 angles.
+   The fit tail's SPD
    solve (``ops/linalg.solve_spd``, ``csrc/linalg.cu``) is held and timed
    the same way against ``solve_spd_plain`` at the three shapes of the
    solves a B=16 main-path call makes (``solve_phase``).  The build's
    ``-Xptxas -v`` lines and the launch plans are printed first.
-7. End to end: ms/frame of B=16 frames and the detect-only split, for the
-   main and the endpoint path; their bridge and grid stage ms; plane detect
-   ms/view.
+7. End to end, for the paths no cell of the benchmark (``bench_h100/``)
+   runs: ms/frame of B=16 frames and the detect-only split, for the
+   endpoint path; the main and endpoint paths' bridge and grid stage ms;
+   plane detect ms/view.
 8. Registration: ``fit_cylinders_with_angles`` on the points of
    ``tests/fixtures/torch_registration.json`` (100 frames, one poisoned
    frame masked) against the JAX result recorded there; then the experiment
@@ -56,9 +58,7 @@ kernel name.  Phases:
    within rel 1e-2, ``well_posed`` equal (the sequence's default swing is
    well posed).  Prints
    the healthy-frame count, fval0/fval, the minimum eigenvalue and the
-   errors against the ground-truth T_Cam_AGV, the ms of detect+fit and of
-   the registration (replayed), and the ms of a one-shot ``full_experiment``
-   (no step cached: both steps eager) against its two steps called eagerly.
+   errors against the ground-truth T_Cam_AGV.
 9. Preprocessing path: ``full_experiment(preprocess=True)`` on 16 distorted
    frames, counters reset just before and read just after;
    ``preprocess_stereo_batch`` on the card against the CPU port (max |d| <=
@@ -69,11 +69,9 @@ kernel name.  Phases:
    overlap=True)`` over 2,000 uint8 frames (16 scenes tiled with brightness
    offsets), counters reset just before and read just after; every chunk's
    summary must equal ``_summarize_batch(estimate_poses_batch(...))`` of
-   the same 64 frames on the card, the padded tail included.  Prints
-   frames/s (the chunk step's CUDA graph captured in this run), the ok
-   count, the median reprojection and the peak device memory; then frames/s
-   of the same stream with ``overlap=False``, whose output must equal the
-   overlapped one, and of the overlapped stream again (the step captured).
+   the same 64 frames on the card, the padded tail included, and the same
+   stream with ``overlap=False`` must equal the overlapped one.  Prints the
+   ok count, the median reprojection and the peak device memory.
 11. XLA path (the default ``use_pallas=False``, run after phase 4):
    ``estimate_poses_batch`` with ``CylinderDetectConfig()`` on the seven
    scenes of phase 2 with ``gap0`` (the XLA record) in place of
@@ -81,8 +79,7 @@ kernel name.  Phases:
    (direction at the fixture's norm), then ``detect_grid`` with
    ``PlaneDetectConfig(roi_threshold=30)`` on the phase-4 views, held to
    their points, ``ok`` and ``stable_xla``; counters reset just before and
-   read just after must show none of the four kernels.  Timed at B=16 in
-   phase 7 (e2e and detect ms/frame, device kernels per detect step).
+   read just after must show none of the four kernels.
 12. Large path (run after phase 6): the main and endpoint configs at
    720x1280 and 1080x1920 on ``LARGE_BATCH`` frames each, counters reset
    just before and read just after (the CC family's global route and the
@@ -106,7 +103,7 @@ kernel name.  Phases:
    the bridge's split route at (64, 480, 640) and (16, 480, 640)) is held
    ``torch.equal`` to its plain version and each site timed once; e2e and
    detect ms/frame per configuration.
-14. CLI (run after phase 7's timing): ``cli.main`` with ``--device cuda`` for
+14. CLI (run after phase 7): ``cli.main`` with ``--device cuda`` for
    ``detect-folder``, ``experiment`` (the record's arguments) and
    ``undistort-folder`` on PNG frames of ``write_registration_folder`` in a
    temporary directory, counters reset just before and read just after (the
@@ -169,7 +166,7 @@ kernel name.  Phases:
    (32, 480, 640), both on the band route; e2e and detect ms/frame of
    each.
 
-19. Compiled steps (run after phase 7's timing): ``compiled_batch`` of the
+19. Compiled steps (run after phase 7): ``compiled_batch`` of the
    main, endpoint and XLA configs at B=16, of the main config at B=16 on
    1080x1920 pairs (``FULL_HD``: the CC family's band route, 8-CTA CC
    clusters and the bridge's split route inside the step), the registration
@@ -178,9 +175,8 @@ kernel name.  Phases:
    replays: every leaf ``torch.equal`` (else the leaf, the count and the
    largest difference are printed and the phase fails), 0 host
    synchronisations per compiled call, the kernel nodes of the step's graph
-   and its replay's device ms, eager and replayed ms/frame (ms per solve for
-   the registration) in alternating pairs, the first call's time (eager)
-   and the second's (warm-up, capture, replay) on their own, with the
+   and its replay's device ms, the first call's time (eager) and the
+   second's (warm-up, capture, replay) on their own, with the
    memory the device keeps reserved for the step after it (the graph's
    pool).  Each step's capture must record ``SOLVES_PER_CAPTURE`` kernel
    solves (``solve_spd``: 22 in a batch or chunk step, 141 in the
@@ -206,7 +202,7 @@ kernel name.  Phases:
    blur within that bound of the threshold); the centre box
    (``bright_at_points=False``) within two float32 passes' bound over its
    area.  Then ms per call, graph-replay device ms and device kernels per
-   call, the byte bound (``stencils.min_bytes``), and the former matmul
+   call, the byte bound (``kernels.min_bytes``), and the former matmul
    route's (the plain version's) ms and kernels on the card as the
    yardstick; the kernels line's ``stencil_smooth`` and ``stencil_stats``
    rows give the B=16 480x640 site's and list the others.  Then, on the
@@ -216,10 +212,11 @@ kernel name.  Phases:
    flags that differ, each of which must be 0.  One JSON line
    ``{"stencils": ...}``.
 
-Launch counts.  Every path run (``run_path``, ``mesh_rank``) empties the
-compiled steps' cache and zeroes the counters just before and reads them
-just after, so it counts what a fresh process would launch.  A path's
-launches are the kernels it ran on the card: each wrapper call outside a
+Launch counts.  The counters are the catalogue's (``ops/kernels``).  Every
+path run (``run_path``, ``mesh_rank``) empties the compiled steps' cache
+and zeroes the counters just before and reads them just after, so it
+counts what a fresh process would launch.  A path's launches are the
+kernels it ran on the card: each wrapper call outside a
 capture, plus, for each replay of a compiled step, the wrapper calls its
 capture recorded (``pipeline.graph_launch_counts``; a capture runs no
 kernel and a replay calls no wrapper).  A one-shot path (experiment,
@@ -231,7 +228,8 @@ each path's replays.
 
 The line before the card's name is phase 19's numbers as JSON.
 The second-to-last line is the kernel report as JSON: one row per kernel
-(the 480x640 sites; ``large_sites`` holds phase 12's and phase 19's
+of the catalogue, with its source and the JAX code it replaces (the
+480x640 sites; ``large_sites`` holds phase 12's and phase 19's
 full-HD step's, ``variant_sites`` phase 13's), the bridge's cluster route in its own row and its split and
 global routes in rows of their own (``bridge_morphology.split``,
 ``bridge_morphology.global``: their timed sites of phases 12, 13 and 15),
@@ -267,80 +265,36 @@ CORPUS = os.path.join(HERE, "tests", "fixtures", "torch_corpus_scenes.npz")
 KNOBS = os.path.join(HERE, "tests", "fixtures", "torch_knob_scenes.json")
 # The numpy oracle of the reference's detection bookkeeping (numpy and scipy).
 ORACLE = os.path.join(HERE, "tests", "_oracle_detect.py")
-KERNELS = ("preprocess_binarize", "connected_components", "bridge_morphology",
-           "component_payload_minmax")
 # Replays of compiled steps in each path run (``run_path``, ``mesh_rank``).
 GRAPH_REPLAYS = {}
-# Kernels each path must launch: None, at least once; a number, exactly
-# that often (0: never).
-PATH_KERNELS = {
-    "main": {"preprocess_binarize": None, "connected_components": None, "bridge_morphology": None},
-    "endpoint": {"preprocess_binarize": None, "connected_components": 2, "bridge_morphology": None,
-                 "component_payload_minmax": None},
-    "plane": {"preprocess_binarize": None, "connected_components": None, "bridge_morphology": None},
-    "xla": dict.fromkeys(KERNELS, 0),
-    "large": dict.fromkeys(KERNELS, None),
-}
-# The front stage's stencils (ops/stencils) on every kernel-branch path with
-# the default smoothing, never on the XLA branch.
-STENCILS = ("stencil_smooth", "stencil_stats")
-for _path in ("main", "endpoint", "plane", "large"):
-    PATH_KERNELS[_path].update(dict.fromkeys(STENCILS, None))
-PATH_KERNELS["xla"].update(dict.fromkeys(STENCILS, 0))
-for _path in ("experiment", "preprocess", "stream", "mesh", "mesh_ranks", "corpus"):
-    PATH_KERNELS[_path] = dict(PATH_KERNELS["main"])
-# The variants: the kernel-branch configurations launch all four kernels, the
-# XLA-branch ones and the command-line drivers (the default config) none.
-PATH_KERNELS["variants"] = dict.fromkeys(KERNELS + STENCILS, None)
-PATH_KERNELS["variants_xla"] = dict.fromkeys(KERNELS + STENCILS, 0)
-PATH_KERNELS["cli"] = dict.fromkeys(KERNELS + STENCILS, 0)
-PATH_KERNELS["corpus_xla"] = dict.fromkeys(KERNELS + STENCILS, 0)
-# The bridge's routes (frontend.bridge_plan): the cluster kernel at the
-# 480x640 paths' half-res canvases, the split kernel at the large frames'
-# canvases and the full-resolution variants, and each route once in phase 15.
-BRIDGE_ROUTES = ("bridge_morphology.cluster", "bridge_morphology.split", "bridge_morphology.global")
-for _path in ("main", "endpoint", "plane", "experiment", "preprocess", "stream", "mesh", "mesh_ranks", "corpus"):
-    PATH_KERNELS[_path]["bridge_morphology.cluster"] = None
-PATH_KERNELS["large"]["bridge_morphology.split"] = None
-PATH_KERNELS["variants"]["bridge_morphology.split"] = None
-PATH_KERNELS["routes"] = dict.fromkeys(BRIDGE_ROUTES, None)
+# Kernels each path must launch, by launch counter of the catalogue
+# (``ops/kernels``): None, at least once; a number, exactly that often (0:
+# never).  Filled by ``path_kernels`` when the checks start.
+PATH_KERNELS = {}
 # The knob phase (18): each configuration's path and its launches in one
 # B=16 step (a number: exactly that often; None: at least once; absent: 0).
+# The capped scans take the CC kernel's band route at every size.
 _KNOB_MAIN = {"preprocess_binarize": 1, "connected_components": 3, "bridge_morphology": 1,
-              "bridge_morphology.cluster": 1, "stencil_smooth": 1, "stencil_stats": 1}
-_KNOB_CAPPED = dict(_KNOB_MAIN, connected_components=4)
+              "bridge_morphology.cluster": 1, "stencil_smooth": 1, "stencil_stats": 1, "solve_spd": None}
+_KNOB_CAPPED = dict(_KNOB_MAIN, **{"connected_components": 4, "connected_components.band": 2,
+                                   "connected_components.capped.band": 2})
 KNOB_STEP = {
     "smoothing_kernel": dict(_KNOB_MAIN, **{"preprocess_binarize.smoothing": 1, "stencil_smooth": 0}),
-    "cross_cap_kernel": dict(_KNOB_CAPPED, **{"connected_components.capped.band": 2}),
+    "cross_cap_kernel": _KNOB_CAPPED,
     "cross_cap_ds1_kernel": {"preprocess_binarize": 1, "connected_components": 4, "bridge_morphology": 1,
-                             "bridge_morphology.split": None, "connected_components.capped.band": 2,
-                             "stencil_smooth": 1, "stencil_stats": 1},
+                             "bridge_morphology.split": None, "connected_components.band": None,
+                             "connected_components.capped.band": 2, "stencil_smooth": 1, "stencil_stats": 1,
+                             "solve_spd": None},
     "bright_kernel": _KNOB_MAIN,
-    "bright_xla": {},
-    "all_knobs_kernel": dict(_KNOB_CAPPED, **{"preprocess_binarize.smoothing": 1,
-                                              "connected_components.capped.band": 2, "stencil_smooth": 0}),
+    "bright_xla": {"solve_spd": None},
+    "all_knobs_kernel": dict(_KNOB_CAPPED, **{"preprocess_binarize.smoothing": 1, "stencil_smooth": 0}),
 }
-# The kernel branches phase 18 adds to the kernels line: the TPU lines of
-# each branch, and the path whose step gives its launches per step (the
-# capped scans take the band route at every size).
-KNOB_ROWS = {
-    "preprocess_binarize.smoothing": ("cylinder_pose_estimation_tpu/ops/pallas/frontend.py:183",
-                                      "knobs.smoothing_kernel"),
-    "connected_components.capped.band": ("cylinder_pose_estimation_tpu/ops/pallas/frontend.py:524",
-                                         "knobs.cross_cap_kernel"),
-}
-KNOB_COUNTERS = KERNELS + BRIDGE_ROUTES + tuple(KNOB_ROWS) + STENCILS
-for _name, _step in KNOB_STEP.items():
-    PATH_KERNELS[f"knobs.{_name}"] = {k: _step.get(k, 0) for k in KNOB_COUNTERS}
+# The kernel branches phase 18 adds to the kernels line, and the path whose
+# step gives each one's launches per step.
+KNOB_ROWS = {"preprocess_binarize.smoothing": "knobs.smoothing_kernel",
+             "connected_components.capped.band": "knobs.cross_cap_kernel"}
 # Frames of the knob phase, and of its card-versus-CPU checks.
 KNOB_FRAMES, KNOB_CPU_FRAMES = 16, 2
-# Rows of the kernels line: the kernels, the bridge's cluster route in its
-# own row, then the bridge's other routes, then the knobs' branches, then
-# the fit tail's SPD solve, then the front stage's stencils (timed at
-# STENCIL_ROW_SITE in phase 20).
-ROWS = KERNELS + BRIDGE_ROUTES[1:] + tuple(KNOB_ROWS) + ("solve_spd",) + STENCILS
-# Rows timed at their 480x640 main-path sites (phase 6).
-SITE_ROWS = KERNELS + ("solve_spd",)
 # Kernel solves (``solve_spd``) one capture of each compiled step records:
 # a batch or chunk step's 20 LM steps, its curvature and its grid stage's
 # polyfit; the registration's 60 + 80 LM steps and its curvature.
@@ -566,37 +520,66 @@ def plane_check(det, views) -> dict:
     return out
 
 
-def reset_counts(frontend) -> None:
+def wrapped_in(module: str) -> tuple:
+    """The catalogue's kernels (``ops/kernels.CATALOGUE``) whose wrappers
+    live in ``ops/<module>``, in its order."""
+    from cylinder_pose_estimation_tpu_torch.ops import kernels
+
+    return tuple(name for name, k in kernels.CATALOGUE.items() if k.wrapper.split(".")[0] == module)
+
+
+def path_kernels() -> dict:
+    """``PATH_KERNELS``: the front-end kernels, the stencils, the bridge's
+    routes and, for the knob paths, every counter of the catalogue."""
+    from cylinder_pose_estimation_tpu_torch.ops import kernels
+
+    wrappers = wrapped_in("frontend") + wrapped_in("stencils")
+    main = {"preprocess_binarize": None, "connected_components": None, "bridge_morphology": None,
+            "bridge_morphology.cluster": None, **dict.fromkeys(wrapped_in("stencils"), None)}
+    every = dict(dict.fromkeys(wrappers, None), **{"bridge_morphology.split": None})
+    out = {"endpoint": dict(main, connected_components=2, component_payload_minmax=None), "large": every,
+           "variants": dict(every), "routes": dict.fromkeys(kernels.CATALOGUE["bridge_morphology"].counters, None)}
+    # The default config (the XLA branch) launches none of them.
+    out.update({path: dict.fromkeys(wrappers, 0) for path in ("xla", "variants_xla", "cli", "corpus_xla")})
+    out.update({path: dict(main) for path in ("main", "plane", "experiment", "preprocess", "stream", "mesh",
+                                              "mesh_ranks", "corpus")})
+    out.update({f"knobs.{name}": {k: step.get(k, 0) for k in kernels.COUNTERS} for name, step in KNOB_STEP.items()})
+    return out
+
+
+def reset_counts() -> None:
     """Empty the compiled steps' cache and zero every launch counter."""
     from cylinder_pose_estimation_tpu_torch.models import pipeline
+    from cylinder_pose_estimation_tpu_torch.ops import kernels
 
     pipeline._STREAM_STEP_CACHE.clear()
-    frontend.reset_launch_counts()
+    kernels.reset_launch_counts()
     pipeline.reset_graph_launch_counts()
 
 
-def card_launches(frontend) -> tuple:
+def card_launches() -> tuple:
     """(kernel -> launches on the card, graph replays) since
     ``reset_counts``: the wrappers' calls, less those a capture recorded
     (a capture runs no kernel), plus those each replay ran."""
     from cylinder_pose_estimation_tpu_torch.models import pipeline
+    from cylinder_pose_estimation_tpu_torch.ops import kernels
 
-    calls, graphs = frontend.launch_counts(), pipeline.graph_launch_counts()
+    calls, graphs = kernels.launch_counts(), pipeline.graph_launch_counts()
     return ({k: n - graphs["captured"].get(k, 0) + graphs["replayed"].get(k, 0) for k, n in calls.items()},
             graphs["replays"])
 
 
-def run_path(name, frontend, fn):
+def run_path(name, fn):
     """Drive one path with the compiled steps' cache emptied and every
     launch counter reset just before and read just after (``card_launches``);
     fail if it skipped a kernel it must launch."""
     import torch
 
     torch.cuda.synchronize()
-    reset_counts(frontend)
+    reset_counts()
     res = fn()
     torch.cuda.synchronize()
-    launches, replays = card_launches(frontend)
+    launches, replays = card_launches()
     GRAPH_REPLAYS[name] = replays
     print(f"{name} path launches: {launches} ({replays} graph replays)", flush=True)
     for k, want in PATH_KERNELS[name].items():
@@ -658,11 +641,11 @@ class Capture:
 
     def __init__(self, frontend):
         self.frontend = frontend
-        self.calls = {k: [] for k in KERNELS}
+        self.calls = {k: [] for k in wrapped_in("frontend")}
         self.saved = {}
 
     def __enter__(self):
-        for name in KERNELS:
+        for name in self.calls:
             orig = getattr(self.frontend, name)
             self.saved[name] = orig
 
@@ -828,6 +811,7 @@ def kernel_phase(frontend, calls, device, seed: int = 0) -> dict:
 
     from cylinder_pose_estimation_tpu_torch.config import CylinderDetectConfig
     from cylinder_pose_estimation_tpu_torch.models.detector import _smooth
+    from cylinder_pose_estimation_tpu_torch.ops import kernels
 
     g = torch.Generator(device="cpu").manual_seed(seed)
     report = {}
@@ -839,7 +823,7 @@ def kernel_phase(frontend, calls, device, seed: int = 0) -> dict:
         compare_("preprocess_binarize", lambda: frontend.preprocess_binarize(x, **kw),
                 lambda: frontend.preprocess_binarize_plain(x, **kw),
                 f"captured {tuple(x.shape)}", timed=(i == 0),
-                nbytes=frontend.min_bytes("preprocess_binarize", *x.shape))
+                nbytes=kernels.min_bytes("preprocess_binarize", *x.shape))
         noise = torch.rand(x.shape, generator=g).mul(255.0).to(device)
         xs = _smooth(noise, CylinderDetectConfig())
         compare_("preprocess_binarize", lambda: frontend.preprocess_binarize(xs, **kw),
@@ -856,7 +840,7 @@ def kernel_phase(frontend, calls, device, seed: int = 0) -> dict:
                 lambda: frontend.connected_components(m, kw["rounds"], kw["pools_per_round"], init),
                 lambda: frontend.connected_components_plain(m, kw["rounds"], kw["pools_per_round"], init),
                 label, timed=True,
-                nbytes=frontend.min_bytes("connected_components", *m.shape, warm=init is not None))
+                nbytes=kernels.min_bytes("connected_components", *m.shape, warm=init is not None))
         rnd = (torch.rand(m.shape, generator=g) < 0.45).to(torch.float32).to(device)
         rinit = None
         if init is not None:
@@ -876,7 +860,7 @@ def kernel_phase(frontend, calls, device, seed: int = 0) -> dict:
                 lambda: frontend.component_payload_minmax(m, pay, rounds, pools),
                 lambda: frontend.component_payload_minmax_plain(m, pay, rounds, pools),
                 f"captured {tuple(m.shape)} {rounds}x{pools}", timed=True,
-                nbytes=frontend.min_bytes("component_payload_minmax", *m.shape))
+                nbytes=kernels.min_bytes("component_payload_minmax", *m.shape))
         n, h, w = m.shape
         rnd = (torch.rand(m.shape, generator=g) < 0.45).to(torch.float32).to(device)
         rpay = torch.stack([torch.randperm(h * w, generator=g) for _ in range(n)])
@@ -897,13 +881,13 @@ def kernel_phase(frontend, calls, device, seed: int = 0) -> dict:
                 lambda: frontend.bridge_morphology(masks, exps, angles, klen, **kw),
                 lambda: frontend.bridge_morphology_plain(masks, exps, angles, klen, **kw),
                 f"captured {tuple(masks.shape)} {masks.dtype}", timed=True,
-                nbytes=frontend.min_bytes("bridge_morphology", *masks.shape, itemsize=masks.element_size()))
+                nbytes=kernels.min_bytes("bridge_morphology", *masks.shape, itemsize=masks.element_size()))
         mf, ef = masks.to(torch.float32), exps.to(torch.float32)
         compare_("bridge_morphology",
                 lambda: frontend.bridge_morphology(mf, ef, angles, klen, **kw),
                 lambda: frontend.bridge_morphology_plain(mf, ef, angles, klen, **kw),
                 f"captured {tuple(mf.shape)} {mf.dtype}", timed=True, site=False,
-                nbytes=frontend.min_bytes("bridge_morphology", *mf.shape))
+                nbytes=kernels.min_bytes("bridge_morphology", *mf.shape))
         n, h, w = masks.shape
         ang_list = [0.0, math.pi / 2, 0.35, 1.2, -0.6, 2.5]
         lm = line_masks(n, h, w, ang_list, seed + 1, device)
@@ -1029,11 +1013,10 @@ def sync_sites(fn) -> dict:
     return sites
 
 
-def registration_phase(device, stereo_fn, cfg, fit_cfg, frontend, smi):
+def registration_phase(device, stereo_fn, cfg, fit_cfg, smi):
     """Phase 8: the registration fixture on the card, then the experiment
     path with its CPU recomputation.  Returns (the launches, the experiment's
     inputs and unsharded result for phase 16)."""
-    import numpy as np
     import torch
 
     from cylinder_pose_estimation_tpu_torch.geometry.registration import (
@@ -1041,7 +1024,6 @@ def registration_phase(device, stereo_fn, cfg, fit_cfg, frontend, smi):
         fit_cylinders_with_angles,
     )
     from cylinder_pose_estimation_tpu_torch.models import pipeline
-    from cylinder_pose_estimation_tpu_torch.utils import profiling
     from cylinder_pose_estimation_tpu_torch.utils.synthetic import registration_sequence
 
     fx, pts, valid, angles, frame_valid = load_registration_fixture(device)
@@ -1057,7 +1039,7 @@ def registration_phase(device, stereo_fn, cfg, fit_cfg, frontend, smi):
           f"{chk['axis_deg']:.3e} deg, perp {chk['perp_mm']:.3e} mm, fval {chk['fval']:.6g} "
           f"(rel {chk['fval_rel']:.2e}), fval0 rel {chk['fval0_rel']:.2e}, min_eig "
           f"{chk['jtj_min_eig']:.6g} (rel {chk['jtj_min_eig_rel']:.2e}), well_posed "
-          f"{chk['well_posed']}; {ms_fix:.2f} ms", flush=True)
+          f"{chk['well_posed']}; {ms_fix:.2f} ms; {smi}", flush=True)
 
     n_frames = EXPERIMENT_FRAMES
     st_np, ang_np, (i1, i2), t_gt = registration_sequence(n_frames, 480, 640)
@@ -1066,7 +1048,7 @@ def registration_phase(device, stereo_fn, cfg, fit_cfg, frontend, smi):
     b = torch.as_tensor(i2, device=device)
     ang = torch.as_tensor(ang_np, device=device)
     (batch, reg), launches = run_path(
-        "experiment", frontend, lambda: pipeline.full_experiment(a, b, ang, stereo, cfg, fit_cfg))
+        "experiment", lambda: pipeline.full_experiment(a, b, ang, stereo, cfg, fit_cfg))
     if not all(bool(torch.isfinite(x).all()) for x in (reg.t_cam_agv, reg.fval, reg.fval0)):
         raise AssertionError("experiment: non-finite registration")
     healthy = int(pipeline.frame_health(batch).sum())
@@ -1088,40 +1070,10 @@ def registration_phase(device, stereo_fn, cfg, fit_cfg, frontend, smi):
           f"{chk['perp_mm']:.3e} mm, fval rel {chk['fval_rel']:.2e}, min_eig rel "
           f"{chk['jtj_min_eig_rel']:.2e}", flush=True)
 
-    # Timing: detect+fit and the registration as a repeated full_experiment
-    # runs them (two compiled steps, replayed), CUDA events.
-    rep = itertools.count(1)
-    step = pipeline.compiled_batch(stereo, cfg, fit_cfg)
-
-    def detect_fit():
-        eps = 1e-4 * next(rep)
-        return step(a + eps, b + eps)
-
-    ms_df = cuda_ms(detect_fit, reps=3, warmup=1)
-    ms_reg = cuda_ms(lambda: pipeline.register_sequence(batch, ang), reps=3, warmup=1)
-    print(f"experiment F={n_frames} (replayed steps): detect+fit {ms_df:.2f} ms, registration {ms_reg:.2f} ms, "
-          f"total {ms_df + ms_reg:.2f} ms; {smi}", flush=True)
-
-    # A one-shot full_experiment (a fresh process's, as the CLI's
-    # experiment runs it: no step cached, so both steps are eager calls)
-    # against the same two steps called eagerly, in alternating pairs.
-    def one_shot():
-        pipeline._STREAM_STEP_CACHE.clear()
-        return pipeline.full_experiment(a, b, ang, stereo, cfg, fit_cfg)
-
-    def eager():
-        res = pipeline.estimate_poses_batch(a, b, stereo, cfg, fit_cfg)
-        return fit_cylinders_with_angles(res.fit.points3, res.fit.points_valid, ang,
-                                         frame_valid=pipeline.frame_health(res))
-
-    ms = profiling.alternating_ms({"one_shot": one_shot, "eager": eager}, pairs=2, warmup=1)
-    pipeline._STREAM_STEP_CACHE.clear()
-    print(f"experiment F={n_frames} one-shot: full_experiment {ms['one_shot']:.2f} ms, its steps called eagerly "
-          f"{ms['eager']:.2f} ms (2 alternating pairs); {smi}", flush=True)
     return launches, {"frames": (i1, i2, ang_np), "stereo": stereo, "batch": batch, "reg": reg}
 
 
-def preprocess_phase(device, stereo_fn, cfg, fit_cfg, frontend, smi) -> dict:
+def preprocess_phase(device, stereo_fn, cfg, fit_cfg, smi) -> dict:
     """Phase 9: the preprocessing path at B=16 and its card-vs-CPU checks."""
     import torch
 
@@ -1138,8 +1090,7 @@ def preprocess_phase(device, stereo_fn, cfg, fit_cfg, frontend, smi) -> dict:
     b = torch.as_tensor(i2, device=device)
     ang = torch.as_tensor(registration_angles(n), device=device)
     (batch, reg), launches = run_path(
-        "preprocess", frontend,
-        lambda: pipeline.full_experiment(a, b, ang, stereo, cfg, fit_cfg, preprocess=True))
+        "preprocess", lambda: pipeline.full_experiment(a, b, ang, stereo, cfg, fit_cfg, preprocess=True))
     if not bool(torch.isfinite(reg.t_cam_agv).all()):
         raise AssertionError("preprocess path: non-finite registration")
     ok = int((batch.detect1.ok & batch.detect2.ok).sum())
@@ -1169,7 +1120,7 @@ def preprocess_phase(device, stereo_fn, cfg, fit_cfg, frontend, smi) -> dict:
     return launches
 
 
-def stream_phase(device, stereo, cfg, fit_cfg, frontend, smi) -> dict:
+def stream_phase(device, stereo, cfg, fit_cfg, smi) -> dict:
     """Phase 10: the stream path over 2,000 frames and its chunk-by-chunk
     equality with the batch call."""
     import numpy as np
@@ -1185,23 +1136,12 @@ def stream_phase(device, stereo, cfg, fit_cfg, frontend, smi) -> dict:
     f2 = TiledFrames(np.clip(p2, 0, 255).astype(np.uint8), n)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(device)
-    t0 = time.perf_counter()
-    out, launches = run_path("stream", frontend, lambda: pipeline.estimate_poses_stream(
+    out, launches = run_path("stream", lambda: pipeline.estimate_poses_stream(
         f1, f2, stereo, cfg, fit_cfg, chunk=chunk, compact=True, overlap=True, device=device))
-    wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated(device)
-    # The same stream without the overlap: one chunk at a time; then the
-    # overlapped stream again, its chunk step already captured.
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
+    # The same stream without the overlap: one chunk at a time.
     serial = pipeline.estimate_poses_stream(f1, f2, stereo, cfg, fit_cfg, chunk=chunk, compact=True,
                                             overlap=False, device=device)
-    wall_serial = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    pipeline.estimate_poses_stream(f1, f2, stereo, cfg, fit_cfg, chunk=chunk, compact=True, overlap=True,
-                                   device=device)
-    wall_again = time.perf_counter() - t0
     got = pipeline._tree_leaves(out)
     for s in range(0, n, chunk):
         live = min(chunk, n - s)
@@ -1219,17 +1159,14 @@ def stream_phase(device, stereo, cfg, fit_cfg, frontend, smi) -> dict:
             raise AssertionError(f"stream: leaf {leaf} differs between overlap and serial")
     ok = int(out.ok.sum())
     reproj = float(np.median(out.mean_reproj_error[out.ok]))
-    print(f"stream N={n} chunk={chunk} compact overlap: {n / wall:.2f} frames/s ({wall:.2f} s wall, the "
-          f"chunk step's capture included), ok {ok}/{n}, healthy {int(out.healthy.sum())}, median "
+    print(f"stream N={n} chunk={chunk} compact overlap: ok {ok}/{n}, healthy {int(out.healthy.sum())}, median "
           f"reprojection {reproj:.4f} px, peak device memory {peak / 2**20:.1f} MiB; every chunk equal to the "
-          f"batch call ({(n + chunk - 1) // chunk} chunks, tail {n % chunk or chunk} live); {smi}", flush=True)
-    print(f"stream N={n} chunk={chunk} compact serial (overlap=False): {n / wall_serial:.2f} frames/s "
-          f"({wall_serial:.2f} s wall), equal to the overlapped run; overlapped again (step captured): "
-          f"{n / wall_again:.2f} frames/s ({wall_again:.2f} s wall); {smi}", flush=True)
+          f"batch call ({(n + chunk - 1) // chunk} chunks, tail {n % chunk or chunk} live), the serial run "
+          f"(overlap=False) equal to the overlapped one; {smi}", flush=True)
     return launches
 
 
-def xla_phase(frontend, a, b, stereo, pviews, golden, plane_views, fit_cfg) -> dict:
+def xla_phase(a, b, stereo, pviews, golden, plane_views, fit_cfg) -> dict:
     """Phase 11: the default configuration (the XLA branch) on the phase-2
     scenes and the phase-4 views, against the XLA records; none of the four
     kernels may launch."""
@@ -1242,7 +1179,7 @@ def xla_phase(frontend, a, b, stereo, pviews, golden, plane_views, fit_cfg) -> d
     cfg_plane = PlaneDetectConfig(height=h, width=w, roi_threshold=30.0)
     if cfg.use_pallas or cfg_plane.use_pallas:
         raise AssertionError("the default configuration must be the XLA branch")
-    (res, det), launches = run_path("xla", frontend, lambda: (
+    (res, det), launches = run_path("xla", lambda: (
         estimate_poses_batch(a, b, stereo, cfg, fit_cfg), detect_grid(pviews, cfg_plane)))
     for s, name in enumerate(list(range(6)) + ["gap0"]):
         want = next(g for g in golden if g["scene"] == name)
@@ -1266,12 +1203,14 @@ def hold_sites(report, frontend, calls, tag, timed) -> None:
     as float32; only the recorded call is timed."""
     import torch
 
+    from cylinder_pose_estimation_tpu_torch.ops import kernels
+
     with torch.inference_mode():
         for args, kw in calls["preprocess_binarize"]:
             x = args[0]
             compare(report, "preprocess_binarize", lambda: frontend.preprocess_binarize(x, **kw),
                     lambda: frontend.preprocess_binarize_plain(x, **kw), f"{tag} {tuple(x.shape)}", timed,
-                    nbytes=frontend.min_bytes("preprocess_binarize", *x.shape), into="large_sites")
+                    nbytes=kernels.min_bytes("preprocess_binarize", *x.shape), into="large_sites")
         for args, kw in calls["connected_components"]:
             m, init = args[0], kw.get("init_labels")
             r, p = kw["rounds"], kw["pools_per_round"]
@@ -1282,7 +1221,7 @@ def hold_sites(report, frontend, calls, tag, timed) -> None:
                     lambda: frontend.connected_components_plain(m, r, p, init),
                     f"{tag} {tuple(m.shape)} {r}x{p} {'warm' if init is not None else 'cold'}"
                     f"{' global' if glob else ''}", timed,
-                    nbytes=frontend.min_bytes("connected_components", *m.shape, warm=init is not None),
+                    nbytes=kernels.min_bytes("connected_components", *m.shape, warm=init is not None),
                     max_dev=frontend.cc_global_launches(r, p, plan["fused"]) if glob else None,
                     into="large_sites")
         for args, kw in calls["component_payload_minmax"]:
@@ -1294,7 +1233,7 @@ def hold_sites(report, frontend, calls, tag, timed) -> None:
                     lambda: frontend.component_payload_minmax(m, pay, r, p),
                     lambda: frontend.component_payload_minmax_plain(m, pay, r, p),
                     f"{tag} {tuple(m.shape)} {r}x{p}{' global' if glob else ''}", True,
-                    nbytes=frontend.min_bytes("component_payload_minmax", *m.shape),
+                    nbytes=kernels.min_bytes("component_payload_minmax", *m.shape),
                     max_dev=frontend.cc_global_launches(r, p, plan["fused"]) if glob else None,
                     into="large_sites")
         for args, kw in calls["bridge_morphology"]:
@@ -1305,7 +1244,7 @@ def hold_sites(report, frontend, calls, tag, timed) -> None:
                         lambda: frontend.bridge_morphology(mk, ek, angles, klen, **kw),
                         lambda: frontend.bridge_morphology_plain(mk, ek, angles, klen, **kw),
                         f"{tag} {tuple(mk.shape)} {mk.dtype} {row}", timed and site,
-                        nbytes=frontend.min_bytes("bridge_morphology", *mk.shape, itemsize=mk.element_size()),
+                        nbytes=kernels.min_bytes("bridge_morphology", *mk.shape, itemsize=mk.element_size()),
                         max_dev=max_dev, into="large_sites")
 
 
@@ -1338,7 +1277,7 @@ def large_phase(frontend, device, fit_cfg, smi):
                 calls[(h, w, label)] = cap.calls
         return out
 
-    out, launches = run_path("large", frontend, drive)
+    out, launches = run_path("large", drive)
     for (h, w, label), res in out.items():
         st_np, (i1, i2) = inputs[(h, w)]
         t0 = time.perf_counter()
@@ -1404,6 +1343,7 @@ def variants_phase(frontend, device, fit_cfg, smi):
     from cylinder_pose_estimation_tpu_torch.config import CylinderDetectConfig, PlaneDetectConfig
     from cylinder_pose_estimation_tpu_torch.models.detector import detect_grid
     from cylinder_pose_estimation_tpu_torch.models.pipeline import _tree_map, estimate_poses_batch
+    from cylinder_pose_estimation_tpu_torch.ops import kernels
     from cylinder_pose_estimation_tpu_torch.types import stereo_from_numpy
     from cylinder_pose_estimation_tpu_torch.utils.synthetic import example_pair, plane_view
 
@@ -1448,8 +1388,8 @@ def variants_phase(frontend, device, fit_cfg, smi):
 
     kern = [c for c in configs if c["use_pallas"]]
     xla = [c for c in configs if not c["use_pallas"]]
-    _, launches = run_path("variants", frontend, lambda: drive(kern, True))
-    _, launches_xla = run_path("variants_xla", frontend, lambda: drive(xla, False))
+    _, launches = run_path("variants", lambda: drive(kern, True))
+    _, launches_xla = run_path("variants_xla", lambda: drive(xla, False))
 
     for c in configs:
         det = results[c["name"]]
@@ -1502,7 +1442,7 @@ def variants_phase(frontend, device, fit_cfg, smi):
                         kfn = functools.partial(frontend.bridge_morphology, masks, exps, angles, klen, **kw)
                         pfn = functools.partial(frontend.bridge_morphology_plain, masks, exps, angles, klen,
                                                 **kw)
-                        nbytes = frontend.min_bytes(kname, *masks.shape, itemsize=masks.element_size())
+                        nbytes = kernels.min_bytes(kname, *masks.shape, itemsize=masks.element_size())
                     else:
                         r, p = kw["rounds"], kw["pools_per_round"]
                         if kname == "connected_components":
@@ -1512,7 +1452,7 @@ def variants_phase(frontend, device, fit_cfg, smi):
                             label = f"{name} {tuple(m.shape)} {r}x{p} {'warm' if init is not None else 'cold'}"
                             kfn = functools.partial(frontend.connected_components, m, r, p, init)
                             pfn = functools.partial(frontend.connected_components_plain, m, r, p, init)
-                            nbytes = frontend.min_bytes(kname, *m.shape, warm=init is not None)
+                            nbytes = kernels.min_bytes(kname, *m.shape, warm=init is not None)
                         else:
                             pay = args[1]
                             key = (kname, tuple(m.shape), r, p)
@@ -1520,7 +1460,7 @@ def variants_phase(frontend, device, fit_cfg, smi):
                             label = f"{name} {tuple(m.shape)} {r}x{p}"
                             kfn = functools.partial(frontend.component_payload_minmax, m, pay, r, p)
                             pfn = functools.partial(frontend.component_payload_minmax_plain, m, pay, r, p)
-                            nbytes = frontend.min_bytes(kname, *m.shape)
+                            nbytes = kernels.min_bytes(kname, *m.shape)
                         glob = plan.get("route") == "global"
                         max_dev = frontend.cc_global_launches(r, p, plan["fused"]) if glob else None
                         label += " global" if glob else ""
@@ -1561,6 +1501,8 @@ def routes_phase(frontend, device):
     ``route_sites`` hold the calls)."""
     import torch
 
+    from cylinder_pose_estimation_tpu_torch.ops import kernels
+
     kw = {"probe_len": 9, "max_kernel": 251}
     angs = torch.tensor([math.pi / 2, 1.45, 0.35, -0.6, 2.5, 0.0], device=device)
     inputs = {}
@@ -1584,7 +1526,7 @@ def routes_phase(frontend, device):
     def drive():
         return {row: frontend.bridge_morphology(*args, **kw) for row, args in inputs.items()}
 
-    _, launches = run_path("routes", frontend, drive)
+    _, launches = run_path("routes", drive)
     report = {}
     with torch.inference_mode():
         for want, (m, ex, ang, kl) in inputs.items():
@@ -1596,7 +1538,7 @@ def routes_phase(frontend, device):
             compare(report, row, lambda: frontend.bridge_morphology(m, ex, ang, kl, schedule_out=sched, **kw),
                     lambda: frontend.bridge_morphology_plain(m, ex, ang, kl, **kw),
                     f"routes {tuple(m.shape)} {m.dtype} probe 9 max_kernel 251 {want}", True,
-                    nbytes=frontend.min_bytes("bridge_morphology", *m.shape, itemsize=1), max_dev=max_dev,
+                    nbytes=kernels.min_bytes("bridge_morphology", *m.shape, itemsize=1), max_dev=max_dev,
                     into="route_sites")
             ray, line = frontend.bridge_schedule(ang, kl, **kw)
             if not torch.equal(sched, torch.cat([ray.reshape(n, -1), line.reshape(n, -1)], 1)):
@@ -1626,7 +1568,7 @@ def parse_experiment(text: str) -> dict:
             "well_posed": obs.group(3) == "True", "t_cam_agv": np.asarray(t).reshape(4, 4)}
 
 
-def cli_phase(frontend, smi) -> dict:
+def cli_phase(smi) -> dict:
     """Phase 14: the ``cylpose-torch`` drivers on the card
     (``cli.main([..., "--device", "cuda"])``) over PNG frames of
     ``write_registration_folder`` in a temporary directory, counters reset
@@ -1672,7 +1614,7 @@ def cli_phase(frontend, smi) -> dict:
                 "undistort": run("undistort-folder", "--output", os.path.join(tmp, "und")),
             }
 
-        out, launches = run_path("cli", frontend, drive)
+        out, launches = run_path("cli", drive)
         with open(os.path.join(tmp, "detect", "processed_images_data.json")) as f:
             data = json.load(f)
         errors = {k: v["error"] for k, v in data.items() if "error" in v}
@@ -1874,10 +1816,10 @@ def corpus_phase(frontend, device, golden_views, smi) -> dict:
         return dets, pose
 
     with Capture(frontend) as cap:
-        card_k, launches = run_path("corpus", frontend, lambda: run(device, True))
+        card_k, launches = run_path("corpus", lambda: run(device, True))
     held = hold_calls(frontend, cap.calls, "corpus")
     print(f"corpus: kernel calls held torch.equal to their plain versions: {held}", flush=True)
-    card_x, launches_x = run_path("corpus_xla", frontend, lambda: run(device, False))
+    card_x, launches_x = run_path("corpus_xla", lambda: run(device, False))
 
     chaotic_diff = {}
     for branch, (dets, pose), (hdets, hpose) in (("kernels", card_k, run("cpu", True)),
@@ -1945,6 +1887,7 @@ def knobs_phase(frontend, device, fit_cfg, smi):
 
     from cylinder_pose_estimation_tpu_torch.config import CylinderDetectConfig
     from cylinder_pose_estimation_tpu_torch.models.pipeline import _tree_map, estimate_poses_batch
+    from cylinder_pose_estimation_tpu_torch.ops import kernels
     from cylinder_pose_estimation_tpu_torch.types import stereo_from_numpy
     from cylinder_pose_estimation_tpu_torch.utils.synthetic import example_pair
 
@@ -1975,7 +1918,7 @@ def knobs_phase(frontend, device, fit_cfg, smi):
     for c in configs:
         name = c["name"]
         with Capture(frontend) as cap:
-            det, launches[f"knobs.{name}"] = run_path(f"knobs.{name}", frontend, lambda: run(c, a, b, stereo))
+            det, launches[f"knobs.{name}"] = run_path(f"knobs.{name}", lambda: run(c, a, b, stereo))
         calls[name] = cap.calls
         max_d, n_ok, n_stable, n_bridged = 0.0, 0, 0, 0
         for i, want in enumerate(c["views"]):
@@ -2013,7 +1956,7 @@ def knobs_phase(frontend, device, fit_cfg, smi):
                     functools.partial(frontend.preprocess_binarize, x, **kw),
                     functools.partial(frontend.preprocess_binarize_plain, x, **kw),
                     f"knobs {tuple(x.shape)} pre_smoothed=False", True,
-                    nbytes=frontend.min_bytes("preprocess_binarize", *x.shape),
+                    nbytes=kernels.min_bytes("preprocess_binarize", *x.shape),
                     max_dev=DEVICE_LAUNCHES_MAX["preprocess_binarize"], into="knob_sites")
             # The smoothing launch alone: its plane against the four rolls.
             taps = {k: kw[k] for k in ("blur_ksize", "ridge_sigma") if k in kw}
@@ -2043,7 +1986,7 @@ def knobs_phase(frontend, device, fit_cfg, smi):
                          f"{kw['cap_axis']} cap {kw['cap']}")
                 compare(report, row, functools.partial(frontend.connected_components, m, r, p, init, **cap_kw),
                         functools.partial(frontend.connected_components_plain, m, r, p, init, **cap_kw), label, True,
-                        nbytes=frontend.min_bytes("connected_components", *m.shape, warm=init is not None),
+                        nbytes=kernels.min_bytes("connected_components", *m.shape, warm=init is not None),
                         max_dev=frontend.cc_global_launches(r, p, plan["fused"]), into="knob_sites")
                 rnd = (torch.rand(m.shape, generator=g) < 0.45).to(torch.float32).to(device)
                 rinit = torch.randint(0, 2 * m.shape[1] * m.shape[2], m.shape, generator=g,
@@ -2190,7 +2133,7 @@ def stencil_phase(device, smi) -> dict:
 
     from cylinder_pose_estimation_tpu_torch.config import CylinderDetectConfig
     from cylinder_pose_estimation_tpu_torch.models import detector
-    from cylinder_pose_estimation_tpu_torch.ops import frontend, stencils
+    from cylinder_pose_estimation_tpu_torch.ops import frontend, kernels, stencils
     from cylinder_pose_estimation_tpu_torch.utils import profiling
     from cylinder_pose_estimation_tpu_torch.utils.synthetic import example_pair
 
@@ -2228,10 +2171,10 @@ def stencil_phase(device, smi) -> dict:
                                      held["bright_center_max_abs_diff"] or 0.0)}
         for name, fn, plain, nbytes in (
                 ("stencil_smooth", lambda: stencils.smooth(gray, **kw), lambda: stencils.smooth_plain(gray, **kw),
-                 stencils.min_bytes("stencil_smooth", n, *hw)),
+                 kernels.min_bytes("stencil_smooth", n, *hw)),
                 ("stencil_stats", lambda: stencils.stats_images(*args, **sargs),
                  lambda: stencils.stats_images_plain(*args, **sargs),
-                 stencils.min_bytes("stencil_stats", n, *hw, center=center))):
+                 kernels.min_bytes("stencil_stats", n, *hw, center=center))):
             ms = cuda_ms(fn)
             n_dev, dev_ms = profiling.graph_kernels(fn)
             plain_ms = cuda_ms(plain, reps=10)
@@ -2352,13 +2295,13 @@ def mesh_rank(mesh, stream_frames: int, chunk: int) -> dict:
     # own and launches through the wrappers).
     sync()
     torch.cuda.reset_peak_memory_stats(dev)
-    reset_counts(frontend)
+    reset_counts()
     batch, reg = pipe(i1, i2, angles)
     sync()
     t0 = time.perf_counter()
     out = stream(stream_frames, True)
     walls = [time.perf_counter() - t0]
-    launches, replays = card_launches(frontend)
+    launches, replays = card_launches()
     peak = torch.cuda.max_memory_allocated(dev)
     regs = gather_frames(reg.t_cam_agv[None], mesh)
 
@@ -2448,7 +2391,7 @@ def mesh_ranks(ranks: int, ranks_per_card: int, smi: str) -> dict:
     return {k: sum(r["launches"][k] for r in results) for k in r0["launches"]}
 
 
-def mesh_phase(frontend, device, cfg, fit_cfg, smi, experiment) -> dict:
+def mesh_phase(device, cfg, fit_cfg, smi, experiment) -> dict:
     """Phase 16: (a) ``sharded_pipeline`` over a one-rank NCCL group on
     phase 8's 100 frames, counters reset just before and read just after,
     against phase 8's unsharded result; (b) ``mesh_rank`` on
@@ -2470,7 +2413,7 @@ def mesh_phase(frontend, device, cfg, fit_cfg, smi, experiment) -> dict:
                                 world_size=1, timeout=TIMEOUT, device_id=device)
         try:
             fn = sharded_pipeline(make_mesh(devices=[device]), experiment["stereo"], cfg, fit_cfg)
-            (batch, reg), launches = run_path("mesh", frontend, lambda: fn(i1, i2, ang))
+            (batch, reg), launches = run_path("mesh", lambda: fn(i1, i2, ang))
         finally:
             dist.destroy_process_group()
     batch = pipeline._tree_map(lambda x: x.cpu(), batch)
@@ -2525,12 +2468,12 @@ def compiled_phase(device, stereo, frames, cfgs, fit_cfg, experiment, smi, full_
     the count and the largest difference: a fault); the host
     synchronisations of one compiled call (``sync_sites``, must be 0); the
     kernel nodes of the graph captured from one call and the device ms of
-    its replay (``profiling.graph_kernels``); eager against replayed ms in
-    alternating pairs (CUDA events, medians, fresh inputs each call).
-    ``full_hd``: (label, rig, frames, config) of the full-HD batch step,
-    run as the 480x640 ones; every kernel-wrapper call of its eager call is
-    recorded and held to its plain version on the same inputs, timed, into
-    the ``large_sites`` of the kernel report ``sites`` (``hold_sites``)."""
+    its replay (``profiling.graph_kernels``), and with every solve the
+    plain version.  ``full_hd``: (label, rig, frames, config) of the
+    full-HD batch step, run as the 480x640 ones; every kernel-wrapper call
+    of its eager call is recorded and held to its plain version on the same
+    inputs, timed, into the ``large_sites`` of the kernel report ``sites``
+    (``hold_sites``)."""
     import torch
 
     from cylinder_pose_estimation_tpu_torch.config import RegistrationConfig
@@ -2540,7 +2483,6 @@ def compiled_phase(device, stereo, frames, cfgs, fit_cfg, experiment, smi, full_
     from cylinder_pose_estimation_tpu_torch.utils import profiling
 
     out = {}
-    rep = itertools.count(1)
 
     def first_calls(label, fn, kind="batch"):
         """The second call's result, and the MiB the device reserves for the
@@ -2569,7 +2511,7 @@ def compiled_phase(device, stereo, frames, cfgs, fit_cfg, experiment, smi, full_
         return res, {"first_call_s": seconds[0], "second_call_s": seconds[1], "pool_mib": pool,
                      "solve_spd_per_capture": solves}
 
-    def check(label, got, want, n_frames, eager_fn, compiled_fn, capture_fn, pairs, unit_frames=True):
+    def check(label, got, want, n_frames, compiled_fn, capture_fn):
         diffs = leaf_diffs(got, want)
         for leaf, n, d in diffs:
             print(f"compiled {label}: leaf {leaf} differs from the eager call in {n} elements, "
@@ -2586,15 +2528,10 @@ def compiled_phase(device, stereo, frames, cfgs, fit_cfg, experiment, smi, full_
               f"solve kernel", flush=True)
         if n_kernels >= n_plain:
             raise AssertionError(f"compiled {label}: the solve kernel leaves {n_kernels} of {n_plain} nodes")
-        ms = profiling.alternating_ms({"eager": eager_fn, "replay": compiled_fn}, pairs)
-        per = n_frames if unit_frames else 1
-        unit = "ms/frame" if unit_frames else "ms per solve"
         print(f"compiled {label}: replay equal to eager on every leaf; host syncs per compiled call 0; "
-              f"{n_kernels} kernel nodes per step, replay {dev_ms:.4f} device ms; eager "
-              f"{ms['eager'] / per:.4f} {unit}, replayed {ms['replay'] / per:.4f} {unit} "
-              f"({ms['eager'] / ms['replay']:.2f}x, {pairs} alternating pairs); {smi}", flush=True)
+              f"{n_kernels} kernel nodes per step, replay {dev_ms:.4f} device ms; {smi}", flush=True)
         return {"kernel_nodes": n_kernels, "kernel_nodes_plain_solve": n_plain, "replay_device_ms": dev_ms,
-                "eager_ms": ms["eager"], "replay_ms": ms["replay"], "frames": n_frames}
+                "frames": n_frames}
 
     steps = [(label, stereo, frames, cfg) for label, cfg in cfgs.items()] + [full_hd]
     for label, rig, (d1, d2), cfg in steps:
@@ -2603,17 +2540,8 @@ def compiled_phase(device, stereo, frames, cfgs, fit_cfg, experiment, smi, full_
         got, first = first_calls(f"{label} B={n}", lambda: step(d1, d2))
         with Capture(frontend) if label == full_hd[0] else contextlib.nullcontext() as cap:
             want = pipeline.estimate_poses_batch(d1, d2, rig, cfg, fit_cfg)
-
-        def fresh(fn):
-            def call():
-                eps = 1e-4 * next(rep)
-                return fn(d1 + eps, d2 + eps)
-            return call
-
-        out[label] = check(
-            f"{label} B={n}", got, want, n,
-            fresh(lambda a, b, cfg=cfg: pipeline.estimate_poses_batch(a, b, rig, cfg, fit_cfg)),
-            fresh(step), lambda cfg=cfg: pipeline.estimate_poses_batch(d1, d2, rig, cfg, fit_cfg), pairs=5)
+        out[label] = check(f"{label} B={n}", got, want, n, lambda: step(d1, d2),
+                           lambda cfg=cfg: pipeline.estimate_poses_batch(d1, d2, rig, cfg, fit_cfg))
         out[label].update(first)
         del step, got, want
         if cap is not None:
@@ -2638,9 +2566,8 @@ def compiled_phase(device, stereo, frames, cfgs, fit_cfg, experiment, smi, full_
     f_reg = batch.fit.points3.shape[0]
     got, first = first_calls(f"registration F={f_reg}", lambda: pipeline.register_sequence(batch, ang, reg_cfg),
                              kind="registration")
-    out["registration"] = check(f"registration F={f_reg}", got, eager_reg(), f_reg, eager_reg,
-                                lambda: pipeline.register_sequence(batch, ang, reg_cfg), eager_reg,
-                                pairs=3, unit_frames=False)
+    out["registration"] = check(f"registration F={f_reg}", got, eager_reg(), f_reg,
+                                lambda: pipeline.register_sequence(batch, ang, reg_cfg), eager_reg)
     out["registration"].update(first)
     pipeline._STREAM_STEP_CACHE.clear()
 
@@ -2656,15 +2583,8 @@ def compiled_phase(device, stereo, frames, cfgs, fit_cfg, experiment, smi, full_
 
     got, first = first_calls(f"stream chunk {STREAM_CHUNK}",
                              lambda: pipeline._tree_map(torch.clone, step(c1, c2)))
-    variants = itertools.cycle([(c1, c2), (c1.flip(0).contiguous(), c2.flip(0).contiguous())])
-
-    def chunk_fn(fn):
-        def call():
-            return fn(*next(variants))
-        return call
-
     out["stream"] = check(f"stream chunk {STREAM_CHUNK}", got, eager_chunk(c1, c2), STREAM_CHUNK,
-                          chunk_fn(eager_chunk), chunk_fn(step), lambda: eager_chunk(c1, c2), pairs=3)
+                          lambda: step(c1, c2), lambda: eager_chunk(c1, c2))
     out["stream"].update(first)
     pipeline._STREAM_STEP_CACHE.clear()
     return out
@@ -2704,6 +2624,7 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     device = torch.device("cuda:0")
     print(f"device {torch.cuda.get_device_name(0)}; {smi}", flush=True)
+    PATH_KERNELS.update(path_kernels())
 
     t0 = time.perf_counter()
     kernels.build()
@@ -2719,6 +2640,7 @@ def main() -> int:
     cfg_ep = CylinderDetectConfig(height=height, width=width, use_pallas=True,
                                   bridge_endpoint_stats=True)
     cfg_plane = PlaneDetectConfig(height=height, width=width, use_pallas=True, roi_threshold=30.0)
+    cfg_xla = CylinderDetectConfig(height=height, width=width)
     fit_cfg = FitConfig()
     print(f"plan preprocess_binarize (2B, {height}, {width}): "
           f"{frontend.preprocess_plan(2 * batch, height, width, joint_peak_iters=cfg.joint_peak_iters)}",
@@ -2748,8 +2670,7 @@ def main() -> int:
     b = np.concatenate([i2[:6], apply_gap(i2[0])[None]])
     a = torch.as_tensor(a, device=device)
     b = torch.as_tensor(b, device=device)
-    res, main_launches = run_path("main", frontend,
-                                  lambda: estimate_poses_batch(a, b, stereo, cfg, fit_cfg))
+    res, main_launches = run_path("main", lambda: estimate_poses_batch(a, b, stereo, cfg, fit_cfg))
     for s, name in enumerate(names):
         want = next(g for g in golden if g["scene"] == name)
         chk = golden_check(res, want, s)
@@ -2760,8 +2681,7 @@ def main() -> int:
               f"bridged_components {chk['bridged_components']}", flush=True)
 
     # --- endpoint path: the same scenes, counters reset just before -------
-    res, ep_launches = run_path("endpoint", frontend,
-                                lambda: estimate_poses_batch(a, b, stereo, cfg_ep, fit_cfg))
+    res, ep_launches = run_path("endpoint", lambda: estimate_poses_batch(a, b, stereo, cfg_ep, fit_cfg))
     for s, name in enumerate(names):
         want = next(g for g in endpoint_fix if g["scene"] == name)
         chk = golden_check(res, want, s, gauge=True)
@@ -2777,20 +2697,20 @@ def main() -> int:
     # --- plane path: the fixture's views, counters reset just before ------
     pviews = torch.as_tensor(np.stack([plane_view(height, width, **v["spec"]) for v in plane_views]),
                              device=device)
-    det, plane_launches = run_path("plane", frontend, lambda: detect_grid(pviews, cfg_plane))
+    det, plane_launches = run_path("plane", lambda: detect_grid(pviews, cfg_plane))
     chk = plane_check(det, plane_views)
     print(f"plane views: points {chk['points']}, max|dxy| {chk['max_dxy']:.6f} px", flush=True)
 
     # --- the XLA branch (the default config): no kernel may launch -------
-    xla_launches = xla_phase(frontend, a, b, stereo, pviews, golden, plane_views, fit_cfg)
+    xla_launches = xla_phase(a, b, stereo, pviews, golden, plane_views, fit_cfg)
 
     # --- the experiment, preprocessing and stream paths ---------------------
     def stereo_fn(st):
         return stereo_from_numpy(*st, device=device)
 
-    exp_launches, experiment = registration_phase(device, stereo_fn, cfg, fit_cfg, frontend, smi)
-    pre_launches = preprocess_phase(device, stereo_fn, cfg, fit_cfg, frontend, smi)
-    stream_launches = stream_phase(device, stereo, cfg, fit_cfg, frontend, smi)
+    exp_launches, experiment = registration_phase(device, stereo_fn, cfg, fit_cfg, smi)
+    pre_launches = preprocess_phase(device, stereo_fn, cfg, fit_cfg, smi)
+    stream_launches = stream_phase(device, stereo, cfg, fit_cfg, smi)
 
     # --- numerics: the bridge on the card vs on the CPU --------------------
     for label, views, c in (("main", torch.cat([a, b]), cfg), ("endpoint", torch.cat([a, b]), cfg_ep),
@@ -2823,17 +2743,10 @@ def main() -> int:
     # --- each route of the bridge once (profiled as well) -----------------
     route_launches, route_report = routes_phase(frontend, device)
 
-    # --- end to end timing at B=16 ----------------------------------------
-    # Every call perturbs the frames anew, as bench.py does.
+    # --- end to end timing at B=16 of the endpoint and plane paths ---------
+    # (the main and XLA paths' B=16 steps are the benchmark's cells). Every
+    # call perturbs the frames anew, as bench.py does.
     rep = itertools.count(1)
-
-    def e2e():
-        eps = 1e-4 * next(rep)
-        return estimate_poses_batch(d1 + eps, d2 + eps, stereo, cfg, fit_cfg).fit.params
-
-    def detect():
-        eps = 1e-4 * next(rep)
-        return estimate_poses_batch(d1 + eps, d2 + eps, stereo, cfg, fit_cfg, probe="detect").grid.xy
 
     def e2e_ep():
         eps = 1e-4 * next(rep)
@@ -2847,25 +2760,12 @@ def main() -> int:
         eps = 1e-4 * next(rep)
         return detect_grid(pviews + eps, cfg_plane).grid.xy
 
-    cfg_xla = CylinderDetectConfig(height=height, width=width)
-
-    def e2e_xla():
-        eps = 1e-4 * next(rep)
-        return estimate_poses_batch(d1 + eps, d2 + eps, stereo, cfg_xla, fit_cfg).fit.params
-
-    def detect_xla():
-        eps = 1e-4 * next(rep)
-        return estimate_poses_batch(d1 + eps, d2 + eps, stereo, cfg_xla, fit_cfg, probe="detect").grid.xy
-
-    for label, fn_e2e, fn_det in (("e2e", e2e, detect), ("endpoint e2e", e2e_ep, detect_ep),
-                                  ("xla e2e", e2e_xla, detect_xla)):
-        ms_e2e = cuda_ms(fn_e2e, reps=10, warmup=2)
-        ms_det = cuda_ms(fn_det, reps=10, warmup=2)
-        n_dev, dev_ms = profiling.graph_kernels(fn_det, reps=10, warmup=2)
-        dev_txt = f"{n_dev} device kernels, {dev_ms:.4f} device ms (graph replay)"
-        print(f"{label} B={batch} {height}x{width}: {ms_e2e / batch:.4f} ms/frame "
-              f"(detect {ms_det / batch:.4f} ms/frame, fit {(ms_e2e - ms_det) / batch:.4f} ms/frame); "
-              f"detect step: {dev_txt}; {smi}", flush=True)
+    ms_e2e = cuda_ms(e2e_ep, reps=10, warmup=2)
+    ms_det = cuda_ms(detect_ep, reps=10, warmup=2)
+    n_dev, dev_ms = profiling.graph_kernels(detect_ep, reps=10, warmup=2)
+    print(f"endpoint e2e B={batch} {height}x{width}: {ms_e2e / batch:.4f} ms/frame (detect {ms_det / batch:.4f} "
+          f"ms/frame, fit {(ms_e2e - ms_det) / batch:.4f} ms/frame); detect step: {n_dev} device kernels, "
+          f"{dev_ms:.4f} device ms (graph replay); {smi}", flush=True)
     stage_split(torch.cat([d1, d2]), (("main", cfg), ("endpoint", cfg_ep)))
     n_views = pviews.shape[0]
     ms_plane = cuda_ms(detect_plane, reps=10, warmup=2)
@@ -2882,10 +2782,10 @@ def main() -> int:
                               fit_cfg, experiment, smi, full_hd, large_report)
 
     # --- the command-line drivers on the card ------------------------------
-    cli_launches = cli_phase(frontend, smi)
+    cli_launches = cli_phase(smi)
 
     # --- the mesh path: one NCCL rank, then ranks over torch.distributed ---
-    mesh_launches = mesh_phase(frontend, device, cfg, fit_cfg, smi, experiment)
+    mesh_launches = mesh_phase(device, cfg, fit_cfg, smi, experiment)
 
     # --- the JAX package's detection corpora, card against the CPU port ----
     corpus_launches = corpus_phase(frontend, device, torch.stack([a[0], a[6]]), smi)
@@ -2902,8 +2802,13 @@ def main() -> int:
                "experiment": exp_launches, "preprocess": pre_launches, "stream": stream_launches,
                "xla": xla_launches, "large": large_launches, **variant_launches, "cli": cli_launches,
                "routes": route_launches, **mesh_launches, **corpus_launches, **knob_launches}
+    # Rows: the front end's kernels, the bridge's split and global routes,
+    # the knobs' branches, then the other kernels of the catalogue.
+    front, stencil_rows = wrapped_in("frontend"), wrapped_in("stencils")
+    names = (front + tuple(kernels.CATALOGUE["bridge_morphology"].counters)[1:] + tuple(KNOB_ROWS)
+             + tuple(name for name in kernels.CATALOGUE if name not in front))
     rows = []
-    for k in ROWS:
+    for k in names:
         r = report.get(k, new_report())
         large = large_report.get(k, new_report())
         variant = variant_report.get(k, new_report())
@@ -2921,9 +2826,9 @@ def main() -> int:
                   f"bound {site['bound_ms']:.4f} ms ({site['bytes']} B), device kernels per call "
                   f"{site['device_kernels_per_call']} {by_name}", flush=True)
         stencil_sites = []
-        if k in SITE_ROWS:  # the 480x640 sites
+        if k in front or k == "solve_spd":  # the 480x640 sites
             ms, dev_ms, plain_ms, nbytes, n_dev = r["ms"], r["device_ms"], r["plain_ms"], r["bytes"], r["device_launches"]
-        elif k in STENCILS:  # phase 20's sites: the row's times at STENCIL_ROW_SITE, the others listed
+        elif k in stencil_rows:  # phase 20's sites: the row's times at STENCIL_ROW_SITE, the others listed
             for x in stencil_report["sites"]:
                 r["max_abs_err"] = max(r["max_abs_err"], x[k]["max_abs_err"])
                 if x["cell"] == STENCIL_ROW_SITE:
@@ -2938,10 +2843,11 @@ def main() -> int:
             dev_ms = sum(x["device_ms"] for x in extra)
             n_dev = max(x["device_kernels_per_call"] for x in extra)
         count = "bridge_morphology.cluster" if k == "bridge_morphology" else k
-        base = k.split(".")[0]
-        replaces, step_path = KNOB_ROWS.get(k, (frontend.REPLACES[base], "main"))
+        entry = kernels.CATALOGUE[k.split(".")[0]]
+        step_path = KNOB_ROWS.get(k, "main")
         rows.append({
-            "name": k, "route": "cuda", "source": frontend.SOURCES[base], "replaces": replaces,
+            "name": k, "route": "cuda", "source": os.path.relpath(kernels.CSRC / entry.source, HERE),
+            "replaces": entry.counters.get(k) or entry.replaces,
             "launches": sum(c.get(count, 0) for c in by_path.values()),
             "launches_by_path": {p: c.get(count, 0) for p, c in by_path.items()},
             "graph_replays": GRAPH_REPLAYS,

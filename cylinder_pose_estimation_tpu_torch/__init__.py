@@ -8,6 +8,9 @@ module paths here mirror it:
              min/max), hand-written CUDA C++ for Hopper in ``csrc/``, each
              with a plain PyTorch version: a CUDA tensor launches the
              kernel, a CPU tensor runs the plain version.
+             ``ops/kernels.py`` catalogues, builds and launches every
+             hand-written kernel (these four, ``ops/stencils``,
+             ``ops/linalg.solve_spd``).
   geometry/  transforms, correspondence, triangulation, cylinder fit,
              pan/tilt kinematics, multi-frame registration.
   models/    the detector (kernel and XLA branches, cylinder and plane

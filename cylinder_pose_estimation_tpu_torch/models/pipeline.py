@@ -36,7 +36,7 @@ from cylinder_pose_estimation_tpu_torch.config import DetectConfig, FitConfig, R
 from cylinder_pose_estimation_tpu_torch.geometry.registration import fit_cylinders_with_angles
 from cylinder_pose_estimation_tpu_torch.models.detector import detect_grid
 from cylinder_pose_estimation_tpu_torch.models.pose import fit_single_cylinder
-from cylinder_pose_estimation_tpu_torch.ops import frontend
+from cylinder_pose_estimation_tpu_torch.ops import kernels
 from cylinder_pose_estimation_tpu_torch.ops.clahe import preprocess_stereo
 from cylinder_pose_estimation_tpu_torch.ops.linalg import exact_float32
 from cylinder_pose_estimation_tpu_torch.types import (
@@ -221,7 +221,7 @@ class _GraphStep:
     memory meanwhile.  A capture that meets a host synchronisation raises.
 
     ``self.launches``: the kernel wrappers' calls the capture recorded
-    (``ops.frontend.launch_counts``); each replay runs those kernels again
+    (``ops.kernels.launch_counts``); each replay runs those kernels again
     without the wrappers, so it adds them to the counters
     ``graph.replayed.<kernel>``.
 
@@ -244,13 +244,13 @@ class _GraphStep:
             fn(*self.inputs)
         torch.cuda.current_stream(dev).wait_stream(side)
         self.graph = torch.cuda.CUDAGraph()
-        before = frontend.launch_counts()
+        before = kernels.launch_counts()
         with profiling.graph_stages() as self.stages:
             with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
                 first = profiling.device_event(self.inputs[0])
                 self.outputs = fn(*self.inputs)
                 self.window = (first, profiling.device_event(self.inputs[0]))
-        after = frontend.launch_counts()
+        after = kernels.launch_counts()
         self.launches = {k: after[k] - before[k] for k in after if after[k] > before[k]}
         for k, n in self.launches.items():
             profiling.count(f"graph.captured.{k}", n)
@@ -270,12 +270,12 @@ class _GraphStep:
         return self.outputs
 
 
-# Kernel launches seen by the compiled steps, per kernel counter of
-# ops.frontend, in the registry of utils/profiling: the wrapper calls their
+# Kernel launches seen by the compiled steps, per launch counter of
+# ops.kernels, in the registry of utils/profiling: the wrapper calls their
 # captures recorded (``graph.captured.<kernel>``; a capture runs no kernel)
 # and those their replays ran (``graph.replayed.<kernel>``; no wrapper is
 # called), and the replays (``step.replay``).  The kernels a process ran on
-# the card are then frontend.launch_counts() - captured + replayed.
+# the card are then kernels.launch_counts() - captured + replayed.
 
 
 def graph_launch_counts() -> dict:

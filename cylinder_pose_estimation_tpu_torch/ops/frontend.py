@@ -10,21 +10,9 @@ PyTorch version (port of the JAX package's ops/pallas/frontend.py).
 Each wrapper takes (N, H, W) batches.  A CPU tensor runs the plain version
 (``*_plain``), which mirrors the Pallas algorithm step for step with
 ``torch.roll`` and the same doubling order; a CUDA tensor launches the
-hand-written CUDA kernel from ``csrc/`` (built at first use, see
-``ops/kernels.py``) and raises if it cannot.  Nothing falls back.
-
-``launch_counts()`` holds, per kernel, the number of wrapper calls that
-launched the CUDA kernel (plain runs do not count), the bridge's calls
-per route (``bridge_morphology.cluster``, ``.split``, ``.global``), the
-smoothing launches of the preprocess kernel (``preprocess_binarize.smoothing``),
-the CC family's calls on its large-frame (band) route
-(``connected_components.band``, ``component_payload_minmax.band``), the
-CC calls with a capped scan, all on the band route
-(``connected_components.capped.band``), the fit tail's CUDA SPD solves
-(``solve_spd``, ``ops/linalg.solve_spd``) and the front stage's banded
-correlations (``stencil_smooth``, ``stencil_stats``, ``ops/stencils``): a
-view of the counters
-``kernel.<name>`` of ``utils/profiling``'s registry.
+hand-written CUDA kernel from ``csrc/`` (built at first use; its catalogue
+entry, route, input checks and launch counters are in ``ops/kernels.py``)
+and raises if it cannot.  Nothing falls back.
 """
 
 from __future__ import annotations
@@ -35,69 +23,10 @@ from typing import Dict, Tuple
 import torch
 
 from cylinder_pose_estimation_tpu_torch.ops import kernels, mxu_conv
+# The benchmark's site recorder reads the launch counts here.
+from cylinder_pose_estimation_tpu_torch.ops.kernels import launch_counts
 from cylinder_pose_estimation_tpu_torch.ops.labeling import peak_key_shift
 from cylinder_pose_estimation_tpu_torch.ops.morphology import shift2d
-from cylinder_pose_estimation_tpu_torch.utils import profiling
-
-# The kernel wrappers' launch counters, ``kernel.<name>`` in the registry
-# of ``utils/profiling``.
-KERNEL_COUNTERS = (
-    "preprocess_binarize",
-    "connected_components",
-    "bridge_morphology",
-    "component_payload_minmax",
-    # The bridge's calls by route (``bridge_plan``); they add up to
-    # "bridge_morphology".
-    "bridge_morphology.cluster",
-    "bridge_morphology.split",
-    "bridge_morphology.global",
-    # The branches inside two of them: the preprocess kernel's own smoothing
-    # (``pre_smoothed=False``), and the CC kernel's capped scans
-    # (``cap_axis``/``cap``), which take the large-frame (band) route.
-    "preprocess_binarize.smoothing",
-    "connected_components.capped.band",
-    # The fit tail's small SPD solves (``ops/linalg.solve_spd``).
-    "solve_spd",
-    # The CC family's calls on the large-frame (band) route of ``cc_plan``,
-    # capped or not; the rest of their calls take the cluster route.
-    "connected_components.band",
-    "component_payload_minmax.band",
-    # The kernel branch's banded correlations around the preprocess kernel
-    # (``ops/stencils``): the smoothing before it, the statistic images
-    # after it.
-    "stencil_smooth",
-    "stencil_stats",
-)
-
-
-def launch_counts() -> Dict[str, int]:
-    counts = profiling.counters("kernel.")
-    return {k: counts.get(f"kernel.{k}", 0) for k in KERNEL_COUNTERS}
-
-
-def reset_launch_counts() -> None:
-    profiling.reset_counters("kernel.")
-
-
-def _route(x: torch.Tensor) -> bool:
-    """True: launch the CUDA kernel; False: run the plain version."""
-    if x.device.type == "cuda":
-        return True
-    if x.device.type == "cpu":
-        return False
-    raise ValueError(f"no kernel for device {x.device}")
-
-
-def _check(name: str, t: torch.Tensor, dtype: torch.dtype, ndim: int) -> None:
-    if t.device.type != "cuda":
-        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
-    if t.dtype != dtype:
-        raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
-    if t.dim() != ndim:
-        raise ValueError(f"{name}: expected {ndim} dims, got shape {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: expected a contiguous tensor")
-
 
 # --------------------------------------------------------------------------
 # Shared plain helpers (torch.roll has jnp.roll's semantics: out[i] = x[i-s]).
@@ -366,9 +295,9 @@ def wrapped_smoothing(gray: torch.Tensor, blur_ksize: int = 5, ridge_sigma: floa
     images (see ``wrapped_smoothing_plain``): on the card one launch
     (``smoothing_plan``) into a new plane, counted as
     ``preprocess_binarize.smoothing``."""
-    if not _route(gray):
+    if not kernels.route(gray):
         return wrapped_smoothing_plain(gray, blur_ksize, ridge_sigma)
-    _check("gray", gray, torch.float32, 3)
+    kernels.check("gray", gray, torch.float32, 3)
     taps = smoothing_taps(blur_ksize, ridge_sigma)
     n, h, w = gray.shape
     plan = smoothing_plan(n, h, w, tuple(len(k) // 2 for k in taps))
@@ -378,7 +307,7 @@ def wrapped_smoothing(gray: torch.Tensor, blur_ksize: int = 5, ridge_sigma: floa
     host_taps = torch.tensor([t for k in taps for t in k], dtype=torch.float32)
     kernels.launch("cpe_smooth_wrapped", [gray, out, host_taps], [n, h, w, *plan["smooth"], *plan["tile"], plan["smem"]],
                    [])
-    profiling.count("kernel.preprocess_binarize.smoothing")
+    kernels.count("preprocess_binarize.smoothing")
     return out
 
 
@@ -411,9 +340,9 @@ def preprocess_binarize(
     if margin < reach:
         raise ValueError(f"margin {margin} is below the stencil reach {reach}: the kernel's zero "
                          "halo and the plain version's wrap-around would differ")
-    if not _route(gray):
+    if not kernels.route(gray):
         return preprocess_binarize_plain(gray, **args)
-    _check("gray", gray, torch.float32, 3)
+    kernels.check("gray", gray, torch.float32, 3)
     n, h, w = gray.shape
     plan = preprocess_plan(n, h, w, sauvola_window, line_len, joint_window, joint_peak_iters)
     smoothed = gray if pre_smoothed else wrapped_smoothing(gray, blur_ksize, ridge_sigma)
@@ -427,7 +356,7 @@ def preprocess_binarize(
          *plan["tile"], plan["smem_a"], plan["smem_b"]],
         [sauvola_k, sauvola_r, min_contrast],
     )
-    profiling.count("kernel.preprocess_binarize")
+    kernels.count("preprocess_binarize")
     return tuple(outs)
 
 
@@ -638,21 +567,21 @@ def connected_components(
     round schedule (see ``connected_components_plain``), the scan along
     ``cap_axis`` capped by ``cap`` > 0."""
     _check_cap(cap_axis, cap)
-    if not _route(mask):
+    if not kernels.route(mask):
         return connected_components_plain(mask, rounds, pools_per_round, init_labels, cap_axis, cap)
     mask = mask.to(torch.float32).contiguous()
-    _check("mask", mask, torch.float32, 3)
+    kernels.check("mask", mask, torch.float32, 3)
     n, h, w = mask.shape
     if init_labels is not None:
         init_labels = init_labels.to(torch.int32).contiguous()
-        _check("init_labels", init_labels, torch.int32, 3)
+        kernels.check("init_labels", init_labels, torch.int32, 3)
         if init_labels.shape != mask.shape:
             raise ValueError("init_labels must have the mask's shape")
     plan = cc_plan(n, h, w, pools_per_round=pools_per_round, cap_axis=cap_axis, cap=cap)
     out = torch.empty(mask.shape, dtype=torch.int32, device=mask.device)
     if plan.get("route") == "global":
         _cc_global("cpe_connected_components_global", mask, init_labels, [out], rounds, pools_per_round, plan)
-        profiling.count("kernel.connected_components.band")
+        kernels.count("connected_components.band")
     else:
         kernels.launch(
             "cpe_connected_components",
@@ -660,9 +589,9 @@ def connected_components(
             [n, h, w, rounds, pools_per_round, plan["cluster"], plan["rows_per_cta"], plan["smem"]],
             [],
         )
-    profiling.count("kernel.connected_components")
+    kernels.count("connected_components")
     if "cap_axis" in plan:
-        profiling.count("kernel.connected_components.capped.band")
+        kernels.count("connected_components.capped.band")
     return out
 
 
@@ -737,12 +666,12 @@ def component_payload_minmax(
     The payload has the mask's shape; values must lie in [0, H*W) (not
     checked: that would cost a host sync).  On the card: the CC kernel with
     two channels, one launch (or its global route, ``cc_plan``)."""
-    if not _route(mask):
+    if not kernels.route(mask):
         return component_payload_minmax_plain(mask, payload, rounds, pools_per_round)
     mask = mask.to(torch.float32).contiguous()
     payload = payload.to(torch.int32).contiguous()
-    _check("mask", mask, torch.float32, 3)
-    _check("payload", payload, torch.int32, 3)
+    kernels.check("mask", mask, torch.float32, 3)
+    kernels.check("payload", payload, torch.int32, 3)
     if payload.shape != mask.shape:
         raise ValueError("payload must have the mask's shape")
     n, h, w = mask.shape
@@ -752,7 +681,6 @@ def component_payload_minmax(
     if plan.get("route") == "global":
         _cc_global("cpe_component_payload_minmax_global", mask, payload, [pmin, pmax], rounds, pools_per_round,
                    plan)
-        profiling.count("kernel.component_payload_minmax.band")
     else:
         kernels.launch(
             "cpe_component_payload_minmax",
@@ -760,7 +688,7 @@ def component_payload_minmax(
             [n, h, w, rounds, pools_per_round, plan["cluster"], plan["rows_per_cta"], plan["smem"]],
             [],
         )
-    profiling.count("kernel.component_payload_minmax")
+    kernels.count("component_payload_minmax")
     return pmin, pmax
 
 
@@ -998,7 +926,7 @@ def bridge_morphology(
     global route, one launch per pass.  A route whose launch fails raises;
     none falls back to another."""
     n = masks.shape[0]
-    if not _route(masks):
+    if not kernels.route(masks):
         if schedule_out is not None:
             ray, line = bridge_schedule(angles, kernel_len, probe_len, max_kernel)
             schedule_out.copy_(torch.cat([ray.reshape(n, -1), line.reshape(n, -1)], 1))
@@ -1009,25 +937,25 @@ def bridge_morphology(
         exp_imgs = exp_imgs.to(masks.dtype)
     masks = masks.contiguous()
     exp_imgs = exp_imgs.contiguous()
-    _check("masks", masks, masks.dtype, 3)
-    _check("exp_imgs", exp_imgs, masks.dtype, 3)
+    kernels.check("masks", masks, masks.dtype, 3)
+    kernels.check("exp_imgs", exp_imgs, masks.dtype, 3)
     if exp_imgs.shape != masks.shape:
         raise ValueError("exp_imgs must have the masks' shape")
     _, h, w = masks.shape
     angles = angles.to(torch.float32).contiguous()
-    _check("angles", angles, torch.float32, 1)
+    kernels.check("angles", angles, torch.float32, 1)
     if angles.shape != (n,):
         raise ValueError(f"angles must be ({n},), got {tuple(angles.shape)}")
     klen, group = _lengths_per_mask(kernel_len, n)
     klen = klen.contiguous()
-    _check("kernel_len", klen, torch.float32, 1)
+    kernels.check("kernel_len", klen, torch.float32, 1)
     if not 1 <= probe_len <= 64:
         raise ValueError("probe_len must lie in [1, 64]")
     half = max(max_kernel // 2, 1)
     if half > 1 << 20:
         raise ValueError(f"max_kernel {max_kernel} is beyond the kernel's 2**21")
     if schedule_out is not None:
-        _check("schedule_out", schedule_out, torch.int32, 2)
+        kernels.check("schedule_out", schedule_out, torch.int32, 2)
         if schedule_out.shape != (n, bridge_schedule_size(probe_len, max_kernel)):
             raise ValueError(f"schedule_out must be ({n}, {bridge_schedule_size(probe_len, max_kernel)})")
     plan = bridge_plan(n, h, w)
@@ -1049,57 +977,18 @@ def bridge_morphology(
              plan["rows_per_cta"], plan["smem"]],
             [],
         )
-    profiling.count("kernel.bridge_morphology")
-    profiling.count(f"kernel.bridge_morphology.{route}")
+    kernels.count("bridge_morphology")
+    kernels.count(f"bridge_morphology.{route}")
     return out
-
-
-# Where each kernel's TPU original lives (file:line of its pallas_call's
-# function; for the SPD solve and the stencils, which replace no Pallas
-# kernel, the JAX code they compute: the solve, the banded MXU matmuls of
-# the smoothing and of the statistic images), for reports.
-REPLACES = {
-    "preprocess_binarize": "cylinder_pose_estimation_tpu/ops/pallas/frontend.py:286",
-    "connected_components": "cylinder_pose_estimation_tpu/ops/pallas/frontend.py:761",
-    "bridge_morphology": "cylinder_pose_estimation_tpu/ops/pallas/frontend.py:475",
-    "component_payload_minmax": "cylinder_pose_estimation_tpu/ops/pallas/frontend.py:711",
-    "solve_spd": "cylinder_pose_estimation_tpu/ops/linalg.py:113",
-    "stencil_smooth": "cylinder_pose_estimation_tpu/models/detector.py:1293",
-    "stencil_stats": "cylinder_pose_estimation_tpu/models/detector.py:252",
-}
-SOURCES = {
-    "preprocess_binarize": "cylinder_pose_estimation_tpu_torch/csrc/preprocess.cu",
-    "connected_components": "cylinder_pose_estimation_tpu_torch/csrc/connected_components.cu",
-    "bridge_morphology": "cylinder_pose_estimation_tpu_torch/csrc/bridge.cu",
-    "component_payload_minmax": "cylinder_pose_estimation_tpu_torch/csrc/connected_components.cu",
-    "solve_spd": "cylinder_pose_estimation_tpu_torch/csrc/linalg.cu",
-    "stencil_smooth": "cylinder_pose_estimation_tpu_torch/csrc/stencils.cu",
-    "stencil_stats": "cylinder_pose_estimation_tpu_torch/csrc/stencils.cu",
-}
-
-
-def min_bytes(name: str, n: int, h: int, w: int, warm: bool = False, itemsize: int = 4) -> int:
-    """The bytes kernel ``name`` must move for an (n, h, w) call: each input
-    plane read once and each output plane written once, ``itemsize`` bytes
-    per element (1: the bridge's bool interface).  The bridge's per-mask
-    angles and kernel lengths (8 B a mask) are left out.  ``warm``: the CC
-    call reads a warm-start label plane too."""
-    planes = {
-        "preprocess_binarize": 1 + 6,               # smoothed -> six planes
-        "connected_components": 2 + int(warm),      # mask (+ init) -> labels
-        "bridge_morphology": 3,                     # masks, exps -> bridged
-        "component_payload_minmax": 4,              # mask, payload -> min, max
-    }[name]
-    return itemsize * planes * n * h * w
 
 
 __all__ = [
     "preprocess_binarize", "preprocess_binarize_plain", "preprocess_plan", "preprocess_reach",
     "smoothing_taps", "smoothing_plan", "wrapped_smoothing", "wrapped_smoothing_plain",
     "connected_components", "connected_components_plain", "cc_plan", "cap_reach",
-    "cc_global_launches", "min_bytes",
+    "cc_global_launches",
     "bridge_morphology", "bridge_morphology_plain", "bridge_schedule", "bridge_schedule_size",
     "bridge_plan", "bridge_split_smem", "bridge_global_launches",
     "component_payload_minmax", "component_payload_minmax_plain",
-    "launch_counts", "reset_launch_counts", "REPLACES", "SOURCES",
+    "launch_counts",
 ]

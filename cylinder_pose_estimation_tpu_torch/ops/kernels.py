@@ -1,4 +1,9 @@
-"""Build and bind the CUDA kernels in ``csrc/``.
+"""The one seam between Python and the CUDA kernels in ``csrc/``: their
+catalogue, build, launch, device route, input checks and launch counters.
+
+``CATALOGUE`` holds one entry per hand-written kernel: its C entry points
+with their signatures, its launch counters, its source, the JAX code it
+stands for and the planes it must move.  A new kernel is registered here.
 
 The ``.cu`` sources have a plain C interface (one entry function per kernel,
 returning a ``cudaError_t``).  At first use ``nvcc`` compiles them, one
@@ -6,11 +11,14 @@ process per source, all at once, for ``sm_90a`` with ``--fmad=false`` (the
 kernels must reproduce the reference's float association exactly, with no
 multiply-add contraction), and links them into one shared library under
 ``cylinder_pose_estimation_tpu_torch/_build/``, named by a digest of the
-sources and flags; ``ctypes`` loads it.  A C interface keeps
-PyTorch's headers out of the compile, which is what keeps the build at
-seconds: the wrappers in ``ops/frontend.py`` do the device, dtype, shape and
-contiguity checks, pass pointers and the current CUDA stream, and raise on a
-non-zero return.  Nothing here is imported or built until a kernel runs.
+sources and flags; ``ctypes`` binds every entry point of the catalogue.  A
+C interface keeps PyTorch's headers out of the compile, which is what keeps
+the build at seconds.  The wrappers (``ops/frontend``, ``ops/stencils``,
+``ops/linalg.solve_spd``) take their device route from ``route`` (a CPU
+tensor runs the plain version, a CUDA tensor launches the kernel), check
+their inputs with ``check``, pass pointers and the current CUDA stream
+through ``launch``, which raises on a non-zero return, and count each
+launching call with ``count``.  Nothing here is built until a kernel runs.
 """
 
 from __future__ import annotations
@@ -21,9 +29,11 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Optional, Sequence
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
+
+from cylinder_pose_estimation_tpu_torch.utils import profiling
 
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
@@ -40,22 +50,76 @@ NVCC_FLAGS = [
 ]
 # Opt-in dynamic shared memory a block may use on Hopper (232,448 bytes).
 MAX_DYNAMIC_SMEM = 232448
-# C entry points: (tensor pointers, ints, floats), then the CUDA stream.
-SIGNATURES = {
-    "cpe_smooth_wrapped": (3, 8, 0),
-    "cpe_preprocess_binarize": (8, 13, 3),
-    "cpe_connected_components": (3, 8, 0),
-    "cpe_bridge_morphology": (6, 10, 0),
-    "cpe_component_payload_minmax": (4, 8, 0),
-    "cpe_connected_components_global": (4, 11, 0),
-    "cpe_component_payload_minmax_global": (5, 11, 0),
-    "cpe_bridge_morphology_global": (7, 7, 0),
-    "cpe_bridge_morphology_split": (6, 10, 0),
-    "cpe_solve_spd_factor": (4, 3, 0),
-    "cpe_solve_spd_refine": (4, 3, 0),
-    "cpe_stencil_smooth": (3, 7, 0),
-    "cpe_stencil_stats": (10, 10, 1),
+
+
+class Kernel(NamedTuple):
+    """A hand-written kernel.  ``source``: its file under ``csrc/``;
+    ``replaces``: the JAX code it stands for; ``wrapper``: the function of
+    ``ops/`` that launches it.  ``entries``: its C entry points, each with
+    (tensor pointers, ints, floats) before the CUDA stream.  ``counters``:
+    its route and branch counters (its own counter is its name), each with
+    the JAX code of the branch it counts (None: a route of the kernel's own
+    code).  ``planes``: the ``itemsize``-wide planes an (n, h, w) call must
+    move (None: it moves no such planes), ``byte_planes`` the one-byte
+    ones; ``optional_plane``: the ``min_bytes`` flag that adds one more."""
+
+    source: str
+    replaces: str
+    wrapper: str
+    entries: Dict[str, Tuple[int, int, int]]
+    counters: Dict[str, Optional[str]]
+    planes: Optional[int]
+    byte_planes: int = 0
+    optional_plane: Optional[str] = None
+
+
+_PALLAS = "cylinder_pose_estimation_tpu/ops/pallas/frontend.py"
+# The four TPU kernels of the JAX package (its pallas_calls' functions, and
+# the lines of the branches the counters count), the fit tail's SPD solve
+# and the front stage's banded correlations, which replace no pallas_call:
+# the JAX code they compute.
+CATALOGUE: Dict[str, Kernel] = {
+    "preprocess_binarize": Kernel(
+        "preprocess.cu", f"{_PALLAS}:286", "frontend.preprocess_binarize",
+        {"cpe_smooth_wrapped": (3, 8, 0), "cpe_preprocess_binarize": (8, 13, 3)},
+        # The kernel's own smoothing (``pre_smoothed=False``): its launches.
+        {"preprocess_binarize.smoothing": f"{_PALLAS}:183"},
+        planes=1 + 6),  # smoothed -> six planes
+    "connected_components": Kernel(
+        "connected_components.cu", f"{_PALLAS}:761", "frontend.connected_components",
+        {"cpe_connected_components": (3, 8, 0), "cpe_connected_components_global": (4, 11, 0)},
+        # Calls on the large-frame (band) route of ``cc_plan``, capped or not,
+        # and the capped scans (``cap_axis``/``cap``), which all take it.
+        {"connected_components.band": None, "connected_components.capped.band": f"{_PALLAS}:524"},
+        planes=2, optional_plane="warm"),  # mask (+ initial labels) -> labels
+    "bridge_morphology": Kernel(
+        "bridge.cu", f"{_PALLAS}:475", "frontend.bridge_morphology",
+        {"cpe_bridge_morphology": (6, 10, 0), "cpe_bridge_morphology_split": (6, 10, 0),
+         "cpe_bridge_morphology_global": (7, 7, 0)},
+        # The calls by route (``bridge_plan``); they add up to the kernel's.
+        {"bridge_morphology.cluster": None, "bridge_morphology.split": None, "bridge_morphology.global": None},
+        planes=3),  # masks, expandability -> bridged; the per-mask angle and length left out
+    "component_payload_minmax": Kernel(
+        "connected_components.cu", f"{_PALLAS}:711", "frontend.component_payload_minmax",
+        {"cpe_component_payload_minmax": (4, 8, 0), "cpe_component_payload_minmax_global": (5, 11, 0)},
+        {}, planes=4),  # mask, payload -> min, max
+    "solve_spd": Kernel(
+        "linalg.cu", "cylinder_pose_estimation_tpu/ops/linalg.py:113", "linalg.solve_spd",
+        {"cpe_solve_spd_factor": (4, 3, 0), "cpe_solve_spd_refine": (4, 3, 0)}, {}, planes=None),
+    "stencil_smooth": Kernel(
+        "stencils.cu", "cylinder_pose_estimation_tpu/models/detector.py:1293", "stencils.smooth",
+        {"cpe_stencil_smooth": (3, 7, 0)}, {}, planes=2),  # gray -> smoothed
+    "stencil_stats": Kernel(
+        "stencils.cu", "cylinder_pose_estimation_tpu/models/detector.py:252", "stencils.stats_images",
+        {"cpe_stencil_stats": (10, 10, 1)}, {},
+        # gray, joints, counts -> blur, cx, cy (+ the centre-seed image); the
+        # saturation mask one byte a pixel.
+        planes=6, byte_planes=1, optional_plane="center"),
 }
+# Every C entry point's signature, and every launch counter (``kernel.<name>``
+# in the registry of ``utils/profiling``), from the catalogue.
+ENTRIES = {e: sig for k in CATALOGUE.values() for e, sig in k.entries.items()}
+COUNTERS = tuple(c for name, k in CATALOGUE.items() for c in (name, *k.counters))
 
 _LIB: Optional[ctypes.CDLL] = None
 
@@ -114,7 +178,7 @@ def build() -> ctypes.CDLL:
             raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
         os.replace(tmp, so)
     lib = ctypes.CDLL(str(so))
-    for name, (n_ptr, n_int, n_float) in SIGNATURES.items():
+    for name, (n_ptr, n_int, n_float) in ENTRIES.items():
         fn = getattr(lib, name)
         fn.restype = ctypes.c_int
         fn.argtypes = (
@@ -137,8 +201,8 @@ def launch(
 ) -> None:
     """Call C entry ``name``(tensor pointers..., ints..., floats..., stream)
     on the current stream of the first tensor's device; raise on error."""
-    if SIGNATURES[name] != (len(tensors), len(ints), len(floats)):
-        raise TypeError(f"{name} takes {SIGNATURES[name]} (pointers, ints, floats)")
+    if ENTRIES[name] != (len(tensors), len(ints), len(floats)):
+        raise TypeError(f"{name} takes {ENTRIES[name]} (pointers, ints, floats)")
     lib = build()
     dev = next(t for t in tensors if t is not None).device
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -162,3 +226,58 @@ def bridge_split_max_clusters(elem_bytes: int, cluster: int, smem: int, device) 
     if rc != 0:
         raise RuntimeError(f"cpe_bridge_split_max_clusters: CUDA error {rc}: {lib.cpe_error_string(rc).decode()}")
     return out.value
+
+
+def route(x: torch.Tensor) -> bool:
+    """True: launch the CUDA kernel; False: run the plain version."""
+    if x.device.type == "cuda":
+        return True
+    if x.device.type == "cpu":
+        return False
+    raise ValueError(f"no kernel for device {x.device}")
+
+
+def check(name: str, t: torch.Tensor, dtype: torch.dtype, ndim: int) -> None:
+    """Raise unless ``t`` (the argument ``name``) is a contiguous CUDA
+    tensor of ``dtype`` with ``ndim`` dims."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
+    if t.dim() != ndim:
+        raise ValueError(f"{name}: expected {ndim} dims, got shape {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+def count(name: str) -> None:
+    """Count one launching call on counter ``name`` of ``COUNTERS``."""
+    if name not in COUNTERS:
+        raise KeyError(f"{name} is not a launch counter of the catalogue")
+    profiling.count(f"kernel.{name}")
+
+
+def launch_counts() -> Dict[str, int]:
+    """{counter: launching calls} of every counter of ``COUNTERS`` since
+    the last ``reset_launch_counts`` (plain runs do not count)."""
+    counts = profiling.counters("kernel.")
+    return {k: counts.get(f"kernel.{k}", 0) for k in COUNTERS}
+
+
+def reset_launch_counts() -> None:
+    profiling.reset_counters("kernel.")
+
+
+def min_bytes(name: str, n: int, h: int, w: int, *, warm: bool = False, itemsize: int = 4,
+              center: bool = False) -> int:
+    """The bytes kernel ``name`` must move for an (n, h, w) call: each input
+    plane read once and each output plane written once, ``itemsize`` bytes
+    a pixel (1: the bridge's bool interface), one-byte planes at one.
+    ``warm``: the CC call reads initial labels too; ``center``: the
+    statistic images with the centre-seed image.  Raises ``KeyError`` for a
+    name the catalogue does not hold."""
+    k = CATALOGUE[name]
+    if k.planes is None:
+        raise ValueError(f"{name} moves no (n, h, w) planes")
+    extra = {"warm": warm, "center": center}.get(k.optional_plane, False)
+    return (itemsize * (k.planes + int(extra)) + k.byte_planes) * n * h * w

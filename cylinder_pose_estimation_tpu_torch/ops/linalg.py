@@ -20,9 +20,8 @@ from typing import Tuple
 
 import torch
 
-from cylinder_pose_estimation_tpu_torch.ops import frontend, kernels
+from cylinder_pose_estimation_tpu_torch.ops import kernels
 from cylinder_pose_estimation_tpu_torch.ops.constants import device_constant
-from cylinder_pose_estimation_tpu_torch.utils import profiling
 
 _EPS = 1e-12
 # The largest order of system the CUDA solve (``csrc/linalg.cu``) takes.
@@ -238,7 +237,7 @@ def solve_spd(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     runs the plain version; a CUDA tensor launches ``csrc/linalg.cu`` twice
     (the factor and the first solve; the refinement) around the plain
     version's residual in PyTorch, and raises if it cannot."""
-    if not frontend._route(a):
+    if not kernels.route(a):
         return solve_spd_plain(a, b)
     p = _check_spd(a, b)
     n = a.numel() // (p * p)
@@ -249,7 +248,7 @@ def solve_spd(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     r = (b - torch.sum(a * x[..., None, :], dim=-1)).contiguous()
     out = torch.empty_like(x)
     kernels.launch("cpe_solve_spd_refine", [r, fac, x, out], [n, p, a.element_size()], [])
-    profiling.count("kernel.solve_spd")
+    kernels.count("solve_spd")
     return out
 
 

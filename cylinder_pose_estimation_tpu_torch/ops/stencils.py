@@ -13,7 +13,7 @@ taps alone: the same operand precision (float32 for the smoothing and the
 centre box, bfloat16-rounded inputs, taps and intermediates elsewhere),
 another summation order (see the source's notes), the centroid images
 equal bit for bit.  Each wrapper call on the card counts
-``kernel.stencil_smooth`` or ``kernel.stencil_stats`` (``frontend.launch_counts``).
+``stencil_smooth`` or ``stencil_stats`` (``kernels.launch_counts``).
 """
 
 from __future__ import annotations
@@ -25,8 +25,6 @@ import torch
 
 from cylinder_pose_estimation_tpu_torch.ops import kernels
 from cylinder_pose_estimation_tpu_torch.ops import mxu_conv as mxc
-from cylinder_pose_estimation_tpu_torch.ops.frontend import _check, _route
-from cylinder_pose_estimation_tpu_torch.utils import profiling
 
 # Output tiles of the two launches (csrc/stencils.cu kSmoothH x kSmoothW,
 # kStatsTile x kStatsTile), and the widest band radius they take.
@@ -142,9 +140,9 @@ def smooth(gray: torch.Tensor, blur_ksize: int = 5, ridge_sigma: float = 3.0) ->
     """``smooth_plain`` of (N, H, W) float32 grey images: on the card one
     launch (``smooth_plan``) into a new plane, zero padded, counted as
     ``stencil_smooth``."""
-    if not _route(gray):
+    if not kernels.route(gray):
         return smooth_plain(gray, blur_ksize, ridge_sigma)
-    _check("gray", gray, torch.float32, 3)
+    kernels.check("gray", gray, torch.float32, 3)
     taps = smooth_taps(blur_ksize, ridge_sigma)
     n, h, w = gray.shape
     plan = smooth_plan(n, h, w, len(taps) // 2)
@@ -154,7 +152,7 @@ def smooth(gray: torch.Tensor, blur_ksize: int = 5, ridge_sigma: float = 3.0) ->
     host_taps = torch.tensor(taps, dtype=torch.float32)
     kernels.launch("cpe_stencil_smooth", [gray, out, host_taps], [n, h, w, plan["radius"], *plan["tile"], plan["smem"]],
                    [])
-    profiling.count("kernel.stencil_smooth")
+    kernels.count("stencil_smooth")
     return out
 
 
@@ -206,18 +204,18 @@ def stats_images(gray, joints_f, cnt, sat_blur_ksize: int = 19, sat_threshold: f
     never passes it): an (N, H, W) float32 tensor that receives the
     saturation blur before its threshold, which the card tests and
     chip_smoke hold to the matmuls' blur within the bf16 pair's bound."""
-    if not _route(gray):
+    if not kernels.route(gray):
         if sat_out is not None:
             raise ValueError("sat_out: the card's route only")
         return stats_images_plain(gray, joints_f, cnt, sat_blur_ksize, sat_threshold, margin, index_blur_ksize,
                                   center_patch_half, joint_window)
     for name, t in (("gray", gray), ("joints_f", joints_f), ("cnt", cnt)):
-        _check(name, t, torch.float32, 3)
+        kernels.check(name, t, torch.float32, 3)
     if joints_f.shape != gray.shape or cnt.shape != gray.shape:
         raise ValueError(f"gray, joints_f and cnt differ in shape: {tuple(gray.shape)}, "
                          f"{tuple(joints_f.shape)}, {tuple(cnt.shape)}")
     if sat_out is not None:
-        _check("sat_out", sat_out, torch.float32, 3)
+        kernels.check("sat_out", sat_out, torch.float32, 3)
         if sat_out.shape != gray.shape:
             raise ValueError("sat_out: the images' shape")
     radii, taps = stats_taps(sat_blur_ksize, index_blur_ksize, center_patch_half, joint_window)
@@ -235,24 +233,11 @@ def stats_images(gray, joints_f, cnt, sat_blur_ksize: int = 19, sat_threshold: f
         [n, h, w, *radii, margin, plan["tile"], plan["smem"]],
         [sat_threshold],
     )
-    profiling.count("kernel.stencil_stats")
+    kernels.count("stencil_stats")
     return sat_mask, bright_center, bright_blur, cx, cy
-
-
-def min_bytes(name: str, n: int, h: int, w: int, center: bool = False) -> int:
-    """The bytes launch ``name`` must move for an (n, h, w) call: each input
-    plane read once and each output plane written once (float32; the
-    saturation mask one byte a pixel).  ``center``: the statistic images
-    with the centre-seed image (``bright_at_points=False``)."""
-    px = n * h * w
-    if name == "stencil_smooth":
-        return 8 * px                               # gray -> smoothed
-    if name == "stencil_stats":
-        return (4 * (3 + 3 + int(center)) + 1) * px  # gray, joints, cnt -> blur, cx, cy (+ centre), mask
-    raise KeyError(name)
 
 
 __all__ = [
     "SMOOTH_TILE", "STATS_TILE", "MAX_RADIUS", "smooth_taps", "stats_taps", "smooth_plan", "stats_plan",
-    "smooth", "smooth_plain", "stats_images", "stats_images_plain", "min_bytes",
+    "smooth", "smooth_plain", "stats_images", "stats_images_plain",
 ]

@@ -8,8 +8,6 @@ JAX package's utils/profiling.py, plus the port's own registry).
 * ``graph_kernels``: the CUDA kernels one call launches, counted from the
   kernel nodes of a CUDA graph captured from it, and the device ms of a
   replay of that graph by CUDA events.
-* ``alternating_ms``: two or more callables timed in alternating turns by
-  CUDA events (eager against replayed steps).
 * ``trace``: a ``torch.profiler`` session that writes a Chrome trace; the
   program's spans appear in it as ranges of the same names.
 * The registry: ``span`` (a named host interval with its parent, call and
@@ -173,29 +171,6 @@ def graph_kernels(fn: Callable, reps: int = 20, warmup: int = 3) -> Tuple[int, f
     return n_kernels, statistics.median(times)
 
 
-def alternating_ms(fns: dict, pairs: int, warmup: int = 2) -> dict:
-    """Median CUDA-event ms of each ``fn()`` of ``fns``, called in turns
-    (a, b, b, a, ...) ``pairs`` times each after ``warmup`` calls each (two
-    by default: a compiled step's first call is eager and its second
-    captures its graph, so the timed calls are replays)."""
-    names = list(fns)
-    for _ in range(warmup):
-        for n in names:
-            fns[n]()
-    torch.cuda.synchronize()
-    times = {n: [] for n in names}
-    for i in range(pairs):
-        for n in (names if i % 2 == 0 else names[::-1]):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            fns[n]()
-            end.record()
-            end.synchronize()
-            times[n].append(start.elapsed_time(end))
-    return {n: statistics.median(t) for n, t in times.items()}
-
-
 @contextlib.contextmanager
 def trace(logdir: str):
     """Profile the block (host and, where there is one, the CUDA device) and
@@ -278,7 +253,7 @@ def reset() -> None:
     """Forget every record and pending device time, and the ``sync.*``
     counters.  The launch counters (``kernel.*``, ``graph.*``,
     ``step.replay``) are cleared only by their own resets
-    (``ops.frontend.reset_launch_counts``,
+    (``ops.kernels.reset_launch_counts``,
     ``models.pipeline.reset_graph_launch_counts``)."""
     with _LOCK:
         _RECORDS.clear()

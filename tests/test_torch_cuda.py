@@ -17,7 +17,7 @@ import torch
 
 from _torch_spd import KINDS, bits, spd_systems
 from cylinder_pose_estimation_tpu_torch.ops import frontend as tf
-from cylinder_pose_estimation_tpu_torch.ops import linalg
+from cylinder_pose_estimation_tpu_torch.ops import kernels, linalg
 
 # One intra-op thread per test worker: the suite runs several workers on
 # the same cores, and oversubscribed torch thread pools spin.
@@ -53,10 +53,10 @@ def test_preprocess_kernel_equals_plain(dev, shape, iters):
     from cylinder_pose_estimation_tpu_torch.models.detector import _smooth
 
     x = _smooth(img.to(dev), CylinderDetectConfig())
-    before = tf.launch_counts()["preprocess_binarize"]
+    before = kernels.launch_counts()["preprocess_binarize"]
     kw = dict(margin=24, joint_peak_iters=iters, pre_smoothed=True)
     _equal(tf.preprocess_binarize(x, **kw), tf.preprocess_binarize_plain(x, **kw))
-    assert tf.launch_counts()["preprocess_binarize"] == before + 1
+    assert kernels.launch_counts()["preprocess_binarize"] == before + 1
 
 
 def test_preprocess_kernel_on_grid_lines(dev):
@@ -93,10 +93,10 @@ def test_cc_kernel_equals_plain(dev, rounds, pools, warm, shape):
     if warm:
         # Warm-start values up to 2 H*W: min(init, idx) must still win.
         init = torch.randint(0, 2 * shape[1] * shape[2], shape, generator=g, dtype=torch.int32).to(dev)
-    before = tf.launch_counts()["connected_components"]
+    before = kernels.launch_counts()["connected_components"]
     _equal(tf.connected_components(m, rounds, pools, init),
            tf.connected_components_plain(m, rounds, pools, init))
-    assert tf.launch_counts()["connected_components"] == before + 1
+    assert kernels.launch_counts()["connected_components"] == before + 1
 
 
 def _cluster_masks(h, w, rows_per):
@@ -190,10 +190,10 @@ def test_bridge_kernel_across_cluster_splits(dev, n, hw, dtype):
     ex = (torch.rand((n, h, w), generator=g) < 0.8).to(dtype).to(dev)
     ang = torch.tensor([SWEEP[i % len(SWEEP)] for i in range(n)], device=dev)
     kl = torch.tensor([0.0, 20.0, 124.0, 300.0], device=dev)[torch.arange(n // 2, device=dev) % 4]
-    before = tf.launch_counts()["bridge_morphology"]
+    before = kernels.launch_counts()["bridge_morphology"]
     out = tf.bridge_morphology(m, ex, ang, kl, 5, 125)
     _equal(out, tf.bridge_morphology_plain(m, ex, ang, kl, 5, 125))
-    assert out.dtype == dtype and tf.launch_counts()["bridge_morphology"] == before + 1
+    assert out.dtype == dtype and kernels.launch_counts()["bridge_morphology"] == before + 1
 
 
 @pytest.mark.parametrize("kernel_len", [0.0, 20.0, 124.0, 300.0])
@@ -260,10 +260,10 @@ def test_payload_kernel_across_cluster_splits(dev, rounds, pools, hw):
     g = torch.Generator().manual_seed(rounds * 10 + pools + h + w)
     pay = torch.stack([torch.randperm(h * w, generator=g) for _ in range(3)]).reshape(3, h, w)
     pay = pay.to(torch.int32).to(dev)
-    before = tf.launch_counts()["component_payload_minmax"]
+    before = kernels.launch_counts()["component_payload_minmax"]
     lo, hi = tf.component_payload_minmax(m, pay, rounds, pools)
     _equal((lo, hi), tf.component_payload_minmax_plain(m, pay, rounds, pools))
-    assert tf.launch_counts()["component_payload_minmax"] == before + 1
+    assert kernels.launch_counts()["component_payload_minmax"] == before + 1
     if rounds == 2:  # the serpentine is still unconverged
         on = m[1] > 0.5
         assert int(lo[1][on].max()) != int(lo[1][on].min())
@@ -277,10 +277,10 @@ def test_payload_minmax_kernel_equals_plain(dev, rounds, pools, shape):
     m = (torch.rand(shape, generator=g) < 0.45).to(torch.float32).to(dev)
     pay = torch.stack([torch.randperm(h * w, generator=g) for _ in range(n)])
     pay = pay.reshape(shape).to(torch.int32).to(dev)
-    before = tf.launch_counts()["component_payload_minmax"]
+    before = kernels.launch_counts()["component_payload_minmax"]
     _equal(tf.component_payload_minmax(m, pay, rounds, pools),
            tf.component_payload_minmax_plain(m, pay, rounds, pools))
-    assert tf.launch_counts()["component_payload_minmax"] == before + 1
+    assert kernels.launch_counts()["component_payload_minmax"] == before + 1
 
 
 def test_wrappers_check_inputs(dev):
@@ -362,7 +362,7 @@ def test_cc_global_route_equals_plain(dev, hw, channels):
     n = m.shape[0]
     key = "connected_components" if channels == 1 else "component_payload_minmax"
     for rounds, pools in ((2, 2), (2, 4), (3, 1), (1, 0)):
-        before = tf.launch_counts()[key]
+        before = kernels.launch_counts()[key]
         if channels == 1:
             init = torch.randint(0, 2 * h * w, m.shape, generator=g, dtype=torch.int32).to(dev)
             for start in (None, init):
@@ -375,7 +375,7 @@ def test_cc_global_route_equals_plain(dev, hw, channels):
             _equal(tf.component_payload_minmax(m, pay, rounds, pools),
                    tf.component_payload_minmax_plain(m, pay, rounds, pools))
             calls = 1
-        assert tf.launch_counts()[key] == before + calls
+        assert kernels.launch_counts()[key] == before + calls
 
 
 def _band_masks(n, h, w, band_rows, seed):
@@ -446,9 +446,9 @@ def test_cc_band_route_equals_plain(dev, shape, channels):
             calls = [functools.partial(tf.component_payload_minmax, m, pay, rounds, pools)]
             plains = [functools.partial(tf.component_payload_minmax_plain, m, pay, rounds, pools)]
         for call, plain in zip(calls, plains):
-            before = tf.launch_counts()[key]
+            before = kernels.launch_counts()[key]
             _equal(call(), plain())
-            assert tf.launch_counts()[key] == before + 1
+            assert kernels.launch_counts()[key] == before + 1
         timed.append(calls[0])
         want.append(tf.cc_global_launches(rounds, pools, plan["fused"]))
         if rounds == 2 and n > 1 and channels == 1:  # the serpentine is still unconverged
@@ -499,10 +499,10 @@ def _bridge_route_call(dev, m, ex, ang, kl, probe_len, max_kernel, route):
     and for the route."""
     n = m.shape[0]
     sched = torch.zeros((n, tf.bridge_schedule_size(probe_len, max_kernel)), dtype=torch.int32, device=dev)
-    before = tf.launch_counts()
+    before = kernels.launch_counts()
     out = tf.bridge_morphology(m, ex, ang, kl, probe_len, max_kernel, schedule_out=sched)
     _equal(out, tf.bridge_morphology_plain(m, ex, ang, kl, probe_len, max_kernel))
-    after = tf.launch_counts()
+    after = kernels.launch_counts()
     assert out.dtype == m.dtype
     for key in ("bridge_morphology", f"bridge_morphology.{route}"):
         assert after[key] == before[key] + 1
@@ -591,8 +591,6 @@ def test_bridge_split_plans_fit_the_card(dev):
     480x640 at B=16 and of 720x1280 and 1080x1920 at B=2) can launch: the
     card holds at least one cluster at its shared memory
     (cudaOccupancyMaxActiveClusters), for both pixel sizes."""
-    from cylinder_pose_estimation_tpu_torch.ops import kernels
-
     shapes = [(n, *hw) for n in (8, 64) for hw in LARGE_CANVASES[3:]]
     shapes += [(64, 480, 640), (16, 480, 640), (8, 720, 1280), (8, 1080, 1920)]
     for shape in shapes:
@@ -660,10 +658,10 @@ def test_preprocess_in_kernel_smoothing_equals_plain(dev, shape):
     reads wrapped around the image (heights and widths under the halo of
     23 px included), and equals the plain version's rolls on every plane."""
     x = _grey_grid(*shape, seed=sum(shape)).to(dev)
-    before = tf.launch_counts()
+    before = kernels.launch_counts()
     kw = dict(margin=24, joint_peak_iters=8)
     _equal(tf.preprocess_binarize(x, **kw), tf.preprocess_binarize_plain(x, **kw))
-    after = tf.launch_counts()
+    after = kernels.launch_counts()
     assert after["preprocess_binarize"] == before["preprocess_binarize"] + 1
     assert after["preprocess_binarize.smoothing"] == before["preprocess_binarize.smoothing"] + 1
 
@@ -686,9 +684,9 @@ def test_smoothing_kernel_equals_four_rolls(dev, shape, blur_ksize, ridge_sigma)
     k5, k25 = tf.smoothing_taps(blur_ksize, ridge_sigma)
     want = tf._sep_conv_roll(tf._sep_conv_roll(x, k5, 2), k5, 1)
     want = tf._sep_conv_roll(tf._sep_conv_roll(want, k25, 2), k25, 1)
-    before = tf.launch_counts()
+    before = kernels.launch_counts()
     _equal(tf.wrapped_smoothing(x, blur_ksize, ridge_sigma), want)
-    after = tf.launch_counts()
+    after = kernels.launch_counts()
     assert after["preprocess_binarize.smoothing"] == before["preprocess_binarize.smoothing"] + 1
     assert after["preprocess_binarize"] == before["preprocess_binarize"]
 
@@ -768,9 +766,9 @@ def test_stencil_smooth_equals_plain_within_bound(dev, shape, kw):
     from cylinder_pose_estimation_tpu_torch.ops import stencils
 
     x = _grey_grid(*shape, seed=sum(shape)).to(dev)
-    before = tf.launch_counts()["stencil_smooth"]
+    before = kernels.launch_counts()["stencil_smooth"]
     got = stencils.smooth(x, **kw)
-    assert tf.launch_counts()["stencil_smooth"] == before + 1
+    assert kernels.launch_counts()["stencil_smooth"] == before + 1
     want = stencils.smooth_plain(x, **kw)
     torch.cuda.synchronize()
     bound = _two_pass_bound(x, stencils.smooth_taps(**kw))
@@ -806,9 +804,9 @@ def test_stencil_stats_equals_plain(dev, shape, case):
     gray_f, gray_i, joints, cnt = _stencil_inputs(shape, h + w, dev)
     for gray, integer in ((gray_f, False), (gray_i, True)):
         sat = torch.empty_like(gray)
-        before = tf.launch_counts()["stencil_stats"]
+        before = kernels.launch_counts()["stencil_stats"]
         got = stencils.stats_images(gray, joints, cnt, sat_out=sat, **kw)
-        assert tf.launch_counts()["stencil_stats"] == before + 1
+        assert kernels.launch_counts()["stencil_stats"] == before + 1
         want = stencils.stats_images_plain(gray, joints, cnt, **kw)
         torch.cuda.synchronize()
         assert torch.equal(got[3], want[3]) and torch.equal(got[4], want[4])
@@ -956,10 +954,10 @@ def test_cc_capped_at_cluster_route_shapes_equals_plain(dev, hw, cap_axis, cap):
     init = torch.randint(0, 2 * h * w, m.shape, generator=g, dtype=torch.int32).to(dev)
     for rounds, pools in ((1, 2), (2, 2), (3, 1), (24, 2)):
         for start in (None, init):
-            before = tf.launch_counts()["connected_components.capped.band"]
+            before = kernels.launch_counts()["connected_components.capped.band"]
             _equal(tf.connected_components(m, rounds, pools, start, cap_axis=cap_axis, cap=cap),
                    tf.connected_components_plain(m, rounds, pools, start, cap_axis=cap_axis, cap=cap))
-            assert tf.launch_counts()["connected_components.capped.band"] == before + 1
+            assert kernels.launch_counts()["connected_components.capped.band"] == before + 1
 
 
 @pytest.mark.parametrize("cap", [1, 3, 16])
@@ -977,10 +975,10 @@ def test_cc_capped_band_route_equals_plain(dev, shape, pools, cap_axis, cap):
     init = torch.randint(0, 2 * h * w, m.shape, generator=g, dtype=torch.int32).to(dev)
     for rounds in (1, 2, 3):
         for start in (None, init):
-            before = tf.launch_counts()["connected_components.capped.band"]
+            before = kernels.launch_counts()["connected_components.capped.band"]
             _equal(tf.connected_components(m, rounds, pools, start, cap_axis=cap_axis, cap=cap),
                    tf.connected_components_plain(m, rounds, pools, start, cap_axis=cap_axis, cap=cap))
-            assert tf.launch_counts()["connected_components.capped.band"] == before + 1
+            assert kernels.launch_counts()["connected_components.capped.band"] == before + 1
 
 
 # Capped calls at shapes a cluster holds, reach past the band rows at cap 64
@@ -1030,10 +1028,10 @@ def test_cc_capped_band_route_reach_past_the_strip(dev, shape, pools, cap_axis, 
     init = torch.randint(0, 2 * h * w, m.shape, generator=g, dtype=torch.int32).to(dev)
     for rounds in (1, 2, 3):
         for start in (None, init):
-            before = tf.launch_counts()["connected_components.capped.band"]
+            before = kernels.launch_counts()["connected_components.capped.band"]
             _equal(tf.connected_components(m, rounds, pools, start, cap_axis=cap_axis, cap=cap),
                    tf.connected_components_plain(m, rounds, pools, start, cap_axis=cap_axis, cap=cap))
-            assert tf.launch_counts()["connected_components.capped.band"] == before + 1
+            assert kernels.launch_counts()["connected_components.capped.band"] == before + 1
 
 
 def test_cc_capped_band_route_device_kernels(dev):
@@ -1328,9 +1326,9 @@ _DTYPES = {"f32": torch.float32, "f64": torch.float64}
 def _solve_equal(a, b):
     """solve_spd on CUDA tensors launches the kernel once and equals
     solve_spd_plain on the same tensors bit for bit (NaN and inf rows too)."""
-    before = tf.launch_counts()["solve_spd"]
+    before = kernels.launch_counts()["solve_spd"]
     got = linalg.solve_spd(a, b)
-    assert tf.launch_counts()["solve_spd"] == before + 1
+    assert kernels.launch_counts()["solve_spd"] == before + 1
     want = linalg.solve_spd_plain(a, b)
     torch.cuda.synchronize()
     assert got.shape == want.shape == b.shape and got.dtype == want.dtype
@@ -1402,10 +1400,10 @@ def test_solve_spd_wrapper_refuses(dev, case):
         "lead_shapes_differ": (a, torch.ones(3, 6, device=dev)),
         "mixed_dtypes": (a, b.double()),
     }[case]
-    before = tf.launch_counts()["solve_spd"]
+    before = kernels.launch_counts()["solve_spd"]
     with pytest.raises(ValueError, match="solve_spd"):
         linalg.solve_spd(a, b)
-    assert tf.launch_counts()["solve_spd"] == before
+    assert kernels.launch_counts()["solve_spd"] == before
 
 
 def _plain_solves(monkeypatch):
@@ -1430,12 +1428,12 @@ def test_solve_spd_kernel_in_the_batch_step(dev, monkeypatch):
     stereo = stereo_from_numpy(*st, device=dev)
     cfg = CylinderDetectConfig(height=480, width=640, use_pallas=True)
     a, b = torch.as_tensor(i1, device=dev), torch.as_tensor(i2, device=dev)
-    before = tf.launch_counts()["solve_spd"]
+    before = kernels.launch_counts()["solve_spd"]
     got = pipeline.estimate_poses_batch(a, b, stereo, cfg, FitConfig())
-    assert tf.launch_counts()["solve_spd"] == before + 22
+    assert kernels.launch_counts()["solve_spd"] == before + 22
     _plain_solves(monkeypatch)
     _leaves_equal(got, pipeline.estimate_poses_batch(a, b, stereo, cfg, FitConfig()))
-    assert tf.launch_counts()["solve_spd"] == before + 22
+    assert kernels.launch_counts()["solve_spd"] == before + 22
 
 
 def test_solve_spd_kernel_in_the_registration(dev, monkeypatch):
@@ -1460,9 +1458,9 @@ def test_solve_spd_kernel_in_the_registration(dev, monkeypatch):
         return fit_cylinders_with_angles(batch.fit.points3, batch.fit.points_valid, angles, reg_cfg,
                                          frame_valid=health)
 
-    before = tf.launch_counts()["solve_spd"]
+    before = kernels.launch_counts()["solve_spd"]
     got = register()
-    assert tf.launch_counts()["solve_spd"] == before + 141
+    assert kernels.launch_counts()["solve_spd"] == before + 141
     _plain_solves(monkeypatch)
     _leaves_equal(got, register())
 
@@ -1473,16 +1471,18 @@ def test_solve_spd_kernel_in_the_registration(dev, monkeypatch):
 @pytest.mark.parametrize("channels", [1, 2])
 def test_band_route_calls_count_once_on_band(dev, channels):
     """One call on the band route (the half-res canvas of a 1080x1920
-    frame) counts once on ``<kernel>.band`` and equals its plain version; a
-    call on the cluster route (the 480x640 frame's canvas) and a capped
-    call, which takes the band route at every size, count as the plan
-    says."""
+    frame) equals its plain version and counts once on the kernel; the CC
+    call counts once on ``connected_components.band``, the payload call
+    (which has no band counter) launches the band route's
+    ``cc_global_launches`` device kernels.  A call on the cluster route
+    (the 480x640 frame's canvas) and a capped call, which takes the band
+    route at every size, count as the plan says."""
     key = "connected_components" if channels == 1 else "component_payload_minmax"
     for (h, w), band in (((544, 1024), True), ((240, 384), False)):
         assert (tf.cc_plan(2, h, w, channels=channels).get("route") == "global") == band
         g = torch.Generator().manual_seed(h + channels)
         m = _band_masks(2, h, w, 20, h).to(dev)
-        before = tf.launch_counts()
+        before = kernels.launch_counts()
         if channels == 1:
             init = torch.randint(0, 2 * h * w, m.shape, generator=g, dtype=torch.int32).to(dev)
             _equal(tf.connected_components(m, 2, 2, init), tf.connected_components_plain(m, 2, 2, init))
@@ -1490,15 +1490,20 @@ def test_band_route_calls_count_once_on_band(dev, channels):
             pay = torch.stack([torch.randperm(h * w, generator=g) for _ in range(2)]).reshape(2, h, w)
             pay = pay.to(torch.int32).to(dev)
             _equal(tf.component_payload_minmax(m, pay, 2, 4), tf.component_payload_minmax_plain(m, pay, 2, 4))
-        after = tf.launch_counts()
+        after = kernels.launch_counts()
         assert after[key] == before[key] + 1
-        assert after[f"{key}.band"] == before[f"{key}.band"] + int(band)
+        if channels == 1:
+            assert after[f"{key}.band"] == before[f"{key}.band"] + int(band)
+        else:
+            fused = tf.cc_plan(2, h, w, channels=2, pools_per_round=4).get("fused")
+            want = tf.cc_global_launches(2, 4, fused) if band else 1
+            assert _device_kernels_per_call([lambda: tf.component_payload_minmax(m, pay, 2, 4)]) == [want]
     if channels == 1:
         m = _cross_cap_masks(2, 240, 384, 16).to(dev)
-        before = tf.launch_counts()["connected_components.band"]
+        before = kernels.launch_counts()["connected_components.band"]
         _equal(tf.connected_components(m, 2, 2, cap_axis=0, cap=16),
                tf.connected_components_plain(m, 2, 2, cap_axis=0, cap=16))
-        assert tf.launch_counts()["connected_components.band"] == before + 1
+        assert kernels.launch_counts()["connected_components.band"] == before + 1
 
 
 def test_compiled_batch_full_hd_equals_eager(dev, monkeypatch):
@@ -1530,7 +1535,7 @@ def test_compiled_batch_full_hd_equals_eager(dev, monkeypatch):
     got = step(a, b)  # capture and replay
     captured = pipeline.graph_launch_counts()["captured"]
     assert captured["connected_components.band"] == 2 and captured["connected_components"] == 3
-    assert captured["bridge_morphology.split"] == 1 and "component_payload_minmax.band" not in captured
+    assert captured["bridge_morphology.split"] == 1 and "component_payload_minmax" not in captured
     calls = []
     for name in ("preprocess_binarize", "connected_components", "bridge_morphology"):
         def record(*args, _kernel=getattr(tf, name), _name=name, **kw):

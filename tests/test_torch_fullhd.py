@@ -19,6 +19,7 @@ from bench_h100.common import compare, drivers, harness, program, roofline, rout
 from bench_h100.inputs import scenes
 from cylinder_pose_estimation_tpu_torch import config as port_config
 from cylinder_pose_estimation_tpu_torch.ops import frontend as tf
+from cylinder_pose_estimation_tpu_torch.ops import kernels
 
 # One intra-op thread per test worker: the suite runs several workers on
 # the same cores, and oversubscribed torch thread pools spin.
@@ -30,7 +31,7 @@ H, W, B = 1080, 1920, 16
 # The cell's sites: 2B views, two masks each, on the half-res and
 # quarter-res canvases of a 1080x1920 view.
 HALF, QUARTER = (4 * B, 544, 1024), (4 * B, 272, 512)
-BAND_COUNTERS = ("connected_components.band", "component_payload_minmax.band")
+BAND_COUNTERS = ("connected_components.band",)
 
 
 def _cfg(name):
@@ -111,8 +112,8 @@ def test_route_bytes_at_the_cells_sites():
     assert route_bytes.connected_components_bytes(*HALF) == 427_819_008
     assert route_bytes.connected_components_bytes(*HALF, warm=False) == 285_212_672
     assert route_bytes.bridge_morphology_bytes(*HALF) == 106_954_752
-    assert route_bytes.connected_components_bytes(*HALF) == tf.min_bytes("connected_components", *HALF, warm=True)
-    assert route_bytes.bridge_morphology_bytes(*HALF) == tf.min_bytes("bridge_morphology", *HALF, itemsize=1)
+    assert route_bytes.connected_components_bytes(*HALF) == kernels.min_bytes("connected_components", *HALF, warm=True)
+    assert route_bytes.bridge_morphology_bytes(*HALF) == kernels.min_bytes("bridge_morphology", *HALF, itemsize=1)
     kind = "NVIDIA H100 80GB HBM3"
     least_ms = 427_819_008 / 3.35e12 * 1e3
     assert least_ms == pytest.approx(0.1277, abs=1e-4)
@@ -184,10 +185,10 @@ def test_one_pair_through_the_compiled_step_passes_the_cells_check(bench):
     p = program.port()
     detect, fit, _ = program.configs(p, cfg)
     st, (i1, i2) = scenes.example_pair(H, W, n_frames=1, seed=4_300_002_020, pans=[12.0], radius=45.0)
-    before = tf.launch_counts()
+    before = kernels.launch_counts()
     step = p.pipeline.compiled_batch(program.rig(p, st, "cpu"), detect, fit)
     ans = drivers.take(program.to_host(step(torch.from_numpy(i1), torch.from_numpy(i2))), 0)
-    assert tf.launch_counts() == before
+    assert kernels.launch_counts() == before
     from bench_h100.reference import pipeline as ref
 
     want = ref.poses(i1, i2, st, cfg["detect"], cfg["fit"], cfg["registration"], workers=1)[0]
@@ -205,10 +206,10 @@ def test_cpu_calls_count_nothing_on_the_band_counters(channels):
     assert tf.cc_plan(n, h, w, channels=channels)["route"] == "global"
     g = torch.Generator().manual_seed(channels)
     m = (torch.rand((n, h, w), generator=g) < 0.4).to(torch.float32)
-    before = tf.launch_counts()
-    assert set(BAND_COUNTERS) <= set(before) and set(tf.KERNEL_COUNTERS) == set(before)
+    before = kernels.launch_counts()
+    assert set(BAND_COUNTERS) <= set(before) and set(kernels.COUNTERS) == set(before)
     if channels == 1:
         tf.connected_components(m, 1, 1)
     else:
         tf.component_payload_minmax(m, torch.arange(h * w, dtype=torch.int32).reshape(1, h, w), 1, 1)
-    assert tf.launch_counts() == before
+    assert kernels.launch_counts() == before

@@ -3,7 +3,11 @@ two channels) and bridge kernels at every shape the detector passes, from
 480x640 (the cluster kernels) to 1080x1920 and 1200x1600 (the CC family's
 and the bridge's large-frame routes), the preprocess kernel's smoothing
 halo and the CC kernel's capped scans, the kernels' byte counts, the
-preprocess margin check and the rig's default device.  No JAX here."""
+catalogue's launch counters, the preprocess margin check and the rig's
+default device.  No JAX here."""
+
+import ast
+import inspect
 
 import numpy as np
 import pytest
@@ -12,7 +16,7 @@ import torch
 from cylinder_pose_estimation_tpu_torch.config import CylinderDetectConfig, PlaneDetectConfig
 from cylinder_pose_estimation_tpu_torch.models import detector
 from cylinder_pose_estimation_tpu_torch.ops import frontend as tf
-from cylinder_pose_estimation_tpu_torch.ops import kernels
+from cylinder_pose_estimation_tpu_torch.ops import kernels, linalg, stencils
 from cylinder_pose_estimation_tpu_torch.types import stereo_from_numpy
 from cylinder_pose_estimation_tpu_torch.utils.synthetic import default_stereo
 
@@ -471,17 +475,53 @@ def test_cc_plan_refuses_caps(kw, match):
 
 
 def test_min_bytes_at_the_detector_sites():
-    assert tf.min_bytes("preprocess_binarize", 32, 480, 640) == 275_251_200
-    assert tf.min_bytes("connected_components", 64, 128, 256) == 16_777_216
-    assert tf.min_bytes("connected_components", 64, 240, 384) == 47_185_920
-    assert tf.min_bytes("connected_components", 64, 240, 384, warm=True) == 70_778_880
-    assert tf.min_bytes("bridge_morphology", 64, 240, 384) == 70_778_880
-    assert tf.min_bytes("component_payload_minmax", 64, 240, 384) == 94_371_840
+    assert kernels.min_bytes("preprocess_binarize", 32, 480, 640) == 275_251_200
+    assert kernels.min_bytes("connected_components", 64, 128, 256) == 16_777_216
+    assert kernels.min_bytes("connected_components", 64, 240, 384) == 47_185_920
+    assert kernels.min_bytes("connected_components", 64, 240, 384, warm=True) == 70_778_880
+    assert kernels.min_bytes("bridge_morphology", 64, 240, 384) == 70_778_880
+    assert kernels.min_bytes("component_payload_minmax", 64, 240, 384) == 94_371_840
 
 
 def test_min_bytes_of_the_bool_bridge():
-    assert tf.min_bytes("bridge_morphology", 64, 240, 384, itemsize=1) == 17_694_720
-    assert tf.min_bytes("bridge_morphology", 64, 240, 384, itemsize=4) == 70_778_880
+    assert kernels.min_bytes("bridge_morphology", 64, 240, 384, itemsize=1) == 17_694_720
+    assert kernels.min_bytes("bridge_morphology", 64, 240, 384, itemsize=4) == 70_778_880
+
+
+def test_wrappers_count_through_the_catalogue(monkeypatch):
+    """With the card's route taken on CPU tensors and the launches stubbed,
+    every wrapper on every route counts only the catalogue's counters
+    (``kernels.count`` refuses any other name), and every counter of the
+    catalogue is counted by one of them.  ``ops/linalg`` and
+    ``ops/stencils`` reach the kernels through ``ops/kernels``, never
+    through the front end."""
+    monkeypatch.setattr(kernels, "route", lambda x: True)
+    monkeypatch.setattr(kernels, "check", lambda *args: None)
+    monkeypatch.setattr(kernels, "launch", lambda *args: None)
+    kernels.reset_launch_counts()
+    x = torch.zeros((1, 64, 96))
+    tf.preprocess_binarize(x)  # with its own smoothing
+    for m in (x, torch.zeros((1, 544, 1024))):  # the cluster and the band route
+        tf.connected_components(m, 1, 1)
+        tf.component_payload_minmax(m, m.to(torch.int32), 1, 1)
+    tf.connected_components(x, 1, 1, cap_axis=0, cap=16)  # capped, band
+    for shape in ((1, 64, 96), (1, 720, 1280), (1, 2160, 3840)):  # cluster, split, global
+        m = torch.zeros(shape, dtype=torch.bool)
+        tf.bridge_morphology(m, m, torch.zeros(1), torch.tensor(20.0), 5, 25)
+    linalg.solve_spd(torch.eye(6).expand(2, 6, 6), torch.zeros((2, 6)))
+    stencils.smooth(x)
+    stencils.stats_images(x, x, x)
+    assert {k for k, n in kernels.launch_counts().items() if n} == set(kernels.COUNTERS)
+    with pytest.raises(KeyError):
+        kernels.count("component_payload_minmax.band")
+    for mod in (linalg, stencils):
+        imported = set()
+        for node in ast.walk(ast.parse(inspect.getsource(mod))):
+            if isinstance(node, ast.ImportFrom):
+                imported |= {node.module} | {f"{node.module}.{a.name}" for a in node.names}
+            elif isinstance(node, ast.Import):
+                imported |= {a.name for a in node.names}
+        assert not any(m.endswith(".frontend") for m in imported), (mod.__name__, imported)
 
 
 def test_preprocess_margin_under_reach_raises():

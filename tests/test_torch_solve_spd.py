@@ -11,7 +11,7 @@ import pytest
 import torch
 
 from _torch_spd import KINDS, bits, spd_systems
-from cylinder_pose_estimation_tpu_torch.ops import frontend, kernels, linalg
+from cylinder_pose_estimation_tpu_torch.ops import kernels, linalg
 
 # One intra-op thread per test worker: the suite runs several workers on
 # the same cores, and oversubscribed torch thread pools spin.
@@ -24,14 +24,14 @@ LEADS = ((0,), (2,), (16,), (26,), (32, 48))
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("p", [3, 5, 6])
 def test_cpu_tensors_take_the_plain_solve(p, dtype, kind):
-    frontend.reset_launch_counts()
+    kernels.reset_launch_counts()
     for i, lead in enumerate(LEADS):
         a, b = spd_systems(p, lead, dtype, kind, seed=i)
         got = linalg.solve_spd(a, b)
         want = linalg.solve_spd_plain(a, b)
         assert got.shape == want.shape == b.shape and got.dtype == dtype
         assert torch.equal(bits(got), bits(want)), lead
-    assert frontend.launch_counts()["solve_spd"] == 0
+    assert kernels.launch_counts()["solve_spd"] == 0
 
 
 def test_cpu_solve_reads_a_strided_rhs():
@@ -79,11 +79,11 @@ def test_solve_spd_refuses_other_devices():
 
 def test_solve_spd_entry_points_match_their_signatures():
     """Each C entry of csrc/linalg.cu takes the pointers and ints
-    ``kernels.SIGNATURES`` declares, then the stream."""
+    ``kernels.ENTRIES`` declares, then the stream."""
     src = (kernels.CSRC / "linalg.cu").read_text()
     for name in ("cpe_solve_spd_factor", "cpe_solve_spd_refine"):
         params = re.search(rf"CPE_API int {name}\(([^)]*)\)", src).group(1).split(",")
         kinds = [("ptr" if "*" in q else "int" if q.split()[0] == "int" else q.split()[0]) for q in params]
-        n_ptr, n_int, n_float = kernels.SIGNATURES[name]
+        n_ptr, n_int, n_float = kernels.ENTRIES[name]
         assert kinds == ["ptr"] * n_ptr + ["int"] * n_int + ["float"] * n_float + ["cudaStream_t"], kinds
     assert linalg.SPD_MAX_ORDER == int(re.search(r"kSpdMaxOrder = (\d+);", src).group(1))

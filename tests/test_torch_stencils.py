@@ -1,7 +1,7 @@
 """PyTorch port, on the CPU: the front stage's banded correlations
 (``ops/stencils``).  The launch plans of the two stencil kernels (tiles
 over ragged edges, shared memory at every radius they take), the taps they
-are handed, the C entries against ``kernels.SIGNATURES`` and the source's
+are handed, the C entries against ``kernels.ENTRIES`` and the source's
 constants, the byte counts, the CPU route against the former matmul code
 bit for bit, and the correlation the kernels compute (zero padding, the
 ramp's orientation) against ``mxu_conv.conv_x`` / ``conv_y`` at the
@@ -15,7 +15,6 @@ import torch
 
 from cylinder_pose_estimation_tpu_torch.config import CylinderDetectConfig, PlaneDetectConfig
 from cylinder_pose_estimation_tpu_torch.models import detector
-from cylinder_pose_estimation_tpu_torch.ops import frontend as tf
 from cylinder_pose_estimation_tpu_torch.ops import kernels
 from cylinder_pose_estimation_tpu_torch.ops import mxu_conv as mxc
 from cylinder_pose_estimation_tpu_torch.ops import stencils
@@ -142,11 +141,11 @@ def test_stats_tap_packing(center):
 @pytest.mark.parametrize("name", ["cpe_stencil_smooth", "cpe_stencil_stats"])
 def test_stencil_entry_points_match_their_signatures(name):
     """Each C entry takes the pointers, ints and floats
-    ``kernels.SIGNATURES`` declares, then the stream; the tiles are the
+    ``kernels.ENTRIES`` declares, then the stream; the tiles are the
     plans'."""
     params = re.search(rf"CPE_API int {name}\(([^)]*)\)", SRC).group(1).split(",")
     kinds = [("ptr" if "*" in q else "int" if q.split()[0] == "int" else q.split()[0]) for q in params]
-    n_ptr, n_int, n_float = kernels.SIGNATURES[name]
+    n_ptr, n_int, n_float = kernels.ENTRIES[name]
     assert kinds == ["ptr"] * n_ptr + ["int"] * n_int + ["float"] * n_float + ["cudaStream_t"], kinds
     assert stencils.SMOOTH_TILE == (int(re.search(r"kSmoothH = (\d+);", SRC).group(1)),
                                     int(re.search(r"kSmoothW = (\d+);", SRC).group(1)))
@@ -158,16 +157,16 @@ def test_stencil_entry_points_match_their_signatures(name):
 def test_stencil_bytes(shape, want):
     """Inputs read once, outputs written once: S0 8 B a pixel; T 25 B (29 B
     with the centre-seed image)."""
-    got = (stencils.min_bytes("stencil_smooth", *shape), stencils.min_bytes("stencil_stats", *shape),
-           stencils.min_bytes("stencil_stats", *shape, center=True))
+    got = (kernels.min_bytes("stencil_smooth", *shape), kernels.min_bytes("stencil_stats", *shape),
+           kernels.min_bytes("stencil_stats", *shape, center=True))
     assert got == want
     with pytest.raises(KeyError):
-        stencils.min_bytes("preprocess_binarize", *shape)
+        kernels.min_bytes("stencil_blur", *shape)
 
 
 def test_stencil_counters_are_kernel_counters():
-    assert {"stencil_smooth", "stencil_stats"} <= set(tf.KERNEL_COUNTERS)
-    assert {"stencil_smooth", "stencil_stats"} <= set(tf.launch_counts())
+    assert {"stencil_smooth", "stencil_stats"} <= set(kernels.COUNTERS)
+    assert {"stencil_smooth", "stencil_stats"} <= set(kernels.launch_counts())
 
 
 # --- the CPU route: the former matmul code, bit for bit -------------------

@@ -17,7 +17,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from cylinder_pose_estimation_tpu_torch.config import CylinderDetectConfig, FitConfig
 from cylinder_pose_estimation_tpu_torch.models import pipeline
-from cylinder_pose_estimation_tpu_torch.ops import frontend
+from cylinder_pose_estimation_tpu_torch.ops import frontend, kernels
 from cylinder_pose_estimation_tpu_torch.types import stereo_from_numpy
 from cylinder_pose_estimation_tpu_torch.utils import profiling
 from cylinder_pose_estimation_tpu_torch.utils.synthetic import example_pair
@@ -229,15 +229,15 @@ def test_stream_chunk_spans(scene, tracing):
 
 
 def test_launch_views_read_as_before():
-    frontend.reset_launch_counts()
+    kernels.reset_launch_counts()
     pipeline.reset_graph_launch_counts()
-    counts = frontend.launch_counts()
-    assert list(counts) == list(frontend.KERNEL_COUNTERS) and set(counts.values()) == {0}
+    counts = kernels.launch_counts()
+    assert list(counts) == list(kernels.COUNTERS) and set(counts.values()) == {0}
     assert "bridge_morphology.split" in counts and "connected_components.capped.band" in counts
     assert "solve_spd" in counts
     profiling.count("kernel.bridge_morphology")
     profiling.count("kernel.bridge_morphology.cluster", 2)
-    counts = frontend.launch_counts()
+    counts = kernels.launch_counts()
     assert counts["bridge_morphology"] == 1 and counts["bridge_morphology.cluster"] == 2
     assert pipeline.graph_launch_counts() == {"captured": {}, "replayed": {}, "replays": 0}
     profiling.count("graph.captured.bridge_morphology", 1)
@@ -247,16 +247,16 @@ def test_launch_views_read_as_before():
                                               "replayed": {"bridge_morphology": 3}, "replays": 3}
     pipeline.reset_graph_launch_counts()
     assert pipeline.graph_launch_counts() == {"captured": {}, "replayed": {}, "replays": 0}
-    assert frontend.launch_counts()["bridge_morphology"] == 1
-    frontend.reset_launch_counts()
-    assert set(frontend.launch_counts().values()) == {0}
+    assert kernels.launch_counts()["bridge_morphology"] == 1
+    kernels.reset_launch_counts()
+    assert set(kernels.launch_counts().values()) == {0}
 
 
 def test_plain_kernel_runs_count_no_launch():
-    frontend.reset_launch_counts()
+    kernels.reset_launch_counts()
     m = torch.zeros(1, 16, 16, dtype=torch.float32)
     frontend.connected_components(m, rounds=1, pools_per_round=1)
-    assert frontend.launch_counts()["connected_components"] == 0
+    assert kernels.launch_counts()["connected_components"] == 0
 
 
 def test_counters_under_thread_contention():
@@ -334,7 +334,7 @@ def test_reset_keeps_the_launch_counters():
     """``profiling.reset`` clears the records, the pending device times and
     the ``sync.*`` counters; the kernel and graph launch counters are
     cleared only by their own resets."""
-    frontend.reset_launch_counts()
+    kernels.reset_launch_counts()
     pipeline.reset_graph_launch_counts()
     profiling.count("kernel.connected_components", 3)
     profiling.count("graph.replayed.connected_components", 2)
@@ -348,9 +348,9 @@ def test_reset_keeps_the_launch_counters():
         profiling.disable()
     profiling.reset()
     assert profiling.records() == [] and profiling.counters("sync.") == {}
-    assert frontend.launch_counts()["connected_components"] == 3
+    assert kernels.launch_counts()["connected_components"] == 3
     assert pipeline.graph_launch_counts() == {"captured": {}, "replayed": {"connected_components": 2}, "replays": 1}
-    frontend.reset_launch_counts()
+    kernels.reset_launch_counts()
     pipeline.reset_graph_launch_counts()
-    assert set(frontend.launch_counts().values()) == {0}
+    assert set(kernels.launch_counts().values()) == {0}
     assert pipeline.graph_launch_counts() == {"captured": {}, "replayed": {}, "replays": 0}
