@@ -41,7 +41,10 @@ kernel name.  Phases:
    The fit tail's SPD
    solve (``ops/linalg.solve_spd``, ``csrc/linalg.cu``) is held and timed
    the same way against ``solve_spd_plain`` at the three shapes of the
-   solves a B=16 main-path call makes (``solve_phase``).  The build's
+   solves a B=16 main-path call makes (``solve_phase``), and the XLA
+   branch's CC (``ops/labeling.connected_components``, ``csrc/scan_cc.cu``)
+   against ``connected_components_plain`` at the three sites of a B=16
+   default-config call (``hold_sites``; 2 device kernels a round).  The build's
    ``-Xptxas -v`` lines and the launch plans are printed first.
 7. End to end, for the paths no cell of the benchmark (``bench_h100/``)
    runs: ms/frame of B=16 frames and the detect-only split, for the
@@ -79,7 +82,8 @@ kernel name.  Phases:
    (direction at the fixture's norm), then ``detect_grid`` with
    ``PlaneDetectConfig(roi_threshold=30)`` on the phase-4 views, held to
    their points, ``ok`` and ``stable_xla``; counters reset just before and
-   read just after must show none of the four kernels.
+   read just after must show none of the front end's kernels or stencils,
+   and the branch's CC (``scan_cc``).
 12. Large path (run after phase 6): the main and endpoint configs at
    720x1280 and 1080x1920 on ``LARGE_BATCH`` frames each, counters reset
    just before and read just after (the CC family's global route and the
@@ -100,14 +104,15 @@ kernel name.  Phases:
    and read just after.  Every view is held to the JAX record (ids
    identical, xy within 0.05 px), 2 frames card against the CPU port; every
    kernel call at a full-resolution shape (the CC family's global route and
-   the bridge's split route at (64, 480, 640) and (16, 480, 640)) is held
-   ``torch.equal`` to its plain version and each site timed once; e2e and
-   detect ms/frame per configuration.
+   the bridge's split route at (64, 480, 640) and (16, 480, 640)), and every
+   call of the XLA configurations' CC (``scan_cc``), is held ``torch.equal``
+   to its plain version and each site timed once; e2e and detect ms/frame
+   per configuration.
 14. CLI (run after phase 7): ``cli.main`` with ``--device cuda`` for
    ``detect-folder``, ``experiment`` (the record's arguments) and
    ``undistort-folder`` on PNG frames of ``write_registration_folder`` in a
    temporary directory, counters reset just before and read just after (the
-   drivers' default config launches no kernel); held to
+   drivers' default config launches the XLA branch's CC alone); held to
    ``tests/fixtures/torch_cli.json`` (the JAX CLI on the same files) and the
    undistortion to the port on the CPU within one grey level.
 
@@ -180,8 +185,10 @@ kernel name.  Phases:
    memory the device keeps reserved for the step after it (the graph's
    pool).  Each step's capture must record ``SOLVES_PER_CAPTURE`` kernel
    solves (``solve_spd``: 22 in a batch or chunk step, 141 in the
-   registration), printed with the step's kernel nodes with every solve
-   the plain version and with the kernel; one line then gives every
+   registration) and ``SCAN_CC_PER_STEP`` launches of the XLA branch's CC
+   in the default config's step (none in the others), printed with the
+   step's kernel nodes with every solve the plain version and with the
+   kernel; one line then gives every
    batch step's kernel nodes side by side.  Every kernel-wrapper call of
    the full-HD step's eager call is recorded and held ``torch.equal`` to
    its plain version on the same tensors, timed, with its byte bound (its
@@ -235,9 +242,11 @@ global routes in rows of their own (``bridge_morphology.split``,
 ``bridge_morphology.global``: their timed sites of phases 12, 13 and 15),
 phase 18's kernel branches (``preprocess_binarize.smoothing``,
 ``connected_components.capped.band``) in rows of their own, the fit
-tail's SPD solve (``solve_spd``, phase 6's sites), and the front stage's
+tail's SPD solve (``solve_spd``, phase 6's sites), the front stage's
 stencils (``stencil_smooth``, ``stencil_stats``: phase 20's B=16 480x640
-site, its other sites in ``stencil_sites``).
+site, its other sites in ``stencil_sites``), and the XLA branch's CC
+(``scan_cc``: phase 6's three sites of the default B=16 step,
+``variant_sites`` phase 13's XLA canvases).
 The last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -286,7 +295,7 @@ KNOB_STEP = {
                              "connected_components.capped.band": 2, "stencil_smooth": 1, "stencil_stats": 1,
                              "solve_spd": None},
     "bright_kernel": _KNOB_MAIN,
-    "bright_xla": {"solve_spd": None},
+    "bright_xla": {"solve_spd": None, "scan_cc": 3},
     "all_knobs_kernel": dict(_KNOB_CAPPED, **{"preprocess_binarize.smoothing": 1, "stencil_smooth": 0}),
 }
 # The kernel branches phase 18 adds to the kernels line, and the path whose
@@ -299,6 +308,10 @@ KNOB_FRAMES, KNOB_CPU_FRAMES = 16, 2
 # a batch or chunk step's 20 LM steps, its curvature and its grid stage's
 # polyfit; the registration's 60 + 80 LM steps and its curvature.
 SOLVES_PER_CAPTURE = {"batch": 22, "registration": 141}
+# Launches of the XLA branch's CC kernel (``scan_cc``) in one batch step of
+# the default config: the ROI pair, the bridge pair and the final labels
+# (none in a kernel-branch step).
+SCAN_CC_PER_STEP = 3
 # The shape of each bridge route in phase 15.
 ROUTE_SHAPES = {"bridge_morphology.cluster": (64, 240, 384), "bridge_morphology.split": (2, 720, 1280),
                 "bridge_morphology.global": (2, 2160, 3840)}
@@ -317,7 +330,8 @@ DESIGN = {"preprocess_binarize": "redesigned", "connected_components": "redesign
           "bridge_morphology": "redesigned", "component_payload_minmax": "redesigned",
           "bridge_morphology.split": "redesigned", "bridge_morphology.global": "first port",
           "preprocess_binarize.smoothing": "redesigned", "connected_components.capped.band": "redesigned",
-          "solve_spd": "first port", "stencil_smooth": "redesigned", "stencil_stats": "redesigned"}
+          "solve_spd": "first port", "stencil_smooth": "redesigned", "stencil_stats": "redesigned",
+          "scan_cc": "first port"}
 # Device kernels of a preprocess call that smooths in the kernel: the
 # smoothing launch, then launches A and B on its plane.
 SMOOTHING_DEVICE_KERNELS = 3
@@ -530,17 +544,21 @@ def wrapped_in(module: str) -> tuple:
 
 def path_kernels() -> dict:
     """``PATH_KERNELS``: the front-end kernels, the stencils, the bridge's
-    routes and, for the knob paths, every counter of the catalogue."""
+    routes, the XLA branch's CC and, for the knob paths, every counter of
+    the catalogue."""
     from cylinder_pose_estimation_tpu_torch.ops import kernels
 
     wrappers = wrapped_in("frontend") + wrapped_in("stencils")
+    # The kernel branch never calls the XLA branch's CC.
     main = {"preprocess_binarize": None, "connected_components": None, "bridge_morphology": None,
-            "bridge_morphology.cluster": None, **dict.fromkeys(wrapped_in("stencils"), None)}
-    every = dict(dict.fromkeys(wrappers, None), **{"bridge_morphology.split": None})
+            "bridge_morphology.cluster": None, **dict.fromkeys(wrapped_in("stencils"), None), "scan_cc": 0}
+    every = dict(dict.fromkeys(wrappers, None), **{"bridge_morphology.split": None, "scan_cc": 0})
     out = {"endpoint": dict(main, connected_components=2, component_payload_minmax=None), "large": every,
-           "variants": dict(every), "routes": dict.fromkeys(kernels.CATALOGUE["bridge_morphology"].counters, None)}
-    # The default config (the XLA branch) launches none of them.
-    out.update({path: dict.fromkeys(wrappers, 0) for path in ("xla", "variants_xla", "cli", "corpus_xla")})
+           "variants": dict(every),
+           "routes": dict(dict.fromkeys(kernels.CATALOGUE["bridge_morphology"].counters, None), scan_cc=0)}
+    # The default config (the XLA branch) launches none of them, and its CC.
+    out.update({path: dict(dict.fromkeys(wrappers, 0), scan_cc=None)
+                for path in ("xla", "variants_xla", "cli", "corpus_xla")})
     out.update({path: dict(main) for path in ("main", "plane", "experiment", "preprocess", "stream", "mesh",
                                               "mesh_ranks", "corpus")})
     out.update({f"knobs.{name}": {k: step.get(k, 0) for k in kernels.COUNTERS} for name, step in KNOB_STEP.items()})
@@ -637,28 +655,34 @@ def stage_split(views, cfgs) -> None:
 
 class Capture:
     """Record the arguments of every kernel-wrapper call the detector makes
-    (the wrappers are looked up on the module at call time)."""
+    (the wrappers are looked up on the module at call time): the front
+    end's, by kernel, and the XLA branch's CC (``labeling.
+    connected_components``) as ``scan_cc``."""
 
     def __init__(self, frontend):
-        self.frontend = frontend
-        self.calls = {k: [] for k in wrapped_in("frontend")}
+        from cylinder_pose_estimation_tpu_torch.ops import labeling
+
+        self.sites = {k: (frontend, k) for k in wrapped_in("frontend")}
+        self.sites["scan_cc"] = (labeling, "connected_components")
+        self.calls = {k: [] for k in self.sites}
         self.saved = {}
 
     def __enter__(self):
-        for name in self.calls:
-            orig = getattr(self.frontend, name)
+        for name, (mod, attr) in self.sites.items():
+            orig = getattr(mod, attr)
             self.saved[name] = orig
 
             def wrapped(*args, _orig=orig, _name=name, **kwargs):
                 self.calls[_name].append((args, dict(kwargs)))
                 return _orig(*args, **kwargs)
 
-            setattr(self.frontend, name, wrapped)
+            setattr(mod, attr, wrapped)
         return self
 
     def __exit__(self, *exc):
         for name, orig in self.saved.items():
-            setattr(self.frontend, name, orig)
+            mod, attr = self.sites[name]
+            setattr(mod, attr, orig)
 
 
 def line_masks(n, h, w, angles, seed, device):
@@ -1168,8 +1192,9 @@ def stream_phase(device, stereo, cfg, fit_cfg, smi) -> dict:
 
 def xla_phase(a, b, stereo, pviews, golden, plane_views, fit_cfg) -> dict:
     """Phase 11: the default configuration (the XLA branch) on the phase-2
-    scenes and the phase-4 views, against the XLA records; none of the four
-    kernels may launch."""
+    scenes and the phase-4 views, against the XLA records; none of the
+    front end's kernels or stencils may launch, and its CC (``scan_cc``)
+    must."""
     from cylinder_pose_estimation_tpu_torch.config import CylinderDetectConfig, PlaneDetectConfig
     from cylinder_pose_estimation_tpu_torch.models.detector import detect_grid
     from cylinder_pose_estimation_tpu_torch.models.pipeline import estimate_poses_batch
@@ -1195,15 +1220,16 @@ def xla_phase(a, b, stereo, pviews, golden, plane_views, fit_cfg) -> dict:
     return launches
 
 
-def hold_sites(report, frontend, calls, tag, timed) -> None:
+def hold_sites(report, frontend, calls, tag, timed, into="large_sites") -> None:
     """Hold every kernel-wrapper call ``Capture`` recorded to its plain
     version on the same inputs (``compare``: ``torch.equal``); with
     ``timed`` also time each call and add it, with its byte bound, to the
-    kernel's ``large_sites``.  A bridge call is held as recorded (bool) and
-    as float32; only the recorded call is timed."""
+    kernel's ``into`` site list (None: its 480x640 sites; the XLA branch's
+    CC only).  A bridge call is held as recorded (bool) and as float32; only
+    the recorded call is timed."""
     import torch
 
-    from cylinder_pose_estimation_tpu_torch.ops import kernels
+    from cylinder_pose_estimation_tpu_torch.ops import kernels, labeling
 
     with torch.inference_mode():
         for args, kw in calls["preprocess_binarize"]:
@@ -1246,6 +1272,12 @@ def hold_sites(report, frontend, calls, tag, timed) -> None:
                         f"{tag} {tuple(mk.shape)} {mk.dtype} {row}", timed and site,
                         nbytes=kernels.min_bytes("bridge_morphology", *mk.shape, itemsize=mk.element_size()),
                         max_dev=max_dev, into="large_sites")
+        for args, kw in calls.get("scan_cc", ()):
+            m, iters = args[0], (args[1:] or [kw.get("iters", 16)])[0]
+            compare(report, "scan_cc", lambda: labeling.connected_components(m, iters),
+                    lambda: labeling.connected_components_plain(m, iters), f"{tag} {tuple(m.shape)} {iters} rounds",
+                    timed, nbytes=kernels.min_bytes("scan_cc", *m.shape), max_dev=labeling.scan_cc_launches(iters),
+                    into=into)
 
 
 def large_phase(frontend, device, fit_cfg, smi):
@@ -1332,18 +1364,17 @@ def variants_phase(frontend, device, fit_cfg, smi):
     before and read just after.  Every view is held to the JAX record (ids
     identical, xy within 0.05 px); the first VARIANT_CPU_FRAMES frames are
     held card against the CPU port (ids, xy within 0.05 px, ``ok`` and
-    ``stable``); every kernel call at a full-resolution shape is held
-    ``torch.equal`` to its plain version, the first of each site timed.
-    Returns (launches by path, kernel report with ``variant_sites``)."""
-    import contextlib
-
+    ``stable``); every kernel call at a full-resolution shape, and every
+    call of the XLA branch's CC (``scan_cc``), is held ``torch.equal`` to
+    its plain version, the first of each site timed.  Returns (launches by
+    path, kernel report with ``variant_sites``)."""
     import numpy as np
     import torch
 
     from cylinder_pose_estimation_tpu_torch.config import CylinderDetectConfig, PlaneDetectConfig
     from cylinder_pose_estimation_tpu_torch.models.detector import detect_grid
     from cylinder_pose_estimation_tpu_torch.models.pipeline import _tree_map, estimate_poses_batch
-    from cylinder_pose_estimation_tpu_torch.ops import kernels
+    from cylinder_pose_estimation_tpu_torch.ops import kernels, labeling
     from cylinder_pose_estimation_tpu_torch.types import stereo_from_numpy
     from cylinder_pose_estimation_tpu_torch.utils.synthetic import example_pair, plane_view
 
@@ -1378,18 +1409,17 @@ def variants_phase(frontend, device, fit_cfg, smi):
 
     calls, results = {}, {}
 
-    def drive(group, capture):
+    def drive(group):
         for c in group:
-            with Capture(frontend) if capture else contextlib.nullcontext() as cap:
+            with Capture(frontend) as cap:
                 results[c["name"]] = run(c)
-            if capture:
-                calls[c["name"]] = cap.calls
+            calls[c["name"]] = cap.calls
         return results
 
     kern = [c for c in configs if c["use_pallas"]]
     xla = [c for c in configs if not c["use_pallas"]]
-    _, launches = run_path("variants", lambda: drive(kern, True))
-    _, launches_xla = run_path("variants_xla", lambda: drive(xla, False))
+    _, launches = run_path("variants", lambda: drive(kern))
+    _, launches_xla = run_path("variants_xla", lambda: drive(xla))
 
     for c in configs:
         det = results[c["name"]]
@@ -1468,6 +1498,17 @@ def variants_phase(frontend, device, fit_cfg, smi):
                     timed_sites.add(key)
                     compare(report, row, kfn, pfn, label, timed, nbytes=nbytes, max_dev=max_dev,
                             into="variant_sites")
+            # The XLA branch's CC at every canvas of the XLA variants, each
+            # (shape, rounds) timed once.
+            for args, kw in cap["scan_cc"]:
+                m, iters = args[0], (args[1:] or [kw.get("iters", 16)])[0]
+                key = ("scan_cc", tuple(m.shape), iters)
+                timed = key not in timed_sites
+                timed_sites.add(key)
+                compare(report, "scan_cc", functools.partial(labeling.connected_components, m, iters),
+                        functools.partial(labeling.connected_components_plain, m, iters),
+                        f"{name} {tuple(m.shape)} {iters} rounds", timed, nbytes=kernels.min_bytes("scan_cc", *m.shape),
+                        max_dev=labeling.scan_cc_launches(iters), into="variant_sites")
 
     rep = itertools.count(1)
     for c in configs:
@@ -1671,10 +1712,12 @@ def cli_phase(smi) -> dict:
 
 
 def hold_calls(frontend, calls, label) -> dict:
-    """Hold every captured call of the main path's kernels to its plain
-    version on the same inputs (``torch.equal``, untimed); the number of
-    calls held per kernel."""
+    """Hold every captured call of the main path's kernels, and of the XLA
+    branch's CC, to its plain version on the same inputs (``torch.equal``,
+    untimed); the number of calls held per kernel."""
     import torch
+
+    from cylinder_pose_estimation_tpu_torch.ops import labeling
 
     report = {}
     with torch.inference_mode():
@@ -1694,6 +1737,11 @@ def hold_calls(frontend, calls, label) -> dict:
             compare(report, row, lambda: frontend.bridge_morphology(masks, exps, angles, klen, **kw),
                     lambda: frontend.bridge_morphology_plain(masks, exps, angles, klen, **kw),
                     f"{label} {tuple(masks.shape)} {row}", False)
+        for args, kw in calls["scan_cc"]:
+            m, iters = args[0], (args[1:] or [kw.get("iters", 16)])[0]
+            compare(report, "scan_cc", lambda: labeling.connected_components(m, iters),
+                    lambda: labeling.connected_components_plain(m, iters),
+                    f"{label} {tuple(m.shape)} {iters} rounds", False)
     if calls["component_payload_minmax"]:
         raise AssertionError(f"{label}: the main path called component_payload_minmax")
     return {k: len(v) for k, v in calls.items()}
@@ -1819,7 +1867,10 @@ def corpus_phase(frontend, device, golden_views, smi) -> dict:
         card_k, launches = run_path("corpus", lambda: run(device, True))
     held = hold_calls(frontend, cap.calls, "corpus")
     print(f"corpus: kernel calls held torch.equal to their plain versions: {held}", flush=True)
-    card_x, launches_x = run_path("corpus_xla", lambda: run(device, False))
+    with Capture(frontend) as cap:
+        card_x, launches_x = run_path("corpus_xla", lambda: run(device, False))
+    held = hold_calls(frontend, cap.calls, "corpus_xla")
+    print(f"corpus_xla: XLA CC calls held torch.equal to the plain version: {held['scan_cc']}", flush=True)
 
     chaotic_diff = {}
     for branch, (dets, pose), (hdets, hpose) in (("kernels", card_k, run("cpu", True)),
@@ -2484,11 +2535,12 @@ def compiled_phase(device, stereo, frames, cfgs, fit_cfg, experiment, smi, full_
 
     out = {}
 
-    def first_calls(label, fn, kind="batch"):
+    def first_calls(label, fn, kind="batch", scan_cc=0):
         """The second call's result, and the MiB the device reserves for the
         step after it, of a step's first call (eager) and second (warm-up,
         capture, replay), each timed on its own and printed; the capture
-        must record ``SOLVES_PER_CAPTURE[kind]`` kernel solves."""
+        must record ``SOLVES_PER_CAPTURE[kind]`` kernel solves and
+        ``scan_cc`` launches of the XLA branch's CC."""
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         pipeline.reset_graph_launch_counts()
@@ -2501,15 +2553,18 @@ def compiled_phase(device, stereo, frames, cfgs, fit_cfg, experiment, smi, full_
             seconds.append(time.perf_counter() - t0)
         torch.cuda.empty_cache()
         pool = (torch.cuda.memory_reserved(device) - before) / 2**20
-        solves = pipeline.graph_launch_counts()["captured"].get("solve_spd", 0)
+        captured = pipeline.graph_launch_counts()["captured"]
+        solves, ccs = captured.get("solve_spd", 0), captured.get("scan_cc", 0)
         print(f"compiled {label}: first call (eager) {seconds[0]:.3f} s, second (warm-up, capture, replay) "
               f"{seconds[1]:.3f} s; the graph's memory pool {pool:.1f} MiB; solve_spd launches per capture "
-              f"{solves}; {smi}", flush=True)
+              f"{solves}, scan_cc {ccs}; {smi}", flush=True)
         if solves != SOLVES_PER_CAPTURE[kind]:
             raise AssertionError(f"compiled {label}: the capture recorded {solves} kernel solves, "
                                  f"not {SOLVES_PER_CAPTURE[kind]}")
+        if ccs != scan_cc:
+            raise AssertionError(f"compiled {label}: the capture recorded {ccs} scan_cc launches, not {scan_cc}")
         return res, {"first_call_s": seconds[0], "second_call_s": seconds[1], "pool_mib": pool,
-                     "solve_spd_per_capture": solves}
+                     "solve_spd_per_capture": solves, "scan_cc_per_capture": ccs}
 
     def check(label, got, want, n_frames, compiled_fn, capture_fn):
         diffs = leaf_diffs(got, want)
@@ -2537,7 +2592,8 @@ def compiled_phase(device, stereo, frames, cfgs, fit_cfg, experiment, smi, full_
     for label, rig, (d1, d2), cfg in steps:
         n = d1.shape[0]
         step = pipeline.compiled_batch(rig, cfg, fit_cfg)
-        got, first = first_calls(f"{label} B={n}", lambda: step(d1, d2))
+        got, first = first_calls(f"{label} B={n}", lambda: step(d1, d2),
+                                 scan_cc=0 if cfg.use_pallas else SCAN_CC_PER_STEP)
         with Capture(frontend) if label == full_hd[0] else contextlib.nullcontext() as cap:
             want = pipeline.estimate_poses_batch(d1, d2, rig, cfg, fit_cfg)
         out[label] = check(f"{label} B={n}", got, want, n, lambda: step(d1, d2),
@@ -2727,9 +2783,15 @@ def main() -> int:
     with Capture(frontend) as cap_ep:
         estimate_poses_batch(d1, d2, stereo, cfg_ep, fit_cfg)
     cap.calls["component_payload_minmax"] = cap_ep.calls["component_payload_minmax"]
+    with Capture(frontend) as cap_xla:
+        estimate_poses_batch(d1, d2, stereo, cfg_xla, fit_cfg)
+    if len(cap_xla.calls["scan_cc"]) != SCAN_CC_PER_STEP:
+        raise AssertionError(f"the default B={batch} step called the XLA CC {len(cap_xla.calls['scan_cc'])} times")
     with torch.inference_mode():
         report = kernel_phase(frontend, cap.calls, device)
         solve_phase(report, lambda: estimate_poses_batch(d1, d2, stereo, cfg, fit_cfg))
+        # The XLA branch's CC at the default step's three sites.
+        hold_sites(report, frontend, cap_xla.calls, f"xla B={batch}", True, into=None)
 
     # --- large frames: the CC family's global route, the bridge's split ---
     # (after the kernel phase: torch.profiler read no device activity in its
@@ -2826,7 +2888,7 @@ def main() -> int:
                   f"bound {site['bound_ms']:.4f} ms ({site['bytes']} B), device kernels per call "
                   f"{site['device_kernels_per_call']} {by_name}", flush=True)
         stencil_sites = []
-        if k in front or k == "solve_spd":  # the 480x640 sites
+        if k in front or k in ("solve_spd", "scan_cc"):  # the 480x640 sites
             ms, dev_ms, plain_ms, nbytes, n_dev = r["ms"], r["device_ms"], r["plain_ms"], r["bytes"], r["device_launches"]
         elif k in stencil_rows:  # phase 20's sites: the row's times at STENCIL_ROW_SITE, the others listed
             for x in stencil_report["sites"]:
@@ -2851,7 +2913,7 @@ def main() -> int:
             "launches": sum(c.get(count, 0) for c in by_path.values()),
             "launches_by_path": {p: c.get(count, 0) for p, c in by_path.items()},
             "graph_replays": GRAPH_REPLAYS,
-            "launches_per_step": by_path[step_path][count],
+            "launches_per_step": SCAN_CC_PER_STEP if k == "scan_cc" else by_path[step_path][count],
             "max_abs_err": max(r["max_abs_err"], large["max_abs_err"], variant["max_abs_err"], route["max_abs_err"],
                                knob["max_abs_err"]),
             "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,

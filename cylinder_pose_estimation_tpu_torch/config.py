@@ -10,8 +10,10 @@ plane mode, and ``use_pallas`` picks one as it does there:
 ``use_pallas=True`` runs the kernel branch (with or without
 ``bridge_endpoint_stats``), whose four kernels are hand-written CUDA on a
 CUDA tensor and their plain PyTorch versions on a CPU tensor;
-``use_pallas=False`` (the default) runs the XLA branch in plain PyTorch on
-either device, with ``image_dtype`` and ``cc_iters``; it ignores
+``use_pallas=False`` (the default) runs the XLA branch, with
+``image_dtype`` and ``cc_iters``, in plain PyTorch on either device but for
+its connected components, a hand-written CUDA kernel on a CUDA tensor
+(``ops/labeling.connected_components``); it ignores
 ``bridge_endpoint_stats``, as the JAX package does.  Both branches carry
 the full-resolution variants (``label_downsample`` 1 or 2,
 ``bridge_half_res`` either way) and ``subpixel_refine``.  The kernel branch

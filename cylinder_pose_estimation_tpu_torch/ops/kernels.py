@@ -14,11 +14,12 @@ multiply-add contraction), and links them into one shared library under
 sources and flags; ``ctypes`` binds every entry point of the catalogue.  A
 C interface keeps PyTorch's headers out of the compile, which is what keeps
 the build at seconds.  The wrappers (``ops/frontend``, ``ops/stencils``,
-``ops/linalg.solve_spd``) take their device route from ``route`` (a CPU
-tensor runs the plain version, a CUDA tensor launches the kernel), check
-their inputs with ``check``, pass pointers and the current CUDA stream
-through ``launch``, which raises on a non-zero return, and count each
-launching call with ``count``.  Nothing here is built until a kernel runs.
+``ops/linalg.solve_spd``, ``ops/labeling.connected_components``) take
+their device route from ``route`` (a CPU tensor runs the plain version, a
+CUDA tensor launches the kernel), check their inputs with ``check``, pass
+pointers and the current CUDA stream through ``launch``, which raises on a
+non-zero return, and count each launching call with ``count``.  Nothing
+here is built until a kernel runs.
 """
 
 from __future__ import annotations
@@ -75,9 +76,9 @@ class Kernel(NamedTuple):
 
 _PALLAS = "cylinder_pose_estimation_tpu/ops/pallas/frontend.py"
 # The four TPU kernels of the JAX package (its pallas_calls' functions, and
-# the lines of the branches the counters count), the fit tail's SPD solve
-# and the front stage's banded correlations, which replace no pallas_call:
-# the JAX code they compute.
+# the lines of the branches the counters count), the fit tail's SPD solve,
+# the front stage's banded correlations and the XLA branch's connected
+# components, which replace no pallas_call: the JAX code they compute.
 CATALOGUE: Dict[str, Kernel] = {
     "preprocess_binarize": Kernel(
         "preprocess.cu", f"{_PALLAS}:286", "frontend.preprocess_binarize",
@@ -115,6 +116,9 @@ CATALOGUE: Dict[str, Kernel] = {
         # gray, joints, counts -> blur, cx, cy (+ the centre-seed image); the
         # saturation mask one byte a pixel.
         planes=6, byte_planes=1, optional_plane="center"),
+    "scan_cc": Kernel(
+        "scan_cc.cu", "cylinder_pose_estimation_tpu/ops/labeling.py:52", "labeling.connected_components",
+        {"cpe_scan_cc": (3, 5, 0)}, {}, planes=1, byte_planes=1),  # mask -> labels
 }
 # Every C entry point's signature, and every launch counter (``kernel.<name>``
 # in the registry of ``utils/profiling``), from the catalogue.

@@ -2,6 +2,10 @@
 bookkeeping on min-linear-index label images (the JAX package's
 ops/labeling.py).
 
+``connected_components`` runs ``connected_components_plain`` on CPU tensors
+and launches its hand-written CUDA kernel (``csrc/scan_cc.cu``) on CUDA
+tensors, bit for bit the plain version there.
+
 The JAX code enumerates roots and reduces per-component sums with one-hot
 matrix products, the TPU's fast form.  Here the same quantities come from
 cumsum ranks, lookup tables and ``scatter_add``: integer results are exact,
@@ -17,7 +21,13 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from cylinder_pose_estimation_tpu_torch.ops import kernels
 from cylinder_pose_estimation_tpu_torch.ops.image import cumsum_blocked, fma32
+
+# Warps of a block of the CUDA CC's launches (``csrc/scan_cc.cu``), and the
+# strip widths its column launch may take, widest first.
+SCAN_CC_WARPS = 8
+SCAN_CC_STRIPS = (32, 16, 8, 4, 2, 1)
 
 
 def _seg_min_scan(v: torch.Tensor, mask: torch.Tensor, bg: int) -> torch.Tensor:
@@ -42,7 +52,7 @@ def _run_min_rows(lab: torch.Tensor, mask: torch.Tensor, bg: int) -> torch.Tenso
     return torch.where(mask, torch.minimum(fwd, bwd).to(lab.dtype), lab)
 
 
-def connected_components(mask: torch.Tensor, iters: int = 16) -> torch.Tensor:
+def connected_components_plain(mask: torch.Tensor, iters: int = 16) -> torch.Tensor:
     """8-connected labels of (B, H, W) bool masks, the XLA branch's
     segmented-scan CC: background H*W, each in-mask pixel the minimum linear
     index of its component after exactly ``iters`` rounds (unconverged when
@@ -62,6 +72,65 @@ def connected_components(mask: torch.Tensor, iters: int = 16) -> torch.Tensor:
         lab_t = _run_min_rows(lab.transpose(-1, -2).contiguous(), mask_t, hw)
         lab = torch.where(mask, lab_t.transpose(-1, -2), hw)
     return lab.to(torch.int32)
+
+
+def scan_cc_plan(n: int, h: int, w: int) -> dict:
+    """The CUDA CC's launch plan for n (h, w) masks: ``seg``, the pixels of
+    a row each lane of the row launch holds (odd); ``strip``, the columns a
+    block of the column launch holds (the widest of ``SCAN_CC_STRIPS`` whose
+    h rows, padded by one, and the segments' summaries fit a quarter of
+    ``kernels.MAX_DYNAMIC_SMEM``, so that several blocks share an SM); and
+    the two launches' shared bytes.  Raises ValueError for what the kernel
+    does not take."""
+    if h * w >= 1 << 24:
+        raise ValueError(f"connected_components: {h}x{w} masks, labels must stay below 2^24")
+    if n > 65535:
+        raise ValueError(f"connected_components: {n} masks in one call (at most 65535)")
+    seg = -(-w // 32) | 1
+    row_smem = SCAN_CC_WARPS * 32 * seg * 4
+    if row_smem > kernels.MAX_DYNAMIC_SMEM:
+        raise ValueError(f"connected_components: rows of {w} pixels pass shared memory")
+    for strip in SCAN_CC_STRIPS:
+        col_smem = (h * (strip + 1) + 3 * 32 * SCAN_CC_WARPS) * 4
+        if col_smem <= kernels.MAX_DYNAMIC_SMEM // 4:
+            return {"seg": seg, "strip": strip, "row_smem": row_smem, "col_smem": col_smem}
+    raise ValueError(f"connected_components: columns of {h} pixels pass shared memory")
+
+
+def scan_cc_launches(iters: int) -> int:
+    """Device kernels of one CUDA CC call: two a round, one for no round."""
+    return 2 * iters if iters else 1
+
+
+def _check_scan_cc(mask: torch.Tensor, iters: int) -> dict:
+    """The plan of a CUDA CC call on ``mask``; raises ValueError for what
+    the kernel does not take, before anything launches."""
+    if mask.dtype != torch.bool:
+        raise ValueError(f"connected_components: expected bool masks, got {mask.dtype}")
+    if mask.dim() != 3:
+        raise ValueError(f"connected_components: masks must be (n, h, w), got shape {tuple(mask.shape)}")
+    if not mask.is_contiguous():
+        raise ValueError("connected_components: expected contiguous masks")
+    if int(iters) != iters or iters < 0:
+        raise ValueError(f"connected_components: iters must be a count, got {iters}")
+    return scan_cc_plan(*mask.shape)
+
+
+def connected_components(mask: torch.Tensor, iters: int = 16) -> torch.Tensor:
+    """``connected_components_plain`` of (n, h, w) bool masks (contiguous,
+    h * w below 2^24).  A CPU tensor runs the plain version; a CUDA tensor
+    launches ``csrc/scan_cc.cu`` (two launches a round) and raises if it
+    cannot."""
+    if not kernels.route(mask):
+        return connected_components_plain(mask, iters)
+    plan = _check_scan_cc(mask, iters)
+    kernels.check("mask", mask, torch.bool, 3)
+    out = torch.empty(mask.shape, dtype=torch.int32, device=mask.device)
+    if out.numel():
+        scratch = torch.empty_like(out) if iters >= 2 else None
+        kernels.launch("cpe_scan_cc", [mask, out, scratch], [*mask.shape, int(iters), plan["strip"]], [])
+    kernels.count("scan_cc")
+    return out
 
 
 class ComponentStats(NamedTuple):

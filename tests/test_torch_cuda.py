@@ -17,7 +17,7 @@ import torch
 
 from _torch_spd import KINDS, bits, spd_systems
 from cylinder_pose_estimation_tpu_torch.ops import frontend as tf
-from cylinder_pose_estimation_tpu_torch.ops import kernels, linalg
+from cylinder_pose_estimation_tpu_torch.ops import kernels, labeling, linalg
 
 # One intra-op thread per test worker: the suite runs several workers on
 # the same cores, and oversubscribed torch thread pools spin.
@@ -1558,3 +1558,218 @@ def test_compiled_batch_full_hd_equals_eager(dev, monkeypatch):
     assert counts["replayed"]["bridge_morphology.split"] == 3
     assert bool(got.detect1.ok.any()) and bool(got.detect2.ok.any())
     pipeline._STREAM_STEP_CACHE.clear()
+
+
+# --- the XLA branch's connected components (ops/labeling, csrc/scan_cc.cu) -
+
+# The default config's three call sites at 480x640 B=16: (masks, rounds) of
+# the ROI pair, the bridge pair and the final labels.
+SCAN_CC_SITES = [((64, 128, 256), 8), ((64, 240, 384), 8), ((128, 240, 384), 16)]
+
+
+def _cc_equal(m, iters):
+    """connected_components on CUDA masks launches the kernel once (one
+    count) and equals connected_components_plain on the same masks."""
+    before = kernels.launch_counts()["scan_cc"]
+    got = labeling.connected_components(m, iters)
+    assert kernels.launch_counts()["scan_cc"] == before + 1
+    _equal(got, labeling.connected_components_plain(m, iters))
+    return got
+
+
+def _random_masks(shape, density, seed, dev):
+    g = torch.Generator().manual_seed(seed)
+    return (torch.rand(shape, generator=g) < density).to(dev)
+
+
+def _snakes(n, h, w, dev):
+    """Serpentines (rows every second line joined at alternating ends, and
+    the same turned): more bends than 16 rounds cross."""
+    m = torch.zeros((n, h, w), dtype=torch.bool)
+    for i, y in enumerate(range(0, h - 1, 2)):
+        m[:, y, :] = True
+        m[:, y:y + 3, w - 1 if i % 2 == 0 else 0] = True
+    m[1::2] = m[1::2].flip(-1, -2)
+    return m.to(dev)
+
+
+@pytest.mark.parametrize("density", [0.05, 0.3, 0.5, 0.7])
+@pytest.mark.parametrize("shape, iters", SCAN_CC_SITES)
+def test_scan_cc_equals_plain_at_the_sites(dev, shape, iters, density):
+    _cc_equal(_random_masks(shape, density, int(density * 100) + shape[0], dev), iters)
+
+
+def test_scan_cc_on_the_default_detectors_masks(dev):
+    """Every CC call of the default config (cylinder and plane mode) on
+    rendered frames, held to the plain version on the same masks."""
+    from cylinder_pose_estimation_tpu_torch.config import CylinderDetectConfig, PlaneDetectConfig
+    from cylinder_pose_estimation_tpu_torch.models.detector import detect_grid
+    from cylinder_pose_estimation_tpu_torch.utils.synthetic import example_pair, plane_view
+
+    _, (imgs, _) = example_pair(480, 640, n_frames=2)
+    pviews = np.stack([plane_view(480, 640, (0.0, 0.0, 700.0), (0.05, -0.08, -1.0), 9, 11, 30.0, 1)])
+    calls = []
+    cc = labeling.connected_components
+
+    def record(m, iters=16):
+        calls.append((m.clone(), iters))
+        return cc(m, iters)
+
+    labeling.connected_components = record
+    try:
+        detect_grid(torch.as_tensor(imgs, device=dev), CylinderDetectConfig())
+        detect_grid(torch.as_tensor(pviews, device=dev), PlaneDetectConfig(roi_threshold=30.0))
+    finally:
+        labeling.connected_components = cc
+    assert [tuple(m.shape[1:]) for m, _ in calls[:3]] == [(128, 256), (240, 384), (240, 384)]
+    assert [i for _, i in calls[:3]] == [8, 8, 16] and len(calls) == 6
+    for m, iters in calls:
+        assert bool(m.any())
+        _cc_equal(m, iters)
+
+
+@pytest.mark.parametrize("iters", [0, 1, 2, 3, 5, 16])
+@pytest.mark.parametrize("shape", [(1, 1, 1), (2, 1, 70), (2, 70, 1), (3, 37, 70), (2, 33, 65), (1, 257, 31),
+                                   (2, 64, 128)])
+def test_scan_cc_equals_plain_at_odd_shapes(dev, shape, iters):
+    for i, density in enumerate((0.3, 0.6)):
+        _cc_equal(_random_masks(shape, density, i, dev), iters)
+    _cc_equal(torch.zeros(shape, dtype=torch.bool, device=dev), iters)
+    _cc_equal(torch.ones(shape, dtype=torch.bool, device=dev), iters)
+
+
+@pytest.mark.parametrize("iters", [1, 8, 16])
+@pytest.mark.parametrize("hw", [(40, 56), (240, 384), (128, 256)])
+def test_scan_cc_unconverged_snakes(dev, hw, iters):
+    """Components that ``iters`` rounds leave split: every round counts."""
+    m = _snakes(2, *hw, dev)
+    got = _cc_equal(m, iters)
+    assert len(torch.unique(got[0][m[0]])) > 1
+
+
+def _xla_canvases():
+    """(n, h, w) of the XLA branch's calls at ``label_downsample`` 1 and on
+    full-HD frames, n cut to 4: the full-resolution canvases (ds=1) at
+    480x640 and 1080x1920, and the quarter- and half-res ones at full HD."""
+    from cylinder_pose_estimation_tpu_torch.models import detector
+
+    z = torch.zeros((1, 1080, 1920), dtype=torch.bool)
+    return [(4, 480, 640), (4, 1080, 1920), (4, *detector._pool4_pad(z).shape[-2:]),
+            (4, *detector._pool2_pad(z).shape[-2:]), (4, 272, 512), (4, 544, 1024)]
+
+
+@pytest.mark.parametrize("iters", [8, 16])
+@pytest.mark.parametrize("shape", _xla_canvases())
+def test_scan_cc_equals_plain_at_large_canvases(dev, shape, iters):
+    _cc_equal(_random_masks(shape, 0.5, iters, dev), iters)
+    _cc_equal(_snakes(*shape, dev), iters)
+
+
+@pytest.mark.parametrize("shape, iters", SCAN_CC_SITES + [((4, 1080, 1920), 16), ((3, 37, 70), 0)])
+def test_scan_cc_device_kernels_per_call(dev, shape, iters):
+    from cylinder_pose_estimation_tpu_torch.utils import profiling
+
+    m = _random_masks(shape, 0.5, 0, dev)
+    n_kernels, _ = profiling.graph_kernels(lambda: labeling.connected_components(m, iters), reps=1, warmup=0)
+    assert n_kernels == labeling.scan_cc_launches(iters)
+
+
+@pytest.mark.parametrize("shape, iters", SCAN_CC_SITES + [((2, 37, 70), 1), ((2, 37, 70), 0)])
+def test_scan_cc_in_a_captured_graph(dev, shape, iters):
+    """Captured in a CUDA graph, as the compiled steps capture it, and
+    replayed on new masks: equal to the plain version of each."""
+    m = _random_masks(shape, 0.5, 1, dev)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        labeling.connected_components(m, iters)
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = labeling.connected_components(m, iters)
+    for i, density in enumerate((0.1, 0.45, 0.8)):
+        m2 = _random_masks(shape, density, 20 + i, dev)
+        m.copy_(m2)
+        graph.replay()
+        _equal(out, labeling.connected_components_plain(m2, iters))
+    m.copy_(_snakes(*shape, dev))
+    graph.replay()
+    _equal(out, labeling.connected_components_plain(m, iters))
+
+
+@pytest.mark.parametrize("case", ["uint8", "float32", "rank_2", "not_contiguous", "labels_past_2_24",
+                                  "negative_iters"])
+def test_scan_cc_wrapper_refuses(dev, case):
+    m = torch.zeros((2, 64, 96), dtype=torch.bool, device=dev)
+    m, iters = {
+        "uint8": (m.to(torch.uint8), 4),
+        "float32": (m.float(), 4),
+        "rank_2": (m[0], 4),
+        "not_contiguous": (m.transpose(1, 2), 4),
+        "labels_past_2_24": (torch.zeros((1, 4096, 4096), dtype=torch.bool, device=dev), 4),
+        "negative_iters": (m, -1),
+    }[case]
+    before = kernels.launch_counts()["scan_cc"]
+    with pytest.raises(ValueError, match="connected_components"):
+        labeling.connected_components(m, iters)
+    assert kernels.launch_counts()["scan_cc"] == before
+
+
+def test_compiled_default_batch_replays_scan_cc(dev):
+    """The default config's ``compiled_batch`` at 480x640 B=16: its capture
+    records 3 ``scan_cc`` launches and each replay runs 3; every replay is
+    equal, leaf for leaf, to the eager call.  The kernel branch's step
+    records none."""
+    from cylinder_pose_estimation_tpu_torch.config import CylinderDetectConfig, FitConfig
+    from cylinder_pose_estimation_tpu_torch.models import pipeline
+    from cylinder_pose_estimation_tpu_torch.types import stereo_from_numpy
+    from cylinder_pose_estimation_tpu_torch.utils.synthetic import example_pair
+
+    st, (i1, i2) = example_pair(480, 640, n_frames=16)
+    stereo = stereo_from_numpy(*st, device=dev)
+    a, b = torch.as_tensor(i1, device=dev), torch.as_tensor(i2, device=dev)
+    for use_pallas, per_step in ((False, 3), (True, 0)):
+        pipeline._STREAM_STEP_CACHE.clear()
+        pipeline.reset_graph_launch_counts()
+        cfg = CylinderDetectConfig(use_pallas=use_pallas)
+        step = pipeline.compiled_batch(stereo, cfg, FitConfig())
+        step(a, b)  # eager
+        for eps in (0.0, 0.5):
+            got = step(a + eps, b + eps)
+            _leaves_equal(got, pipeline.estimate_poses_batch(a + eps, b + eps, stereo, cfg, FitConfig()))
+        counts = pipeline.graph_launch_counts()
+        assert counts["replays"] == 2
+        assert counts["captured"].get("scan_cc", 0) == per_step
+        assert counts["replayed"].get("scan_cc", 0) == 2 * per_step
+        assert bool(got.detect1.ok.any()) and bool(got.detect2.ok.any())
+    pipeline._STREAM_STEP_CACHE.clear()
+
+
+@pytest.mark.parametrize("mode", ["cylinder", "plane"])
+def test_xla_detect_with_scan_cc_equals_plain_cc(dev, mode, monkeypatch):
+    """``detect_grid`` through the XLA branch on the card gives the same
+    grids with the kernel as with the plain CC (the parent's)."""
+    from cylinder_pose_estimation_tpu_torch.config import CylinderDetectConfig, PlaneDetectConfig
+    from cylinder_pose_estimation_tpu_torch.models.detector import detect_grid
+    from cylinder_pose_estimation_tpu_torch.models.pipeline import _tree_leaves
+    from cylinder_pose_estimation_tpu_torch.utils.synthetic import example_pair, plane_view
+
+    if mode == "cylinder":
+        _, (imgs, _) = example_pair(480, 640, n_frames=4)
+        cfg = CylinderDetectConfig()
+    else:
+        imgs = np.stack([plane_view(480, 640, (0.0, 0.0, 700.0), (0.05, -0.08, -1.0), 9, 11, 30.0, 1),
+                         plane_view(480, 640, (5.0, 0.0, 700.0), (0.05, -0.08, -1.0), 9, 9, 30.0, 2,
+                                    gap_col=2)])
+        cfg = PlaneDetectConfig(roi_threshold=30.0)
+    views = torch.as_tensor(imgs, device=dev)
+    before = kernels.launch_counts()["scan_cc"]
+    got = detect_grid(views, cfg)
+    assert kernels.launch_counts()["scan_cc"] == before + 3
+    monkeypatch.setattr(labeling, "connected_components", labeling.connected_components_plain)
+    want = detect_grid(views, cfg)
+    torch.cuda.synchronize()
+    for i, (g, w) in enumerate(zip(_tree_leaves(got), _tree_leaves(want))):
+        assert g.shape == w.shape and g.dtype == w.dtype, i
+        assert torch.equal(g, w) or (g.is_floating_point() and bool(((g == w) | (g.isnan() & w.isnan())).all())), i
+    assert int(got.grid.valid.sum()) > 0

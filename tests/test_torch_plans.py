@@ -16,7 +16,7 @@ import torch
 from cylinder_pose_estimation_tpu_torch.config import CylinderDetectConfig, PlaneDetectConfig
 from cylinder_pose_estimation_tpu_torch.models import detector
 from cylinder_pose_estimation_tpu_torch.ops import frontend as tf
-from cylinder_pose_estimation_tpu_torch.ops import kernels, linalg, stencils
+from cylinder_pose_estimation_tpu_torch.ops import kernels, labeling, linalg, stencils
 from cylinder_pose_estimation_tpu_torch.types import stereo_from_numpy
 from cylinder_pose_estimation_tpu_torch.utils.synthetic import default_stereo
 
@@ -492,9 +492,9 @@ def test_wrappers_count_through_the_catalogue(monkeypatch):
     """With the card's route taken on CPU tensors and the launches stubbed,
     every wrapper on every route counts only the catalogue's counters
     (``kernels.count`` refuses any other name), and every counter of the
-    catalogue is counted by one of them.  ``ops/linalg`` and
-    ``ops/stencils`` reach the kernels through ``ops/kernels``, never
-    through the front end."""
+    catalogue is counted by one of them.  ``ops/linalg``,
+    ``ops/stencils`` and ``ops/labeling`` reach the kernels through
+    ``ops/kernels``, never through the front end."""
     monkeypatch.setattr(kernels, "route", lambda x: True)
     monkeypatch.setattr(kernels, "check", lambda *args: None)
     monkeypatch.setattr(kernels, "launch", lambda *args: None)
@@ -511,10 +511,11 @@ def test_wrappers_count_through_the_catalogue(monkeypatch):
     linalg.solve_spd(torch.eye(6).expand(2, 6, 6), torch.zeros((2, 6)))
     stencils.smooth(x)
     stencils.stats_images(x, x, x)
+    labeling.connected_components(torch.zeros((2, 64, 96), dtype=torch.bool), 8)
     assert {k for k, n in kernels.launch_counts().items() if n} == set(kernels.COUNTERS)
     with pytest.raises(KeyError):
         kernels.count("component_payload_minmax.band")
-    for mod in (linalg, stencils):
+    for mod in (linalg, stencils, labeling):
         imported = set()
         for node in ast.walk(ast.parse(inspect.getsource(mod))):
             if isinstance(node, ast.ImportFrom):
